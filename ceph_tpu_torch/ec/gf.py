@@ -1,5 +1,6 @@
-"""Host GF(2^w) arithmetic (numpy) — what the codecs need to build and
-invert coding matrices.
+"""Host GF(2^w) arithmetic (numpy) — what the codecs need to build,
+invert and solve coding matrices, and the GF(2) bit-matrix views of
+them.
 
 Copy of the matching part of ``ceph_tpu/ec/gf.py``; the field for the
 RS codes is GF(2^8) with poly x^8+x^4+x^3+x^2+1 (0x11d), the
@@ -63,6 +64,27 @@ def inv(a, w: int = 8):
     return antilog[(n - log[a]) % n].astype(np.uint32)
 
 
+def div(a, b, w: int = 8):
+    return mul(a, inv(b, w), w)
+
+
+def pow_(a: int, e: int, w: int = 8) -> int:
+    out = 1
+    for _ in range(e):
+        out = int(mul(out, a, w))
+    return out
+
+
+def matmul(A: np.ndarray, B: np.ndarray, w: int = 8) -> np.ndarray:
+    """GF(2^w) matrix product (XOR-accumulated)."""
+    A = np.asarray(A, dtype=np.uint32)
+    B = np.asarray(B, dtype=np.uint32)
+    out = np.zeros((A.shape[0], B.shape[1]), dtype=np.uint32)
+    for j in range(A.shape[1]):
+        out ^= mul(A[:, j:j + 1], B[j:j + 1, :], w)
+    return out
+
+
 def mat_inv(A: np.ndarray, w: int = 8) -> np.ndarray:
     """Invert a square GF(2^w) matrix by Gauss-Jordan elimination;
     raises ValueError on singular input."""
@@ -82,6 +104,37 @@ def mat_inv(A: np.ndarray, w: int = 8) -> np.ndarray:
             if row != col and aug[row, col]:
                 aug[row] ^= mul(aug[row, col], aug[col], w)
     return aug[:, n:].copy()
+
+
+def solve(A: np.ndarray, B: np.ndarray, w: int = 8) -> np.ndarray:
+    """Solve A @ X = B over GF(2^w) for an (r x c) A of rank c, r >= c:
+    the rectangular recovery systems of non-MDS codes (shec).  Raises
+    ValueError if A is rank-deficient."""
+    A = np.array(A, dtype=np.uint32)
+    B = np.array(B, dtype=np.uint32)
+    if B.ndim == 1:
+        B = B[:, None]
+    r, c = A.shape
+    aug = np.concatenate([A, B], axis=1)
+    row = 0
+    pivots = []
+    for col in range(c):
+        nz = np.nonzero(aug[row:, col])[0]
+        if len(nz) == 0:
+            raise ValueError("rank-deficient system over GF(2^%d)" % w)
+        p = row + int(nz[0])
+        if p != row:
+            aug[[row, p]] = aug[[p, row]]
+        aug[row] = mul(aug[row], inv(aug[row, col], w), w)
+        for i in [i for i in range(r) if i != row and aug[i, col]]:
+            aug[i] ^= mul(aug[i, col], aug[row], w)
+        pivots.append(col)
+        row += 1
+        if row == r:
+            break
+    if len(pivots) < c:
+        raise ValueError("rank-deficient system over GF(2^%d)" % w)
+    return aug[:c, c:].copy()
 
 
 @functools.lru_cache(maxsize=None)
@@ -113,3 +166,22 @@ def matrix_to_bitmatrix(M: np.ndarray, w: int = 8) -> np.ndarray:
             out[i * w:(i + 1) * w, j * w:(j + 1) * w] = const_to_bitmatrix(
                 int(M[i, j]), w)
     return out
+
+
+def bytes_to_bitplanes(data: np.ndarray) -> np.ndarray:
+    """uint8 [..., k, n] -> bit-planes uint8 [..., 8k, n]; row 8j+b is
+    bit b of data row j, the layout matrix_to_bitmatrix(w=8) acts on."""
+    data = np.asarray(data, dtype=np.uint8)
+    shifts = np.arange(8, dtype=np.uint8)[None, :, None]
+    bits = (data[..., :, None, :] >> shifts) & 1
+    shape = data.shape[:-2] + (data.shape[-2] * 8, data.shape[-1])
+    return bits.reshape(shape).astype(np.uint8)
+
+
+def bitplanes_to_bytes(planes: np.ndarray) -> np.ndarray:
+    """Inverse of bytes_to_bitplanes."""
+    planes = np.asarray(planes, dtype=np.uint8)
+    shape = planes.shape[:-2] + (planes.shape[-2] // 8, 8, planes.shape[-1])
+    weights = (1 << np.arange(8, dtype=np.uint16))[None, :, None]
+    return (planes.reshape(shape).astype(np.uint16) * weights).sum(
+        axis=-2).astype(np.uint8)

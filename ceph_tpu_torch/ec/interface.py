@@ -42,6 +42,14 @@ def to_int(profile: ErasureCodeProfile, name: str, default: int) -> int:
         raise ErasureCodeError(f"could not convert {name}={v!r} to int: {e}")
 
 
+def to_bool(profile: ErasureCodeProfile, name: str, default: bool) -> bool:
+    v = profile.get(name, "")
+    if v == "":
+        profile[name] = "true" if default else "false"
+        return default
+    return v in ("yes", "true", "1")
+
+
 class ErasureCode:
     """Base codec: chunk algebra + host byte API over array products."""
 
@@ -85,7 +93,16 @@ class ErasureCode:
     # -- profile ----------------------------------------------------------
     def init(self, profile: ErasureCodeProfile) -> None:
         self.profile = profile
+        self.parse(profile)
+        self.prepare()
+
+    def parse(self, profile: ErasureCodeProfile) -> None:
+        """Read the profile (codecs with options of their own, lrc and
+        shec, override and call up)."""
         self._parse_mapping(profile)
+
+    def prepare(self) -> None:
+        """Build what parse decided (a hook; nothing by default)."""
 
     def _parse_mapping(self, profile: ErasureCodeProfile) -> None:
         mapping = profile.get("mapping")

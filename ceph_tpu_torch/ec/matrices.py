@@ -1,7 +1,7 @@
-"""Reed-Solomon generator-matrix constructions (host, numpy).
+"""Reed-Solomon and Cauchy generator-matrix constructions (host, numpy).
 
-Copy of the RS constructions of ``ceph_tpu/ec/matrices.py``; the
-tests hold every matrix byte-identical to it.
+Copy of the constructions of ``ceph_tpu/ec/matrices.py``; the tests
+hold every matrix byte-identical to it.
 
 - ``isa_rs_vandermonde`` / ``isa_cauchy``: ISA-L's gf_gen_rs_matrix /
   gf_gen_cauchy1_matrix (reference: src/erasure-code/isa/
@@ -9,6 +9,10 @@ tests hold every matrix byte-identical to it.
 - ``jerasure_rs_vandermonde``: jerasure's reed_sol_van, the extended
   Vandermonde matrix reduced to systematic form.
 - ``jerasure_rs_r6``: reed_sol_r6_op (ones row + powers of 2).
+- ``cauchy_original`` / ``cauchy_good``: jerasure's cauchy_orig and its
+  density-improved cauchy_good (reference: src/erasure-code/jerasure/
+  ErasureCodeJerasure.h:174,183), expanded to bit-matrices by the
+  jerasure codec.
 
 Each returns the (m x k) coding block; encode puts these m parity rows
 under an implicit k x k identity (systematic code).
@@ -95,6 +99,46 @@ def jerasure_rs_r6(k: int, w: int = 8) -> np.ndarray:
         coding[1, j] = p
         p = int(gf.mul(p, 2, w))
     return coding
+
+
+def cauchy_original(k: int, m: int, w: int = 8) -> np.ndarray:
+    """jerasure cauchy_original_coding_matrix: entry inv(i ^ (m + j))."""
+    if k + m > (1 << w):
+        raise ValueError("cauchy needs k + m <= 2^w")
+    coding = np.zeros((m, k), dtype=np.uint32)
+    for i in range(m):
+        for j in range(k):
+            coding[i, j] = int(gf.inv(i ^ (m + j), w))
+    return coding
+
+
+def _bitmatrix_ones(c: int, w: int) -> int:
+    return int(gf.const_to_bitmatrix(c, w).sum())
+
+
+def cauchy_good(k: int, m: int, w: int = 8) -> np.ndarray:
+    """jerasure cauchy_improve_coding_matrix over cauchy_original: divide
+    each column by its row-0 entry (row 0 becomes all ones), then scale
+    each later row by whichever of its elements leaves the fewest ones
+    in its bit-matrix."""
+    M = cauchy_original(k, m, w)
+    for j in range(k):
+        if M[0, j] != 1:
+            M[:, j] = gf.div(M[:, j], int(M[0, j]), w)
+    for i in range(1, m):
+        best_ones = sum(_bitmatrix_ones(int(c), w) for c in M[i])
+        best_div = 1
+        for j in range(k):
+            d = int(M[i, j])
+            if d in (0, 1):
+                continue
+            ones = sum(_bitmatrix_ones(int(c), w)
+                       for c in gf.div(M[i], d, w))
+            if ones < best_ones:
+                best_ones, best_div = ones, d
+        if best_div != 1:
+            M[i] = gf.div(M[i], best_div, w)
+    return M
 
 
 def decode_matrix(generator_full: np.ndarray, survivors, w: int = 8

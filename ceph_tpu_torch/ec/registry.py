@@ -2,9 +2,9 @@
 reference src/erasure-code/ErasureCodePlugin.{h,cc}): name -> factory.
 
 Port of ``ceph_tpu/ec/registry.py``.  A factory takes the profile and
-the device its codec runs on.  ``lrc``, ``shec`` and ``clay`` are
-registered so that asking for them names what is missing: they come
-with later slices of the port.
+the device its codec runs on: ``jerasure``, ``isa``, ``shec`` and
+``lrc``.  ``clay`` is registered so that asking for it names what is
+missing: it comes with a later slice of the port.
 """
 
 from __future__ import annotations
@@ -18,10 +18,6 @@ from ceph_tpu_torch.ec.interface import ErasureCode, ErasureCodeError
 Factory = Callable[..., ErasureCode]
 
 _LATER = {
-    "lrc": "lrc runs on the GF(2) bit-matrix kernel and layered codecs "
-           "(ROADMAP queue 1, bit-matrix engine)",
-    "shec": "shec decode runs on the GF(2) bit-matrix kernel (ROADMAP "
-            "queue 1, bit-matrix engine)",
     "clay": "clay needs the queue's cdec/crep kinds (ROADMAP queue 1, "
             "clay)",
 }
@@ -42,10 +38,14 @@ class ErasureCodePluginRegistry:
     def __init__(self) -> None:
         from ceph_tpu_torch.ec.isa import ErasureCodeIsa
         from ceph_tpu_torch.ec.jerasure import ErasureCodeJerasure
+        from ceph_tpu_torch.ec.lrc import ErasureCodeLrc
+        from ceph_tpu_torch.ec.shec import ErasureCodeShec
 
         self._factories: Dict[str, Factory] = {
             "jerasure": ErasureCodeJerasure.create,
             "isa": ErasureCodeIsa.create,
+            "shec": ErasureCodeShec.create,
+            "lrc": ErasureCodeLrc.create,
         }
         for name in _LATER:
             self._factories[name] = _not_ported(name)

@@ -1,9 +1,12 @@
 """StripeBatchQueue — coalesce concurrent EC encodes and decodes into
 one device batch.
 
-Port of ``ceph_tpu/tpu/queue.py`` for the flat (RS) codecs, kinds
-``enc`` (coding planes), ``encp`` (coding planes + per-shard CRC-32C)
-and ``dec`` (data planes rebuilt from k survivors).  Callers hand a
+Port of ``ceph_tpu/tpu/queue.py`` for the flat codecs (RS and the GF(2)
+bit-matrix techniques), kinds ``enc`` (coding planes), ``encp`` (coding
+planes + per-shard CRC-32C) and ``dec`` (data planes rebuilt from k
+survivors, for codecs with a ``recovery_matrix``: the RS codecs; a
+bit-matrix code decodes through ``codec.decode``, as in the JAX
+package).  Callers hand a
 job's host planes to the queue and wait on a future; a worker thread
 greedily drains jobs that share (codec, kind, survivor signature, row
 count), the same coalescing key as queue.py:287-290, and runs them as
@@ -17,9 +20,12 @@ A batch on the device:
    P the covering bucket of the total width (queue.py:469), the pad
    zero-filled; for ``encp`` the batch has m more rows below, and the
    coding planes are written straight into them;
-3. one GF(2^8) product runs over the batch (the codec's coding matrix,
-   or the signature's recovery matrix with the batch donated), then
-   for ``encp`` one CRC launch over every (job, shard) row of the
+3. one product runs over the batch: the codec's ``encode_planes`` with
+   the jobs' extents (an RS code is column-local and codes the whole
+   batch; a bit-matrix code splits each job's chunk rows into its own w
+   packets, so every job gets exactly what ``encode_array`` gives it
+   alone), or the signature's recovery matrix with the batch donated;
+   then for ``encp`` one CRC launch over every (job, shard) row of the
    [k+m, P] batch, read in place at each job's column offset;
 4. results come back as host numpy: coding [m, n] plus CRCs u32 [k+m]
    for ``encp``, coding [m, n] for ``enc``, data planes [k, n] for
@@ -166,6 +172,9 @@ class StripeBatchQueue:
         """Survivor planes {shard: [n]} -> Future of data planes [k, n].
         Jobs sharing a survivor signature coalesce into one recovery
         product."""
+        if not hasattr(codec, "recovery_matrix"):
+            raise TypeError(f"{type(codec).__name__} has no recovery "
+                            "matrix; decode it through codec.decode")
         sig = tuple(sorted(available))[: codec.k]
         if len(sig) < codec.k:
             raise ValueError(f"need {codec.k} survivors, have {len(sig)}")
@@ -304,7 +313,8 @@ class StripeBatchQueue:
             full = torch.empty((rows + m, padded), dtype=torch.uint8,
                                device=self.device)
             self._assemble(full[:rows], flat, batch)
-            codec.encode_planes(full[:rows], out=full[rows:])
+            codec.encode_planes(full[:rows], out=full[rows:],
+                                jobs=(offs, widths))
             crcs = (crc32c_rows(full, offs, widths) if kind == "encp"
                     else None)
             coding = full[rows:, :total].cpu().numpy()

@@ -26,7 +26,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("gf256.cu", "crc32c.cu")
+SOURCES = ("gf256.cu", "crc32c.cu", "gf2_matmul.cu")
 CUDA_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a"]
 LIB_NAME = "ceph_tpu_torch_kernels"
 
@@ -69,6 +69,10 @@ _SIGNATURES = {
                             _P, _P],
     # (base, row_stride, S, meta[3, J], J, out, stream)
     "crc32c_rows_launch": [_P, _I64, _I32, _P, _I64, _P, _P],
+    # (x, x_row_bytes, out, out_row_bytes, offs, widths, J, w, K, R,
+    #  masks, kw, stream)
+    "gf2_matmul_launch": [_P, _I64, _P, _I64, _P, _P, _I32, _I32, _I32,
+                          _I32, _P, _I32, _P],
 }
 
 

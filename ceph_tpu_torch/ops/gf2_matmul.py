@@ -1,0 +1,232 @@
+"""GF(2) bit-matrix product over byte rows — the bit-matrix codes' engine.
+
+Port of ``ceph_tpu/ops/gf2_matmul.py`` and the Pallas kernel it reaches,
+``_gf2_kernel`` (``:87``).  An int8 0/1 matrix ``mbits`` [8R, 8K] applied
+to uint8 rows x [K, n]: expand x to bit-planes [8K, n] (plane 8j+b is
+bit b of row j), multiply accumulating in int32, keep the low bit, pack
+each 8 planes back into a byte: uint8 [R, n].  Every jerasure bit-matrix
+technique and the shec decode run on it.
+
+On a CUDA tensor the product runs the hand-written kernel
+``csrc/gf2_matmul.cu``; on a CPU tensor it runs
+:func:`gf2_matmul_bytes_plain`, the same expand / matmul / mod 2 / pack
+written as PyTorch ops.  Any other device raises, and a kernel that fails
+to build or launch raises: there is no fallback.  The kernel takes any
+width n, not only multiples of the Pallas tile.
+
+:func:`gf2_matmul_packets` is the batched entry of the stripe-batch
+queue: jobs laid side by side in one [rows, P] buffer, each chunk row of
+a job split into ``w`` packets of width/w bytes, as
+``BitmatrixCodec.encode_array`` splits a job on its own.  One launch
+covers up to :data:`MAX_JOBS` jobs.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from ceph_tpu_torch.ec import gf
+from ceph_tpu_torch.ops import _build
+
+launches = _build.LaunchCount("gf2_matmul")
+
+KW_BUCKETS = (4, 8, 16, 32)  # u32 mask words per matrix row (csrc kw)
+MAX_K = 4 * KW_BUCKETS[-1]   # input rows the kernel takes
+MAX_JOBS = 240               # jobs per launch (csrc kMaxJobs)
+MAX_SMEM = 232448            # an H100 block's shared memory (csrc kMaxSmem)
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch version
+# ---------------------------------------------------------------------------
+
+
+def bytes_to_bitplanes(x: torch.Tensor) -> torch.Tensor:
+    """uint8 [k, n] -> int8 bit-planes [8k, n]; row 8j+b = bit b of row
+    j."""
+    k, n = x.shape
+    shifts = torch.arange(8, dtype=torch.uint8, device=x.device)
+    bits = (x[:, None, :] >> shifts[None, :, None]) & 1
+    return bits.reshape(k * 8, n).to(torch.int8)
+
+
+def bitplanes_to_bytes(planes: torch.Tensor) -> torch.Tensor:
+    """Integer bit-planes [8m, n] (values 0/1) -> uint8 [m, n]."""
+    m8, n = planes.shape
+    grouped = planes.reshape(m8 // 8, 8, n).to(torch.int32)
+    weights = (1 << torch.arange(8, dtype=torch.int32,
+                                 device=planes.device))[None, :, None]
+    return (grouped * weights).sum(dim=1).to(torch.uint8)
+
+
+def gf2_matmul_bytes_plain(mbits, x: torch.Tensor) -> torch.Tensor:
+    """Expand, multiply, mod 2, pack, on x's device.  The product runs in
+    float32: every partial sum is an integer below 2^24, so it is exact
+    (and CUDA has no integer matmul)."""
+    mb = operand(mbits).mbits
+    _check_rows(x, mb.shape[1] // 8, "x")
+    m = torch.from_numpy(mb).to(device=x.device, dtype=torch.float32)
+    planes = bytes_to_bitplanes(x).to(torch.float32)
+    acc = torch.matmul(m, planes).to(torch.int32)
+    return bitplanes_to_bytes(acc & 1)
+
+
+def gf2_matmul_packets_plain(mbits, x: torch.Tensor, out: torch.Tensor,
+                             offs: Sequence[int], widths: Sequence[int],
+                             w: int) -> torch.Tensor:
+    """The batched packet product job by job: job j's columns
+    ``x[:, off:off+width]`` as w packet rows per chunk row, through
+    :func:`gf2_matmul_bytes_plain`, written back to the same columns of
+    ``out``."""
+    kin, rout = x.shape[0], out.shape[0]
+    for o, wd in zip(offs, widths):
+        o, wd = int(o), int(wd)
+        packets = x[:, o:o + wd].reshape(kin * w, wd // w)
+        res = gf2_matmul_bytes_plain(mbits, packets)
+        out[:, o:o + wd] = res.reshape(rout, wd)
+    return out
+
+
+def prepare_bitmatrix(matrix, w: int = 8) -> np.ndarray:
+    """Host: a GF(2^w) coding matrix -> the int8 GF(2) bit-matrix
+    operand."""
+    return gf.matrix_to_bitmatrix(np.asarray(matrix), w).astype(np.int8)
+
+
+# ---------------------------------------------------------------------------
+# the kernel's operand and launch
+# ---------------------------------------------------------------------------
+
+
+class BitOperand:
+    """A bit-matrix ready for the kernel: ``mbits`` int8 [8R, 8K] and,
+    per device, its rows packed into u32 masks [8R, kw] (bit i of word q
+    = column 32q+i, taken mod 2 as the int32 product is).  Codecs keep
+    one per matrix so the masks cross to the card once."""
+
+    def __init__(self, mbits) -> None:
+        mb = np.ascontiguousarray(np.asarray(mbits), dtype=np.int8)
+        if mb.ndim != 2 or mb.shape[0] % 8 or mb.shape[1] % 8 or \
+                not mb.size:
+            raise ValueError(f"bit-matrix must be [8R, 8K], got {mb.shape}")
+        self.mbits = mb
+        self.R, self.K = mb.shape[0] // 8, mb.shape[1] // 8
+        self._masks = {}
+        self._lock = threading.Lock()
+
+    @property
+    def kw(self) -> int:
+        need = -(-self.K // 4)
+        for kw in KW_BUCKETS:
+            if need <= kw:
+                return kw
+        raise ValueError(f"gf2 kernel takes K <= {MAX_K} input rows, got "
+                         f"{self.K}")
+
+    def masks(self, device: torch.device) -> torch.Tensor:
+        with self._lock:
+            got = self._masks.get(device)
+            if got is None:
+                kw = self.kw
+                bits = np.zeros((8 * self.R, 32 * kw), dtype=np.uint8)
+                bits[:, :8 * self.K] = self.mbits & 1
+                words = np.packbits(bits, axis=1, bitorder="little")
+                words = np.ascontiguousarray(words).view("<u4")
+                # a synchronous copy: the masks are whole before any
+                # stream uses them
+                got = torch.from_numpy(words.view(np.int32)).to(device)
+                self._masks[device] = got
+            return got
+
+
+def operand(mbits) -> BitOperand:
+    return mbits if isinstance(mbits, BitOperand) else BitOperand(mbits)
+
+
+def _check_rows(t: torch.Tensor, rows: int, what: str) -> None:
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{what} must be a torch.Tensor (its device "
+                        "decides where the product runs)")
+    if t.dtype != torch.uint8 or t.dim() != 2 or t.shape[0] != rows:
+        raise ValueError(f"{what} must be uint8 [{rows}, n], got "
+                         f"{tuple(t.shape)} {t.dtype}")
+
+
+def _launch(op: BitOperand, x: torch.Tensor, out: torch.Tensor,
+            offs: np.ndarray, widths: np.ndarray, w: int) -> None:
+    """One kernel launch on the current stream for at most MAX_JOBS
+    jobs."""
+    kw = op.kw
+    smem = 8 * op.R * kw * 4 + (op.K + op.R) * 8
+    if smem > MAX_SMEM:
+        raise ValueError(f"gf2 kernel: a {8 * op.R}x{8 * op.K} bit-matrix "
+                         f"needs {smem} bytes of shared memory, more than "
+                         f"{MAX_SMEM}")
+    masks = op.masks(x.device)
+    err = _build.lib().gf2_matmul_launch(
+        x.data_ptr(), x.stride(0), out.data_ptr(), out.stride(0),
+        offs.ctypes.data, widths.ctypes.data, len(offs), w, op.K, op.R,
+        masks.data_ptr(), kw, torch.cuda.current_stream(x.device).cuda_stream)
+    launches.inc()
+    _build.check(err, "gf2_matmul")
+
+
+def gf2_matmul_packets(mbits, x: torch.Tensor, out: torch.Tensor,
+                       offs: Sequence[int], widths: Sequence[int],
+                       w: int) -> torch.Tensor:
+    """Batched packet product, written into ``out`` and returned.
+
+    ``x`` uint8 [kin, P] and ``out`` uint8 [rout, P] on one device, the
+    bit-matrix [8*rout*w, 8*kin*w].  For each job (off, width), width a
+    multiple of w: logical input row c*w+p is
+    ``x[c, off + p*width/w : off + (p+1)*width/w]`` and logical output
+    row i*w+q lands in the same place of ``out``.  Columns outside the
+    jobs are left as they were."""
+    op = operand(mbits)
+    w = int(w)
+    if w < 1 or op.K % w or op.R % w:
+        raise ValueError(f"a {8 * op.R}x{8 * op.K} bit-matrix does not act "
+                         f"on whole groups of w={w} packets")
+    _check_rows(x, op.K // w, "x")
+    _check_rows(out, op.R // w, "out")
+    P = x.shape[1]
+    if out.shape[1] != P or out.device != x.device:
+        raise ValueError(f"out must be uint8 [{op.R // w}, {P}] on "
+                         f"{x.device}")
+    offs = np.asarray(offs, dtype=np.int64).reshape(-1)
+    widths = np.asarray(widths, dtype=np.int64).reshape(-1)
+    if offs.shape != widths.shape:
+        raise ValueError("offs and widths need one entry per job")
+    if (offs < 0).any() or (widths < 0).any() or (offs + widths > P).any():
+        raise ValueError(f"job extents must lie inside the {P} columns")
+    if (widths % w).any():
+        raise ValueError(f"every job width must be a multiple of w={w}")
+    if x.device.type == "cpu":
+        return gf2_matmul_packets_plain(op, x, out, offs, widths, w)
+    if x.device.type != "cuda":
+        raise ValueError(f"gf2_matmul runs on cuda or cpu, not {x.device}")
+    if out.stride(1) != 1:
+        raise ValueError("out must have unit column stride")
+    if x.stride(1) != 1:
+        x = x.contiguous()
+    for s in range(0, len(offs), MAX_JOBS):
+        _launch(op, x, out, np.ascontiguousarray(offs[s:s + MAX_JOBS]),
+                np.ascontiguousarray(widths[s:s + MAX_JOBS]), w)
+    return out
+
+
+def gf2_matmul_bytes(mbits, x: torch.Tensor,
+                     out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Apply the GF(2) bit-matrix [8R, 8K] (int8 array or
+    :class:`BitOperand`) to byte rows x [K, n]: uint8 [R, n] on x's
+    device, written into ``out`` when given."""
+    op = operand(mbits)
+    _check_rows(x, op.K, "x")
+    n = x.shape[1]
+    if out is None:
+        out = torch.empty((op.R, n), dtype=torch.uint8, device=x.device)
+    return gf2_matmul_packets(op, x, out, [0], [n], 1)

@@ -5,27 +5,41 @@
 
 Phases, each of which fails the run (non-zero exit, no result line):
 
-1. build   the CUDA kernels from ``ceph_tpu_torch/csrc`` (``sm_90a``)
-           into ``ceph_tpu_torch/_build/``;
-2. gf256   the GF(2^8) product kernel against its plain PyTorch version
-           on the card, bit for bit: (R, k) in {(4, 8), (2, 4), (3, 3),
-           (8, 8) recovery}, ragged widths, a nonzero seed, donation,
-           a row-slice output, one full-width 8 x 1 Mi batch;
-3. crc32c  the row CRC-32C kernel against its plain version: lengths
-           0..4096 and 512 KiB, unaligned rows, chained inits,
-           multi-job ``crc32c_rows`` at column offsets;
-4. main    ``isa reed_sol_van k=8 m=4`` with a 1 MiB stripe (chunk 128
-           KiB): 256 seeded 4 MiB objects (1 GiB) written from 8 threads
-           through ``StripeBatchQueue.encode_crc_async`` (every CRC held
-           against the plain CRC of the stored shard), then read back
-           degraded through ``decode_data_async`` with shards 6, 7, 10,
-           11 lost, byte for byte.  Kernel launch counts are zeroed just
-           before and read just after; each kernel must have run.
+1. build      the CUDA kernels from ``ceph_tpu_torch/csrc`` (``sm_90a``)
+              into ``ceph_tpu_torch/_build/``;
+2. gf256      the GF(2^8) product kernel against its plain PyTorch
+              version on the card, bit for bit: (R, k) in {(4, 8), (2,
+              4), (3, 3), (8, 8) recovery}, ragged widths, a nonzero
+              seed, donation, a row-slice output, one 8 x 1 Mi batch;
+3. crc32c     the row CRC-32C kernel against its plain version: lengths
+              0..4096 and 512 KiB, unaligned rows, chained inits,
+              multi-job ``crc32c_rows`` at column offsets;
+4. gf2        the GF(2) bit-matrix kernel against its plain version, bit
+              for bit: cauchy_good k=8 m=4 encode [256, 512] and decode
+              [512, 512], shec k=8 m=4 c=3's [24, 64] and [24, 24],
+              liberation and a K=96 decode, ragged widths, a 3-job packet
+              batch of unequal odd widths, one full-width coalesced batch;
+5. main       ``isa reed_sol_van k=8 m=4`` with a 1 MiB stripe (chunk 128
+              KiB): 256 seeded 4 MiB objects (1 GiB) written from 8
+              threads through ``StripeBatchQueue.encode_crc_async``
+              (every CRC held against the plain CRC of the stored
+              shard), then read back degraded through
+              ``decode_data_async`` with shards 6, 7, 10, 11 lost, byte
+              for byte;
+6. bitmatrix  the same 1 GiB write through ``jerasure k=8 m=4
+              technique=cauchy_good``, read back degraded through
+              ``codec.decode_array`` with shards 6, 7, 10, 11 lost;
+7. shec       the same through ``shec k=8 m=4 c=3``, read back with data
+              shards 0, 1, 2 lost (the shec decode on the GF(2) kernel);
+8. lrc        ``lrc k=4 m=2 l=3``: 64 objects encoded, one chunk lost and
+              rebuilt from its local group.
 
-Then each kernel is timed with CUDA events at the main path's shapes,
-beside its plain version and its bound.  Output, every number beside the
-card's name and power limit: one line per phase, then the kernel table
-as one JSON line, then the card line from nvidia-smi, then the last line
+Each path zeroes the kernel launch counts just before it runs and reads
+them just after; each kernel of the path must have run.  Then each
+kernel is timed with CUDA events at its path's batch shape, beside its
+plain version and its bound.  Output, every number beside the card's
+name and power limit: one line per phase, then the card line from
+nvidia-smi, then the kernel table as one JSON line, then the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
 exits non-zero before doing anything.
 """
@@ -42,6 +56,7 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
 INT_OPS_PER_S = 67e12       # H100 SXM non-tensor fp32 rate, used for int32 ops
+INT8_OPS_PER_S = 1979e12    # H100 SXM dense int8 tensor-core rate
 SEED = 20261016
 MiB = 1 << 20
 
@@ -83,9 +98,18 @@ def gf_ops(mat: np.ndarray, words: int) -> int:
     return per * words
 
 
-def bound(nbytes: int, ops: int):
-    tb, to = nbytes / HBM_BYTES_PER_S, ops / INT_OPS_PER_S
+def bound(nbytes: int, ops: int, ops_per_s: float = INT_OPS_PER_S):
+    tb, to = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
     return (max(tb, to) * 1e3, "bytes" if tb >= to else "operations")
+
+
+def batch_shape(res: dict):
+    """(jobs, columns) of the path's most common coalesced write batch:
+    jobs side by side, padded to the queue's covering width."""
+    from ceph_tpu_torch.gpu import shapebucket
+
+    J = max(res["batch_jobs"].items(), key=lambda kv: (kv[1], kv[0]))[0]
+    return J, shapebucket.covering(J * res["width"], 1)
 
 
 def phase_gf256(torch, dev, log) -> None:
@@ -135,6 +159,68 @@ def phase_gf256(torch, dev, log) -> None:
             "gf256 full width 8 x 1Mi")
     torch.cuda.synchronize()
     log(f"gf256: {checked + 2} kernel calls bit-equal to the plain version")
+
+
+def phase_gf2(torch, dev, log) -> None:
+    from ceph_tpu_torch.ec import codec_from_profile
+    from ceph_tpu_torch.ops import gf2_matmul as g2
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+
+    def rand(k, n):
+        return torch.randint(0, 256, (k, n), dtype=torch.uint8, device=dev,
+                             generator=g)
+
+    cg = codec_from_profile("plugin=jerasure k=8 m=4 technique=cauchy_good",
+                            device=dev)
+    enc = cg.operand(cg.coding_bits)
+    dec = cg.operand(cg.recovery_bits([0, 1, 2, 3, 4, 5, 8, 9]))
+    sh = codec_from_profile("plugin=shec k=8 m=4 c=3", device=dev)
+    _, s_op, contrib_op = sh.solve_operands((0, 1, 2), tuple(range(3, 12)))
+    lib = codec_from_profile("plugin=jerasure k=7 m=2 technique=liberation "
+                             "w=7", device=dev)
+    big = codec_from_profile("plugin=jerasure k=12 m=4 "
+                             "technique=cauchy_good", device=dev)
+    cases = [("cauchy_good encode", enc), ("cauchy_good decode", dec),
+             ("shec contrib", contrib_op), ("shec solve", s_op),
+             ("liberation encode", lib.operand(lib.coding_bits)),
+             ("cauchy_good k=12 decode",
+              big.operand(big.recovery_bits(list(range(4, 16)))))]
+    require([tuple(op.mbits.shape) for _, op in cases[:4]]
+            == [(256, 512), (512, 512), (24, 64), (24, 24)],
+            "gf2 operands at the slice's shapes")
+    checked = 0
+    for name, op in cases:
+        for n in (1, 3, 4099, 65536, 1000003):
+            x = rand(op.K, n)
+            got = g2.gf2_matmul_bytes(op, x)
+            require(torch.equal(got, g2.gf2_matmul_bytes_plain(op, x)),
+                    f"gf2 {name} {op.mbits.shape} n={n}")
+            checked += 1
+    # three jobs of unequal, non-power-of-two widths at unaligned offsets
+    widths = [8 * 3001, 8 * 517, 8 * 12347]
+    offs = [3, 3 + widths[0] + 5, 3 + widths[0] + 5 + widths[1] + 1]
+    P = offs[-1] + widths[-1] + 7
+    for name, op, rows_out in (("encode", enc, 4), ("decode", dec, 8)):
+        x = rand(8, P)
+        out = rand(rows_out, P)
+        want = g2.gf2_matmul_packets_plain(op, x, out.clone(), offs, widths,
+                                           8)
+        g2.gf2_matmul_packets(op, x, out, offs, widths, 8)
+        require(torch.equal(out, want), f"gf2 3-job packet batch {name}")
+        checked += 1
+    # one full-width coalesced batch: two 512 KiB jobs side by side
+    half = 512 << 10
+    x = rand(8, 2 * half)
+    out = torch.zeros((4, 2 * half), dtype=torch.uint8, device=dev)
+    want = g2.gf2_matmul_packets_plain(enc, x, out.clone(), [0, half],
+                                       [half, half], 8)
+    g2.gf2_matmul_packets(enc, x, out, [0, half], [half, half], 8)
+    require(torch.equal(out, want), "gf2 full-width coalesced batch")
+    torch.cuda.synchronize()
+    log(f"gf2: {checked + 1} kernel calls bit-equal to the plain version "
+        f"({', '.join(f'{n} {list(op.mbits.shape)}' for n, op in cases)}, "
+        "ragged n, 3-job and full-width packet batches)")
 
 
 def rows_plain(torch, full, offs, lens, inits):
@@ -193,16 +279,62 @@ def phase_crc(torch, dev, log) -> None:
         "inits, 4-job crc32c_rows bit-equal to the plain version")
 
 
-def phase_main(torch, dev, log, nobj: int = 256, obj_bytes: int = 4 * MiB,
+def reset_counts() -> None:
+    from ceph_tpu_torch.ops import crc32c_device as cd
+    from ceph_tpu_torch.ops import gf2_matmul, gf256
+
+    for c in (gf256.launches, cd.launches, gf2_matmul.launches):
+        c.reset()
+
+
+def read_counts() -> dict:
+    from ceph_tpu_torch.ops import crc32c_device as cd
+    from ceph_tpu_torch.ops import gf2_matmul, gf256
+
+    return {c.name: c.value
+            for c in (gf256.launches, cd.launches, gf2_matmul.launches)}
+
+
+def run_threads(fn, nobj: int, threads: int) -> float:
+    """fn(i) for every object from ``threads`` threads; wall seconds."""
+    errs = []
+
+    def worker(t):
+        try:
+            for i in range(t, nobj, threads):
+                fn(i)
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            errs.append(e)
+
+    ths = [threading.Thread(target=worker, args=(t,))
+           for t in range(threads)]
+    t0 = time.monotonic()
+    for th in ths:
+        th.start()
+    for th in ths:
+        th.join()
+    wall = time.monotonic() - t0
+    if errs:
+        raise errs[0]
+    return wall
+
+
+def drive_path(torch, dev, log, name: str, profile: str, lost, need,
+               queue_read: bool, nobj: int = 256, obj_bytes: int = 4 * MiB,
                threads: int = 8) -> dict:
+    """Write ``nobj`` seeded objects through the stripe-batch queue's
+    ``encode_crc_async`` with a 1 MiB stripe from ``threads`` threads,
+    then read each back degraded with ``lost`` shards missing: through
+    ``decode_data_async`` (``queue_read``) or ``codec.decode_array``.
+    Every CRC and every byte is held exactly; the launch counts are
+    zeroed just before and read just after, and each kernel in ``need``
+    must have run."""
     from ceph_tpu_torch.ec import codec_from_profile
     from ceph_tpu_torch.gpu.queue import StripeBatchQueue
     from ceph_tpu_torch.ops import crc32c_device as cd
-    from ceph_tpu_torch.ops import gf256
     from ceph_tpu_torch.osd.ecutil import StripeInfo
 
-    codec = codec_from_profile(
-        "plugin=isa k=8 m=4 technique=reed_sol_van", device=dev)
+    codec = codec_from_profile(profile, device=dev)
     k, m = codec.k, codec.m
     si = StripeInfo(k, codec.get_chunk_size(1 * MiB))
     require(si.chunk_size == 128 << 10, "1 MiB stripe -> 128 KiB chunks")
@@ -210,33 +342,12 @@ def phase_main(torch, dev, log, nobj: int = 256, obj_bytes: int = 4 * MiB,
     objs = torch.randint(0, 256, (nobj, obj_bytes), dtype=torch.uint8,
                          device=dev, generator=g).cpu().numpy()
     planes = [si.interleave(memoryview(objs[i]))[0] for i in range(nobj)]
+    width = planes[0].shape[1]
     q = StripeBatchQueue(device=dev)
     coding = [None] * nobj
     crcs = [None] * nobj
     decoded = [None] * nobj
-    survivors = [0, 1, 2, 3, 4, 5, 8, 9]
-
-    def run(fn):
-        errs = []
-
-        def worker(t):
-            try:
-                for i in range(t, nobj, threads):
-                    fn(i)
-            except BaseException as e:  # noqa: BLE001 — re-raised below
-                errs.append(e)
-
-        ths = [threading.Thread(target=worker, args=(t,))
-               for t in range(threads)]
-        t0 = time.monotonic()
-        for th in ths:
-            th.start()
-        for th in ths:
-            th.join()
-        wall = time.monotonic() - t0
-        if errs:
-            raise errs[0]
-        return wall
+    survivors = [s for s in range(k + m) if s not in lost]
 
     def write(i):
         coding[i], crcs[i] = q.encode_crc_async(
@@ -245,23 +356,25 @@ def phase_main(torch, dev, log, nobj: int = 256, obj_bytes: int = 4 * MiB,
     def read(i):
         avail = {s: planes[i][s] if s < k else coding[i][s - k]
                  for s in survivors}
-        decoded[i] = q.decode_data_async(codec, avail).result()
+        if queue_read:
+            decoded[i] = q.decode_data_async(codec, avail).result()
+        else:
+            got = codec.decode_array(avail, list(range(k)), width)
+            decoded[i] = np.stack([got[s] for s in range(k)])
 
-    gf256.launches.reset()
-    cd.launches.reset()
+    reset_counts()
     try:
-        w_wall = run(write)
+        w_wall = run_threads(write, nobj, threads)
         w_batches, w_jobs = q.batches, q.jobs
-        r_wall = run(read)
+        batch_jobs = dict(q.batch_jobs)
+        r_wall = run_threads(read, nobj, threads)
     finally:
         q.stop()
-    counts = {"gf256_matmul": gf256.launches.value,
-              "crc32c_rows": cd.launches.value}
-    require(all(v > 0 for v in counts.values()),
-            f"every kernel ran on the main path: {counts}")
+    counts = read_counts()
+    require(all(counts[n] > 0 for n in need),
+            f"{name}: every kernel of the path ran: {counts}")
 
     # every returned CRC against the plain CRC of the stored shard
-    width = planes[0].shape[1]
     shards = torch.empty((nobj * (k + m), width), dtype=torch.uint8,
                          device=dev)
     for i in range(nobj):
@@ -272,22 +385,146 @@ def phase_main(torch, dev, log, nobj: int = 256, obj_bytes: int = 4 * MiB,
     plain = cd.crc32c_lanes_plain(
         shards, np.full(nobj * (k + m), width)).cpu().numpy()
     require(np.array_equal(np.concatenate(crcs), plain.astype(np.uint32)),
-            "every write's CRCs equal the plain CRC of its stored shards")
+            f"{name}: every write's CRCs equal the plain CRC of its "
+            "stored shards")
     for i in range(nobj):
         require(si.deinterleave(decoded[i], obj_bytes) == objs[i].tobytes(),
-                f"degraded read of object {i} returns what was written")
+                f"{name}: degraded read of object {i} returns what was "
+                "written")
     logical = nobj * obj_bytes
-    r_batches = q.batches - w_batches
-    r_jobs = q.jobs - w_jobs
-    log(f"main: wrote {nobj} x {obj_bytes >> 20} MiB from {threads} "
-        f"threads in {w_wall:.3f} s = {logical / w_wall / 1e9:.3f} GB/s "
-        f"encode+crc, {w_jobs} jobs in {w_batches} batches (mean width "
-        f"{w_jobs / w_batches:.2f}); degraded read in {r_wall:.3f} s = "
-        f"{logical / r_wall / 1e9:.3f} GB/s, {r_jobs} jobs in {r_batches} "
-        f"batches (mean width {r_jobs / r_batches:.2f}); CRCs and bytes "
-        f"exact; launches {counts}")
-    return {"counts": counts, "codec": codec, "batch_cols": 2 * width,
-            "survivors": survivors}
+    read_via = "decode_data_async" if queue_read else "codec.decode_array"
+    log(f"{name}: {profile}, wrote {nobj} x {obj_bytes >> 20} MiB from "
+        f"{threads} threads in {w_wall:.3f} s = {logical / w_wall / 1e9:.3f} "
+        f"GB/s encode+crc, {w_jobs} jobs in {w_batches} batches (mean "
+        f"width {w_jobs / w_batches:.2f}); degraded read (lost {list(lost)}) "
+        f"through {read_via} in {r_wall:.3f} s = "
+        f"{logical / r_wall / 1e9:.3f} GB/s; CRCs and bytes exact; "
+        f"launches {counts}")
+    return {"counts": counts, "codec": codec, "width": width,
+            "batch_jobs": batch_jobs, "survivors": survivors}
+
+
+def phase_main(torch, dev, log) -> dict:
+    return drive_path(torch, dev, log, "main",
+                      "plugin=isa k=8 m=4 technique=reed_sol_van",
+                      lost=(6, 7, 10, 11),
+                      need=("gf256_matmul", "crc32c_rows"), queue_read=True)
+
+
+def phase_bitmatrix(torch, dev, log) -> dict:
+    return drive_path(torch, dev, log, "bitmatrix",
+                      "plugin=jerasure k=8 m=4 technique=cauchy_good "
+                      "packetsize=2048", lost=(6, 7, 10, 11),
+                      need=("gf2_matmul", "crc32c_rows"), queue_read=False)
+
+
+def phase_shec(torch, dev, log) -> dict:
+    return drive_path(torch, dev, log, "shec", "plugin=shec k=8 m=4 c=3",
+                      lost=(0, 1, 2),
+                      need=("gf256_matmul", "crc32c_rows", "gf2_matmul"),
+                      queue_read=False)
+
+
+def phase_lrc(torch, dev, log, nobj: int = 64, obj_bytes: int = 4 * MiB,
+              threads: int = 8) -> None:
+    """lrc k=4 m=2 l=3 (Ceph's documented example): encode, lose one
+    chunk of the first local group, rebuild it, and check the read plan
+    stays inside that group."""
+    from ceph_tpu_torch.ec import codec_from_profile
+
+    codec = codec_from_profile("plugin=lrc k=4 m=2 l=3", device=dev)
+    n = codec.get_chunk_count()
+    lost = 1
+    local = next(layer.chunks_set for layer in reversed(codec.layers)
+                 if lost in layer.chunks_set)
+    avail_ids = [i for i in range(n) if i != lost]
+    minimum = set(codec.minimum_to_decode([lost], avail_ids))
+    require(minimum <= local - {lost},
+            f"lrc: minimum_to_decode {sorted(minimum)} stays in the local "
+            f"group {sorted(local)}")
+    g = torch.Generator(device=dev).manual_seed(SEED + 4)
+    objs = torch.randint(0, 256, (nobj, obj_bytes), dtype=torch.uint8,
+                         device=dev, generator=g).cpu().numpy()
+    chunks = [None] * nobj
+
+    def write(i):
+        chunks[i] = codec.encode(range(n), objs[i].tobytes())
+
+    def read(i):
+        got = codec.decode([lost], {c: chunks[i][c] for c in minimum})
+        require(np.array_equal(got[lost], chunks[i][lost]),
+                f"lrc: chunk {lost} of object {i} rebuilt exactly")
+        require(codec.decode_concat({c: chunks[i][c] for c in avail_ids})
+                [:obj_bytes] == objs[i].tobytes(),
+                f"lrc: object {i} reads back whole without chunk {lost}")
+
+    reset_counts()
+    w_wall = run_threads(write, nobj, threads)
+    r_wall = run_threads(read, nobj, threads)
+    counts = read_counts()
+    require(counts["gf256_matmul"] > 0, f"lrc: the GF(2^8) kernel ran: "
+            f"{counts}")
+    logical = nobj * obj_bytes
+    log(f"lrc: plugin=lrc k=4 m=2 l=3, encoded {nobj} x "
+        f"{obj_bytes >> 20} MiB in {w_wall:.3f} s = "
+        f"{logical / w_wall / 1e9:.3f} GB/s; lost chunk {lost}, read plan "
+        f"{sorted(minimum)} inside local group {sorted(local)}, rebuilt in "
+        f"{r_wall:.3f} s; bytes exact; launches {counts}")
+
+
+def time_gf2(torch, dev, log, bm: dict) -> dict:
+    """K3 at the bitmatrix path's coalesced write batch: J jobs of one
+    object's [k, width] planes side by side, w packets each."""
+    from ceph_tpu_torch.ops import gf2_matmul as g2
+
+    codec = bm["codec"]
+    k, m, w = codec.k, codec.m, codec.w
+    width = bm["width"]
+    J, P = batch_shape(bm)
+    offs, widths = [i * width for i in range(J)], [width] * J
+    op = codec.operand(codec.coding_bits)
+    g = torch.Generator(device=dev).manual_seed(SEED + 6)
+    nbuf = 8  # rotate buffers: the set exceeds the 50 MB L2
+    bufs = [torch.randint(0, 256, (k + m, P), dtype=torch.uint8, device=dev,
+                          generator=g) for _ in range(nbuf)]
+    it = iter(range(1 << 30))
+
+    def enc():
+        b = bufs[next(it) % nbuf]
+        g2.gf2_matmul_packets(op, b[:k], b[k:], offs, widths, w)
+
+    ms = event_ms(torch, enc, 40)
+    x = bufs[0][:k]
+
+    def plain():
+        return g2.gf2_matmul_packets_plain(
+            op, x, torch.zeros((m, P), dtype=torch.uint8, device=dev),
+            offs, widths, w)
+
+    got = g2.gf2_matmul_packets(
+        op, x, torch.zeros((m, P), dtype=torch.uint8, device=dev), offs,
+        widths, w)
+    err = int((got.int() - plain().int()).abs().max().item())
+    plain_ms = event_ms(torch, plain, 3, warmup=1)
+    cols = sum(widths) // w  # packet columns the product runs over
+    b_ms, b_by = bound((k + m) * sum(widths),
+                       2 * op.mbits.shape[0] * op.mbits.shape[1] * cols,
+                       INT8_OPS_PER_S)
+
+    dop = codec.operand(codec.recovery_bits(bm["survivors"][:k]))
+    dec_ms = event_ms(torch, lambda: g2.gf2_matmul_packets(
+        dop, bufs[next(it) % nbuf][:k], bufs[0][:k], [0], [width], w), 40)
+    dec_bound, _ = bound(2 * k * width,
+                         2 * dop.mbits.shape[0] * dop.mbits.shape[1]
+                         * (width // w), INT8_OPS_PER_S)
+    log(f"gf2 decode {list(dop.mbits.shape)} on one object [{k}, {width}]: "
+        f"{dec_ms:.4f} ms (bound {dec_bound:.4f} ms)")
+    return {"name": "gf2_matmul", "route": "cuda",
+            "source": "ceph_tpu_torch/csrc/gf2_matmul.cu",
+            "replaces": "ceph_tpu/ops/gf2_matmul.py:87",
+            "launches": bm["counts"]["gf2_matmul"], "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None}
 
 
 def time_kernels(torch, dev, log, main: dict) -> list:
@@ -296,7 +533,8 @@ def time_kernels(torch, dev, log, main: dict) -> list:
 
     codec = main["codec"]
     k, m = codec.k, codec.m
-    P = main["batch_cols"]
+    width = main["width"]
+    J, P = batch_shape(main)
     g = torch.Generator(device=dev).manual_seed(SEED + 3)
     nbuf = 8  # rotate buffers: the set exceeds the 50 MB L2
     bufs = [torch.randint(0, 256, (k + m, P), dtype=torch.uint8, device=dev,
@@ -324,8 +562,7 @@ def time_kernels(torch, dev, log, main: dict) -> list:
     log(f"gf256 decode 8x8 donated [8, {P}]: {dec_ms:.4f} ms "
         f"(bound {dec_bound:.4f} ms)")
 
-    half = P // 2
-    offs, lens = [0, half], [half, half]
+    offs, lens = [i * width for i in range(J)], [width] * J
 
     def crc():
         cd.crc32c_rows(bufs[next(it) % nbuf], offs, lens)
@@ -333,12 +570,12 @@ def time_kernels(torch, dev, log, main: dict) -> list:
     crc_ms = event_ms(torch, crc, 10)
     got = cd.crc32c_rows(bufs[0], offs, lens).astype(np.int64)
     t0 = time.monotonic()
-    want = rows_plain(torch, bufs[0], offs, lens, [0, 0]).astype(np.int64)
+    want = rows_plain(torch, bufs[0], offs, lens, [0] * J).astype(np.int64)
     torch.cuda.synchronize()
     crc_plain_ms = (time.monotonic() - t0) * 1e3
     crc_err = int(np.abs(got - want).max())
-    crc_bound, crc_by = bound(2 * (k + m) * half + 4 * 2 * (k + m),
-                              2 * (k + m) * half // 8 * 22)
+    crc_bound, crc_by = bound((k + m) * sum(lens) + 4 * J * (k + m),
+                              (k + m) * sum(lens) // 8 * 22)
     return [
         {"name": "gf256_matmul", "route": "cuda",
          "source": "ceph_tpu_torch/csrc/gf256.cu",
@@ -377,8 +614,13 @@ def main() -> int:
         f"into {_build.BUILD_DIR}")
     phase_gf256(torch, dev, log)
     phase_crc(torch, dev, log)
+    phase_gf2(torch, dev, log)
     main_res = phase_main(torch, dev, log)
+    bm_res = phase_bitmatrix(torch, dev, log)
+    phase_shec(torch, dev, log)
+    phase_lrc(torch, dev, log)
     kernels = time_kernels(torch, dev, log, main_res)
+    kernels.append(time_gf2(torch, dev, log, bm_res))
     for kr in kernels:
         log(f"{kr['name']}: {kr['ms']:.4f} ms, plain {kr['plain_ms']:.3f} "
             f"ms, bound {kr['bound_ms']:.4f} ms ({kr['bound_by']}), "

@@ -14,7 +14,7 @@ import torch
 from ceph_tpu_torch.ec import codec_from_profile, matrices
 from ceph_tpu_torch.gpu.queue import StripeBatchQueue
 from ceph_tpu_torch.ops import crc32c_device as cd
-from ceph_tpu_torch.ops import gf256
+from ceph_tpu_torch.ops import gf2_matmul, gf256
 from ceph_tpu_torch.osd.ecutil import StripeInfo
 
 pytestmark = pytest.mark.cuda
@@ -48,6 +48,41 @@ def test_gf256_kernel_donates_in_place(dev):
     want = gf256.gf_matmul_bytes_plain(rec, x)
     got = gf256.gf_matmul_bytes(rec, x, donate=True)
     assert got.data_ptr() == x.data_ptr() and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("profile", [
+    "plugin=jerasure k=8 m=4 technique=cauchy_good",
+    "plugin=jerasure k=7 m=2 technique=liberation w=7",
+    "plugin=jerasure k=6 m=2 technique=blaum_roth w=10"])
+@pytest.mark.parametrize("n", [1, 1001, 4096, 1 << 20])
+def test_gf2_kernel_equals_plain(dev, profile, n):
+    codec = codec_from_profile(profile, device=dev)
+    K = codec.k * codec.w
+    g = torch.Generator(device=dev).manual_seed(K * n)
+    x = torch.randint(0, 256, (K, n), dtype=torch.uint8, device=dev,
+                      generator=g)
+    for M in (codec.coding_bits,
+              codec.recovery_bits(list(range(2, codec.k + 2)))):
+        op = codec.operand(M)
+        before = gf2_matmul.launches.value
+        got = gf2_matmul.gf2_matmul_bytes(op, x)
+        assert gf2_matmul.launches.value == before + 1
+        assert torch.equal(got, gf2_matmul.gf2_matmul_bytes_plain(op, x))
+
+
+def test_gf2_packet_batch_equals_plain(dev):
+    codec = codec_from_profile(
+        "plugin=jerasure k=8 m=4 technique=cauchy_good", device=dev)
+    op = codec.operand(codec.coding_bits)
+    widths = [8 * 3001, 8 * 517, 8 * 12347]
+    offs = [3, 3 + widths[0] + 5, 3 + widths[0] + 5 + widths[1] + 1]
+    P = offs[-1] + widths[-1] + 7
+    x = torch.randint(0, 256, (8, P), dtype=torch.uint8, device=dev)
+    out = torch.randint(0, 256, (4, P), dtype=torch.uint8, device=dev)
+    want = gf2_matmul.gf2_matmul_packets_plain(op, x, out.clone(), offs,
+                                               widths, 8)
+    gf2_matmul.gf2_matmul_packets(op, x, out, offs, widths, 8)
+    assert torch.equal(out, want)
 
 
 def test_crc_kernel_equals_plain(dev):

@@ -1,7 +1,8 @@
 """The port's whole slice — stripe geometry, stripe-batch queue, staging,
-counters — held against ceph_tpu on the CPU, plus the port's guards: it
-imports neither JAX nor ceph_tpu, and without CUDA an entry point given
-no device raises instead of running on the CPU."""
+counters, and the write and degraded-read round trips of isa, jerasure
+cauchy_good and shec — held against ceph_tpu on the CPU, plus the port's
+guards: it imports neither JAX nor ceph_tpu, and without CUDA an entry
+point given no device raises instead of running on the CPU."""
 
 import ast
 import os
@@ -15,6 +16,7 @@ import pytest
 import torch
 
 from ceph_tpu.core import perf as ref_perf
+from ceph_tpu.core.crc import crc32c as ref_crc32c
 from ceph_tpu.ec import codec_from_profile as ref_codec_from_profile
 from ceph_tpu.osd.ecutil import StripeInfo as RefStripeInfo
 from ceph_tpu.tpu import shapebucket as ref_shapebucket
@@ -94,6 +96,81 @@ def test_write_and_degraded_read_match_reference_queue():
         assert max(q.dec_batch_jobs) > 1, q.dec_batch_jobs
         enc = q.encode_async(port_codec, planes[0]).result(timeout=60)
         assert np.array_equal(enc, got[0][0])
+    finally:
+        q.stop()
+        rq.stop()
+
+
+@pytest.mark.parametrize("widths", [[3072, 1536, 3072, 4608],
+                                    [8 * 3001, 8 * 517, 8 * 12347]])
+def test_bitmatrix_queue_codes_each_job_as_it_alone(widths):
+    """Coalesced cauchy_good writes of non-power-of-two widths: each
+    job's coding equals the reference BitmatrixCodec.encode_array of that
+    job alone, and each CRC the reference crc32c of the stored shard."""
+    prof = "plugin=jerasure k=4 m=2 technique=cauchy_good"
+    port_codec = codec_from_profile(prof, device="cpu")
+    ref_codec = ref_codec_from_profile(prof)
+    rng = np.random.default_rng(len(widths))
+    planes = [rng.integers(0, 256, (4, w), dtype=np.uint8) for w in widths]
+    q = StripeBatchQueue(device="cpu", window_s=0.05)
+    try:
+        got = _submit_all(lambda p: q.encode_crc_async(port_codec, p),
+                          planes, threads=len(planes))
+        assert max(q.batch_jobs) > 1, q.batch_jobs
+        for p, (coding, crcs) in zip(planes, got):
+            want = np.asarray(ref_codec.encode_array(p))
+            assert np.array_equal(coding, want)
+            shards = list(p) + list(want)
+            assert crcs.dtype == np.uint32
+            assert list(crcs) == [ref_crc32c(s) for s in shards]
+        enc = q.encode_async(port_codec, planes[1]).result(timeout=60)
+        assert np.array_equal(enc, got[1][0])
+        with pytest.raises(TypeError, match="codec.decode"):
+            q.decode_data_async(port_codec, {i: planes[0][i]
+                                             for i in range(4)})
+    finally:
+        q.stop()
+
+
+@pytest.mark.parametrize("profile,lost", [
+    ("plugin=jerasure k=4 m=2 technique=cauchy_good", (1, 4)),
+    ("plugin=jerasure k=4 m=2 technique=cauchy_good", (0, 3)),
+    ("plugin=shec k=8 m=4 c=3", (0, 1, 2)),
+    ("plugin=shec k=4 m=3 c=2", (1, 5)),
+])
+def test_bitmatrix_and_shec_write_and_degraded_read(profile, lost):
+    """The slice's new paths end to end at a small size: write through the
+    queue (encode + CRC), read back degraded through codec.decode_array,
+    both against the reference package."""
+    port_codec = codec_from_profile(profile, device="cpu")
+    ref_codec = ref_codec_from_profile(profile)
+    k, m = port_codec.k, port_codec.m
+    chunk = port_codec.get_chunk_size(k * 1024)
+    assert chunk == ref_codec.get_chunk_size(k * 1024)
+    si, rsi = StripeInfo(k, chunk), RefStripeInfo(k, chunk)
+    objs = _objects(len(profile), 6, chunk)
+    planes = [si.interleave(o)[0] for o in objs]
+    q = StripeBatchQueue(device="cpu", window_s=0.05)
+    rq = RefQueue()
+    try:
+        got = _submit_all(lambda p: q.encode_crc_async(port_codec, p),
+                          planes, threads=3)
+        for o, p, (c, crc) in zip(objs, planes, got):
+            assert np.array_equal(p, rsi.interleave(o)[0])
+            assert np.array_equal(c, np.asarray(ref_codec.encode_array(p)))
+            assert list(crc) == [ref_crc32c(s) for s in list(p) + list(c)]
+            if "shec" in profile:  # flat code: the reference queue agrees
+                rc, rcrc = rq.encode_crc_async(ref_codec, p).result(60)
+                assert np.array_equal(c, np.asarray(rc))
+                assert np.array_equal(crc, rcrc)
+            avail = {s: p[s] if s < k else c[s - k]
+                     for s in range(k + m) if s not in lost}
+            dec = port_codec.decode_array(avail, list(range(k)), p.shape[1])
+            rdec = ref_codec.decode_array(avail, list(range(k)), p.shape[1])
+            data = np.stack([dec[s] for s in range(k)])
+            assert np.array_equal(data, np.stack(
+                [np.asarray(rdec[s]) for s in range(k)]))
+            assert si.deinterleave(data, len(o)) == o
     finally:
         q.stop()
         rq.stop()
