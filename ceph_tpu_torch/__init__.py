@@ -12,8 +12,11 @@ write and its degraded read:
 - ``ops``   the device kernels of that path, hand-written in CUDA
             (``csrc/gf256.cu``, ``csrc/crc32c.cu``,
             ``csrc/gf2_matmul.cu``), each beside a plain PyTorch version
-            of the same function;
-- ``osd``   the stripe geometry (object bytes <-> data planes).
+            of the same function, plus the packed-planes products
+            (planar and interleaved) and the bench's timing loops;
+- ``osd``   the stripe geometry (object bytes <-> data planes);
+- ``tools`` the device EC engine bench (``python -m
+            ceph_tpu_torch.tools.ecbench``).
 
 Every entry point takes ``device=``.  Left out, it means CUDA, and a
 process without a CUDA device raises instead of running on the CPU.

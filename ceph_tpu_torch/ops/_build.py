@@ -64,9 +64,13 @@ _I64 = ctypes.c_int64
 _I32 = ctypes.c_int
 _U32 = ctypes.c_uint32
 _SIGNATURES = {
-    # (x, x_row_bytes, out, out_row_bytes, words, k, R, seed, coef, stream)
+    # (x, x_row_bytes, out, out_row_bytes, words, k, R, seed, coef,
+    #  mul_shift, stream)
     "gf256_matmul_launch": [_P, _I64, _P, _I64, _I64, _I32, _I32, _U32,
-                            _P, _P],
+                            _P, _I32, _P],
+    # (x, out, T, k, R, seed, coef, tile, mul_shift, stream)
+    "gf256_interleaved_launch": [_P, _P, _I64, _I32, _I32, _U32, _P, _I32,
+                                 _I32, _P],
     # (base, row_stride, S, meta[3, J], J, out, stream)
     "crc32c_rows_launch": [_P, _I64, _I32, _P, _I64, _P, _P],
     # (x, x_row_bytes, out, out_row_bytes, offs, widths, J, w, K, R,

@@ -47,12 +47,19 @@ def _check_planes(x: torch.Tensor, k: int) -> None:
                          f"{tuple(x.shape)} {x.dtype}")
 
 
-def _double(v: torch.Tensor) -> torch.Tensor:
+def _double(v: torch.Tensor, mul_shift: bool = False) -> torch.Tensor:
     """Multiply every packed byte of int32 words by x in GF(2^8).  The
     arithmetic shift of int32 is masked right after it, and every
-    constant stays below 2^31 so nothing promotes to int64."""
+    constant stays below 2^31 so nothing promotes to int64.
+    ``mul_shift`` writes the reduction ``carry * 0x1D`` as the shift-XOR
+    chain (0x1D = bits 0, 2, 3, 4), as gf256_pallas.py:63 does; the bytes
+    are the same."""
     carry = (v >> 7) & _ONES
-    return ((v & _LOW7) << 1) ^ (carry * _RED)
+    if mul_shift:
+        red = carry ^ (carry << 2) ^ (carry << 3) ^ (carry << 4)
+    else:
+        red = carry * _RED
+    return ((v & _LOW7) << 1) ^ red
 
 
 def _seed_i32(seed: int) -> int:
@@ -60,10 +67,30 @@ def _seed_i32(seed: int) -> int:
     return seed - (1 << 32) if seed >= 1 << 31 else seed
 
 
+def swar_network(mat: np.ndarray, cols, seed: int = 0,
+                 mul_shift: bool = False) -> list:
+    """The SWAR network of gf256_swar.py:75-102 (and of the Pallas
+    kernels) as int32 tensor ops: ``cols[j]`` holds input column j's
+    words; returns the R output tensors, each of ``cols[0]``'s shape."""
+    R, k = mat.shape
+    s = _seed_i32(seed)
+    need = np.bitwise_or.reduce(mat.astype(np.int64), axis=0)
+    acc = [None] * R
+    for j in range(k):
+        p = cols[j] ^ s
+        for b in range(max(int(need[j]).bit_length(), 1)):
+            if b > 0:
+                p = _double(p, mul_shift)
+            for i in range(R):
+                if (int(mat[i, j]) >> b) & 1:
+                    acc[i] = p if acc[i] is None else acc[i] ^ p
+    return [a if a is not None else torch.zeros_like(cols[0]) for a in acc]
+
+
 def gf_matmul_bytes_plain(matrix, x: torch.Tensor,
                           seed: int = 0) -> torch.Tensor:
-    """The SWAR network of gf256_swar.py:75-102 as int32 tensor ops on
-    ``x.view(torch.int32)``; runs on whatever device ``x`` lies on."""
+    """The SWAR network over ``x.view(torch.int32)``; runs on whatever
+    device ``x`` lies on."""
     mat = _as_matrix(matrix)
     R, k = mat.shape
     _check_planes(x, k)
@@ -71,19 +98,7 @@ def gf_matmul_bytes_plain(matrix, x: torch.Tensor,
     pad = (-n) % 4
     xp = torch.nn.functional.pad(x, (0, pad)) if pad else x.contiguous()
     words = xp.view(torch.int32)
-    s = _seed_i32(seed)
-    need = np.bitwise_or.reduce(mat.astype(np.int64), axis=0)
-    acc = [None] * R
-    for j in range(k):
-        p = words[j] ^ s
-        for b in range(max(int(need[j]).bit_length(), 1)):
-            if b > 0:
-                p = _double(p)
-            for i in range(R):
-                if (int(mat[i, j]) >> b) & 1:
-                    acc[i] = p if acc[i] is None else acc[i] ^ p
-    zero = torch.zeros_like(words[0])
-    out = torch.stack([a if a is not None else zero for a in acc])
+    out = torch.stack(swar_network(mat, [words[j] for j in range(k)], seed))
     out = out.contiguous().view(torch.uint8)
     return out[:, :n] if pad else out
 
@@ -94,14 +109,14 @@ def _row_pitch_ok(t: torch.Tensor) -> bool:
 
 
 def _launch(mat: np.ndarray, x: torch.Tensor, out: torch.Tensor,
-            seed: int) -> None:
+            seed: int, mul_shift: bool = False) -> None:
     """One kernel launch on the current stream: x [k, 4W] -> out [R, 4W],
     both with 4-byte-aligned rows of unit column stride."""
     R, k = mat.shape
     words = x.shape[1] // 4
     err = _build.lib().gf256_matmul_launch(
         x.data_ptr(), x.stride(0), out.data_ptr(), out.stride(0), words,
-        k, R, int(seed) & 0xFFFFFFFF, mat.ctypes.data,
+        k, R, int(seed) & 0xFFFFFFFF, mat.ctypes.data, int(mul_shift),
         torch.cuda.current_stream(x.device).cuda_stream)
     launches.inc()
     _build.check(err, "gf256_matmul")
@@ -109,13 +124,16 @@ def _launch(mat: np.ndarray, x: torch.Tensor, out: torch.Tensor,
 
 def gf_matmul_bytes(matrix, x: torch.Tensor, donate: bool = False,
                     seed: int = 0,
-                    out: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    out: Optional[torch.Tensor] = None,
+                    mul_shift: bool = False) -> torch.Tensor:
     """Apply the (R x k) GF(2^8) matrix to byte planes x [k, n].
 
     Returns uint8 [R, n] on x's device.  ``out``, when given, is a
     uint8 [R, n] tensor (a row block of a larger batch is fine) the
     product is written into and returned.  ``donate=True`` with R == k
-    writes the product over ``x`` itself."""
+    writes the product over ``x`` itself.  ``mul_shift`` picks the
+    kernel's doubling variant (the engine bench tunes it); the bytes
+    are the same."""
     mat = _as_matrix(matrix)
     R, k = mat.shape
     _check_planes(x, k)
@@ -142,14 +160,14 @@ def gf_matmul_bytes(matrix, x: torch.Tensor, donate: bool = False,
                                             or _row_pitch_ok(out)):
         if out is None:
             out = torch.empty((R, n), dtype=torch.uint8, device=x.device)
-        _launch(mat, x, out, seed)
+        _launch(mat, x, out, seed, mul_shift)
         return out
     # ragged width or unaligned rows: run on a word-padded copy
     words = -(-n // 4)
     xp = torch.zeros((k, 4 * words), dtype=torch.uint8, device=x.device)
     xp[:, :n] = x
     op = torch.empty((R, 4 * words), dtype=torch.uint8, device=x.device)
-    _launch(mat, xp, op, seed)
+    _launch(mat, xp, op, seed, mul_shift)
     if out is None:
         return op[:, :n]
     out.copy_(op[:, :n])

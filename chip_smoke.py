@@ -19,23 +19,37 @@ Phases, each of which fails the run (non-zero exit, no result line):
               [512, 512], shec k=8 m=4 c=3's [24, 64] and [24, 24],
               liberation and a K=96 decode, ragged widths, a 3-job packet
               batch of unequal odd widths, one full-width coalesced batch;
-5. main       ``isa reed_sol_van k=8 m=4`` with a 1 MiB stripe (chunk 128
+5. gf256i     the interleaved GF(2^8) kernel (K2) against its plain
+              version, bit for bit: (R, k) in {(4, 8), (2, 4), (3, 3), (8,
+              8) recovery} at T in {128, 4096} over every tile that
+              divides T and both doubling variants, and k=8 at T = 65536
+              (256 MiB); the planar planes entry (K1) likewise, and the
+              two layouts against each other through a transpose;
+6. main       ``isa reed_sol_van k=8 m=4`` with a 1 MiB stripe (chunk 128
               KiB): 256 seeded 4 MiB objects (1 GiB) written from 8
               threads through ``StripeBatchQueue.encode_crc_async``
               (every CRC held against the plain CRC of the stored
               shard), then read back degraded through
               ``decode_data_async`` with shards 6, 7, 10, 11 lost, byte
               for byte;
-6. bitmatrix  the same 1 GiB write through ``jerasure k=8 m=4
+7. bitmatrix  the same 1 GiB write through ``jerasure k=8 m=4
               technique=cauchy_good``, read back degraded through
               ``codec.decode_array`` with shards 6, 7, 10, 11 lost;
-7. shec       the same through ``shec k=8 m=4 c=3``, read back with data
+8. shec       the same through ``shec k=8 m=4 c=3``, read back with data
               shards 0, 1, 2 lost (the shec decode on the GF(2) kernel);
-8. lrc        ``lrc k=4 m=2 l=3``: 64 objects encoded, one chunk lost and
-              rebuilt from its local group.
+9. lrc        ``lrc k=4 m=2 l=3``: 64 objects encoded, one chunk lost and
+              rebuilt from its local group;
+10. ecbench   the device EC engine bench (``ceph_tpu_torch.tools.ecbench``)
+              at its full sizes with a short calibration target: both
+              engines pinned against the host oracle, the autotune over
+              layout x tile x doubling variant at 16 MiB, encode and
+              decode sweeps from 1 to 256 MiB, the small-stripe rates and
+              the envelope; it is K2's path.
 
 Each path zeroes the kernel launch counts just before it runs and reads
-them just after; each kernel of the path must have run.  Then each
+them just after; each kernel of the path must have run (for ecbench, K2
+and K1: its loops capture one launch per iteration in a CUDA graph and
+replay it, and the counts are of the captured launches).  Then each
 kernel is timed with CUDA events at its path's batch shape, beside its
 plain version and its bound.  Output, every number beside the card's
 name and power limit: one line per phase, then the card line from
@@ -59,6 +73,8 @@ INT_OPS_PER_S = 67e12       # H100 SXM non-tensor fp32 rate, used for int32 ops
 INT8_OPS_PER_S = 1979e12    # H100 SXM dense int8 tensor-core rate
 SEED = 20261016
 MiB = 1 << 20
+ECBENCH_TARGET_S = 0.1  # seconds per calibrated bench call (its default: 0.5)
+ECBENCH_CAP_S = 2.0
 
 
 def require(cond: bool, what: str) -> None:
@@ -223,6 +239,62 @@ def phase_gf2(torch, dev, log) -> None:
         "ragged n, 3-job and full-width packet batches)")
 
 
+def phase_gf256i(torch, dev, log) -> None:
+    from ceph_tpu_torch.ec import matrices
+    from ceph_tpu_torch.ec.codec import RSMatrixCodec
+    from ceph_tpu_torch.ops import benchloop
+    from ceph_tpu_torch.ops import gf256_planes as gp
+
+    codec = RSMatrixCodec(8, 4, matrices.isa_cauchy(8, 4), device=dev)
+    rec, _ = codec.recovery_matrix([0, 1, 2, 3, 4, 5, 8, 9])
+    cases = [("cauchy 4x8", matrices.isa_cauchy(8, 4)),
+             ("cauchy 2x4", matrices.isa_cauchy(4, 2)),
+             ("cauchy 3x3", matrices.isa_cauchy(3, 3)),
+             ("recovery 8x8", rec)]
+    seed = 0xA5A5A5A5
+    checked = 0
+
+    def check(name, mat, T, tiles):
+        nonlocal checked
+        k = mat.shape[1]
+        w3 = benchloop.gen_planes(k, T, interleaved=True, device=dev)
+        want = gp.encode_planes_interleaved_plain(mat, w3, seed)
+        require(torch.equal(want, gp.encode_planes_interleaved_plain(
+            mat, w3, seed, mul_shift=True)), f"gf256i plain {name} T={T}: "
+            "both doubling variants give the same bytes")
+        for tile in tiles:
+            for ms in (False, True):
+                got = gp.encode_planes_interleaved(mat, w3, seed, tile=tile,
+                                                   mul_shift=ms)
+                require(torch.equal(got, want), f"gf256i {name} T={T} "
+                        f"tile={tile} mul_shift={ms}")
+                checked += 1
+        return w3, want
+
+    for name, mat in cases:
+        for T in (128, 4096):
+            check(name, mat, T, [t for t in (1, 8, 32, 128, 256, 512, 1024)
+                                 if T % t == 0])
+    mat = matrices.isa_cauchy(8, 4)
+    check("cauchy 4x8", mat, 65536, (128, 512, 1024))
+    # the planar planes entry (K1) and the two layouts through a transpose
+    w3 = benchloop.gen_planes(8, 4096, device=dev)
+    want = gp.encode_planes_plain(mat, w3, seed)
+    for ms in (False, True):
+        require(torch.equal(gp.encode_planes(mat, w3, seed, tile=512,
+                                             mul_shift=ms), want),
+                f"gf256 planes entry mul_shift={ms}")
+    inter = gp.encode_planes_interleaved(
+        mat, w3.transpose(0, 1).contiguous(), seed, tile=512)
+    require(torch.equal(inter.transpose(0, 1), want),
+            "interleaved equals planar through a transpose")
+    torch.cuda.synchronize()
+    log(f"gf256i: {checked} K2 calls bit-equal to the plain version "
+        "((4, 8), (2, 4), (3, 3), (8, 8) recovery at T 128 and 4096, every "
+        "tile, both doubling variants; k=8 at T=65536), the K1 planes "
+        "entry and the transpose agree")
+
+
 def rows_plain(torch, full, offs, lens, inits):
     """crc32c_rows by its plain definition: relay each (job, shard) row
     out of the batch, then the plain lanes CRC, on the batch's device."""
@@ -279,20 +351,21 @@ def phase_crc(torch, dev, log) -> None:
         "inits, 4-job crc32c_rows bit-equal to the plain version")
 
 
-def reset_counts() -> None:
+def launch_counts() -> tuple:
     from ceph_tpu_torch.ops import crc32c_device as cd
-    from ceph_tpu_torch.ops import gf2_matmul, gf256
+    from ceph_tpu_torch.ops import gf2_matmul, gf256, gf256_planes
 
-    for c in (gf256.launches, cd.launches, gf2_matmul.launches):
+    return (gf256.launches, cd.launches, gf2_matmul.launches,
+            gf256_planes.launches)
+
+
+def reset_counts() -> None:
+    for c in launch_counts():
         c.reset()
 
 
 def read_counts() -> dict:
-    from ceph_tpu_torch.ops import crc32c_device as cd
-    from ceph_tpu_torch.ops import gf2_matmul, gf256
-
-    return {c.name: c.value
-            for c in (gf256.launches, cd.launches, gf2_matmul.launches)}
+    return {c.name: c.value for c in launch_counts()}
 
 
 def run_threads(fn, nobj: int, threads: int) -> float:
@@ -472,6 +545,82 @@ def phase_lrc(torch, dev, log, nobj: int = 64, obj_bytes: int = 4 * MiB,
         f"{r_wall:.3f} s; bytes exact; launches {counts}")
 
 
+def phase_ecbench(torch, dev, log) -> dict:
+    """The port's EC engine bench at its full sizes: K2's path."""
+    from ceph_tpu_torch.tools import ecbench
+
+    reset_counts()
+    res = ecbench.run(dev, target_s=ECBENCH_TARGET_S, cap_s=ECBENCH_CAP_S,
+                      log=log)
+    counts = read_counts()
+    require(counts["gf256_interleaved"] > 0 and counts["gf256_matmul"] > 0,
+            f"ecbench: K2 and K1 ran: {counts}")
+    require(res["ec_device_pinned"] == {"planar": True, "inter": True}
+            and res["ec_decode_pinned"] is True, "ecbench: both pins hold")
+    sweep = res["ec_sweep"]
+    sizes = sorted(int(size) for size in sweep)
+    require(sizes == [MiB << i for i in (0, 2, 4, 6, 8)]
+            and all(isinstance(c[key], float) for r in sweep.values()
+                    for c in (r["layouts"]["planar"], r["layouts"]["inter"])
+                    for key in ("encode_gbps", "decode_gbps")),
+            "ecbench: encode and decode sweeps of K1 and K2 from 1 to 256 "
+            "MiB")
+    log("ecbench: " + json.dumps({
+        "winner": res["ec_engine"], "tune_gbps": res["ec_engine_tune_gbps"],
+        "sweep": sweep, "hbm_frac": res["encode_hbm_frac"],
+        "host_path_gbps": res["encode_1mib_host_path_gbps"],
+        "small_stripe": {k: v for k, v in res.items()
+                         if k.startswith("small_stripe")},
+        "envelope": res.get("envelope"), "launches": counts,
+        "elapsed_s": res["elapsed_s"]}))
+    return {"res": res, "counts": counts}
+
+
+def time_gf256i(torch, dev, log, eb: dict) -> dict:
+    """K2 at 16 MiB (T = 4096, k=8 m=4) with the bench's best
+    interleaved variant, rotating buffers beyond the 50 MB L2."""
+    from ceph_tpu_torch.ec import matrices
+    from ceph_tpu_torch.ops import benchloop
+    from ceph_tpu_torch.ops import gf256_planes as gp
+
+    tune = eb["res"]["ec_engine_tune_gbps"]
+    best = max((n for n, v in tune.items()
+                if n.startswith("inter_") and isinstance(v, float)),
+               key=tune.get)
+    tile = int(best.split("_")[1][1:])
+    ms = best.endswith("_shift")
+    mat = matrices.isa_cauchy(8, 4)
+    T, k, R = 4096, 8, 4
+    nbuf = 8
+    bufs = [benchloop.gen_planes(k, T, True, device=dev) ^ (i * 0x01010101)
+            for i in range(nbuf)]
+    outs = [torch.empty((T, R, 128), dtype=torch.int32, device=dev)
+            for _ in range(nbuf)]
+    it = iter(range(1 << 30))
+
+    def enc():
+        i = next(it) % nbuf
+        gp.encode_planes_interleaved(mat, bufs[i], 0, tile=tile,
+                                     mul_shift=ms, out=outs[i])
+
+    ms_k = event_ms(torch, enc, 40)
+    x = bufs[0]
+    got = gp.encode_planes_interleaved(mat, x, 0, tile=tile, mul_shift=ms)
+    want = gp.encode_planes_interleaved_plain(mat, x)
+    err = int(((got.long() & 0xFFFFFFFF) - (want.long() & 0xFFFFFFFF))
+              .abs().max().item())
+    plain_ms = event_ms(torch, lambda: gp.encode_planes_interleaved_plain(
+        mat, x), 3, warmup=1)
+    b_ms, b_by = bound((k + R) * T * 512, gf_ops(mat, T * 128))
+    log(f"gf256_interleaved at 16 MiB with {best}: {ms_k:.4f} ms")
+    return {"name": "gf256_interleaved", "route": "cuda",
+            "source": "ceph_tpu_torch/csrc/gf256.cu",
+            "replaces": "ceph_tpu/ops/gf256_pallas.py:192",
+            "launches": eb["counts"]["gf256_interleaved"],
+            "max_abs_err": err, "ms": ms_k, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+
 def time_gf2(torch, dev, log, bm: dict) -> dict:
     """K3 at the bitmatrix path's coalesced write batch: J jobs of one
     object's [k, width] planes side by side, w packets each."""
@@ -615,12 +764,15 @@ def main() -> int:
     phase_gf256(torch, dev, log)
     phase_crc(torch, dev, log)
     phase_gf2(torch, dev, log)
+    phase_gf256i(torch, dev, log)
     main_res = phase_main(torch, dev, log)
     bm_res = phase_bitmatrix(torch, dev, log)
     phase_shec(torch, dev, log)
     phase_lrc(torch, dev, log)
+    eb_res = phase_ecbench(torch, dev, log)
     kernels = time_kernels(torch, dev, log, main_res)
     kernels.append(time_gf2(torch, dev, log, bm_res))
+    kernels.append(time_gf256i(torch, dev, log, eb_res))
     for kr in kernels:
         log(f"{kr['name']}: {kr['ms']:.4f} ms, plain {kr['plain_ms']:.3f} "
             f"ms, bound {kr['bound_ms']:.4f} ms ({kr['bound_by']}), "

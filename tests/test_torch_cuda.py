@@ -14,8 +14,9 @@ import torch
 from ceph_tpu_torch.ec import codec_from_profile, matrices
 from ceph_tpu_torch.gpu.queue import StripeBatchQueue
 from ceph_tpu_torch.ops import crc32c_device as cd
-from ceph_tpu_torch.ops import gf2_matmul, gf256
+from ceph_tpu_torch.ops import benchloop, gf2_matmul, gf256, gf256_planes
 from ceph_tpu_torch.osd.ecutil import StripeInfo
+from ceph_tpu_torch.tools import ecbench
 
 pytestmark = pytest.mark.cuda
 
@@ -124,3 +125,66 @@ def test_queue_write_and_degraded_read_on_the_card(dev):
             assert si.deinterleave(d, len(o)) == o
     finally:
         q.stop()
+
+
+def _tiles(T):
+    return [t for t in (1, 8, 32, 128, 256, 512, 1024) if T % t == 0]
+
+
+@pytest.mark.parametrize("k,m", [(8, 4), (4, 2), (3, 3)])
+@pytest.mark.parametrize("T", [128, 4096])
+def test_gf256_interleaved_kernel_equals_plain(dev, k, m, T):
+    coding = matrices.isa_cauchy(k, m)
+    seed = 0xA5A5A5A5
+    w3 = benchloop.gen_planes(k, T, interleaved=True, device=dev)
+    want = gf256_planes.encode_planes_interleaved_plain(coding, w3, seed)
+    for tile in _tiles(T):
+        for ms in (False, True):
+            before = gf256_planes.launches.value
+            got = gf256_planes.encode_planes_interleaved(
+                coding, w3, seed, tile=tile, mul_shift=ms)
+            assert gf256_planes.launches.value == before + 1
+            assert torch.equal(got, want), (tile, ms)
+
+
+def test_gf256_planar_planes_entry_equals_plain(dev):
+    coding = matrices.isa_cauchy(8, 4)
+    w3 = benchloop.gen_planes(8, 4096, device=dev)
+    want = gf256_planes.encode_planes_plain(coding, w3, 7)
+    for ms in (False, True):
+        before = gf256.launches.value
+        got = gf256_planes.encode_planes(coding, w3, 7, tile=128,
+                                         mul_shift=ms)
+        assert gf256.launches.value == before + 1
+        assert torch.equal(got, want)
+    inter = gf256_planes.encode_planes_interleaved(
+        coding, w3.transpose(0, 1).contiguous(), 7, tile=128)
+    assert torch.equal(inter.transpose(0, 1), want)
+
+
+def test_graph_loop_digest_equals_eager_cpu(dev):
+    coding = matrices.isa_cauchy(8, 4)
+    for inter, factory in ((False, ecbench.planar_engine),
+                           (True, ecbench.inter_engine)):
+        w3 = benchloop.gen_planes(8, 256, inter, device=dev)
+        enc = factory(coding, 128)
+        got = benchloop.sum_digest_runner(enc, 3)(w3)
+        want = benchloop.sum_digest_runner(enc, 3)(w3.cpu())
+        assert got == want
+        fold = benchloop.seeded_loop_runner(enc, tuple(
+            enc(w3, 0).shape), 3)
+        assert fold(w3) == fold(w3.cpu())
+
+
+def test_ecbench_runs_on_the_card_at_small_sizes(dev):
+    before = gf256_planes.launches.value
+    res = ecbench.run(dev, sweep=((256, 4), (1024, 4)), tiles=(128, 256),
+                      pin_T=256, tune_T=1024, target_s=0.005, cap_s=0.05,
+                      start_iters=4, small_objs=512, small_min_T=8,
+                      envelope_bytes=1 << 24, matmul_n=256)
+    assert gf256_planes.launches.value > before
+    assert res["ec_device_pinned"] == {"planar": True, "inter": True}
+    assert res["ec_decode_pinned"] is True
+    assert res["timing"] == "cuda_graph"
+    assert all(isinstance(r["decode_gbps"], float)
+               for r in res["ec_sweep"].values())
