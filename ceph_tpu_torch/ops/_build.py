@@ -71,12 +71,16 @@ _SIGNATURES = {
     # (x, out, T, k, R, seed, coef, tile, mul_shift, stream)
     "gf256_interleaved_launch": [_P, _P, _I64, _I32, _I32, _U32, _P, _I32,
                                  _I32, _P],
-    # (base, row_stride, S, meta[3, J], J, out, stream)
-    "crc32c_rows_launch": [_P, _I64, _I32, _P, _I64, _P, _P],
+    # (base, row_stride, S, meta[3, J], J, partial, max_q, out, stream)
+    "crc32c_rows_launch": [_P, _I64, _I32, _P, _I64, _P, _I64, _P, _P],
     # (x, x_row_bytes, out, out_row_bytes, offs, widths, J, w, K, R,
     #  masks, kw, stream)
     "gf2_matmul_launch": [_P, _I64, _P, _I64, _P, _P, _I32, _I32, _I32,
                           _I32, _P, _I32, _P],
+    # (x, x_row_bytes, out, out_row_bytes, offs, widths, J, w, K, R,
+    #  rowptr, idx, stream)
+    "gf2_xor_packets_launch": [_P, _I64, _P, _I64, _P, _P, _I32, _I32,
+                               _I32, _I32, _P, _P, _P],
 }
 
 
@@ -119,6 +123,8 @@ def lib() -> ctypes.CDLL:
                 fn = getattr(dll, name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
+            dll.crc32c_max_segments.argtypes = [_I64]
+            dll.crc32c_max_segments.restype = _I64
             dll.kernels_error_string.argtypes = [ctypes.c_int]
             dll.kernels_error_string.restype = ctypes.c_char_p
             build_seconds = time.monotonic() - t0

@@ -7,11 +7,21 @@ bit b of row j), multiply accumulating in int32, keep the low bit, pack
 each 8 planes back into a byte: uint8 [R, n].  Every jerasure bit-matrix
 technique and the shec decode run on it.
 
-On a CUDA tensor the product runs the hand-written kernel
-``csrc/gf2_matmul.cu``; on a CPU tensor it runs
-:func:`gf2_matmul_bytes_plain`, the same expand / matmul / mod 2 / pack
-written as PyTorch ops.  Any other device raises, and a kernel that fails
-to build or launch raises: there is no fallback.  The kernel takes any
+Two hand-written kernels in ``csrc/gf2_matmul.cu`` compute it, and the
+operand's structure alone picks one (:class:`BitOperand`):
+
+- the packet-XOR kernel (count ``gf2_xor``) for 0/1 packet matrices,
+  whose every 8x8 block is zero or the identity: every jerasure
+  bit-matrix encode and decode.  The product is then a XOR of whole
+  packet rows; its plain version is :func:`gf2_xor_packets_plain`;
+- the popcount kernel (count ``gf2_matmul``) for every other operand:
+  shec's decode.  Its plain version is :func:`gf2_matmul_bytes_plain`,
+  the expand / matmul / mod 2 / pack written as PyTorch ops.
+
+:func:`gf2_matmul_packets_plain` stays the definition both are held
+against.  On a CPU tensor the plain version of the chosen kernel runs;
+any other device than CUDA or CPU raises, and a kernel that fails to
+build or launch raises: there is no fallback.  Both kernels take any
 width n, not only multiples of the Pallas tile.
 
 :func:`gf2_matmul_packets` is the batched entry of the stripe-batch
@@ -32,12 +42,15 @@ import torch
 from ceph_tpu_torch.ec import gf
 from ceph_tpu_torch.ops import _build
 
-launches = _build.LaunchCount("gf2_matmul")
+launches = _build.LaunchCount("gf2_matmul")     # the popcount kernel
+xor_launches = _build.LaunchCount("gf2_xor")    # the packet-XOR kernel
 
 KW_BUCKETS = (4, 8, 16, 32)  # u32 mask words per matrix row (csrc kw)
-MAX_K = 4 * KW_BUCKETS[-1]   # input rows the kernel takes
+MAX_K = 4 * KW_BUCKETS[-1]   # input rows the popcount kernel takes
+MAX_XOR_K = 256              # input rows the XOR kernel takes (u8 index)
 MAX_JOBS = 240               # jobs per launch (csrc kMaxJobs)
 MAX_SMEM = 232448            # an H100 block's shared memory (csrc kMaxSmem)
+XOR_TILE = 256               # columns a XOR-kernel tile (csrc kXorTile)
 
 
 # ---------------------------------------------------------------------------
@@ -91,6 +104,56 @@ def gf2_matmul_packets_plain(mbits, x: torch.Tensor, out: torch.Tensor,
     return out
 
 
+def _xor_rows(t: torch.Tensor) -> torch.Tensor:
+    """XOR of the rows of t [r, n] (r >= 1), by halving."""
+    while t.shape[0] > 1:
+        if t.shape[0] % 2:
+            t = torch.cat([t, torch.zeros_like(t[:1])])
+        t = t[0::2] ^ t[1::2]
+    return t[0]
+
+
+def gf2_xor_packets_plain(mbits, x: torch.Tensor, out: torch.Tensor,
+                          offs: Sequence[int], widths: Sequence[int],
+                          w: int) -> torch.Tensor:
+    """The batched packet product of a 0/1 packet operand as packet XORs
+    (the XOR kernel's function): per job, the packet rows that each
+    output row's CSR list names are gathered with one index-select and
+    XOR-reduced.  Equal to :func:`gf2_matmul_packets_plain` on every
+    operand whose ``packet`` is set."""
+    op = operand(mbits)
+    if op.packet is None:
+        raise ValueError("the XOR path takes only 0/1 packet operands "
+                         "(each 8x8 block zero or the identity)")
+    kin, rout = x.shape[0], out.shape[0]
+    idx = torch.from_numpy(op.idx.astype(np.int64)).to(x.device)
+    rp = op.rowptr
+    for o, wd in zip(offs, widths):
+        o, wd = int(o), int(wd)
+        ps = wd // w
+        sel = x[:, o:o + wd].reshape(kin * w, ps).index_select(0, idx)
+        res = torch.zeros((op.R, ps), dtype=torch.uint8, device=x.device)
+        for i in range(op.R):
+            if rp[i + 1] > rp[i]:
+                res[i] = _xor_rows(sel[rp[i]:rp[i + 1]])
+        out[:, o:o + wd] = res.reshape(rout, wd)
+    return out
+
+
+def packet_matrix(mbits) -> Optional[np.ndarray]:
+    """The [R, K] 0/1 packet matrix of a bit-matrix [8R, 8K] whose every
+    8x8 block (taken mod 2, as the product takes it) is zero or the
+    identity, else None.  Every operand a jerasure bit-matrix codec builds
+    has this form; shec's GF(2^8) operands do not."""
+    mb = np.asarray(mbits)
+    R, K = mb.shape[0] // 8, mb.shape[1] // 8
+    blocks = (mb & 1).astype(np.uint8).reshape(R, 8, K, 8).transpose(
+        0, 2, 1, 3)
+    eye = (blocks == np.eye(8, dtype=np.uint8)).all(axis=(2, 3))
+    zero = ~blocks.any(axis=(2, 3))
+    return eye.astype(np.uint8) if (eye | zero).all() else None
+
+
 def prepare_bitmatrix(matrix, w: int = 8) -> np.ndarray:
     """Host: a GF(2^w) coding matrix -> the int8 GF(2) bit-matrix
     operand."""
@@ -103,10 +166,17 @@ def prepare_bitmatrix(matrix, w: int = 8) -> np.ndarray:
 
 
 class BitOperand:
-    """A bit-matrix ready for the kernel: ``mbits`` int8 [8R, 8K] and,
-    per device, its rows packed into u32 masks [8R, kw] (bit i of word q
-    = column 32q+i, taken mod 2 as the int32 product is).  Codecs keep
-    one per matrix so the masks cross to the card once."""
+    """A bit-matrix ready for the kernels: ``mbits`` int8 [8R, 8K].
+
+    Its structure picks the kernel, once, here.  When every 8x8 block is
+    zero or the identity (``packet`` is the [R, K] 0/1 matrix), the
+    product is a XOR of whole packet rows: the operand keeps, per output
+    row, the list of input rows it XORs (CSR: ``rowptr`` int32 [R+1],
+    ``idx`` u8), sent to each device once, and the XOR kernel runs.
+    Otherwise its rows are packed into u32 masks [8R, kw] (bit i of word
+    q = column 32q+i, taken mod 2 as the int32 product is), sent to each
+    device once, and the popcount kernel runs.  Codecs keep one per
+    matrix."""
 
     def __init__(self, mbits) -> None:
         mb = np.ascontiguousarray(np.asarray(mbits), dtype=np.int8)
@@ -115,7 +185,15 @@ class BitOperand:
             raise ValueError(f"bit-matrix must be [8R, 8K], got {mb.shape}")
         self.mbits = mb
         self.R, self.K = mb.shape[0] // 8, mb.shape[1] // 8
+        # the XOR kernel's u8 lists name at most MAX_XOR_K input rows
+        self.packet = packet_matrix(mb) if self.K <= MAX_XOR_K else None
+        if self.packet is not None:
+            rows, cols = np.nonzero(self.packet)
+            self.rowptr = np.searchsorted(
+                rows, np.arange(self.R + 1)).astype(np.int32)
+            self.idx = cols.astype(np.uint8)
         self._masks = {}
+        self._lists = {}
         self._lock = threading.Lock()
 
     @property
@@ -142,6 +220,20 @@ class BitOperand:
                 self._masks[device] = got
             return got
 
+    def packet_lists(self, device: torch.device):
+        """(rowptr int32 [R+1], idx uint8 [nnz]) on ``device``, copied
+        there once."""
+        if self.packet is None:
+            raise ValueError("not a 0/1 packet operand")
+        with self._lock:
+            got = self._lists.get(device)
+            if got is None:
+                # synchronous copies: whole before any stream uses them
+                got = (torch.from_numpy(self.rowptr).to(device),
+                       torch.from_numpy(self.idx).to(device))
+                self._lists[device] = got
+            return got
+
 
 def operand(mbits) -> BitOperand:
     return mbits if isinstance(mbits, BitOperand) else BitOperand(mbits)
@@ -158,8 +250,9 @@ def _check_rows(t: torch.Tensor, rows: int, what: str) -> None:
 
 def _launch(op: BitOperand, x: torch.Tensor, out: torch.Tensor,
             offs: np.ndarray, widths: np.ndarray, w: int) -> None:
-    """One kernel launch on the current stream for at most MAX_JOBS
-    jobs."""
+    """One popcount-kernel launch on the current stream for at most
+    MAX_JOBS jobs.  It takes any operand; the main path sends it only
+    those that are not 0/1 packet matrices."""
     kw = op.kw
     smem = 8 * op.R * kw * 4 + (op.K + op.R) * 8
     if smem > MAX_SMEM:
@@ -173,6 +266,26 @@ def _launch(op: BitOperand, x: torch.Tensor, out: torch.Tensor,
         masks.data_ptr(), kw, torch.cuda.current_stream(x.device).cuda_stream)
     launches.inc()
     _build.check(err, "gf2_matmul")
+
+
+def _launch_xor(op: BitOperand, x: torch.Tensor, out: torch.Tensor,
+                offs: np.ndarray, widths: np.ndarray, w: int) -> None:
+    """One XOR-kernel launch on the current stream for at most MAX_JOBS
+    jobs of a 0/1 packet operand.  ``out`` may be ``x`` itself (R == K,
+    the same rows): a block stages every input row of its column tile
+    before it writes that tile."""
+    smem = 2 * op.K * XOR_TILE + (op.K + op.R) * 8
+    if smem > MAX_SMEM:
+        raise ValueError(f"gf2 XOR kernel: K={op.K} input rows need {smem} "
+                         f"bytes of shared memory, more than {MAX_SMEM}")
+    rowptr, idx = op.packet_lists(x.device)
+    err = _build.lib().gf2_xor_packets_launch(
+        x.data_ptr(), x.stride(0), out.data_ptr(), out.stride(0),
+        offs.ctypes.data, widths.ctypes.data, len(offs), w, op.K, op.R,
+        rowptr.data_ptr(), idx.data_ptr(),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    xor_launches.inc()
+    _build.check(err, "gf2_xor")
 
 
 def gf2_matmul_packets(mbits, x: torch.Tensor, out: torch.Tensor,
@@ -205,16 +318,19 @@ def gf2_matmul_packets(mbits, x: torch.Tensor, out: torch.Tensor,
         raise ValueError(f"job extents must lie inside the {P} columns")
     if (widths % w).any():
         raise ValueError(f"every job width must be a multiple of w={w}")
+    packet = op.packet is not None  # the structure picks the kernel
     if x.device.type == "cpu":
-        return gf2_matmul_packets_plain(op, x, out, offs, widths, w)
+        plain = gf2_xor_packets_plain if packet else gf2_matmul_packets_plain
+        return plain(op, x, out, offs, widths, w)
     if x.device.type != "cuda":
         raise ValueError(f"gf2_matmul runs on cuda or cpu, not {x.device}")
     if out.stride(1) != 1:
         raise ValueError("out must have unit column stride")
     if x.stride(1) != 1:
         x = x.contiguous()
+    launch = _launch_xor if packet else _launch
     for s in range(0, len(offs), MAX_JOBS):
-        _launch(op, x, out, np.ascontiguousarray(offs[s:s + MAX_JOBS]),
+        launch(op, x, out, np.ascontiguousarray(offs[s:s + MAX_JOBS]),
                 np.ascontiguousarray(widths[s:s + MAX_JOBS]), w)
     return out
 

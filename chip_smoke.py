@@ -11,14 +11,20 @@ Phases, each of which fails the run (non-zero exit, no result line):
               version on the card, bit for bit: (R, k) in {(4, 8), (2,
               4), (3, 3), (8, 8) recovery}, ragged widths, a nonzero
               seed, donation, a row-slice output, one 8 x 1 Mi batch;
-3. crc32c     the row CRC-32C kernel against its plain version: lengths
-              0..4096 and 512 KiB, unaligned rows, chained inits,
-              multi-job ``crc32c_rows`` at column offsets;
-4. gf2        the GF(2) bit-matrix kernel against its plain version, bit
-              for bit: cauchy_good k=8 m=4 encode [256, 512] and decode
-              [512, 512], shec k=8 m=4 c=3's [24, 64] and [24, 24],
-              liberation and a K=96 decode, ragged widths, a 3-job packet
-              batch of unequal odd widths, one full-width coalesced batch;
+3. crc32c     the segment-parallel row CRC-32C kernel against its plain
+              version: lengths 0..4096 and 512 KiB, unaligned rows,
+              chained inits, multi-job ``crc32c_rows`` at column offsets,
+              rows ending on and beside the kernel's segment and lane-piece
+              boundaries at odd offsets, the 2 x 12 x 512 KiB main batch;
+4. gf2        both GF(2) bit-matrix kernels against the plain version,
+              bit for bit, each operand through the kernel its structure
+              picks (the XOR kernel for every jerasure operand, the
+              popcount kernel for shec's): cauchy_good k=8 m=4 encode
+              [256, 512] and decode [512, 512], shec k=8 m=4 c=3's [24, 64]
+              and [24, 24], liberation and a K=96 decode, ragged widths,
+              3-job packet batches of unequal odd widths for the encode and
+              decode operands of five techniques (w 4, 6, 7, 8) and for
+              shec's, one full-width coalesced batch;
 5. gf256i     the interleaved GF(2^8) kernel (K2) against its plain
               version, bit for bit: (R, k) in {(4, 8), (2, 4), (3, 3), (8,
               8) recovery} at T in {128, 4096} over every tile that
@@ -34,9 +40,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
               for byte;
 7. bitmatrix  the same 1 GiB write through ``jerasure k=8 m=4
               technique=cauchy_good``, read back degraded through
-              ``codec.decode_array`` with shards 6, 7, 10, 11 lost;
+              ``codec.decode_array`` with shards 6, 7, 10, 11 lost (the
+              XOR kernel on both, the popcount kernel on neither);
 8. shec       the same through ``shec k=8 m=4 c=3``, read back with data
-              shards 0, 1, 2 lost (the shec decode on the GF(2) kernel);
+              shards 0, 1, 2 lost (the shec decode on the popcount
+              kernel);
 9. lrc        ``lrc k=4 m=2 l=3``: 64 objects encoded, one chunk lost and
               rebuilt from its local group;
 10. ecbench   the device EC engine bench (``ceph_tpu_torch.tools.ecbench``)
@@ -46,12 +54,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
               decode sweeps from 1 to 256 MiB, the small-stripe rates and
               the envelope; it is K2's path.
 
-Each path zeroes the kernel launch counts just before it runs and reads
-them just after; each kernel of the path must have run (for ecbench, K2
-and K1: its loops capture one launch per iteration in a CUDA graph and
-replay it, and the counts are of the captured launches).  Then each
-kernel is timed with CUDA events at its path's batch shape, beside its
-plain version and its bound.  Output, every number beside the card's
+Each path zeroes the kernel launch counts just before its writes and
+reads them just after, then likewise for its reads; each kernel of each
+half must have run (for ecbench, K2 and K1: its loops capture one launch
+per iteration in a CUDA graph and replay it, and the counts are of the
+captured launches).  Then each kernel is timed at its path's batch
+shape, beside its plain version and its bound: ``ms`` is device time per
+launch from a CUDA graph of launches (K2: CUDA events over eager calls,
+as its 16 MiB launch outlasts the call), ``call_ms`` the eager wrapper
+call with CUDA events.  Output, every number beside the card's
 name and power limit: one line per phase, then the card line from
 nvidia-smi, then the kernel table as one JSON line, then the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
@@ -102,6 +113,43 @@ def event_ms(torch, fn, iters: int, warmup: int = 2) -> float:
     t1.record()
     t1.synchronize()
     return t0.elapsed_time(t1) / iters
+
+
+def graph_ms(torch, fn, iters: int = 20, reps: int = 5) -> float:
+    """Device time of one fn() call: ``iters`` calls captured in one CUDA
+    graph, replayed ``reps`` times between CUDA events.  Unlike
+    :func:`event_ms` over eager calls, the Python of the wrapper (tens
+    of microseconds a call) stays out of the time of a kernel that runs
+    for less.  fn must allocate and synchronise nothing."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):  # warm-up: operands to the card, attributes set
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(reps):
+        graph.replay()
+    t1.record()
+    t1.synchronize()
+    return t0.elapsed_time(t1) / (reps * iters)
+
+
+def rotating(torch, dev, g, rows: int, cols: int) -> list:
+    """Seeded [rows, cols] buffers, enough of them to exceed the 50 MB L2
+    together, so that a timing loop finds its inputs in HBM."""
+    n = max(8, -(-(64 * MiB) // (rows * cols)))
+    return [torch.randint(0, 256, (rows, cols), dtype=torch.uint8,
+                          device=dev, generator=g) for _ in range(n)]
 
 
 def gf_ops(mat: np.ndarray, words: int) -> int:
@@ -205,24 +253,57 @@ def phase_gf2(torch, dev, log) -> None:
     require([tuple(op.mbits.shape) for _, op in cases[:4]]
             == [(256, 512), (512, 512), (24, 64), (24, 24)],
             "gf2 operands at the slice's shapes")
+    # every jerasure bit-matrix technique's encode and decode operand
+    # (w 4, 6, 7, 8) with its w: the packet batches below
+    techs = [(c, c.w) for c in (
+        cg, lib,
+        codec_from_profile("plugin=jerasure k=5 m=3 technique=cauchy_orig "
+                           "w=4", device=dev),
+        codec_from_profile("plugin=jerasure k=6 m=2 technique=blaum_roth "
+                           "w=6", device=dev),
+        codec_from_profile("plugin=jerasure k=8 m=2 technique=liber8tion",
+                           device=dev))]
+    packet_cases = []
+    for c, w in techs:
+        for which, M in (("encode", c.coding_bits),
+                         ("decode", c.recovery_bits(list(range(1, c.k + 1))))):
+            name = f"{c.profile['technique']} w={w} {which}"
+            packet_cases.append((name, c.operand(M), w))
+    require(all(op.packet is not None for _, op, _ in packet_cases)
+            and contrib_op.packet is None and s_op.packet is None,
+            "every jerasure operand is a 0/1 packet matrix, shec's are not")
     checked = 0
+
+    def run(op, fn):
+        """fn() through the kernel the operand picks; that kernel's count
+        (and only that one) moves by one."""
+        before = (g2.xor_launches.value, g2.launches.value)
+        got = fn()
+        xor = op.packet is not None
+        require((g2.xor_launches.value - before[0],
+                 g2.launches.value - before[1]) == ((1, 0) if xor else (0, 1)),
+                "gf2: the operand's structure picks the kernel")
+        return got
+
     for name, op in cases:
         for n in (1, 3, 4099, 65536, 1000003):
             x = rand(op.K, n)
-            got = g2.gf2_matmul_bytes(op, x)
+            got = run(op, lambda: g2.gf2_matmul_bytes(op, x))
             require(torch.equal(got, g2.gf2_matmul_bytes_plain(op, x)),
                     f"gf2 {name} {op.mbits.shape} n={n}")
             checked += 1
-    # three jobs of unequal, non-power-of-two widths at unaligned offsets
-    widths = [8 * 3001, 8 * 517, 8 * 12347]
-    offs = [3, 3 + widths[0] + 5, 3 + widths[0] + 5 + widths[1] + 1]
-    P = offs[-1] + widths[-1] + 7
-    for name, op, rows_out in (("encode", enc, 4), ("decode", dec, 8)):
-        x = rand(8, P)
-        out = rand(rows_out, P)
+    # three jobs of unequal, non-power-of-two widths at unaligned offsets,
+    # for every jerasure operand (XOR kernel) and shec's (popcount kernel)
+    for name, op, w in packet_cases + [("shec contrib", contrib_op, 1),
+                                       ("shec solve", s_op, 1)]:
+        widths = [w * 3001, w * 517, w * 12347]
+        offs = [3, 3 + widths[0] + 5, 3 + widths[0] + 5 + widths[1] + 1]
+        P = offs[-1] + widths[-1] + 7
+        x = rand(op.K // w, P)
+        out = rand(op.R // w, P)
         want = g2.gf2_matmul_packets_plain(op, x, out.clone(), offs, widths,
-                                           8)
-        g2.gf2_matmul_packets(op, x, out, offs, widths, 8)
+                                           w)
+        run(op, lambda: g2.gf2_matmul_packets(op, x, out, offs, widths, w))
         require(torch.equal(out, want), f"gf2 3-job packet batch {name}")
         checked += 1
     # one full-width coalesced batch: two 512 KiB jobs side by side
@@ -236,7 +317,10 @@ def phase_gf2(torch, dev, log) -> None:
     torch.cuda.synchronize()
     log(f"gf2: {checked + 1} kernel calls bit-equal to the plain version "
         f"({', '.join(f'{n} {list(op.mbits.shape)}' for n, op in cases)}, "
-        "ragged n, 3-job and full-width packet batches)")
+        "ragged n; 3-job packet batches of "
+        f"{', '.join(n for n, _, _ in packet_cases)} on the XOR kernel and "
+        "of shec's two operands on the popcount kernel; a full-width "
+        "packet batch)")
 
 
 def phase_gf256i(torch, dev, log) -> None:
@@ -346,9 +430,37 @@ def phase_crc(torch, dev, log) -> None:
     got = cd.crc32c_rows(full, offs, jl, ji)
     require(np.array_equal(got, rows_plain(torch, full, offs, jl, ji)),
             "crc32c_rows multi-job offsets")
+    # rows that end on, just before and just after the kernel's segment
+    # and lane-piece boundaries, at odd column offsets
+    seg, piece = cd.SEGMENT, cd.SEGMENT // 32
+    edges = [0, 1, 15, 16, 17, piece - 1, piece, piece + 1, seg - 1, seg,
+             seg + 1, 3 * seg + 7]
+    for shift in (0, 1, 7, 13):
+        offs, o = [], shift
+        for ln in edges:
+            offs.append(o)
+            o += ln + 3
+        full = torch.randint(0, 256, (12, o + 16), dtype=torch.uint8,
+                             device=dev, generator=g)
+        ji = rng.integers(0, 1 << 32, len(edges), dtype=np.uint64)
+        got = cd.crc32c_rows(full, offs, edges, ji)
+        require(np.array_equal(got, rows_plain(torch, full, offs, edges,
+                                               ji)),
+                f"crc32c_rows at segment and piece edges, shift {shift}")
+    # the main batch's shape: 2 jobs x 12 shards x 512 KiB, at an odd
+    # offset, equal to the lanes CRC of the same rows held above
+    half = 512 << 10
+    full = torch.zeros((12, 2 * half + 8), dtype=torch.uint8, device=dev)
+    full[:, 3:3 + half] = big[:12]
+    full[:, 3 + half:3 + 2 * half] = big[12:]
+    got = cd.crc32c_rows(full, [3, 3 + half], [half, half])
+    require(np.array_equal(got.reshape(-1), want.astype(np.uint32)),
+            "crc32c_rows at the main batch shape (24 x 512 KiB)")
     torch.cuda.synchronize()
     log("crc32c: lanes 0..4096 (aligned, unaligned), 24 x 512 KiB, chained "
-        "inits, 4-job crc32c_rows bit-equal to the plain version")
+        f"inits, 4-job crc32c_rows, {len(edges)} rows at segment ({seg} B) "
+        f"and piece ({piece} B) edges at 4 column shifts, and the 2 x 12 x "
+        "512 KiB main batch bit-equal to the plain version")
 
 
 def launch_counts() -> tuple:
@@ -356,7 +468,7 @@ def launch_counts() -> tuple:
     from ceph_tpu_torch.ops import gf2_matmul, gf256, gf256_planes
 
     return (gf256.launches, cd.launches, gf2_matmul.launches,
-            gf256_planes.launches)
+            gf2_matmul.xor_launches, gf256_planes.launches)
 
 
 def reset_counts() -> None:
@@ -392,16 +504,19 @@ def run_threads(fn, nobj: int, threads: int) -> float:
     return wall
 
 
-def drive_path(torch, dev, log, name: str, profile: str, lost, need,
-               queue_read: bool, nobj: int = 256, obj_bytes: int = 4 * MiB,
+def drive_path(torch, dev, log, name: str, profile: str, lost,
+               need_write, need_read, queue_read: bool, absent=(),
+               nobj: int = 256, obj_bytes: int = 4 * MiB,
                threads: int = 8) -> dict:
     """Write ``nobj`` seeded objects through the stripe-batch queue's
     ``encode_crc_async`` with a 1 MiB stripe from ``threads`` threads,
     then read each back degraded with ``lost`` shards missing: through
     ``decode_data_async`` (``queue_read``) or ``codec.decode_array``.
-    Every CRC and every byte is held exactly; the launch counts are
-    zeroed just before and read just after, and each kernel in ``need``
-    must have run."""
+    Every CRC and every byte is held exactly.  The launch counts are
+    zeroed just before the writes and read just after them, then zeroed
+    just before the reads and read just after them: each kernel in
+    ``need_write`` / ``need_read`` must have run in that half, and no
+    kernel in ``absent`` in either."""
     from ceph_tpu_torch.ec import codec_from_profile
     from ceph_tpu_torch.gpu.queue import StripeBatchQueue
     from ceph_tpu_torch.ops import crc32c_device as cd
@@ -435,17 +550,24 @@ def drive_path(torch, dev, log, name: str, profile: str, lost, need,
             got = codec.decode_array(avail, list(range(k)), width)
             decoded[i] = np.stack([got[s] for s in range(k)])
 
-    reset_counts()
     try:
+        reset_counts()
         w_wall = run_threads(write, nobj, threads)
+        w_counts = read_counts()
         w_batches, w_jobs = q.batches, q.jobs
         batch_jobs = dict(q.batch_jobs)
+        reset_counts()
         r_wall = run_threads(read, nobj, threads)
+        r_counts = read_counts()
     finally:
         q.stop()
-    counts = read_counts()
-    require(all(counts[n] > 0 for n in need),
-            f"{name}: every kernel of the path ran: {counts}")
+    for half, counts, need in (("write", w_counts, need_write),
+                               ("read", r_counts, need_read)):
+        require(all(counts[n] > 0 for n in need)
+                and all(counts[n] == 0 for n in absent),
+                f"{name}: the {half} ran {list(need)} and none of "
+                f"{list(absent)}: {counts}")
+    counts = {n: w_counts[n] + r_counts[n] for n in w_counts}
 
     # every returned CRC against the plain CRC of the stored shard
     shards = torch.empty((nobj * (k + m), width), dtype=torch.uint8,
@@ -472,8 +594,9 @@ def drive_path(torch, dev, log, name: str, profile: str, lost, need,
         f"width {w_jobs / w_batches:.2f}); degraded read (lost {list(lost)}) "
         f"through {read_via} in {r_wall:.3f} s = "
         f"{logical / r_wall / 1e9:.3f} GB/s; CRCs and bytes exact; "
-        f"launches {counts}")
-    return {"counts": counts, "codec": codec, "width": width,
+        f"launches: write {w_counts}, read {r_counts}")
+    return {"counts": counts, "w_counts": w_counts, "r_counts": r_counts,
+            "codec": codec, "width": width,
             "batch_jobs": batch_jobs, "survivors": survivors}
 
 
@@ -481,20 +604,24 @@ def phase_main(torch, dev, log) -> dict:
     return drive_path(torch, dev, log, "main",
                       "plugin=isa k=8 m=4 technique=reed_sol_van",
                       lost=(6, 7, 10, 11),
-                      need=("gf256_matmul", "crc32c_rows"), queue_read=True)
+                      need_write=("gf256_matmul", "crc32c_rows"),
+                      need_read=("gf256_matmul",), queue_read=True)
 
 
 def phase_bitmatrix(torch, dev, log) -> dict:
     return drive_path(torch, dev, log, "bitmatrix",
                       "plugin=jerasure k=8 m=4 technique=cauchy_good "
                       "packetsize=2048", lost=(6, 7, 10, 11),
-                      need=("gf2_matmul", "crc32c_rows"), queue_read=False)
+                      need_write=("gf2_xor", "crc32c_rows"),
+                      need_read=("gf2_xor",), absent=("gf2_matmul",),
+                      queue_read=False)
 
 
 def phase_shec(torch, dev, log) -> dict:
     return drive_path(torch, dev, log, "shec", "plugin=shec k=8 m=4 c=3",
                       lost=(0, 1, 2),
-                      need=("gf256_matmul", "crc32c_rows", "gf2_matmul"),
+                      need_write=("gf256_matmul", "crc32c_rows"),
+                      need_read=("gf2_matmul",), absent=("gf2_xor",),
                       queue_read=False)
 
 
@@ -622,8 +749,11 @@ def time_gf256i(torch, dev, log, eb: dict) -> dict:
 
 
 def time_gf2(torch, dev, log, bm: dict) -> dict:
-    """K3 at the bitmatrix path's coalesced write batch: J jobs of one
-    object's [k, width] planes side by side, w packets each."""
+    """K3's XOR kernel at the bitmatrix path's coalesced write batch: J
+    jobs of one object's [k, width] planes side by side, w packets each.
+    Its bound counts the work these inputs need: each byte read or
+    written once, and one u32 XOR per 4 bytes of every listed packet
+    row."""
     from ceph_tpu_torch.ops import gf2_matmul as g2
 
     codec = bm["codec"]
@@ -633,16 +763,15 @@ def time_gf2(torch, dev, log, bm: dict) -> dict:
     offs, widths = [i * width for i in range(J)], [width] * J
     op = codec.operand(codec.coding_bits)
     g = torch.Generator(device=dev).manual_seed(SEED + 6)
-    nbuf = 8  # rotate buffers: the set exceeds the 50 MB L2
-    bufs = [torch.randint(0, 256, (k + m, P), dtype=torch.uint8, device=dev,
-                          generator=g) for _ in range(nbuf)]
+    bufs = rotating(torch, dev, g, k + m, P)
     it = iter(range(1 << 30))
 
     def enc():
-        b = bufs[next(it) % nbuf]
+        b = bufs[next(it) % len(bufs)]
         g2.gf2_matmul_packets(op, b[:k], b[k:], offs, widths, w)
 
-    ms = event_ms(torch, enc, 40)
+    ms = graph_ms(torch, enc)
+    call_ms = event_ms(torch, enc, 40)
     x = bufs[0][:k]
 
     def plain():
@@ -656,24 +785,66 @@ def time_gf2(torch, dev, log, bm: dict) -> dict:
     err = int((got.int() - plain().int()).abs().max().item())
     plain_ms = event_ms(torch, plain, 3, warmup=1)
     cols = sum(widths) // w  # packet columns the product runs over
-    b_ms, b_by = bound((k + m) * sum(widths),
-                       2 * op.mbits.shape[0] * op.mbits.shape[1] * cols,
-                       INT8_OPS_PER_S)
+    nnz = int(op.packet.sum())
+    b_ms, b_by = bound((k + m) * sum(widths), nnz * cols // 4)
 
     dop = codec.operand(codec.recovery_bits(bm["survivors"][:k]))
-    dec_ms = event_ms(torch, lambda: g2.gf2_matmul_packets(
-        dop, bufs[next(it) % nbuf][:k], bufs[0][:k], [0], [width], w), 40)
+    dec_ms = graph_ms(torch, lambda: g2.gf2_matmul_packets(
+        dop, bufs[next(it) % len(bufs)][:k], bufs[0][:k], [0], [width], w))
     dec_bound, _ = bound(2 * k * width,
-                         2 * dop.mbits.shape[0] * dop.mbits.shape[1]
-                         * (width // w), INT8_OPS_PER_S)
-    log(f"gf2 decode {list(dop.mbits.shape)} on one object [{k}, {width}]: "
-        f"{dec_ms:.4f} ms (bound {dec_bound:.4f} ms)")
+                         int(dop.packet.sum()) * (width // w) // 4)
+    log(f"gf2_xor decode {list(dop.mbits.shape)} ({int(dop.packet.sum())} "
+        f"packet XORs) on one object [{k}, {width}]: {dec_ms:.4f} ms (bound "
+        f"{dec_bound:.4f} ms); encode batch per eager call "
+        f"{call_ms:.4f} ms")
+    return {"name": "gf2_xor", "route": "cuda",
+            "source": "ceph_tpu_torch/csrc/gf2_matmul.cu",
+            "replaces": "ceph_tpu/ops/gf2_matmul.py:87",
+            "launches": bm["counts"]["gf2_xor"], "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None, "call_ms": call_ms}
+
+
+def time_gf2_popcount(torch, dev, log, sh: dict) -> dict:
+    """K3's popcount kernel at the shec path's read shape: the [24, 64]
+    contribution operand on one object's [k, width] data planes.  Its
+    bound keeps the JAX kernel's int8 operation count (it evaluates every
+    bit product, as that kernel does)."""
+    from ceph_tpu_torch.ops import gf2_matmul as g2
+
+    codec = sh["codec"]
+    k, width = codec.k, sh["width"]
+    lost = tuple(s for s in range(k) if s not in sh["survivors"])
+    _, _, op = codec.solve_operands(lost, tuple(sh["survivors"]))
+    g = torch.Generator(device=dev).manual_seed(SEED + 7)
+    bufs = rotating(torch, dev, g, k, width)
+    outs = [torch.empty((op.R, width), dtype=torch.uint8, device=dev)
+            for _ in bufs]
+    it = iter(range(1 << 30))
+
+    def dec():
+        i = next(it) % len(bufs)
+        g2.gf2_matmul_bytes(op, bufs[i], out=outs[i])
+
+    ms = graph_ms(torch, dec)
+    call_ms = event_ms(torch, dec, 40)
+    x = bufs[0]
+    want = g2.gf2_matmul_bytes_plain(op, x)
+    err = int((g2.gf2_matmul_bytes(op, x).int() - want.int()).abs().max()
+              .item())
+    plain_ms = event_ms(torch, lambda: g2.gf2_matmul_bytes_plain(op, x), 3,
+                        warmup=1)
+    b_ms, b_by = bound((k + op.R) * width,
+                       2 * op.mbits.shape[0] * op.mbits.shape[1] * width,
+                       INT8_OPS_PER_S)
+    log(f"gf2_matmul (popcount) {list(op.mbits.shape)} on [{k}, {width}]: "
+        f"{ms:.4f} ms, per eager call {call_ms:.4f} ms")
     return {"name": "gf2_matmul", "route": "cuda",
             "source": "ceph_tpu_torch/csrc/gf2_matmul.cu",
             "replaces": "ceph_tpu/ops/gf2_matmul.py:87",
-            "launches": bm["counts"]["gf2_matmul"], "max_abs_err": err,
+            "launches": sh["counts"]["gf2_matmul"], "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": None}
+            "bound_by": b_by, "library_ms": None, "call_ms": call_ms}
 
 
 def time_kernels(torch, dev, log, main: dict) -> list:
@@ -685,9 +856,8 @@ def time_kernels(torch, dev, log, main: dict) -> list:
     width = main["width"]
     J, P = batch_shape(main)
     g = torch.Generator(device=dev).manual_seed(SEED + 3)
-    nbuf = 8  # rotate buffers: the set exceeds the 50 MB L2
-    bufs = [torch.randint(0, 256, (k + m, P), dtype=torch.uint8, device=dev,
-                          generator=g) for _ in range(nbuf)]
+    bufs = rotating(torch, dev, g, k + m, P)
+    nbuf = len(bufs)
     mat = codec.coding_u8
     it = iter(range(1 << 30))
 
@@ -695,7 +865,8 @@ def time_kernels(torch, dev, log, main: dict) -> list:
         b = bufs[next(it) % nbuf]
         gf256.gf_matmul_bytes(mat, b[:k], out=b[k:])
 
-    gf_ms = event_ms(torch, enc, 40)
+    gf_ms = graph_ms(torch, enc)
+    gf_call_ms = event_ms(torch, enc, 40)
     x = bufs[0][:k]
     ref = gf256.gf_matmul_bytes_plain(mat, x)
     got = gf256.gf_matmul_bytes(mat, x)
@@ -705,18 +876,29 @@ def time_kernels(torch, dev, log, main: dict) -> list:
     gf_bound, gf_by = bound((k + m) * P, gf_ops(mat, P // 4))
 
     rec, _ = codec.recovery_matrix(main["survivors"])
-    dec_ms = event_ms(torch, lambda: gf256.gf_matmul_bytes(
-        rec, bufs[next(it) % nbuf][:k], donate=True), 40)
+    dec_ms = graph_ms(torch, lambda: gf256.gf_matmul_bytes(
+        rec, bufs[next(it) % nbuf][:k], donate=True))
     dec_bound, _ = bound(2 * k * P, gf_ops(rec, P // 4))
     log(f"gf256 decode 8x8 donated [8, {P}]: {dec_ms:.4f} ms "
         f"(bound {dec_bound:.4f} ms)")
 
     offs, lens = [i * width for i in range(J)], [width] * J
 
-    def crc():
-        cd.crc32c_rows(bufs[next(it) % nbuf], offs, lens)
+    # the kernel alone: its table, scratch and output staged once
+    staged = cd._stage_rows(dev, k + m, np.asarray(offs, np.int64),
+                            np.asarray(lens, np.int64), np.zeros(J, np.int64))
 
-    crc_ms = event_ms(torch, crc, 10)
+    def crc():
+        b = bufs[next(it) % nbuf]
+        cd._run_rows(b, b.stride(0), k + m, staged)
+
+    crc_ms = graph_ms(torch, crc)
+    # the whole wrapper call: table upload, launch, digest fetch
+    crc_call_ms = event_ms(torch, lambda: cd.crc32c_rows(
+        bufs[next(it) % nbuf], offs, lens), 40)
+    log(f"crc32c_rows [{k + m}, {P}] x {J} jobs: kernel {crc_ms:.4f} ms, "
+        f"per crc32c_rows call (upload, launch, fetch) {crc_call_ms:.4f} "
+        f"ms; gf256 encode per eager call {gf_call_ms:.4f} ms")
     got = cd.crc32c_rows(bufs[0], offs, lens).astype(np.int64)
     t0 = time.monotonic()
     want = rows_plain(torch, bufs[0], offs, lens, [0] * J).astype(np.int64)
@@ -731,13 +913,13 @@ def time_kernels(torch, dev, log, main: dict) -> list:
          "replaces": "ceph_tpu/ops/gf256_pallas.py:81",
          "launches": main["counts"]["gf256_matmul"], "max_abs_err": gf_err,
          "ms": gf_ms, "plain_ms": gf_plain_ms, "bound_ms": gf_bound,
-         "bound_by": gf_by, "library_ms": None},
+         "bound_by": gf_by, "library_ms": None, "call_ms": gf_call_ms},
         {"name": "crc32c_rows", "route": "cuda",
          "source": "ceph_tpu_torch/csrc/crc32c.cu",
          "replaces": "ceph_tpu/ops/crc32c_device.py:75",
          "launches": main["counts"]["crc32c_rows"], "max_abs_err": crc_err,
          "ms": crc_ms, "plain_ms": crc_plain_ms, "bound_ms": crc_bound,
-         "bound_by": crc_by, "library_ms": None},
+         "bound_by": crc_by, "library_ms": None, "call_ms": crc_call_ms},
     ]
 
 
@@ -767,11 +949,12 @@ def main() -> int:
     phase_gf256i(torch, dev, log)
     main_res = phase_main(torch, dev, log)
     bm_res = phase_bitmatrix(torch, dev, log)
-    phase_shec(torch, dev, log)
+    sh_res = phase_shec(torch, dev, log)
     phase_lrc(torch, dev, log)
     eb_res = phase_ecbench(torch, dev, log)
     kernels = time_kernels(torch, dev, log, main_res)
     kernels.append(time_gf2(torch, dev, log, bm_res))
+    kernels.append(time_gf2_popcount(torch, dev, log, sh_res))
     kernels.append(time_gf256i(torch, dev, log, eb_res))
     for kr in kernels:
         log(f"{kr['name']}: {kr['ms']:.4f} ms, plain {kr['plain_ms']:.3f} "

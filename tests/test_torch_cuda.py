@@ -65,9 +65,11 @@ def test_gf2_kernel_equals_plain(dev, profile, n):
     for M in (codec.coding_bits,
               codec.recovery_bits(list(range(2, codec.k + 2)))):
         op = codec.operand(M)
-        before = gf2_matmul.launches.value
+        before = (gf2_matmul.xor_launches.value, gf2_matmul.launches.value)
         got = gf2_matmul.gf2_matmul_bytes(op, x)
-        assert gf2_matmul.launches.value == before + 1
+        # a jerasure operand is a 0/1 packet matrix: the XOR kernel runs
+        assert (gf2_matmul.xor_launches.value,
+                gf2_matmul.launches.value) == (before[0] + 1, before[1])
         assert torch.equal(got, gf2_matmul.gf2_matmul_bytes_plain(op, x))
 
 
@@ -100,6 +102,111 @@ def test_crc_kernel_equals_plain(dev):
     want = cd.crc32c_rows(full.cpu(), [0, 5, 2000], [5, 1995, 2099],
                           [1, 2, 3])
     assert np.array_equal(got, want)
+
+
+def test_gf2_xor_and_popcount_kernels_agree_on_a_jerasure_operand(dev):
+    """The same cauchy_good operand through the XOR kernel (the wrapper's
+    choice) and through the popcount kernel (its internal launch helper),
+    on an aligned 2-job batch and a ragged 3-job one: both equal plain."""
+    codec = codec_from_profile(
+        "plugin=jerasure k=8 m=4 technique=cauchy_good", device=dev)
+    g = torch.Generator(device=dev).manual_seed(41)
+    for M, rout in ((codec.coding_bits, 4),
+                    (codec.recovery_bits([0, 1, 2, 3, 4, 5, 8, 9]), 8)):
+        op = codec.operand(M)
+        assert op.packet is not None
+        for widths, offs in (([131072] * 2, [0, 131072]),
+                             ([8 * 3001, 8 * 517, 8 * 12347],
+                              [3, 24016, 28153])):
+            P = offs[-1] + widths[-1] + 7
+            x = torch.randint(0, 256, (8, P), dtype=torch.uint8, device=dev,
+                              generator=g)
+            out = torch.randint(0, 256, (rout, P), dtype=torch.uint8,
+                                device=dev, generator=g)
+            want = gf2_matmul.gf2_matmul_packets_plain(
+                op, x, out.clone(), offs, widths, 8)
+            before = gf2_matmul.xor_launches.value
+            xo = gf2_matmul.gf2_matmul_packets(op, x, out.clone(), offs,
+                                               widths, 8)
+            assert gf2_matmul.xor_launches.value == before + 1
+            assert torch.equal(xo, want)
+            before = gf2_matmul.launches.value
+            po = out.clone()
+            gf2_matmul._launch(op, x, po, np.asarray(offs, np.int64),
+                               np.asarray(widths, np.int64), 8)
+            assert gf2_matmul.launches.value == before + 1
+            assert torch.equal(po, want)
+
+
+def test_gf2_xor_kernel_in_place(dev):
+    """out may be x itself when R == K: a block stages every input row of
+    its tile before it writes the tile."""
+    codec = codec_from_profile(
+        "plugin=jerasure k=8 m=4 technique=cauchy_good", device=dev)
+    op = codec.operand(codec.recovery_bits([0, 1, 2, 3, 4, 5, 8, 9]))
+    x = torch.randint(0, 256, (8, 1 << 17), dtype=torch.uint8, device=dev)
+    want = gf2_matmul.gf2_matmul_packets_plain(op, x, x.clone(), [0],
+                                               [1 << 17], 8)
+    gf2_matmul.gf2_matmul_packets(op, x, x, [0], [1 << 17], 8)
+    assert torch.equal(x, want)
+
+
+def test_gf2_popcount_kernel_runs_shec_decode(dev):
+    sh = codec_from_profile("plugin=shec k=8 m=4 c=3", device=dev)
+    _, s_op, contrib_op = sh.solve_operands((0, 1, 2), tuple(range(3, 12)))
+    x = torch.randint(0, 256, (8, 131072), dtype=torch.uint8, device=dev)
+    before = (gf2_matmul.xor_launches.value, gf2_matmul.launches.value)
+    got = gf2_matmul.gf2_matmul_bytes(contrib_op, x)
+    assert (gf2_matmul.xor_launches.value,
+            gf2_matmul.launches.value) == (before[0], before[1] + 1)
+    assert torch.equal(got, gf2_matmul.gf2_matmul_bytes_plain(contrib_op, x))
+
+
+@pytest.mark.parametrize("shift", [0, 1, 7, 13])
+def test_crc_kernel_at_segment_boundaries(dev, shift):
+    """Rows of length 0, 1, seg-1, seg, seg+1, 3*seg+7 (seg = the
+    kernel's 8 KiB segment) and 64 KiB + 5 at odd column offsets of a
+    12-shard batch: the two-pass kernel equals the CPU path."""
+    seg = 8192
+    lens = [0, 1, seg - 1, seg, seg + 1, 3 * seg + 7, (64 << 10) + 5]
+    offs, o = [], shift
+    for ln in lens:
+        offs.append(o)
+        o += ln + 3
+    full = torch.randint(0, 256, (12, o + 16), dtype=torch.uint8, device=dev)
+    inits = [(i * 2654435761) & 0xFFFFFFFF for i in range(len(lens))]
+    before = cd.launches.value
+    got = cd.crc32c_rows(full, offs, lens, inits)
+    assert cd.launches.value == before + 1
+    assert np.array_equal(got, cd.crc32c_rows(full.cpu(), offs, lens, inits))
+
+
+def test_queue_encp_on_cauchy_good(dev):
+    """The queue's fused encode + CRC batch on a bit-matrix codec: coding
+    equal to the CPU codec's, CRCs equal to the plain CRC of each stored
+    shard, through the XOR kernel and never the popcount kernel."""
+    profile = "plugin=jerasure k=8 m=4 technique=cauchy_good packetsize=2048"
+    codec = codec_from_profile(profile, device=dev)
+    host = codec_from_profile(profile, device="cpu")
+    si = StripeInfo(8, 128 << 10)
+    rng = np.random.default_rng(5)
+    planes = [si.interleave(rng.integers(0, 256, 4 << 20,
+                                         dtype=np.uint8).tobytes())[0]
+              for _ in range(4)]
+    before = (gf2_matmul.xor_launches.value, gf2_matmul.launches.value)
+    q = StripeBatchQueue(device=dev)
+    try:
+        res = [f.result(timeout=120) for f in
+               [q.encode_crc_async(codec, p) for p in planes]]
+    finally:
+        q.stop()
+    assert gf2_matmul.xor_launches.value > before[0]
+    assert gf2_matmul.launches.value == before[1]
+    for p, (c, crcs) in zip(planes, res):
+        assert np.array_equal(c, host.encode_array(p))
+        shards = torch.from_numpy(np.concatenate([p, c]))
+        assert np.array_equal(crcs, cd.crc32c_lanes(
+            shards, np.full(12, p.shape[1])))
 
 
 def test_queue_write_and_degraded_read_on_the_card(dev):

@@ -16,7 +16,7 @@ from ceph_tpu.ec import codec_from_profile as ref_codec_from_profile
 from ceph_tpu.ec import gf as ref_gf
 from ceph_tpu.ec import matrices as ref_matrices
 from ceph_tpu.ops import gf2_matmul as ref_gf2
-from ceph_tpu_torch.ec import gf, matrices
+from ceph_tpu_torch.ec import codec_from_profile, gf, matrices
 from ceph_tpu_torch.ops import gf2_matmul
 
 
@@ -202,3 +202,108 @@ def test_gf_solve_matmul_div_pow_match_reference():
     assert np.array_equal(X, ref_gf.solve(A, np.eye(5, dtype=np.uint32)[:, :3]))
     with pytest.raises(ValueError):
         gf.solve(np.zeros((3, 2), np.uint32), np.zeros((3, 1), np.uint32))
+
+
+# -- the packet-XOR path: structure detection and its plain version ---------
+
+JERASURE_BITMATRIX = [
+    "plugin=jerasure k=8 m=4 technique=cauchy_good",
+    "plugin=jerasure k=5 m=3 technique=cauchy_orig w=4",
+    "plugin=jerasure k=6 m=2 technique=blaum_roth w=6",
+    "plugin=jerasure k=7 m=2 technique=liberation w=7",
+    "plugin=jerasure k=8 m=2 technique=liber8tion",
+]
+
+
+@pytest.mark.parametrize("profile", JERASURE_BITMATRIX)
+def test_every_jerasure_operand_is_a_packet_matrix(profile):
+    """Encode and recovery operands of each bit-matrix technique have
+    only zero or identity 8x8 blocks; the packet matrix is the codec's
+    0/1 matrix and the CSR lists name its ones row by row."""
+    codec = codec_from_profile(profile, device="cpu")
+    k, m = codec.k, codec.m
+    for M in (codec.coding_bits,
+              codec.recovery_bits(list(range(k))),
+              codec.recovery_bits(list(range(m, k + m))),
+              codec.recovery_bits([0] + list(range(2, k + 1)))):
+        op = codec.operand(M)
+        assert op.packet is not None
+        assert np.array_equal(op.packet, M & 1)
+        for i in range(op.R):
+            row = op.idx[op.rowptr[i]:op.rowptr[i + 1]]
+            assert list(row) == list(np.nonzero(M[i])[0])
+        assert op.rowptr[-1] == int(M.sum())
+
+
+def test_shec_operands_and_random_bitmatrices_are_not_packet_matrices():
+    sh = codec_from_profile("plugin=shec k=8 m=4 c=3", device="cpu")
+    _, s_op, contrib_op = sh.solve_operands((0, 1, 2), tuple(range(3, 12)))
+    assert s_op.packet is None and contrib_op.packet is None
+    rng = np.random.default_rng(31)
+    assert gf2_matmul.BitOperand(
+        rng.integers(0, 2, (32, 64), dtype=np.int8)).packet is None
+    # odd entries count as ones, as the product takes them mod 2
+    eye3 = np.kron(np.eye(3, dtype=np.int8), np.eye(8, dtype=np.int8)) * 3
+    assert np.array_equal(gf2_matmul.BitOperand(eye3).packet, np.eye(3))
+    with pytest.raises(ValueError, match="packet"):
+        gf2_matmul.gf2_xor_packets_plain(
+            s_op, torch.zeros((3, 8), dtype=torch.uint8),
+            torch.zeros((3, 8), dtype=torch.uint8), [0], [8], 1)
+
+
+@pytest.mark.parametrize("profile", JERASURE_BITMATRIX[:4],
+                         ids=["w4", "w6", "w7", "w8"])
+@pytest.mark.parametrize("which", ["encode", "decode"])
+def test_xor_plain_matches_the_reference_product(profile, which):
+    """A 3-job batch of unequal widths at odd offsets through
+    gf2_xor_packets_plain: equal to gf2_matmul_packets_plain and, job by
+    job, to ceph_tpu's gf2_matmul_bytes (JAX on the CPU) on its packet
+    rows; columns outside the jobs untouched."""
+    codec = codec_from_profile(profile, device="cpu")
+    k, m, w = codec.k, codec.m, codec.w
+    if which == "encode":
+        M, rout = codec.coding_bits, m
+    else:
+        M, rout = codec.recovery_bits(list(range(1, k + 1))), k
+    op = codec.operand(M)
+    widths = [w * 301, w * 17, w * 1234]
+    offs = [3, 3 + widths[0] + 5, 3 + widths[0] + 5 + widths[1] + 1]
+    P = offs[-1] + widths[-1] + 7
+    rng = np.random.default_rng(w)
+    x = torch.from_numpy(rng.integers(0, 256, (k, P), dtype=np.uint8))
+    out = torch.from_numpy(rng.integers(0, 256, (rout, P), dtype=np.uint8))
+    got = gf2_matmul.gf2_xor_packets_plain(op, x, out.clone(), offs,
+                                           widths, w)
+    want = gf2_matmul.gf2_matmul_packets_plain(op, x, out.clone(), offs,
+                                               widths, w)
+    assert torch.equal(got, want)
+    untouched = np.ones(P, bool)
+    for o, wd in zip(offs, widths):
+        packets = x[:, o:o + wd].reshape(k * w, wd // w).numpy()
+        ref = np.asarray(ref_gf2.gf2_matmul_bytes(op.mbits, packets))
+        assert np.array_equal(got[:, o:o + wd].numpy(),
+                              ref.reshape(rout, wd))
+        untouched[o:o + wd] = False
+    assert torch.equal(got[:, untouched], out[:, untouched])
+
+
+def test_the_operand_structure_picks_the_path(monkeypatch):
+    """On the CPU the wrapper runs the plain version of the kernel the
+    operand's structure picks: XOR for a jerasure operand, the popcount
+    definition for shec's; nothing else decides."""
+    calls = []
+    for name in ("gf2_xor_packets_plain", "gf2_matmul_packets_plain"):
+        real = getattr(gf2_matmul, name)
+
+        def spy(*a, _real=real, _name=name, **kw):
+            calls.append(_name)
+            return _real(*a, **kw)
+
+        monkeypatch.setattr(gf2_matmul, name, spy)
+    cg = codec_from_profile(JERASURE_BITMATRIX[0], device="cpu")
+    x = torch.from_numpy(_rand(5, (8, 8 * 64)))
+    cg.encode_planes(x)
+    sh = codec_from_profile("plugin=shec k=8 m=4 c=3", device="cpu")
+    _, _, contrib_op = sh.solve_operands((0, 1, 2), tuple(range(3, 12)))
+    gf2_matmul.gf2_matmul_bytes(contrib_op, x)
+    assert calls == ["gf2_xor_packets_plain", "gf2_matmul_packets_plain"]
