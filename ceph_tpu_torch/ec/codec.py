@@ -38,6 +38,10 @@ class RSMatrixCodec(ErasureCode):
     """Systematic Reed-Solomon over GF(2^8) given an (m x k) coding
     block, its products on ``device``."""
 
+    # any k of the k+m chunks rebuild the data through one k x k matrix
+    # (recovery_matrix); the queue's ``dec`` batches only such codecs
+    mds_recovery = True
+
     def __init__(self, k: int, m: int, coding: np.ndarray | None = None,
                  device=None) -> None:
         super().__init__()

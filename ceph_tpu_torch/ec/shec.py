@@ -97,6 +97,10 @@ def shec_coding_matrix(k: int, m: int, c: int, w: int = 8) -> np.ndarray:
 
 
 class ErasureCodeShec(RSMatrixCodec):
+    # shec's coding matrix is not MDS: some k-subsets are singular, and a
+    # read solves parity equations instead (decode_array)
+    mds_recovery = False
+
     @classmethod
     def create(cls, profile: dict, device=None) -> "ErasureCodeShec":
         k = to_int(profile, "k", DEFAULT_K)

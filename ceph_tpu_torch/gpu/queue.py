@@ -4,9 +4,13 @@ one device batch.
 Port of ``ceph_tpu/tpu/queue.py`` for the flat codecs (RS and the GF(2)
 bit-matrix techniques), kinds ``enc`` (coding planes), ``encp`` (coding
 planes + per-shard CRC-32C) and ``dec`` (data planes rebuilt from k
-survivors, for codecs with a ``recovery_matrix``: the RS codecs; a
-bit-matrix code decodes through ``codec.decode``, as in the JAX
-package).  Callers hand a
+survivors, for codecs whose recovery is one MDS matrix product: the RS
+codecs; a bit-matrix code or shec decodes through ``codec.decode``).
+Submit refuses what a batch cannot run, with a ``TypeError``: ``dec``
+for a codec without ``mds_recovery`` (the JAX queue takes shec there and
+fails in its worker), ``enc``/``encp`` for a codec without
+``encode_planes`` (lrc, which encodes through ``encode_array``; the JAX
+queue has no lrc route either).  Callers hand a
 job's host planes to the queue and wait on a future; a worker thread
 greedily drains jobs that share (codec, kind, survivor signature, row
 count), the same coalescing key as queue.py:287-290, and runs them as
@@ -151,8 +155,15 @@ class StripeBatchQueue:
         self._q.put(job)
         return job.future
 
+    @staticmethod
+    def _check_encodes(codec) -> None:
+        if not hasattr(codec, "encode_planes"):
+            raise TypeError(f"{type(codec).__name__} has no encode_planes; "
+                            "encode it through codec.encode_array")
+
     def encode_async(self, codec, planes: np.ndarray) -> Future:
         """planes uint8 [k, n] -> Future of coding planes [m, n]."""
+        self._check_encodes(codec)
         planes = np.ascontiguousarray(planes, dtype=np.uint8)
         return self._submit(_Job(codec, planes, "enc"))
 
@@ -164,6 +175,7 @@ class StripeBatchQueue:
         """Fused encode + per-shard crc32c: planes uint8 [k, n] ->
         Future of (coding [m, n], crcs u32 [k+m]).  Only the coding
         planes and the 4-byte digests come back to the host."""
+        self._check_encodes(codec)
         planes = np.ascontiguousarray(planes, dtype=np.uint8)
         return self._submit(_Job(codec, planes, "encp", size=size))
 
@@ -172,8 +184,8 @@ class StripeBatchQueue:
         """Survivor planes {shard: [n]} -> Future of data planes [k, n].
         Jobs sharing a survivor signature coalesce into one recovery
         product."""
-        if not hasattr(codec, "recovery_matrix"):
-            raise TypeError(f"{type(codec).__name__} has no recovery "
+        if not getattr(codec, "mds_recovery", False):
+            raise TypeError(f"{type(codec).__name__} has no MDS recovery "
                             "matrix; decode it through codec.decode")
         sig = tuple(sorted(available))[: codec.k]
         if len(sig) < codec.k:

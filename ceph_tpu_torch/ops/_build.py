@@ -64,10 +64,10 @@ _I64 = ctypes.c_int64
 _I32 = ctypes.c_int
 _U32 = ctypes.c_uint32
 _SIGNATURES = {
-    # (x, x_row_bytes, out, out_row_bytes, words, k, R, seed, coef,
-    #  mul_shift, stream)
+    # (x, x_row_bytes, out, out_row_bytes, words, k, R, seed, masks,
+    #  masks_bytes, mul_shift, stream)
     "gf256_matmul_launch": [_P, _I64, _P, _I64, _I64, _I32, _I32, _U32,
-                            _P, _I32, _P],
+                            _P, _I64, _I32, _P],
     # (x, out, T, k, R, seed, coef, tile, mul_shift, stream)
     "gf256_interleaved_launch": [_P, _P, _I64, _I32, _I32, _U32, _P, _I32,
                                  _I32, _P],
@@ -84,14 +84,15 @@ _SIGNATURES = {
 }
 
 
-def _nvcc() -> str:
+def cuda_bin(tool: str) -> str:
+    """Path of a CUDA toolkit program (``nvcc``, ``cuobjdump``)."""
     from torch.utils.cpp_extension import CUDA_HOME
 
-    for cand in (os.path.join(CUDA_HOME or "", "bin", "nvcc"),
-                 "/usr/local/cuda/bin/nvcc", shutil.which("nvcc") or ""):
+    for cand in (os.path.join(CUDA_HOME or "", "bin", tool),
+                 f"/usr/local/cuda/bin/{tool}", shutil.which(tool) or ""):
         if cand and os.path.exists(cand):
             return cand
-    raise RuntimeError("nvcc not found: cannot build the CUDA kernels")
+    raise RuntimeError(f"{tool} not found in the CUDA toolkit")
 
 
 def _compile() -> str:
@@ -106,7 +107,7 @@ def _compile() -> str:
             verbose=False)
     path = BUILD_DIR / f"lib{LIB_NAME}.so"
     subprocess.run(
-        [_nvcc(), *CUDA_FLAGS, "-std=c++17", "-shared", "-Xcompiler",
+        [cuda_bin("nvcc"), *CUDA_FLAGS, "-std=c++17", "-shared", "-Xcompiler",
          "-fPIC", "-o", str(path), *sources], check=True)
     return str(path)
 

@@ -12,6 +12,12 @@ uint8 planes [k, n] gives uint8 [R, n], for any n (padded to a whole
 number of 4-byte words internally).  ``seed`` is XOR'd into every loaded
 word, as the Pallas kernel's seed operand is.  ``donate=True`` with
 R == k lets the product overwrite its input and return it.
+
+The kernel consumes the matrix as :class:`K1Operand`, its coefficient
+bits expanded into 0/~0 word masks (``k1_operand``, cached by the
+matrix's bytes); :func:`operand_network` is the kernel's own network
+over that operand as PyTorch ops, which the tests hold against
+:func:`swar_network` and the reference.
 """
 
 from __future__ import annotations
@@ -29,6 +35,9 @@ _LOW7 = 0x7F7F7F7F
 _ONES = 0x01010101
 _RED = 0x1D  # poly 0x11d reduction byte
 MAX_DIM = 32  # the kernel's row and column limit (csrc/gf256.cu kMaxDim)
+ROW_BLOCK = 16  # rows per launch when R and k both exceed it (kK1RowBlock)
+_OPERAND_CACHE_MAX = 4096
+_operands: dict = {}
 
 
 def _as_matrix(matrix) -> np.ndarray:
@@ -103,23 +112,109 @@ def gf_matmul_bytes_plain(matrix, x: torch.Tensor,
     return out[:, :n] if pad else out
 
 
+def bucket(n: int) -> int:
+    """The kernel's row or column bucket (csrc/gf256.cu k1_bucket)."""
+    return 4 if n <= 4 else 8 if n <= 8 else 16 if n <= 16 else 32
+
+
+class K1Operand:
+    """A coefficient matrix as K1 consumes it.  ``blocks`` holds one
+    (first row, rows, masks) per launch: masks u32 [bucket(rows), 8,
+    bucket(k)] with ``masks[i, s, j]`` = 0xFFFFFFFF when bit 7 - s of
+    ``matrix[first + i, j]`` is set, else 0 (zero past the matrix).  A
+    matrix with more than ``ROW_BLOCK`` rows and columns is split into
+    row blocks of ``ROW_BLOCK``: its masks would not fit the kernel's
+    parameter space."""
+
+    __slots__ = ("k", "blocks")
+
+    def __init__(self, mat: np.ndarray) -> None:
+        R, k = mat.shape
+        self.k = k
+        step = ROW_BLOCK if R > ROW_BLOCK and k > ROW_BLOCK else R
+        shifts = np.arange(7, -1, -1, dtype=np.uint8)
+        self.blocks = []
+        for r0 in range(0, R, step):
+            rows = min(step, R - r0)
+            bits = (mat[r0:r0 + rows, None, :] >> shifts[None, :, None]) & 1
+            masks = np.zeros((bucket(rows), 8, bucket(k)), dtype=np.uint32)
+            masks[:rows, :, :k] = bits.astype(np.uint32) * np.uint32(
+                0xFFFFFFFF)
+            self.blocks.append((r0, rows, masks))
+
+
+def k1_operand(matrix) -> K1Operand:
+    """The kernel operand of ``matrix``, expanded once per distinct
+    matrix: the encode matrix is fixed per codec and each recovery matrix
+    per survivor signature, so an eager call pays a dict lookup."""
+    mat = _as_matrix(matrix)
+    if mat.shape[0] > MAX_DIM or mat.shape[1] > MAX_DIM:
+        raise ValueError(f"gf256 kernel takes k, R <= {MAX_DIM}, got "
+                         f"{mat.shape[0]}x{mat.shape[1]}")
+    key = (mat.shape, mat.tobytes())
+    op = _operands.get(key)
+    if op is None:
+        if len(_operands) >= _OPERAND_CACHE_MAX:
+            _operands.clear()
+        op = _operands[key] = K1Operand(mat)
+    return op
+
+
+def operand_network(op: K1Operand, cols, seed: int = 0,
+                    mul_shift: bool = False) -> list:
+    """K1's network over its operand as int32 tensor ops (Horner over the
+    coefficient bits, one output row at a time, every mask applied with
+    an AND): ``cols[j]`` holds input column j's words; returns the R
+    output tensors.  The tests hold it against :func:`swar_network`."""
+    s = _seed_i32(seed)
+    xs = [c ^ s for c in cols]
+    outs = []
+    for _r0, rows, masks in op.blocks:
+        signed = masks.view(np.int32)
+        for i in range(rows):
+            t = torch.zeros_like(xs[0])
+            for step in range(8):
+                if step:
+                    t = _double(t, mul_shift)
+                for j in range(op.k):
+                    t = t ^ (xs[j] & int(signed[i, step, j]))
+            outs.append(t)
+    return outs
+
+
 def _row_pitch_ok(t: torch.Tensor) -> bool:
     return (t.stride(1) == 1 and t.stride(0) % 4 == 0
             and t.data_ptr() % 4 == 0)
 
 
-def _launch(mat: np.ndarray, x: torch.Tensor, out: torch.Tensor,
+def _overlap(a: torch.Tensor, b: torch.Tensor) -> bool:
+    sa, sb = a.data_ptr(), b.data_ptr()
+    ea = sa + (a.shape[0] - 1) * a.stride(0) + a.shape[1]
+    eb = sb + (b.shape[0] - 1) * b.stride(0) + b.shape[1]
+    return sa < eb and sb < ea
+
+
+def _launch(op: K1Operand, x: torch.Tensor, out: torch.Tensor,
             seed: int, mul_shift: bool = False) -> None:
-    """One kernel launch on the current stream: x [k, 4W] -> out [R, 4W],
-    both with 4-byte-aligned rows of unit column stride."""
-    R, k = mat.shape
+    """One kernel launch per row block, on the current stream: x [k, 4W]
+    -> out [R, 4W], both with 4-byte-aligned rows of unit column stride.
+    A split matrix writing over its own input goes through a scratch
+    output: its second row block reads rows the first one wrote."""
+    if len(op.blocks) > 1 and _overlap(x, out):
+        tmp = torch.empty_like(out)
+        _launch(op, x, tmp, seed, mul_shift)
+        out.copy_(tmp)
+        return
     words = x.shape[1] // 4
-    err = _build.lib().gf256_matmul_launch(
-        x.data_ptr(), x.stride(0), out.data_ptr(), out.stride(0), words,
-        k, R, int(seed) & 0xFFFFFFFF, mat.ctypes.data, int(mul_shift),
-        torch.cuda.current_stream(x.device).cuda_stream)
-    launches.inc()
-    _build.check(err, "gf256_matmul")
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    for r0, rows, masks in op.blocks:
+        o = out[r0:r0 + rows]
+        err = _build.lib().gf256_matmul_launch(
+            x.data_ptr(), x.stride(0), o.data_ptr(), o.stride(0), words,
+            op.k, rows, int(seed) & 0xFFFFFFFF, masks.ctypes.data,
+            masks.nbytes, int(mul_shift), stream)
+        launches.inc()
+        _build.check(err, "gf256_matmul")
 
 
 def gf_matmul_bytes(matrix, x: torch.Tensor, donate: bool = False,
@@ -153,22 +248,20 @@ def gf_matmul_bytes(matrix, x: torch.Tensor, donate: bool = False,
     if x.device.type != "cuda":
         raise ValueError(f"gf_matmul_bytes runs on cuda or cpu, not "
                          f"{x.device}")
-    if k > MAX_DIM or R > MAX_DIM:
-        raise ValueError(f"gf256 kernel takes k, R <= {MAX_DIM}, got "
-                         f"{R}x{k}")
+    op = k1_operand(mat)
     if n % 4 == 0 and _row_pitch_ok(x) and (out is None
                                             or _row_pitch_ok(out)):
         if out is None:
             out = torch.empty((R, n), dtype=torch.uint8, device=x.device)
-        _launch(mat, x, out, seed, mul_shift)
+        _launch(op, x, out, seed, mul_shift)
         return out
     # ragged width or unaligned rows: run on a word-padded copy
     words = -(-n // 4)
     xp = torch.zeros((k, 4 * words), dtype=torch.uint8, device=x.device)
     xp[:, :n] = x
-    op = torch.empty((R, 4 * words), dtype=torch.uint8, device=x.device)
-    _launch(mat, xp, op, seed, mul_shift)
+    po = torch.empty((R, 4 * words), dtype=torch.uint8, device=x.device)
+    _launch(op, xp, po, seed, mul_shift)
     if out is None:
-        return op[:, :n]
-    out.copy_(op[:, :n])
+        return po[:, :n]
+    out.copy_(po[:, :n])
     return out

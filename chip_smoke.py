@@ -7,10 +7,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
 
 1. build      the CUDA kernels from ``ceph_tpu_torch/csrc`` (``sm_90a``)
               into ``ceph_tpu_torch/_build/``;
-2. gf256      the GF(2^8) product kernel against its plain PyTorch
+2. gf256      the GF(2^8) product kernel (K1) against its plain PyTorch
               version on the card, bit for bit: (R, k) in {(4, 8), (2,
               4), (3, 3), (8, 8) recovery}, ragged widths, a nonzero
               seed, donation, a row-slice output, one 8 x 1 Mi batch;
+              then every (R, k) bucket edge in {1, 4, 5, 8, 9, 16, 17,
+              32}^2 at a 16-byte-aligned width, a ragged one, a 4-byte-
+              aligned row slice and an out= row slice, both seeds and
+              both doubling variants, and donation at 8, 17 and 32;
 3. crc32c     the segment-parallel row CRC-32C kernel against its plain
               version: lengths 0..4096 and 512 KiB, unaligned rows,
               chained inits, multi-job ``crc32c_rows`` at column offsets,
@@ -176,6 +180,68 @@ def batch_shape(res: dict):
     return J, shapebucket.covering(J * res["width"], 1)
 
 
+# SASS opcodes that issue to the INT32 (ALU) pipe; IMAD goes to the FMA
+# pipe and the U* opcodes to the uniform datapath
+INT32_OPS = {"LOP3", "SHF", "IADD3", "ISETP", "LEA", "SEL", "PRMT", "IABS",
+             "IMNMX", "POPC", "FLO", "BMSK", "PLOP3", "MOV"}
+
+
+def k1_sass(log) -> dict:
+    """Registers, local-memory bytes and static SASS instruction counts of
+    K1's main instantiations in the built library (the 4 x 8 encode and
+    8 x 8 decode buckets, plain doubling), read with cuobjdump.  A thread
+    owns one word column, so the kernel's count, prologue and guards
+    included, is its count per word column."""
+    import re
+
+    from ceph_tpu_torch.ops import _build
+
+    want = {(4, 8): "enc_4x8", (8, 8): "dec_8x8"}
+    name = re.compile(r"gf256_matmul_kernelILi(\d+)ELi(\d+)ELb0E")
+    tool, path = _build.cuda_bin("cuobjdump"), _build.lib()._name
+
+    def dump(flag: str) -> str:
+        return subprocess.run([tool, flag, path], capture_output=True,
+                              text=True, timeout=300, check=True).stdout
+
+    out, cur = {}, None
+    for line in dump("-res-usage").splitlines():
+        m = re.search(r"Function (\S+):", line)
+        if m:
+            f = name.search(m.group(1))
+            cur = want.get((int(f[1]), int(f[2]))) if f else None
+            continue
+        m = re.search(r"REG:(\d+) STACK:(\d+) .*LOCAL:(\d+)", line)
+        if cur and m:
+            out[cur] = {"regs": int(m[1]), "stack": int(m[2]),
+                        "local": int(m[3]), "sass": 0, "int32": 0,
+                        "lop3": 0}
+    op = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?"
+                    r"([A-Z][A-Z0-9_]*)")
+    cur = None
+    for line in dump("-sass").splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            f = name.search(m.group(1))
+            cur = want.get((int(f[1]), int(f[2]))) if f else None
+            continue
+        m = op.search(line) if cur in out else None
+        if m and m[1] != "NOP":
+            c = out[cur]
+            c["sass"] += 1
+            c["int32"] += m[1] in INT32_OPS
+            c["lop3"] += m[1] == "LOP3"
+    require(set(out) == set(want.values())
+            and all(c["sass"] for c in out.values()),
+            f"cuobjdump found K1's main instantiations: {sorted(out)}")
+    log("gf256 K1 SASS per word column (registers, stack/local bytes, "
+        "instructions, INT32 pipe, LOP3): " + "; ".join(
+            f"{k} {c['regs']} regs, {c['stack']}/{c['local']} B, "
+            f"{c['sass']}, {c['int32']}, {c['lop3']}"
+            for k, c in sorted(out.items())))
+    return out
+
+
 def phase_gf256(torch, dev, log) -> None:
     from ceph_tpu_torch.ec import matrices
     from ceph_tpu_torch.ec.codec import RSMatrixCodec
@@ -221,8 +287,57 @@ def phase_gf256(torch, dev, log) -> None:
     require(torch.equal(gf256.gf_matmul_bytes(mat, x),
                         gf256.gf_matmul_bytes_plain(mat, x)),
             "gf256 full width 8 x 1Mi")
+    checked += 2
+    # every row and column bucket edge of the kernel, random matrices: a
+    # 16-byte-aligned width, a ragged width (word-padded copy), a
+    # 4-byte-aligned row slice and an out= row slice of one batch, over
+    # both seeds and both doubling variants; a matrix past 16 x 16 runs
+    # as two launches
+    rng = np.random.default_rng(SEED)
+    edges = (1, 4, 5, 8, 9, 16, 17, 32)
+    for R in edges:
+        for k in edges:
+            mat = rng.integers(0, 256, (R, k), dtype=np.uint8)
+            nl = len(gf256.k1_operand(mat).blocks)
+            base = rand(k, 4 * 4099 + 16)
+            for what, x, seed, shift in (
+                    ("aligned", rand(k, 1 << 16), 0xA5A5A5A5, False),
+                    ("ragged", rand(k, 4099), 0, True),
+                    ("4-byte slice", base[:, 4:4 + 4 * 4099], 0xA5A5A5A5,
+                     True)):
+                before = gf256.launches.value
+                got = gf256.gf_matmul_bytes(mat, x, seed=seed,
+                                            mul_shift=shift)
+                require(gf256.launches.value - before == nl,
+                        f"gf256 {R}x{k} {what}: {nl} launch(es) counted")
+                require(torch.equal(got, gf256.gf_matmul_bytes_plain(
+                    mat, x, seed=seed)), f"gf256 {R}x{k} {what} "
+                    f"seed={seed:#x} mul_shift={shift}")
+                checked += 1
+            batch = rand(k + R, 4 * 4099)  # rows 4-byte aligned, not 16
+            want = gf256.gf_matmul_bytes_plain(mat, batch[:k], seed=7)
+            gf256.gf_matmul_bytes(mat, batch[:k], out=batch[k:], seed=7)
+            require(torch.equal(batch[k:], want),
+                    f"gf256 {R}x{k} into a row slice")
+            checked += 1
+    # donation: the main decode's shape, and the split 17 x 17 and 32 x 32
+    # (staged through a scratch output), at aligned and ragged widths
+    for d in (8, 17, 32):
+        mat = rng.integers(0, 256, (d, d), dtype=np.uint8)
+        for n in (1 << 16, 4 * 4099):
+            x = rand(d, n)
+            want = gf256.gf_matmul_bytes_plain(mat, x, seed=3)
+            ptr = x.data_ptr()
+            got = gf256.gf_matmul_bytes(mat, x, donate=True, seed=3,
+                                        mul_shift=n != 1 << 16)
+            require(got.data_ptr() == ptr and torch.equal(got, want),
+                    f"gf256 {d}x{d} donated in place n={n}")
+            checked += 1
     torch.cuda.synchronize()
-    log(f"gf256: {checked + 2} kernel calls bit-equal to the plain version")
+    log(f"gf256: {checked} kernel calls bit-equal to the plain version "
+        f"(every (R, k) bucket edge of {list(edges)}: aligned, ragged, "
+        "4-byte row slices and out= slices, both seeds and doubling "
+        "variants; donation at 8, 17 and 32)")
 
 
 def phase_gf2(torch, dev, log) -> None:
@@ -913,7 +1028,8 @@ def time_kernels(torch, dev, log, main: dict) -> list:
          "replaces": "ceph_tpu/ops/gf256_pallas.py:81",
          "launches": main["counts"]["gf256_matmul"], "max_abs_err": gf_err,
          "ms": gf_ms, "plain_ms": gf_plain_ms, "bound_ms": gf_bound,
-         "bound_by": gf_by, "library_ms": None, "call_ms": gf_call_ms},
+         "bound_by": gf_by, "library_ms": None, "call_ms": gf_call_ms,
+         "dec_ms": dec_ms, "dec_bound_ms": dec_bound},
         {"name": "crc32c_rows", "route": "cuda",
          "source": "ceph_tpu_torch/csrc/crc32c.cu",
          "replaces": "ceph_tpu/ops/crc32c_device.py:75",
@@ -943,6 +1059,7 @@ def main() -> int:
     _build.lib()
     log(f"build: kernels built in {_build.build_seconds:.1f} s "
         f"into {_build.BUILD_DIR}")
+    sass = k1_sass(log)
     phase_gf256(torch, dev, log)
     phase_crc(torch, dev, log)
     phase_gf2(torch, dev, log)
@@ -953,6 +1070,7 @@ def main() -> int:
     phase_lrc(torch, dev, log)
     eb_res = phase_ecbench(torch, dev, log)
     kernels = time_kernels(torch, dev, log, main_res)
+    kernels[0]["sass"] = sass
     kernels.append(time_gf2(torch, dev, log, bm_res))
     kernels.append(time_gf2_popcount(torch, dev, log, sh_res))
     kernels.append(time_gf256i(torch, dev, log, eb_res))

@@ -51,6 +51,58 @@ def test_gf256_kernel_donates_in_place(dev):
     assert got.data_ptr() == x.data_ptr() and torch.equal(got, want)
 
 
+K1_EDGES = [1, 4, 5, 8, 9, 16, 17, 32]
+
+
+@pytest.mark.parametrize("R", K1_EDGES)
+@pytest.mark.parametrize("k", K1_EDGES)
+def test_gf256_kernel_bucket_edges_both_alignments(dev, R, k):
+    """A random R x k matrix at every bucket edge: 16-byte-aligned rows, a
+    4-byte-aligned row slice and a ragged width (word-padded copy), both
+    seeds and both doubling variants; a matrix past 16 x 16 launches once
+    per row block, and the count says so."""
+    rng = np.random.default_rng(R * 64 + k)
+    mat = rng.integers(0, 256, (R, k), dtype=np.uint8)
+    g = torch.Generator(device=dev).manual_seed(R * 64 + k)
+    base = torch.randint(0, 256, (k, 4 * 5003 + 16), dtype=torch.uint8,
+                         device=dev, generator=g)
+    nl = len(gf256.k1_operand(mat).blocks)
+    assert nl == (2 if R > 16 and k > 16 else 1)
+    for x in (base[:, :4 * 5000], base[:, 4:4 + 4 * 5003],
+              base[:, 1:1 + 4099]):
+        for seed, shift in ((0, False), (0xA5A5A5A5, True)):
+            before = gf256.launches.value
+            got = gf256.gf_matmul_bytes(mat, x, seed=seed, mul_shift=shift)
+            assert gf256.launches.value == before + nl
+            assert torch.equal(got, gf256.gf_matmul_bytes_plain(
+                mat, x, seed=seed))
+
+
+@pytest.mark.parametrize("d", [8, 17, 32])
+@pytest.mark.parametrize("n", [1 << 16, 4 * 4099, 4099])
+def test_gf256_kernel_donates_at_every_split(dev, d, n):
+    mat = np.random.default_rng(d).integers(0, 256, (d, d), dtype=np.uint8)
+    x = torch.randint(0, 256, (d, n), dtype=torch.uint8, device=dev)
+    want = gf256.gf_matmul_bytes_plain(mat, x, seed=9)
+    ptr = x.data_ptr()
+    got = gf256.gf_matmul_bytes(mat, x, donate=True, seed=9)
+    assert got.data_ptr() == ptr and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("R,k", [(4, 8), (8, 8), (2, 17), (17, 17)])
+@pytest.mark.parametrize("n", [1 << 16, 4 * 4099])
+def test_gf256_kernel_into_out_row_slices(dev, R, k, n):
+    """The queue's layout: the product written into the rows below its
+    input in one batch (16-byte-aligned rows when n is, else 4-byte)."""
+    mat = np.random.default_rng(R + k).integers(0, 256, (R, k),
+                                                dtype=np.uint8)
+    full = torch.randint(0, 256, (k + R, n), dtype=torch.uint8, device=dev)
+    want = gf256.gf_matmul_bytes_plain(mat, full[:k])
+    ret = gf256.gf_matmul_bytes(mat, full[:k], out=full[k:])
+    assert ret.data_ptr() == full[k:].data_ptr()
+    assert torch.equal(full[k:], want)
+
+
 @pytest.mark.parametrize("profile", [
     "plugin=jerasure k=8 m=4 technique=cauchy_good",
     "plugin=jerasure k=7 m=2 technique=liberation w=7",

@@ -135,3 +135,77 @@ def test_cpu_path_launches_no_kernel():
     before = gf256.launches.value
     _port(matrices.isa_cauchy(4, 2), np.zeros((4, 64), np.uint8))
     assert gf256.launches.value == before
+
+
+# -- K1's host side: the expanded operand and the network the kernel runs --
+
+EDGES = [1, 4, 5, 8, 9, 16, 17, 32]  # the kernel's row and column buckets
+OPERAND_SEEDS = [0, 0xA5A5A5A5]
+
+
+def _ref_with_seed(mat, x, seed):
+    """The reference product of x with ``seed`` XOR'd into every word."""
+    words = np.ascontiguousarray(x).view(np.uint32) ^ np.uint32(seed)
+    return np.asarray(gf256_swar.gf_matmul_bytes(mat, words.view(np.uint8)))
+
+
+@pytest.mark.parametrize("R", EDGES)
+@pytest.mark.parametrize("k", EDGES)
+def test_operand_network_matches_swar_and_reference(R, k):
+    rng = np.random.default_rng(100 * R + k)
+    mat = rng.integers(0, 256, (R, k), dtype=np.uint8)
+    mat[0, 0] = 0xFF  # every doubling of column 0 and row 0 is live
+    x = _planes(rng, k, 64)
+    cols = [c for c in torch.from_numpy(x).view(torch.int32)]
+    op = gf256.k1_operand(mat)
+    for seed in OPERAND_SEEDS:
+        want = _ref_with_seed(mat, x, seed)
+        for mul_shift in (False, True):
+            got = torch.stack(gf256.operand_network(op, cols, seed,
+                                                    mul_shift))
+            swar = torch.stack(gf256.swar_network(mat, cols, seed,
+                                                  mul_shift))
+            assert torch.equal(got, swar)
+            assert np.array_equal(got.contiguous().view(torch.uint8).numpy(),
+                                  want)
+
+
+@pytest.mark.parametrize("R,k,blocks", [
+    (4, 8, [(0, 4)]), (8, 8, [(0, 8)]), (32, 16, [(0, 32)]),
+    (16, 32, [(0, 16)]), (17, 17, [(0, 16), (16, 1)]),
+    (32, 32, [(0, 16), (16, 16)])])
+def test_operand_layout_buckets_and_row_blocks(R, k, blocks):
+    rng = np.random.default_rng(R * k)
+    mat = rng.integers(0, 256, (R, k), dtype=np.uint8)
+    op = gf256.K1Operand(mat)
+    assert [(r0, rows) for r0, rows, _ in op.blocks] == blocks
+    for r0, rows, masks in op.blocks:
+        assert masks.dtype == np.uint32
+        assert masks.shape == (gf256.bucket(rows), 8, gf256.bucket(k))
+        # parameter space: every block fits the kernel's 32,764 bytes
+        assert masks.nbytes <= 16 * 32 * 32
+        assert set(np.unique(masks)) <= {0, 0xFFFFFFFF}
+        assert not masks[rows:].any() and not masks[:, :, k:].any()
+        for i in range(rows):
+            for j in range(k):
+                bits = [(int(mat[r0 + i, j]) >> (7 - s)) & 1
+                        for s in range(8)]
+                assert list(masks[i, :, j] != 0) == [bool(b) for b in bits]
+
+
+def test_operand_cache_returns_the_same_object_for_equal_matrices():
+    mat = matrices.isa_rs_vandermonde(8, 4)
+    op = gf256.k1_operand(mat)
+    assert gf256.k1_operand(mat.copy()) is op
+    assert gf256.k1_operand(mat.tolist()) is op
+    assert gf256.k1_operand(mat.astype(np.uint32)) is op
+    other = mat.copy()
+    other[0, 0] ^= 1
+    assert gf256.k1_operand(other) is not op
+    # same bytes, other shape: another operand
+    assert gf256.k1_operand(mat.reshape(8, 4)) is not op
+    rec, _ = RSMatrixCodec(8, 4, mat, device="cpu").recovery_matrix(
+        [0, 1, 2, 3, 4, 5, 8, 9])
+    assert gf256.k1_operand(rec) is gf256.k1_operand(rec.copy())
+    with pytest.raises(ValueError):
+        gf256.k1_operand(np.zeros((33, 4), np.uint8))
