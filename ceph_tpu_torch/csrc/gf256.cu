@@ -1,17 +1,24 @@
 // GF(2^8) coding-matrix product on Hopper: out[i] = XOR_j mat[i][j] * x[j].
 //
-// Two kernels:
+// One kernel, gf256_matmul_kernel, over two layouts of the same product:
 //
-// - gf256_matmul_kernel (K1) replaces the Pallas kernel
-//   ceph_tpu/ops/gf256_pallas.py:81 (_make_kernel), which
-//   ceph_tpu/ops/gf256_swar.py:157 (gf_matmul_bytes) reaches for every
-//   encode and every degraded-read decode.  Planar layout: k input rows
-//   of `words` uint32 words at a row pitch, R output rows likewise.
-// - gf256_interleaved_kernel (K2) replaces the Pallas kernel
+// - planar (K1) replaces the Pallas kernel ceph_tpu/ops/gf256_pallas.py:81
+//   (_make_kernel), which ceph_tpu/ops/gf256_swar.py:157
+//   (gf_matmul_bytes) reaches for every encode and every degraded-read
+//   decode: k input rows of `words` uint32 words at a row pitch, R output
+//   rows likewise;
+// - interleaved (K2) replaces the Pallas kernel
 //   ceph_tpu/ops/gf256_pallas.py:192 (_make_kernel_interleaved), the
-//   engine bench's interleaved layout: input u32 [T, k, 128] (row t holds
-//   its k lanes of 128 words contiguously, k*512 bytes), output u32
-//   [T, R, 128].
+//   engine bench's layout: input u32 [T, k, 128] (T-row t holds its k
+//   rows of 128 words contiguously, k*512 bytes), output u32 [T, R, 128].
+//   It is the planar body with another address: word w of the flat
+//   [0, T*128) range is lane w % 128 of T-row w / 128, input row j of
+//   that T-row starts at word (t*k + j)*128 and output row i at
+//   (t*R + i)*128.  A warp's 32 consecutive words lie in one T-row, so
+//   each row load and store is one coalesced 128-byte line.  The Pallas
+//   grid step (`tile` T-rows, a TPU VMEM block) means nothing here: the
+//   grid covers the T*128 words whatever the tile, which the wrapper
+//   still checks divides T, as the JAX entry does.
 //
 // Arithmetic: bytes stay packed four to a uint32 word (SWAR).  Doubling a
 // word multiplies each of its bytes by x in GF(2^8), poly 0x11d:
@@ -20,14 +27,12 @@
 // carry ^ carry<<2 ^ carry<<3 ^ carry<<4 (gf256_pallas.py:74-77); both give
 // the same bytes, so the flag is a tuning knob only.  A uint32 seed is
 // XOR'd into every loaded word (0 on the product path; the engine bench
-// passes the iteration index).  The matrix is a runtime operand in both
-// kernels: one build serves the encode matrix and every per-signature
-// recovery matrix.
+// passes the iteration index).  The matrix is a runtime operand: one
+// build serves the encode matrix and every per-signature recovery matrix.
 //
-// K1 (redesigned for the H100).  Its yardstick is the bytes, k*n read
-// and R*n written once, at 3.35 TB/s (chip_smoke.py's bound_ms); what
-// bounds it in fact is the network's instruction issue (the SASS counts
-// below).  Design:
+// Its yardstick is the bytes, k*n read and R*n written once, at 3.35 TB/s
+// (chip_smoke.py's bound_ms); what bounds it in fact is the network's
+// instruction issue (the SASS counts below).  Design:
 //
 // - Horner over the coefficient bits, one output row at a time:
 //     t = 0; for s in 0..7: t = double(t) (s > 0);
@@ -54,18 +59,20 @@
 //   (it runs other widths and row slices on a word-padded copy); any
 //   4-byte-aligned base and pitch, a row slice of a batch included,
 //   takes the same body.
-// - Donation: a thread loads all of its words of all k rows before it
-//   stores any, and writes only the columns it read, so out may be x
-//   when R == k.  No pointer is __restrict__ and no load takes the
-//   read-only path, which is undefined for memory the kernel writes.
+// - Donation (planar only): a thread loads all of its words of all k
+//   rows before it stores any, and writes only the columns it read, so
+//   out may be x when R == k.  No pointer is __restrict__ and no load
+//   takes the read-only path, which is undefined for memory the kernel
+//   writes.  The interleaved output must not overlap its input.
 // - Parameter space: the masks are 32*RB*KB bytes; CUDA 12.1+ takes up to
 //   32,764 bytes of parameters on sm_70 and up, so every bucket but
 //   32 x 32 fits.  A matrix with more than 16 rows and more than 16
 //   columns runs as row blocks of 16, one launch each (the wrapper
-//   splits, counts each launch, and stages a donated output through a
-//   scratch buffer, since the second block reads rows the first wrote).
+//   splits and counts each launch; a planar donated output goes through
+//   a scratch buffer, since the second block reads rows the first wrote;
+//   an interleaved launch writes its block's rows of every T-row).
 //
-// SASS of the main buckets (chip_smoke.py reads it from the built
+// SASS of the main planar buckets (chip_smoke.py reads it from the built
 // library with cuobjdump: sm_90a; 32 registers, no stack or local
 // memory): the 4 x 8 encode is 665 instructions per word column, 393 of
 // them on the INT32 pipe (320 LOP3: 256 accumulations, the rest
@@ -78,15 +85,7 @@
 // graph (NVIDIA H100 80GB HBM3, 700 W), about the first floor since
 // IMAD and the uniform loads issue to other pipes.  The network, not
 // the bytes (0.0038 and 0.0050 ms), is what bounds it on this card.
-//
-// K2 keeps its first column network (gf_column below): each thread owns one
-// word column of one T-row, doubles each input column up to
-// bit_length(OR of its coefficients) and XORs it into R accumulators.  A
-// block covers `tile` consecutive T-rows (the Pallas grid step);
-// threadIdx.x is the lane (128), threadIdx.y walks the tile's rows, so
-// each warp load and store is one coalesced 128-byte line.
 
-#include <climits>
 #include <cstdint>
 #include <cstring>
 #include <cuda_runtime.h>
@@ -94,7 +93,9 @@
 namespace {
 
 constexpr int kMaxDim = 32;  // isa allows k <= 32; a decode matrix is k x k
-constexpr int kLanes = 128;  // words per row of the planes layouts
+constexpr int kLanes = 128;  // words per row of a T-row (interleaved)
+constexpr int kThreads = 256;
+constexpr int kRowBlock = 16;  // rows per launch when R > 16 and k > 16
 
 template <bool kShift>
 __device__ __forceinline__ uint32_t gf_double(uint32_t v) {
@@ -105,12 +106,7 @@ __device__ __forceinline__ uint32_t gf_double(uint32_t v) {
   return ((v & 0x7F7F7F7Fu) << 1) ^ red;
 }
 
-// ---- K1 -------------------------------------------------------------------
-
-constexpr int kK1Threads = 256;
-constexpr int kK1RowBlock = 16;  // rows per launch when R > 16 and k > 16
-
-__host__ __device__ constexpr int k1_bucket(int n) {
+__host__ __device__ constexpr int bucket(int n) {
   return n <= 4 ? 4 : n <= 8 ? 8 : n <= 16 ? 16 : 32;
 }
 
@@ -134,24 +130,40 @@ row_network(const uint32_t (&in)[KB], const uint32_t (&mask)[8][KB]) {
   return t;
 }
 
-template <int RB, int KB, bool kShift>
-__global__ void __launch_bounds__(kK1Threads)
-gf256_matmul_kernel(const uint8_t* x, int64_t x_row_bytes, uint8_t* out,
-                    int64_t out_row_bytes, int64_t words, int k, int R,
+// Planar: row j is x + j * x_pitch and the thread's word is word w of
+// it.  Interleaved (kInter): x_pitch and out_pitch are the T-row pitches
+// (k*512 and R_total*512 bytes, out already at the launch's first row),
+// T-row w / 128 holds the thread's rows 512 bytes apart, and its word is
+// lane w % 128 of each.
+template <int RB, int KB, bool kShift, bool kInter>
+__global__ void __launch_bounds__(kThreads)
+gf256_matmul_kernel(const uint8_t* x, int64_t x_pitch, uint8_t* out,
+                    int64_t out_pitch, int64_t words, int k, int R,
                     uint32_t seed,
                     const __grid_constant__ K1Operand<RB, KB> op) {
+  static_assert(kLanes == 128, "w >> 7 and w & 127 below");
   const int64_t step = static_cast<int64_t>(gridDim.x) * blockDim.x;
   for (int64_t w = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                    threadIdx.x;
        w < words; w += step) {
+    const uint8_t* xw = x;
+    uint8_t* ow = out;
+    int64_t x_row = x_pitch, out_row = out_pitch, col = w;
+    if constexpr (kInter) {
+      const int64_t t = w >> 7;
+      xw += t * x_pitch;
+      ow += t * out_pitch;
+      x_row = out_row = kLanes * 4;
+      col = w & 127;
+    }
     uint32_t in[KB];
 #pragma unroll
     for (int j = 0; j < KB; ++j)
       in[j] = (j < k ? reinterpret_cast<const uint32_t*>(
-                           x + j * x_row_bytes)[w]
+                           xw + j * x_row)[col]
                      : 0u) ^ seed;
     auto emit = [&](int i) {
-      reinterpret_cast<uint32_t*>(out + i * out_row_bytes)[w] =
+      reinterpret_cast<uint32_t*>(ow + i * out_row)[col] =
           row_network<KB, kShift>(in, op.mask[i]);
     };
     if constexpr (RB <= 8) {
@@ -167,147 +179,67 @@ gf256_matmul_kernel(const uint8_t* x, int64_t x_row_bytes, uint8_t* out,
   }
 }
 
-template <int RB, int KB, bool kShift>
-int launch_k1(const uint8_t* x, int64_t xs, uint8_t* out, int64_t os,
-              int64_t words, int k, int R, uint32_t seed, const void* masks,
-              int64_t masks_bytes, cudaStream_t stream) {
-  if constexpr (RB * KB > kK1RowBlock * kMaxDim) {
+struct Launch {
+  const uint8_t* x;
+  int64_t x_pitch;
+  uint8_t* out;
+  int64_t out_pitch;
+  int64_t words;
+  int k, R;  // R: the rows of this launch
+  uint32_t seed;
+  const void* masks;
+  int64_t masks_bytes;
+  cudaStream_t stream;
+};
+
+template <int RB, int KB, bool kShift, bool kInter>
+int launch(const Launch& a) {
+  if constexpr (RB * KB > kRowBlock * kMaxDim) {
     return static_cast<int>(cudaErrorInvalidValue);  // 32 x 32: split rows
   } else {
-    if (masks_bytes != static_cast<int64_t>(sizeof(K1Operand<RB, KB>)))
+    if (a.masks_bytes != static_cast<int64_t>(sizeof(K1Operand<RB, KB>)))
       return static_cast<int>(cudaErrorInvalidValue);
     K1Operand<RB, KB> op;
-    std::memcpy(&op, masks, sizeof(op));
-    int64_t blocks = (words + kK1Threads - 1) / kK1Threads;
+    std::memcpy(&op, a.masks, sizeof(op));
+    int64_t blocks = (a.words + kThreads - 1) / kThreads;
     if (blocks > (1 << 20)) blocks = 1 << 20;  // grid-stride beyond this
-    gf256_matmul_kernel<RB, KB, kShift>
-        <<<static_cast<unsigned>(blocks), kK1Threads, 0, stream>>>(
-            x, xs, out, os, words, k, R, seed, op);
+    gf256_matmul_kernel<RB, KB, kShift, kInter>
+        <<<static_cast<unsigned>(blocks), kThreads, 0, a.stream>>>(
+            a.x, a.x_pitch, a.out, a.out_pitch, a.words, a.k, a.R, a.seed,
+            op);
     return static_cast<int>(cudaGetLastError());
   }
 }
 
-template <int RB, bool kShift>
-int launch_k1_rows(const uint8_t* x, int64_t xs, uint8_t* out, int64_t os,
-                   int64_t words, int k, int R, uint32_t seed,
-                   const void* masks, int64_t masks_bytes,
-                   cudaStream_t stream) {
-  switch (k1_bucket(k)) {
-    case 4:
-      return launch_k1<RB, 4, kShift>(x, xs, out, os, words, k, R, seed,
-                                      masks, masks_bytes, stream);
-    case 8:
-      return launch_k1<RB, 8, kShift>(x, xs, out, os, words, k, R, seed,
-                                      masks, masks_bytes, stream);
-    case 16:
-      return launch_k1<RB, 16, kShift>(x, xs, out, os, words, k, R, seed,
-                                       masks, masks_bytes, stream);
-    default:
-      return launch_k1<RB, 32, kShift>(x, xs, out, os, words, k, R, seed,
-                                       masks, masks_bytes, stream);
+template <int RB, bool kShift, bool kInter>
+int launch_rows(const Launch& a) {
+  switch (bucket(a.k)) {
+    case 4: return launch<RB, 4, kShift, kInter>(a);
+    case 8: return launch<RB, 8, kShift, kInter>(a);
+    case 16: return launch<RB, 16, kShift, kInter>(a);
+    default: return launch<RB, 32, kShift, kInter>(a);
   }
 }
 
-// ---- K2 -------------------------------------------------------------------
-
-struct GfMatrix {
-  uint8_t coef[kMaxDim][kMaxDim];  // [row i][column j]; rows >= R are zero
-  uint8_t max_bit[kMaxDim];        // doublings column j needs (>= 1)
-};
-
-// XOR mat[i][j] * p into acc[i] for every row i: the doubling network of
-// one input column.
-template <int RB, bool kShift>
-__device__ __forceinline__ void gf_column(uint32_t p, int j,
-                                          const GfMatrix& m,
-                                          uint32_t (&acc)[RB]) {
-  uint32_t c[RB];
-#pragma unroll
-  for (int i = 0; i < RB; ++i) c[i] = m.coef[i][j];
-  const int nb = m.max_bit[j];
-  for (int b = 0; b < nb; ++b) {
-    if (b > 0) p = gf_double<kShift>(p);
-#pragma unroll
-    for (int i = 0; i < RB; ++i)
-      if ((c[i] >> b) & 1u) acc[i] ^= p;
+template <bool kShift, bool kInter>
+int launch_bucket(const Launch& a) {
+  switch (bucket(a.R)) {
+    case 4: return launch_rows<4, kShift, kInter>(a);
+    case 8: return launch_rows<8, kShift, kInter>(a);
+    case 16: return launch_rows<16, kShift, kInter>(a);
+    default: return launch_rows<32, kShift, kInter>(a);
   }
 }
 
-// Rows per block step: 8 (1024 threads) for the small row buckets, 2 (256
-// threads) for RB = 32, whose accumulators and coefficients need more
-// registers than 1024 threads of a block can have.
-__host__ __device__ constexpr int max_rows_per_step(int rb) {
-  return rb <= 16 ? 8 : 2;
+template <bool kInter>
+int dispatch(const Launch& a, int mul_shift) {
+  if (a.k < 1 || a.k > kMaxDim || a.R < 1 || a.R > kMaxDim ||
+      (a.R > kRowBlock && a.k > kRowBlock))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (a.words <= 0) return static_cast<int>(cudaSuccess);
+  return mul_shift ? launch_bucket<true, kInter>(a)
+                   : launch_bucket<false, kInter>(a);
 }
-
-template <int RB, bool kShift>
-__global__ void __launch_bounds__(kLanes * max_rows_per_step(RB))
-gf256_interleaved_kernel(const uint32_t* __restrict__ x,
-                         uint32_t* __restrict__ out, int k, int R, int tile,
-                         uint32_t seed, const __grid_constant__ GfMatrix m) {
-  const int lane = threadIdx.x;
-  const int64_t t0 = static_cast<int64_t>(blockIdx.x) * tile;
-  for (int r = threadIdx.y; r < tile; r += blockDim.y) {
-    const int64_t t = t0 + r;
-    const uint32_t* xr = x + t * k * kLanes + lane;
-    uint32_t acc[RB];
-#pragma unroll
-    for (int i = 0; i < RB; ++i) acc[i] = 0u;
-    for (int j = 0; j < k; ++j)
-      gf_column<RB, kShift>(xr[j * kLanes] ^ seed, j, m, acc);
-    uint32_t* orow = out + t * R * kLanes + lane;
-#pragma unroll
-    for (int i = 0; i < RB; ++i)
-      if (i < R) orow[i * kLanes] = acc[i];
-  }
-}
-
-template <int RB, bool kShift>
-void launch_interleaved(const uint32_t* x, uint32_t* out, int64_t blocks,
-                        int k, int R, int tile, uint32_t seed,
-                        const GfMatrix& m, cudaStream_t stream) {
-  int rows = 1;  // the largest power of two <= the cap that divides tile
-  while (rows * 2 <= max_rows_per_step(RB) && tile % (rows * 2) == 0)
-    rows *= 2;
-  gf256_interleaved_kernel<RB, kShift>
-      <<<static_cast<unsigned>(blocks), dim3(kLanes, rows), 0, stream>>>(
-          x, out, k, R, tile, seed, m);
-}
-
-// K2's operand from a host R x k row-major matrix.
-GfMatrix make_matrix(const uint8_t* c, int k, int R) {
-  GfMatrix m = {};
-  for (int j = 0; j < k; ++j) {
-    unsigned need = 0;
-    for (int i = 0; i < R; ++i) {
-      m.coef[i][j] = c[i * k + j];
-      need |= c[i * k + j];
-    }
-    int bits = 0;
-    while (need) {
-      ++bits;
-      need >>= 1;
-    }
-    m.max_bit[j] = static_cast<uint8_t>(bits > 0 ? bits : 1);
-  }
-  return m;
-}
-
-// Instantiate F<RB, kShift> for R's row bucket and the doubling variant.
-#define GF256_DISPATCH(RET, F, R, SHIFT, ...)                   \
-  do {                                                          \
-    if (SHIFT) {                                                \
-      if ((R) <= 4) RET F<4, true>(__VA_ARGS__);                \
-      else if ((R) <= 8) RET F<8, true>(__VA_ARGS__);           \
-      else if ((R) <= 16) RET F<16, true>(__VA_ARGS__);         \
-      else RET F<32, true>(__VA_ARGS__);                        \
-    } else {                                                    \
-      if ((R) <= 4) RET F<4, false>(__VA_ARGS__);               \
-      else if ((R) <= 8) RET F<8, false>(__VA_ARGS__);          \
-      else if ((R) <= 16) RET F<16, false>(__VA_ARGS__);        \
-      else RET F<32, false>(__VA_ARGS__);                       \
-    }                                                           \
-  } while (0)
 
 }  // namespace
 
@@ -324,35 +256,32 @@ int gf256_matmul_launch(const void* x, int64_t x_row_bytes, void* out,
                         int64_t out_row_bytes, int64_t words, int k, int R,
                         uint32_t seed, const void* masks, int64_t masks_bytes,
                         int mul_shift, void* stream) {
-  if (k < 1 || k > kMaxDim || R < 1 || R > kMaxDim ||
-      (R > kK1RowBlock && k > kK1RowBlock) || x_row_bytes % 4 != 0 ||
-      out_row_bytes % 4 != 0)
+  if (x_row_bytes % 4 != 0 || out_row_bytes % 4 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (words <= 0) return static_cast<int>(cudaSuccess);
-  GF256_DISPATCH(return, launch_k1_rows, R, mul_shift,
-                 static_cast<const uint8_t*>(x), x_row_bytes,
-                 static_cast<uint8_t*>(out), out_row_bytes, words, k, R,
-                 seed, masks, masks_bytes,
-                 static_cast<cudaStream_t>(stream));
-  return static_cast<int>(cudaErrorInvalidValue);  // not reached
+  return dispatch<false>(
+      {static_cast<const uint8_t*>(x), x_row_bytes,
+       static_cast<uint8_t*>(out), out_row_bytes, words, k, R, seed, masks,
+       masks_bytes, static_cast<cudaStream_t>(stream)},
+      mul_shift);
 }
 
 // K2.  x: u32 [T, k, 128] contiguous; out: u32 [T, R, 128] contiguous,
-// not overlapping x; T % tile == 0; coef: host pointer to R*k bytes,
-// row-major.  Returns cudaGetLastError() after the launch.
+// not overlapping x.  One launch writes rows r0 .. r0 + rows - 1 of every
+// T-row; masks: the expanded operand of those rows, as for K1.  Returns
+// cudaGetLastError() after the launch.
 int gf256_interleaved_launch(const void* x, void* out, int64_t T, int k,
-                             int R, uint32_t seed, const void* coef,
-                             int tile, int mul_shift, void* stream) {
-  if (k < 1 || k > kMaxDim || R < 1 || R > kMaxDim || tile < 1 || T < 0 ||
-      T % tile != 0 || T / tile > INT_MAX)
+                             int R, int r0, int rows, uint32_t seed,
+                             const void* masks, int64_t masks_bytes,
+                             int mul_shift, void* stream) {
+  if (T < 0 || T > INT64_MAX / kLanes || R < 1 || R > kMaxDim || r0 < 0 ||
+      rows < 1 || r0 + rows > R)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (T == 0) return static_cast<int>(cudaSuccess);
-  const GfMatrix m = make_matrix(static_cast<const uint8_t*>(coef), k, R);
-  GF256_DISPATCH(, launch_interleaved, R, mul_shift,
-                 static_cast<const uint32_t*>(x), static_cast<uint32_t*>(out),
-                 T / tile, k, R, tile, seed, m,
-                 static_cast<cudaStream_t>(stream));
-  return static_cast<int>(cudaGetLastError());
+  constexpr int64_t row = kLanes * 4;
+  return dispatch<true>(
+      {static_cast<const uint8_t*>(x), k * row,
+       static_cast<uint8_t*>(out) + r0 * row, R * row, T * kLanes, k, rows,
+       seed, masks, masks_bytes, static_cast<cudaStream_t>(stream)},
+      mul_shift);
 }
 
 const char* kernels_error_string(int err) {

@@ -68,9 +68,10 @@ _SIGNATURES = {
     #  masks_bytes, mul_shift, stream)
     "gf256_matmul_launch": [_P, _I64, _P, _I64, _I64, _I32, _I32, _U32,
                             _P, _I64, _I32, _P],
-    # (x, out, T, k, R, seed, coef, tile, mul_shift, stream)
-    "gf256_interleaved_launch": [_P, _P, _I64, _I32, _I32, _U32, _P, _I32,
-                                 _I32, _P],
+    # (x, out, T, k, R, r0, rows, seed, masks, masks_bytes, mul_shift,
+    #  stream)
+    "gf256_interleaved_launch": [_P, _P, _I64, _I32, _I32, _I32, _I32,
+                                 _U32, _P, _I64, _I32, _P],
     # (base, row_stride, S, meta[3, J], J, partial, max_q, out, stream)
     "crc32c_rows_launch": [_P, _I64, _I32, _P, _I64, _P, _I64, _P, _P],
     # (x, x_row_bytes, out, out_row_bytes, offs, widths, J, w, K, R,

@@ -35,7 +35,7 @@ _LOW7 = 0x7F7F7F7F
 _ONES = 0x01010101
 _RED = 0x1D  # poly 0x11d reduction byte
 MAX_DIM = 32  # the kernel's row and column limit (csrc/gf256.cu kMaxDim)
-ROW_BLOCK = 16  # rows per launch when R and k both exceed it (kK1RowBlock)
+ROW_BLOCK = 16  # rows per launch when R and k both exceed it (kRowBlock)
 _OPERAND_CACHE_MAX = 4096
 _operands: dict = {}
 
@@ -113,12 +113,12 @@ def gf_matmul_bytes_plain(matrix, x: torch.Tensor,
 
 
 def bucket(n: int) -> int:
-    """The kernel's row or column bucket (csrc/gf256.cu k1_bucket)."""
+    """The kernel's row or column bucket (csrc/gf256.cu bucket)."""
     return 4 if n <= 4 else 8 if n <= 8 else 16 if n <= 16 else 32
 
 
 class K1Operand:
-    """A coefficient matrix as K1 consumes it.  ``blocks`` holds one
+    """A coefficient matrix as K1 and K2 consume it.  ``blocks`` holds one
     (first row, rows, masks) per launch: masks u32 [bucket(rows), 8,
     bucket(k)] with ``masks[i, s, j]`` = 0xFFFFFFFF when bit 7 - s of
     ``matrix[first + i, j]`` is set, else 0 (zero past the matrix).  A

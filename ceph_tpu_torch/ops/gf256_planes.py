@@ -10,7 +10,9 @@ bench's two layouts of the same product.
 - interleaved ``[T, k, 128]`` -> ``[T, R, 128]``
   (:func:`encode_planes_interleaved`): on a CUDA tensor it runs K2,
   ``gf256_interleaved_launch``, which replaces the Pallas kernel
-  ``gf256_pallas.py:192`` (counted in :data:`launches`).
+  ``gf256_pallas.py:192``: K1's body and operand (``gf256.k1_operand``)
+  with an interleaved index, one launch per row block of the operand,
+  each counted in :data:`launches`.
 
 On a CPU tensor each entry runs the same SWAR network as int32 tensor
 ops (``gf256.gf_matmul_bytes_plain`` for the planar entry); the plain
@@ -129,7 +131,10 @@ def encode_planes_interleaved(matrix, words3: torch.Tensor, seed: int = 0,
                               out: Optional[torch.Tensor] = None
                               ) -> torch.Tensor:
     """Apply the (R x k) GF(2^8) matrix to interleaved planes
-    [T, k, 128] -> [T, R, 128] words on ``words3``'s device."""
+    [T, k, 128] -> [T, R, 128] words on ``words3``'s device.  ``tile``
+    is checked to divide T, as the JAX entry's grid step must; the
+    kernel's grid does not depend on it.  ``out`` must not overlap the
+    input."""
     mat = gf256._as_matrix(matrix)
     w = _words(words3, "planes")
     T, k = _check(mat, w, 1, tile)
@@ -141,19 +146,19 @@ def encode_planes_interleaved(matrix, words3: torch.Tensor, seed: int = 0,
     if w.device.type != "cuda":
         raise ValueError(f"encode_planes_interleaved runs on cuda or cpu, "
                          f"not {w.device}")
-    if k > gf256.MAX_DIM or R > gf256.MAX_DIM:
-        raise ValueError(f"gf256 kernel takes k, R <= {gf256.MAX_DIM}, got "
-                         f"{R}x{k}")
+    op = gf256.k1_operand(mat)
     x = w.contiguous()
-    if out.data_ptr() == x.data_ptr():
+    xs, os_ = x.data_ptr(), out.data_ptr()
+    if xs < os_ + 4 * out.numel() and os_ < xs + 4 * x.numel():
         raise ValueError("the interleaved product cannot write over its "
                          "input")
-    err = _build.lib().gf256_interleaved_launch(
-        x.data_ptr(), out.data_ptr(), T, k, R, int(seed) & 0xFFFFFFFF,
-        mat.ctypes.data, int(tile), int(mul_shift),
-        torch.cuda.current_stream(x.device).cuda_stream)
-    launches.inc()
-    _build.check(err, "gf256_interleaved")
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    for r0, rows, masks in op.blocks:
+        err = _build.lib().gf256_interleaved_launch(
+            xs, os_, T, k, R, r0, rows, int(seed) & 0xFFFFFFFF,
+            masks.ctypes.data, masks.nbytes, int(mul_shift), stream)
+        launches.inc()
+        _build.check(err, "gf256_interleaved")
     return out
 
 

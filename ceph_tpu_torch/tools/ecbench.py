@@ -14,10 +14,14 @@ the same thing it keeps its name.  Sections, in order:
    over ``mix32.mix_np`` data; a pin that fails raises;
 2. autotune at T = 4096 (16 MiB) over {planar, inter} x tiles {128, 256,
    512, 1024} x mul_shift {False, True}; every variant must build and
-   run (a failure raises).  The planar entry launches K1, whose grid
-   does not depend on the tile, so its tile variants are one kernel
-   timed several times.  ``xla_swar`` (the XLA graph engine) has no
-   counterpart on the card and is recorded as such;
+   run (a failure raises).  Neither layout's grid depends on the tile
+   on the card: the planar entry launches K1 and the interleaved one K2,
+   which is K1's body with an interleaved index, each over one word per
+   thread whatever the tile, so each layout's tile variants are one
+   kernel timed several times (the sweep is kept: it is the JAX bench's
+   surface, where the tile is the Pallas grid step).  ``xla_swar`` (the
+   XLA graph engine) has no counterpart on the card and is recorded as
+   such;
 3. encode and decode sweeps at 1, 4, 16, 64 and 256 MiB, each layout
    with its best variant (so K1 and K2 are both timed at every size;
    the winner's rates carry the JAX keys), decode through the recovery

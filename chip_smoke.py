@@ -29,12 +29,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
               3-job packet batches of unequal odd widths for the encode and
               decode operands of five techniques (w 4, 6, 7, 8) and for
               shec's, one full-width coalesced batch;
-5. gf256i     the interleaved GF(2^8) kernel (K2) against its plain
-              version, bit for bit: (R, k) in {(4, 8), (2, 4), (3, 3), (8,
-              8) recovery} at T in {128, 4096} over every tile that
-              divides T and both doubling variants, and k=8 at T = 65536
-              (256 MiB); the planar planes entry (K1) likewise, and the
-              two layouts against each other through a transpose;
+5. gf256i     the interleaved GF(2^8) kernel (K2, K1's body and operand
+              with an interleaved index) against its plain version, bit
+              for bit: (R, k) in {(4, 8), (2, 4), (3, 3), (8, 8)
+              recovery} at T in {128, 4096} over every tile that divides
+              T and both doubling variants, and k=8 at T = 65536 (256
+              MiB); then every (R, k) bucket edge in {1, 4, 5, 8, 9, 16,
+              17, 32}^2 at T 257 and 4096, both seeds and both doubling
+              variants, the launch count moving by the operand's row
+              blocks (two past 16 x 16); the planar planes entry (K1)
+              likewise, and the two layouts through a transpose;
 6. main       ``isa reed_sol_van k=8 m=4`` with a 1 MiB stripe (chunk 128
               KiB): 256 seeded 4 MiB objects (1 GiB) written from 8
               threads through ``StripeBatchQueue.encode_crc_async``
@@ -64,9 +68,10 @@ half must have run (for ecbench, K2 and K1: its loops capture one launch
 per iteration in a CUDA graph and replay it, and the counts are of the
 captured launches).  Then each kernel is timed at its path's batch
 shape, beside its plain version and its bound: ``ms`` is device time per
-launch from a CUDA graph of launches (K2: CUDA events over eager calls,
-as its 16 MiB launch outlasts the call), ``call_ms`` the eager wrapper
-call with CUDA events.  Output, every number beside the card's
+launch from a CUDA graph of launches, ``call_ms`` the eager wrapper call
+with CUDA events.  The K1 and K2 rows carry ``sass``: registers,
+stack/local bytes and SASS counts of their main instantiations, read
+from the built library.  Output, every number beside the card's
 name and power limit: one line per phase, then the card line from
 nvidia-smi, then the kernel table as one JSON line, then the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
@@ -186,30 +191,35 @@ INT32_OPS = {"LOP3", "SHF", "IADD3", "ISETP", "LEA", "SEL", "PRMT", "IABS",
              "IMNMX", "POPC", "FLO", "BMSK", "PLOP3", "MOV"}
 
 
-def k1_sass(log) -> dict:
+def gf256_sass(log) -> dict:
     """Registers, local-memory bytes and static SASS instruction counts of
-    K1's main instantiations in the built library (the 4 x 8 encode and
-    8 x 8 decode buckets, plain doubling), read with cuobjdump.  A thread
-    owns one word column, so the kernel's count, prologue and guards
-    included, is its count per word column."""
+    the GF(2^8) kernel's main instantiations in the built library, read
+    with cuobjdump: K1's 4 x 8 encode and 8 x 8 decode buckets and K2's
+    interleaved 4 x 8, plain doubling.  A thread owns one word column,
+    so the kernel's count, prologue and guards included, is its count
+    per word column."""
     import re
 
     from ceph_tpu_torch.ops import _build
 
-    want = {(4, 8): "enc_4x8", (8, 8): "dec_8x8"}
-    name = re.compile(r"gf256_matmul_kernelILi(\d+)ELi(\d+)ELb0E")
+    want = {(4, 8, 0): "enc_4x8", (8, 8, 0): "dec_8x8",
+            (4, 8, 1): "inter_4x8"}
+    name = re.compile(r"gf256_matmul_kernelILi(\d+)ELi(\d+)ELb0ELb([01])E")
     tool, path = _build.cuda_bin("cuobjdump"), _build.lib()._name
 
     def dump(flag: str) -> str:
         return subprocess.run([tool, flag, path], capture_output=True,
                               text=True, timeout=300, check=True).stdout
 
+    def which(line: str):
+        f = name.search(line)
+        return want.get((int(f[1]), int(f[2]), int(f[3]))) if f else None
+
     out, cur = {}, None
     for line in dump("-res-usage").splitlines():
         m = re.search(r"Function (\S+):", line)
         if m:
-            f = name.search(m.group(1))
-            cur = want.get((int(f[1]), int(f[2]))) if f else None
+            cur = which(m.group(1))
             continue
         m = re.search(r"REG:(\d+) STACK:(\d+) .*LOCAL:(\d+)", line)
         if cur and m:
@@ -222,8 +232,7 @@ def k1_sass(log) -> dict:
     for line in dump("-sass").splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            f = name.search(m.group(1))
-            cur = want.get((int(f[1]), int(f[2]))) if f else None
+            cur = which(m.group(1))
             continue
         m = op.search(line) if cur in out else None
         if m and m[1] != "NOP":
@@ -233,9 +242,9 @@ def k1_sass(log) -> dict:
             c["lop3"] += m[1] == "LOP3"
     require(set(out) == set(want.values())
             and all(c["sass"] for c in out.values()),
-            f"cuobjdump found K1's main instantiations: {sorted(out)}")
-    log("gf256 K1 SASS per word column (registers, stack/local bytes, "
-        "instructions, INT32 pipe, LOP3): " + "; ".join(
+            f"cuobjdump found the main instantiations: {sorted(out)}")
+    log("gf256 K1 and K2 SASS per word column (registers, stack/local "
+        "bytes, instructions, INT32 pipe, LOP3): " + "; ".join(
             f"{k} {c['regs']} regs, {c['stack']}/{c['local']} B, "
             f"{c['sass']}, {c['int32']}, {c['lop3']}"
             for k, c in sorted(out.items())))
@@ -441,7 +450,7 @@ def phase_gf2(torch, dev, log) -> None:
 def phase_gf256i(torch, dev, log) -> None:
     from ceph_tpu_torch.ec import matrices
     from ceph_tpu_torch.ec.codec import RSMatrixCodec
-    from ceph_tpu_torch.ops import benchloop
+    from ceph_tpu_torch.ops import benchloop, gf256
     from ceph_tpu_torch.ops import gf256_planes as gp
 
     codec = RSMatrixCodec(8, 4, matrices.isa_cauchy(8, 4), device=dev)
@@ -476,6 +485,29 @@ def phase_gf256i(torch, dev, log) -> None:
                                  if T % t == 0])
     mat = matrices.isa_cauchy(8, 4)
     check("cauchy 4x8", mat, 65536, (128, 512, 1024))
+    # every row and column bucket edge, random matrices, both seeds and
+    # both doubling variants, at an odd T (the grid's last block half
+    # full) and at 16 MiB of k=8 rows; a matrix past 16 x 16 runs as row
+    # blocks of 16, one counted launch each
+    rng = np.random.default_rng(SEED + 8)
+    edges = (1, 4, 5, 8, 9, 16, 17, 32)
+    for R in edges:
+        for k in edges:
+            em = rng.integers(0, 256, (R, k), dtype=np.uint8)
+            nl = len(gf256.k1_operand(em).blocks)
+            for T, tile in ((257, 1), (4096, 512)):
+                w3 = benchloop.gen_planes(k, T, interleaved=True, device=dev)
+                for sd in (0, seed):
+                    want = gp.encode_planes_interleaved_plain(em, w3, sd)
+                    for ms in (False, True):
+                        before = gp.launches.value
+                        got = gp.encode_planes_interleaved(
+                            em, w3, sd, tile=tile, mul_shift=ms)
+                        require(gp.launches.value - before == nl,
+                                f"gf256i {R}x{k}: {nl} launch(es) counted")
+                        require(torch.equal(got, want), f"gf256i {R}x{k} "
+                                f"T={T} seed={sd:#x} mul_shift={ms}")
+                        checked += 1
     # the planar planes entry (K1) and the two layouts through a transpose
     w3 = benchloop.gen_planes(8, 4096, device=dev)
     want = gp.encode_planes_plain(mat, w3, seed)
@@ -490,8 +522,10 @@ def phase_gf256i(torch, dev, log) -> None:
     torch.cuda.synchronize()
     log(f"gf256i: {checked} K2 calls bit-equal to the plain version "
         "((4, 8), (2, 4), (3, 3), (8, 8) recovery at T 128 and 4096, every "
-        "tile, both doubling variants; k=8 at T=65536), the K1 planes "
-        "entry and the transpose agree")
+        "tile, both doubling variants; k=8 at T=65536; every (R, k) bucket "
+        f"edge of {list(edges)} at T 257 and 4096, both seeds and doubling "
+        "variants, one counted launch per row block), the K1 planes entry "
+        "and the transpose agree")
 
 
 def rows_plain(torch, full, offs, lens, inits):
@@ -845,7 +879,8 @@ def time_gf256i(torch, dev, log, eb: dict) -> dict:
         gp.encode_planes_interleaved(mat, bufs[i], 0, tile=tile,
                                      mul_shift=ms, out=outs[i])
 
-    ms_k = event_ms(torch, enc, 40)
+    ms_k = graph_ms(torch, enc)
+    call_ms = event_ms(torch, enc, 40)
     x = bufs[0]
     got = gp.encode_planes_interleaved(mat, x, 0, tile=tile, mul_shift=ms)
     want = gp.encode_planes_interleaved_plain(mat, x)
@@ -854,13 +889,15 @@ def time_gf256i(torch, dev, log, eb: dict) -> dict:
     plain_ms = event_ms(torch, lambda: gp.encode_planes_interleaved_plain(
         mat, x), 3, warmup=1)
     b_ms, b_by = bound((k + R) * T * 512, gf_ops(mat, T * 128))
-    log(f"gf256_interleaved at 16 MiB with {best}: {ms_k:.4f} ms")
+    log(f"gf256_interleaved at 16 MiB with {best}: {ms_k:.4f} ms, per "
+        f"eager call {call_ms:.4f} ms")
     return {"name": "gf256_interleaved", "route": "cuda",
             "source": "ceph_tpu_torch/csrc/gf256.cu",
             "replaces": "ceph_tpu/ops/gf256_pallas.py:192",
             "launches": eb["counts"]["gf256_interleaved"],
             "max_abs_err": err, "ms": ms_k, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "call_ms": call_ms}
 
 
 def time_gf2(torch, dev, log, bm: dict) -> dict:
@@ -1059,7 +1096,7 @@ def main() -> int:
     _build.lib()
     log(f"build: kernels built in {_build.build_seconds:.1f} s "
         f"into {_build.BUILD_DIR}")
-    sass = k1_sass(log)
+    sass = gf256_sass(log)
     phase_gf256(torch, dev, log)
     phase_crc(torch, dev, log)
     phase_gf2(torch, dev, log)
@@ -1070,10 +1107,11 @@ def main() -> int:
     phase_lrc(torch, dev, log)
     eb_res = phase_ecbench(torch, dev, log)
     kernels = time_kernels(torch, dev, log, main_res)
-    kernels[0]["sass"] = sass
+    kernels[0]["sass"] = {n: sass[n] for n in ("enc_4x8", "dec_8x8")}
     kernels.append(time_gf2(torch, dev, log, bm_res))
     kernels.append(time_gf2_popcount(torch, dev, log, sh_res))
     kernels.append(time_gf256i(torch, dev, log, eb_res))
+    kernels[-1]["sass"] = {"inter_4x8": sass["inter_4x8"]}
     for kr in kernels:
         log(f"{kr['name']}: {kr['ms']:.4f} ms, plain {kr['plain_ms']:.3f} "
             f"ms, bound {kr['bound_ms']:.4f} ms ({kr['bound_by']}), "

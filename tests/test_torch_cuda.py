@@ -306,6 +306,37 @@ def test_gf256_interleaved_kernel_equals_plain(dev, k, m, T):
             assert torch.equal(got, want), (tile, ms)
 
 
+@pytest.mark.parametrize("R", K1_EDGES)
+@pytest.mark.parametrize("k", K1_EDGES)
+def test_gf256_interleaved_kernel_bucket_edges(dev, R, k):
+    """K2 on K1's operand at every bucket edge: an odd T (the grid's last
+    block half full) and T = 4096, both seeds and both doubling variants;
+    a matrix past 16 x 16 launches once per row block of 16, each
+    writing its rows of every T-row, and the count says so."""
+    rng = np.random.default_rng(R * 64 + k + 7)
+    mat = rng.integers(0, 256, (R, k), dtype=np.uint8)
+    nl = len(gf256.k1_operand(mat).blocks)
+    assert nl == (2 if R > 16 and k > 16 else 1)
+    for T, tile in ((257, 1), (4096, 512)):
+        w3 = benchloop.gen_planes(k, T, interleaved=True, device=dev)
+        for seed in (0, 0xA5A5A5A5):
+            want = gf256_planes.encode_planes_interleaved_plain(mat, w3,
+                                                                seed)
+            for ms in (False, True):
+                before = gf256_planes.launches.value
+                got = gf256_planes.encode_planes_interleaved(
+                    mat, w3, seed, tile=tile, mul_shift=ms)
+                assert gf256_planes.launches.value == before + nl
+                assert torch.equal(got, want), (T, seed, ms)
+
+
+def test_gf256_interleaved_kernel_refuses_an_overlapping_output(dev):
+    coding = matrices.isa_cauchy(4, 4)
+    w3 = benchloop.gen_planes(4, 128, interleaved=True, device=dev)
+    with pytest.raises(ValueError, match="write over its input"):
+        gf256_planes.encode_planes_interleaved(coding, w3, tile=128, out=w3)
+
+
 def test_gf256_planar_planes_entry_equals_plain(dev):
     coding = matrices.isa_cauchy(8, 4)
     w3 = benchloop.gen_planes(8, 4096, device=dev)

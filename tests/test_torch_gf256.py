@@ -173,7 +173,8 @@ def test_operand_network_matches_swar_and_reference(R, k):
 @pytest.mark.parametrize("R,k,blocks", [
     (4, 8, [(0, 4)]), (8, 8, [(0, 8)]), (32, 16, [(0, 32)]),
     (16, 32, [(0, 16)]), (17, 17, [(0, 16), (16, 1)]),
-    (32, 32, [(0, 16), (16, 16)])])
+    (32, 32, [(0, 16), (16, 16)]), (17, 32, [(0, 16), (16, 1)]),
+    (32, 17, [(0, 16), (16, 16)])])
 def test_operand_layout_buckets_and_row_blocks(R, k, blocks):
     rng = np.random.default_rng(R * k)
     mat = rng.integers(0, 256, (R, k), dtype=np.uint8)

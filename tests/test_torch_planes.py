@@ -8,6 +8,8 @@ kernels (K1's planes entry, K2) are held against those same plain
 versions on the card (tests/test_torch_cuda.py, chip_smoke.py).
 Tolerance: none, every word equal."""
 
+from types import SimpleNamespace
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -16,8 +18,9 @@ import torch
 from ceph_tpu._native import rs_encode
 from ceph_tpu.ec import matrices as ref_matrices
 from ceph_tpu.ec.codec import RSMatrixCodec as RefCodec
-from ceph_tpu.ops import gf256_pallas
+from ceph_tpu.ops import gf256_pallas, gf256_swar
 from ceph_tpu_torch.ec import matrices
+from ceph_tpu_torch.ops import gf256
 from ceph_tpu_torch.ops import gf256_planes as gp
 
 SHAPES = [(8, 4), (4, 2), (3, 3)]
@@ -60,6 +63,82 @@ def test_interleaved_matches_pallas_interpret(k, m, seed, mul_shift):
                                        mul_shift=mul_shift)
     assert got.shape == (T, m, gp.LANES) and got.dtype == torch.int32
     assert np.array_equal(_u32(got), want)
+
+
+# K2's row and column buckets (those of K1's operand, gf256.bucket): the
+# edges of each bucket, 17 x 17 and 32 x 32 split into row blocks of 16
+EDGES = [1, 4, 5, 8, 9, 16, 17, 32]
+EDGE_PAIRS = [(1, 1), (4, 8), (8, 4), (5, 5), (9, 9), (16, 16), (17, 17),
+              (32, 32), (1, 32), (32, 1), (17, 5), (5, 17)]
+
+
+def _edge_case(R, k, T=T):
+    """A random R x k matrix with every doubling live, interleaved words
+    [T, k, 128] and a nonzero seed, all from one numpy seed."""
+    rng = np.random.default_rng(1000 * R + k)
+    mat = rng.integers(0, 256, (R, k), dtype=np.uint8)
+    mat[0, 0] = 0xFF
+    words = rng.integers(0, 1 << 32, (T, k, gp.LANES), dtype=np.uint32)
+    seed = (0xA5A5A5A5, 0x80000001)[(R + k) % 2]
+    return mat, words, seed
+
+
+def _ref_interleaved(mat, words, seed):
+    """The reference dispatcher's product of interleaved words with
+    ``seed`` XOR'd into each: planar bytes through gf256_swar, back to
+    [T, R, 128] words."""
+    planar = _inter(words ^ np.uint32(seed))
+    x = np.ascontiguousarray(planar).view(np.uint8).reshape(planar.shape[0],
+                                                            -1)
+    out = np.asarray(gf256_swar.gf_matmul_bytes(mat, x))
+    return _inter(np.ascontiguousarray(out).view(np.uint32).reshape(
+        mat.shape[0], words.shape[0], gp.LANES))
+
+
+@pytest.mark.parametrize("R,k", EDGE_PAIRS)
+def test_interleaved_bucket_edges_match_pallas_interpret(R, k):
+    mat, words, seed = _edge_case(R, k)
+    mul_shift = bool(R % 2)
+    want = np.asarray(gf256_pallas.encode_planes_interleaved(
+        mat, words, _ref_seed(seed), tile=T, interpret=True,
+        mul_shift=mul_shift))
+    got = gp.encode_planes_interleaved(mat, _t(words), seed, tile=T,
+                                       mul_shift=mul_shift)
+    assert got.shape == (T, R, gp.LANES)
+    assert np.array_equal(_u32(got), want)
+
+
+@pytest.mark.parametrize("R", EDGES)
+@pytest.mark.parametrize("k", EDGES)
+def test_interleaved_bucket_edges_match_reference(R, k):
+    mat, words, seed = _edge_case(R, k)
+    want = _ref_interleaved(mat, words, seed)
+    for mul_shift in (False, True):
+        got = gp.encode_planes_interleaved(mat, _t(words), seed, tile=4,
+                                           mul_shift=mul_shift)
+        assert np.array_equal(_u32(got), want)
+
+
+@pytest.mark.parametrize("R,k", [(32, 32), (17, 17), (32, 16), (8, 4)])
+def test_operand_row_blocks_over_interleaved_columns_match_reference(R, k):
+    """K2's split as the kernel takes it: each row block of K1's operand,
+    applied by ``operand_network`` over the interleaved columns
+    w[:, j, :] and written to its rows of every T-row, gives the
+    reference's bytes (17 x 17 and 32 x 32 are two blocks)."""
+    mat, words, seed = _edge_case(R, k)
+    op = gf256.k1_operand(mat)
+    assert len(op.blocks) == (2 if R > 16 and k > 16 else 1)
+    w = _t(words)
+    cols = [w[:, j, :] for j in range(k)]
+    want = _ref_interleaved(mat, words, seed)
+    for mul_shift in (False, True):
+        out = torch.zeros((T, R, gp.LANES), dtype=torch.int32)
+        for r0, rows, masks in op.blocks:
+            block = SimpleNamespace(k=op.k, blocks=[(r0, rows, masks)])
+            res = gf256.operand_network(block, cols, seed, mul_shift)
+            assert len(res) == rows
+            out[:, r0:r0 + rows, :] = torch.stack(res, dim=1)
+        assert np.array_equal(_u32(out), want)
 
 
 @pytest.mark.parametrize("k,m", SHAPES)
