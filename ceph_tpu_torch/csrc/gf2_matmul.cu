@@ -9,7 +9,7 @@
 //   multiply by mbits accumulating in int32, keep the low bit, and pack
 //   each group of 8 planes back into a byte row: out [R, n].
 // Each output bit is therefore the parity of (row of mbits) AND (the 8K
-// bits of one column), which this kernel takes as __popc(mask & col) & 1.
+// bits of one column: the low bit of popc(mask row & column bits).
 //
 // Batched packet entry.  A bit-matrix codec splits each chunk row of a
 // job into w packets of width/w bytes and applies the matrix to the
@@ -27,30 +27,57 @@
 // bit-matrix encode and decode; gf2_matmul_kernel, the popcount form, for
 // every other operand (shec's decode).
 //
-// Popcount design.  The matrix is a runtime operand, not a compile-time
-// constant: one build serves the encode matrix and every survivor-signature
-// recovery matrix.  The host packs each of the 8R rows of mbits into KW
-// u32 masks (bit i of word q = column 32q+i); a block copies them into
-// shared memory (16 KiB for the cauchy_good k=8 m=4 encode [256, 512],
-// 32 KiB for its decode [512, 512]).  A thread owns four neighbouring
-// columns: it reads its K input bytes per column (one 4-byte load per
-// row where aligned), byte-transposes them with __byte_perm so column c's
-// 8K bits sit in KW registers col[c][0..KW), and then for each output bit
-// XORs (mask & col) over the KW words and takes the parity.  The mask
-// words are read from shared memory as 16-byte broadcasts and each is
-// used for four columns.  The bit-planes never touch device memory: the
-// kernel reads K bytes and writes R bytes per column, as the Pallas
-// kernel did in VMEM.  The kernel is templated on the KW bucket (4, 8,
-// 16, 32 words, i.e. K <= 16, 32, 64, 128) so the columns stay in
-// registers.  A thread reads all its input before it writes, so the
-// output may alias the input when R == K.
+// Popcount design: the binary tensor-core product.  Each output bit is
+// the parity of popc(mask row & column bits), which is what
+// mma.sync.m16n8k256.row.col.s32.b1.b1.s32.and.popc computes for a
+// 16 x 8 tile at once over 256 k-bits (BMMA.168256.AND.POPC in SASS,
+// issued at the rate of the int8 IMMA.16832 on an H100, so 8x its bit
+// products).  Roles: the data is A, one fragment row per byte column (M =
+// 16 columns a tile); the matrix is B, its 8 columns the 8 bits of one
+// output byte row (N = 8); k runs over the 8K bit-planes, 256 a step
+// (K <= 32, 64, 128 input rows take 1, 2, 4 steps).  With K <= 16 (both
+// of shec's read operands) only the first 128 k-bits carry data, and the
+// kernel takes the m16n8k128 form over a0, a1 and b0 (BMMA.168128: 16
+// cycles of dependent latency against 25).  The matrix is a runtime
+// operand, not a compile-time constant: one build serves the encode
+// matrix and every survivor-signature recovery matrix.
 //
-// Bound on an H100: per column it does 8R * KW AND/XOR pairs and 8R
-// popcounts against K + R bytes of traffic (cauchy_good k=8 m=4 encode:
-// 4096 logic ops for 96 bytes), so it is bound by integer operations,
-// not by HBM.  The Hopper route to its tensor-core bound is the binary
-// mma.sync (.b1.and.popc) or an int8 wgmma; this first version is the
-// plain popcount form.
+// Operands.  Word q of a column's k-bits holds input rows 4q..4q+3, bit
+// 8r+b = bit b of row 4q+r; word q of mask row 8i+b holds mbits columns
+// 32q..32q+31 of that row.  Lane (g = lane>>2, t = lane&3) of an mma owns
+// k-words t and t+4 of A rows g and g+8 and of B column g, and the sums
+// of rows {g, g+8} x columns {2t, 2t+1}.  The host lays the mask words out
+// in exactly that order (ops/gf2_matmul.py mma_fragments: per output row
+// and step, one uint2 a lane), and each lane reads its own from device
+// memory (every warp reads the same few hundred bytes, which stay in L1).
+// For A, lane (g, t) loads input rows 4t..4t+3 and 16+4t..19+4t of the
+// step at its own 4*CW-byte column chunk (CW = 4 / STEPS words; 16, 8
+// or 4 bytes), one vector load per row, every load of the tile in flight
+// before the first mma, lanes past K loading nothing.  The 4x4
+// __byte_perm transpose turns each loaded word into k-word t of four
+// neighbouring columns, and those four are A rows g and g+8 of two M
+// tiles: tile m stands for columns 2m (row g) and 2m+1 (row g+8) of
+// every group's chunk.  So a warp tile covers 32*CW columns in 2*CW M
+// tiles, holds its A fragments for all steps in 32 registers, and runs,
+// per output row, 2*CW*STEPS mma against that row's B fragments.
+//
+// Epilogue.  A lane's sums are bits 2t and 2t+1 of the output bytes of
+// columns 2m and 2m+1.  It takes their low bits into CW words (byte c of
+// word w = column 4w+c of its group's chunk), the quad exchanges them
+// with two __shfl_xor_sync steps so that lane t holds word t (or, for CW
+// < 4, the word it stores), and each lane stores one 4-byte word: a warp
+// writes 32*CW contiguous bytes of an output row.  Output does not touch
+// shared memory.  A warp reads every input row of its columns before it
+// writes any, and no other warp touches them, so the output may alias
+// the input when R == K.  A tile wholly inside an aligned job loads and
+// stores without per-row checks; ragged widths and unaligned rows take
+// load4 / store4's byte-wise edge.
+//
+// Bound on an H100: bytes.  The shec read's [24, 64] operand on [8, 512
+// Ki] moves 5.8 MB (1.7 us at 3.35 TB/s).  What sets its time instead is
+// issue: per output row a warp tile issues 8 BMMA and about 60 other
+// instructions (the parity gather, the quad exchange, the store), so each
+// row of R costs about as much as the bytes of the whole tile (PERF.md).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -58,9 +85,12 @@
 namespace {
 
 constexpr int kThreads = 128;
+constexpr int kWarps = kThreads / 32;
 constexpr int kMaxJobs = 240;  // keeps the argument block under 4 KiB
 constexpr int kMaxBlocksX = 2048;
 constexpr int kMaxSmem = 232448;  // 227 KiB: an H100 block's opt-in limit
+constexpr int kDefaultSmem = 49152;  // without the opt-in
+constexpr unsigned kFull = 0xffffffffu;
 
 struct Jobs {
   int64_t off[kMaxJobs];    // first column of job j in the batch
@@ -89,78 +119,193 @@ __device__ __forceinline__ void store4(uint8_t* p, int64_t avail,
     if (c < avail) p[c] = static_cast<uint8_t>(v >> (8 * c));
 }
 
-template <int KW>
-__global__ void __launch_bounds__(kThreads)
+// CW little-endian words at p: one vector load when the chunk is whole
+// and aligned (kWhole), else word by word, bytes below `avail` only.
+template <int CW, bool kWhole>
+__device__ __forceinline__ void load_words(const uint8_t* p, int64_t avail,
+                                           uint32_t (&v)[CW]) {
+  if constexpr (kWhole) {
+    if constexpr (CW == 4) {
+      const uint4 u = *reinterpret_cast<const uint4*>(p);
+      v[0] = u.x, v[1] = u.y, v[2] = u.z, v[3] = u.w;
+    } else if constexpr (CW == 2) {
+      const uint2 u = *reinterpret_cast<const uint2*>(p);
+      v[0] = u.x, v[1] = u.y;
+    } else {
+      v[0] = *reinterpret_cast<const uint32_t*>(p);
+    }
+  } else {
+#pragma unroll
+    for (int c = 0; c < CW; ++c) v[c] = load4(p + 4 * c, avail - 4 * c);
+  }
+}
+
+// A lane's input rows 32s + 16h + 4t + r of one warp tile at its column
+// chunk c0, zero past K (a half-step wholly past K is skipped, a branch
+// the warp takes together).
+template <int STEPS, int CW, bool kWhole>
+__device__ __forceinline__ void load_rows(uint32_t (&v)[STEPS][2][4][CW],
+                                          const uint8_t* x,
+                                          const int64_t* in_row, int64_t c0,
+                                          int64_t avail, int K, int t) {
+#pragma unroll
+  for (int s = 0; s < STEPS; ++s) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int L = 32 * s + 16 * h + 4 * t + r;
+        if (32 * s + 16 * h < K && L < K) {
+          load_words<CW, kWhole>(x + in_row[L] + c0, avail, v[s][h][r]);
+        } else {
+#pragma unroll
+          for (int c = 0; c < CW; ++c) v[s][h][r][c] = 0u;
+        }
+      }
+    }
+  }
+}
+
+// d += popc(A & B) over 128 k-bits (a0, a1, b0 of the layout above): the
+// first half of a step, all there is when K <= 16.
+__device__ __forceinline__ void bmma_half(uint32_t (&d)[4],
+                                          const uint32_t (&a)[4], uint2 b) {
+  asm("mma.sync.aligned.m16n8k128.row.col.s32.b1.b1.s32.and.popc "
+      "{%0,%1,%2,%3}, {%4,%5}, {%6}, {%0,%1,%2,%3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(b.x));
+}
+
+// d += popc(A & B) over 256 k-bits for a 16 x 8 tile (see the layout above).
+__device__ __forceinline__ void bmma(uint32_t (&d)[4], const uint32_t (&a)[4],
+                                     uint2 b) {
+  asm("mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32.and.popc "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b.x), "r"(b.y));
+}
+
+// The low bits of two tiles' sums as one output word of the lane's quad:
+// byte c is column 4w+c (tile lo: columns 4w, 4w+1; tile hi: 4w+2, 4w+3),
+// bits 2t and 2t+1 set from this lane's output bits.
+__device__ __forceinline__ uint32_t parity_word(const uint32_t (&lo)[4],
+                                                const uint32_t (&hi)[4],
+                                                int t) {
+  const uint32_t e = __byte_perm(__byte_perm(lo[0], lo[2], 0x40),
+                                 __byte_perm(hi[0], hi[2], 0x40), 0x5410);
+  const uint32_t o = __byte_perm(__byte_perm(lo[1], lo[3], 0x40),
+                                 __byte_perm(hi[1], hi[3], 0x40), 0x5410);
+  return ((e & 0x01010101u) | ((o & 0x01010101u) << 1)) << (2 * t);
+}
+
+template <int STEPS, bool kHalf>
+__global__ void __launch_bounds__(kThreads, 8)
 gf2_matmul_kernel(const uint8_t* x, int64_t x_row_bytes, uint8_t* out,
                   int64_t out_row_bytes, int w, int K, int R,
-                  const uint32_t* __restrict__ masks,
+                  const uint2* __restrict__ frags,
                   const __grid_constant__ Jobs jobs) {
-  extern __shared__ __align__(16) uint32_t smem[];
-  const int R8 = 8 * R;
-  uint32_t* sm_mask = smem;                                       // [R8][KW]
-  int64_t* in_row = reinterpret_cast<int64_t*>(smem + R8 * KW);  // [K]
-  int64_t* out_row = in_row + K;                                  // [R]
+  constexpr int CW = 4 / STEPS;  // 4-column words a lane loads per row
+  constexpr int TILES = 2 * CW;  // M tiles of a warp
+  constexpr int WARP_COLS = 32 * CW;
+  extern __shared__ int64_t rows[];
+  int64_t* in_row = rows;        // [K]
+  int64_t* out_row = rows + K;   // [R]
   const int j = blockIdx.y;
   const int64_t off = jobs.off[j];
-  const int64_t ps = jobs.width[j] / w;
-  for (int i = threadIdx.x; i < R8 * KW; i += blockDim.x)
-    sm_mask[i] = masks[i];
+  const int64_t ps = w == 1 ? jobs.width[j] : jobs.width[j] / w;
   for (int L = threadIdx.x; L < K; L += blockDim.x)
     in_row[L] = (L / w) * x_row_bytes + off + (L % w) * ps;
   for (int L = threadIdx.x; L < R; L += blockDim.x)
     out_row[L] = (L / w) * out_row_bytes + off + (L % w) * ps;
   __syncthreads();
 
-  const int64_t step = 4LL * gridDim.x * blockDim.x;
-  for (int64_t t = 4LL * (static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                          threadIdx.x);
-       t < ps; t += step) {
-    const int64_t avail = ps - t;
-    uint32_t col[4][KW];
+  const int lane = threadIdx.x & 31;
+  const int t = lane & 3;
+  // every chunk a lane loads or stores starts 4*CW-aligned, so a warp
+  // tile inside the job takes no per-row edge checks
+  const bool aligned =
+      ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(out) |
+        static_cast<uint64_t>(x_row_bytes | out_row_bytes | off |
+                              (w > 1 ? ps : 0))) &
+       (4u * CW - 1)) == 0;
+  const int64_t step = static_cast<int64_t>(gridDim.x) * kWarps * WARP_COLS;
+  // the warp's first column; lane group g = lane>>2 takes 4*CW from there
+  for (int64_t tw = (static_cast<int64_t>(blockIdx.x) * kWarps +
+                     (threadIdx.x >> 5)) * WARP_COLS;
+       tw < ps; tw += step) {
+    const int64_t c0 = tw + 4 * CW * (lane >> 2);
+    const int64_t avail = ps - c0;
+    const bool whole = aligned && tw + WARP_COLS <= ps;
+    uint32_t v[STEPS][2][4][CW];
+    if (whole)
+      load_rows<STEPS, CW, true>(v, x, in_row, c0, avail, K, t);
+    else
+      load_rows<STEPS, CW, false>(v, x, in_row, c0, avail, K, t);
+    // 4x4 byte transposes: word c of rows 4t..4t+3 becomes k-word t of
+    // columns 4c..4c+3, A rows g and g+8 of tiles 2c and 2c+1
+    uint32_t a[STEPS][TILES][4];
 #pragma unroll
-    for (int q = 0; q < KW; ++q) {
-      uint32_t v[4];
+    for (int s = 0; s < STEPS; ++s) {
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int L = 4 * q + r;
-        v[r] = L < K ? load4(x + in_row[L] + t, avail) : 0u;
-      }
-      // 4x4 byte transpose: byte r of col[c][q] = byte c of v[r], i.e.
-      // bit 8r+b of word q = bit b of row 4q+r in column t+c
-      const uint32_t lo01 = __byte_perm(v[0], v[1], 0x5140);
-      const uint32_t hi01 = __byte_perm(v[0], v[1], 0x7362);
-      const uint32_t lo23 = __byte_perm(v[2], v[3], 0x5140);
-      const uint32_t hi23 = __byte_perm(v[2], v[3], 0x7362);
-      col[0][q] = __byte_perm(lo01, lo23, 0x5410);
-      col[1][q] = __byte_perm(lo01, lo23, 0x7632);
-      col[2][q] = __byte_perm(hi01, hi23, 0x5410);
-      col[3][q] = __byte_perm(hi01, hi23, 0x7632);
-    }
-    for (int i = 0; i < R; ++i) {
-      uint32_t word = 0;  // byte c = output byte of column t+c
+      for (int h = 0; h < 2; ++h) {
 #pragma unroll
-      for (int b = 0; b < 8; ++b) {
-        const uint4* mrow =
-            reinterpret_cast<const uint4*>(sm_mask + (8 * i + b) * KW);
-        uint32_t a0 = 0, a1 = 0, a2 = 0, a3 = 0;
-#pragma unroll
-        for (int q4 = 0; q4 < KW / 4; ++q4) {
-          const uint4 mk = mrow[q4];
-          const int q = 4 * q4;
-          a0 ^= (mk.x & col[0][q]) ^ (mk.y & col[0][q + 1]) ^
-                (mk.z & col[0][q + 2]) ^ (mk.w & col[0][q + 3]);
-          a1 ^= (mk.x & col[1][q]) ^ (mk.y & col[1][q + 1]) ^
-                (mk.z & col[1][q + 2]) ^ (mk.w & col[1][q + 3]);
-          a2 ^= (mk.x & col[2][q]) ^ (mk.y & col[2][q + 1]) ^
-                (mk.z & col[2][q + 2]) ^ (mk.w & col[2][q + 3]);
-          a3 ^= (mk.x & col[3][q]) ^ (mk.y & col[3][q + 1]) ^
-                (mk.z & col[3][q + 2]) ^ (mk.w & col[3][q + 3]);
+        for (int c = 0; c < CW; ++c) {
+          const uint32_t(&q)[4][CW] = v[s][h];
+          const uint32_t lo01 = __byte_perm(q[0][c], q[1][c], 0x5140);
+          const uint32_t hi01 = __byte_perm(q[0][c], q[1][c], 0x7362);
+          const uint32_t lo23 = __byte_perm(q[2][c], q[3][c], 0x5140);
+          const uint32_t hi23 = __byte_perm(q[2][c], q[3][c], 0x7362);
+          a[s][2 * c][2 * h] = __byte_perm(lo01, lo23, 0x5410);
+          a[s][2 * c][2 * h + 1] = __byte_perm(lo01, lo23, 0x7632);
+          a[s][2 * c + 1][2 * h] = __byte_perm(hi01, hi23, 0x5410);
+          a[s][2 * c + 1][2 * h + 1] = __byte_perm(hi01, hi23, 0x7632);
         }
-        word |= ((__popc(a0) & 1u) << b) | ((__popc(a1) & 1u) << (8 + b)) |
-                ((__popc(a2) & 1u) << (16 + b)) |
-                ((__popc(a3) & 1u) << (24 + b));
       }
-      store4(out + out_row[i] + t, avail, word);
+    }
+    uint8_t* const ob = out + c0 + 4 * t;
+    for (int i = 0; i < R; ++i) {
+      uint2 b[STEPS];
+#pragma unroll
+      for (int s = 0; s < STEPS; ++s) b[s] = frags[(i * STEPS + s) * 32 + lane];
+      uint32_t word[CW];
+#pragma unroll
+      for (int c = 0; c < CW; ++c) {
+        uint32_t d0[4] = {0u, 0u, 0u, 0u}, d1[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+        for (int s = 0; s < STEPS; ++s) {
+          if constexpr (kHalf) {  // K <= 16: a2, a3 and b1 are zero
+            bmma_half(d0, a[s][2 * c], b[s]);
+            bmma_half(d1, a[s][2 * c + 1], b[s]);
+          } else if (32 * s < K) {  // uniform: steps past K hold no rows
+            bmma(d0, a[s][2 * c], b[s]);
+            bmma(d1, a[s][2 * c + 1], b[s]);
+          }
+        }
+        word[c] = parity_word(d0, d1, t);
+      }
+      // OR the quad's bits together so that lane t holds word t
+      uint32_t mine;
+      if constexpr (CW == 4) {
+        const bool hi = t & 2;
+        const uint32_t k0 = (hi ? word[2] : word[0]) |
+                            __shfl_xor_sync(kFull, hi ? word[0] : word[2], 2);
+        const uint32_t k1 = (hi ? word[3] : word[1]) |
+                            __shfl_xor_sync(kFull, hi ? word[1] : word[3], 2);
+        mine = (t & 1 ? k1 : k0) | __shfl_xor_sync(kFull, t & 1 ? k0 : k1, 1);
+      } else if constexpr (CW == 2) {
+        mine = (t & 1 ? word[1] : word[0]) |
+               __shfl_xor_sync(kFull, t & 1 ? word[0] : word[1], 1);
+        mine |= __shfl_xor_sync(kFull, mine, 2);
+      } else {
+        mine = word[0] | __shfl_xor_sync(kFull, word[0], 1);
+        mine |= __shfl_xor_sync(kFull, mine, 2);
+      }
+      uint8_t* const p = ob + out_row[i];
+      if (whole) {
+        if (t < CW) *reinterpret_cast<uint32_t*>(p) = mine;
+      } else if (t < CW && avail > 4 * t) {
+        store4(p, avail - 4 * t, mine);
+      }
     }
   }
 }
@@ -179,22 +324,21 @@ cudaError_t allow_full_smem(Kernel kernel, cudaStream_t stream) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
 }
 
-template <int KW>
+template <int STEPS, bool kHalf = false>
 int launch(const uint8_t* x, int64_t xs, uint8_t* out, int64_t os, int w,
-           int K, int R, const uint32_t* masks, const Jobs& jobs, int J,
+           int K, int R, const uint2* frags, const Jobs& jobs, int J,
            int64_t max_ps, cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(8 * R) * KW * 4 +
-                      static_cast<size_t>(K + R) * 8;
-  if (smem > static_cast<size_t>(kMaxSmem))
+  const size_t smem = static_cast<size_t>(K + R) * 8;  // the row offsets
+  if (smem > static_cast<size_t>(kDefaultSmem))
     return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t err = allow_full_smem(gf2_matmul_kernel<KW>, stream);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int64_t blocks = (max_ps + 4LL * kThreads - 1) / (4LL * kThreads);
-  if (blocks < 1) blocks = 1;
+  // a warp tile of 128 / STEPS columns: a 512 KiB job is 1024 blocks at
+  // K <= 32, all resident at once on 132 SMs
+  const int64_t block_cols = kWarps * 128LL / STEPS;
+  int64_t blocks = (max_ps + block_cols - 1) / block_cols;
   if (blocks > kMaxBlocksX) blocks = kMaxBlocksX;  // grid-stride beyond
   const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(J));
-  gf2_matmul_kernel<KW><<<grid, kThreads, smem, stream>>>(
-      x, xs, out, os, w, K, R, masks, jobs);
+  gf2_matmul_kernel<STEPS, kHalf><<<grid, kThreads, smem, stream>>>(
+      x, xs, out, os, w, K, R, frags, jobs);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -207,8 +351,8 @@ int launch(const uint8_t* x, int64_t xs, uint8_t* out, int64_t os, int w,
 // structure once per operand (ops/gf2_matmul.py BitOperand) and sends the
 // lists; this kernel then moves bytes instead of evaluating 8R*8K bit
 // products: cauchy_good k=8 m=4 encode XORs 691 packet rows per packet
-// column where the popcount kernel spends 8192 logic ops and 256
-// popcounts per 4 columns.  Bound: bytes (each input packet row read
+// column where the popcount kernel evaluates all 256 x 512 bit products
+// of every column.  Bound: bytes (each input packet row read
 // once, each output row written once; 0.0038 ms for the 2-job write
 // batch at 3.35 TB/s), the XORs are nnz * cols / 16 uint4 ops.
 //
@@ -346,12 +490,13 @@ extern "C" {
 // x: input rows (row pitch x_row_bytes), out: output rows (pitch
 // out_row_bytes), both with unit column stride; offs/widths: host arrays
 // of J job extents (J <= 240, widths multiples of w); K, R: logical input
-// and output rows (K <= 4*kw); masks: device u32 [8R, kw]; kw in
-// {4, 8, 16, 32}.  Returns cudaGetLastError() after the launch.
+// and output rows (K <= 4*kw); frags: device mask words in mma fragment
+// order, [R][kw/8][32 lanes][2]; kw in {8, 16, 32}.  Returns
+// cudaGetLastError() after the launch.
 int gf2_matmul_launch(const void* x, int64_t x_row_bytes, void* out,
                       int64_t out_row_bytes, const int64_t* offs,
                       const int64_t* widths, int J, int w, int K, int R,
-                      const void* masks, int kw, void* stream) {
+                      const void* frags, int kw, void* stream) {
   if (J < 1 || J > kMaxJobs || w < 1 || K < 1 || R < 1 || K > 4 * kw)
     return static_cast<int>(cudaErrorInvalidValue);
   Jobs jobs = {};
@@ -366,21 +511,21 @@ int gf2_matmul_launch(const void* x, int64_t x_row_bytes, void* out,
   if (max_ps == 0) return static_cast<int>(cudaSuccess);
   const uint8_t* xb = static_cast<const uint8_t*>(x);
   uint8_t* ob = static_cast<uint8_t*>(out);
-  const uint32_t* mk = static_cast<const uint32_t*>(masks);
+  const uint2* fr = static_cast<const uint2*>(frags);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (kw) {
-    case 4:
-      return launch<4>(xb, x_row_bytes, ob, out_row_bytes, w, K, R, mk, jobs,
-                       J, max_ps, s);
     case 8:
-      return launch<8>(xb, x_row_bytes, ob, out_row_bytes, w, K, R, mk, jobs,
+      if (K <= 16)
+        return launch<1, true>(xb, x_row_bytes, ob, out_row_bytes, w, K, R,
+                               fr, jobs, J, max_ps, s);
+      return launch<1>(xb, x_row_bytes, ob, out_row_bytes, w, K, R, fr, jobs,
                        J, max_ps, s);
     case 16:
-      return launch<16>(xb, x_row_bytes, ob, out_row_bytes, w, K, R, mk,
-                        jobs, J, max_ps, s);
+      return launch<2>(xb, x_row_bytes, ob, out_row_bytes, w, K, R, fr, jobs,
+                       J, max_ps, s);
     case 32:
-      return launch<32>(xb, x_row_bytes, ob, out_row_bytes, w, K, R, mk,
-                        jobs, J, max_ps, s);
+      return launch<4>(xb, x_row_bytes, ob, out_row_bytes, w, K, R, fr, jobs,
+                       J, max_ps, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

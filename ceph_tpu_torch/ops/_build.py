@@ -75,7 +75,7 @@ _SIGNATURES = {
     # (base, row_stride, S, meta[3, J], J, partial, max_q, out, stream)
     "crc32c_rows_launch": [_P, _I64, _I32, _P, _I64, _P, _I64, _P, _P],
     # (x, x_row_bytes, out, out_row_bytes, offs, widths, J, w, K, R,
-    #  masks, kw, stream)
+    #  frags, kw, stream)
     "gf2_matmul_launch": [_P, _I64, _P, _I64, _P, _P, _I32, _I32, _I32,
                           _I32, _P, _I32, _P],
     # (x, x_row_bytes, out, out_row_bytes, offs, widths, J, w, K, R,

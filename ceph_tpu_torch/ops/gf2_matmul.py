@@ -15,8 +15,11 @@ operand's structure alone picks one (:class:`BitOperand`):
   bit-matrix encode and decode.  The product is then a XOR of whole
   packet rows; its plain version is :func:`gf2_xor_packets_plain`;
 - the popcount kernel (count ``gf2_matmul``) for every other operand:
-  shec's decode.  Its plain version is :func:`gf2_matmul_bytes_plain`,
-  the expand / matmul / mod 2 / pack written as PyTorch ops.
+  shec's decode.  It runs on the binary tensor cores (``mma.sync``
+  ``.b1 .and.popc``), its mask words laid out as the mma's B fragments
+  (:func:`mma_fragments`).  Its plain version is
+  :func:`gf2_matmul_bytes_plain`, the expand / matmul / mod 2 / pack
+  written as PyTorch ops.
 
 :func:`gf2_matmul_packets_plain` stays the definition both are held
 against.  On a CPU tensor the plain version of the chosen kernel runs;
@@ -45,11 +48,12 @@ from ceph_tpu_torch.ops import _build
 launches = _build.LaunchCount("gf2_matmul")     # the popcount kernel
 xor_launches = _build.LaunchCount("gf2_xor")    # the packet-XOR kernel
 
-KW_BUCKETS = (4, 8, 16, 32)  # u32 mask words per matrix row (csrc kw)
+KW_BUCKETS = (8, 16, 32)  # u32 mask words per matrix row: 1, 2, 4 mma steps
 MAX_K = 4 * KW_BUCKETS[-1]   # input rows the popcount kernel takes
 MAX_XOR_K = 256              # input rows the XOR kernel takes (u8 index)
 MAX_JOBS = 240               # jobs per launch (csrc kMaxJobs)
 MAX_SMEM = 232448            # an H100 block's shared memory (csrc kMaxSmem)
+DEFAULT_SMEM = 49152         # without the opt-in (csrc kDefaultSmem)
 XOR_TILE = 256               # columns a XOR-kernel tile (csrc kXorTile)
 
 
@@ -154,6 +158,29 @@ def packet_matrix(mbits) -> Optional[np.ndarray]:
     return eye.astype(np.uint8) if (eye | zero).all() else None
 
 
+def mask_words(mbits, kw: int) -> np.ndarray:
+    """uint32 [8R, kw]: bit i of word q of row r is ``mbits[r, 32q+i]``
+    mod 2, zero past the 8K columns.  So word q covers input rows
+    4q..4q+3, bit 8j+b standing for bit b of input row 4q+j: the layout
+    the kernel gives each column's bits."""
+    mb = np.asarray(mbits)
+    bits = np.zeros((mb.shape[0], 32 * kw), dtype=np.uint8)
+    bits[:, :mb.shape[1]] = mb & 1
+    words = np.packbits(bits, axis=1, bitorder="little")
+    return np.ascontiguousarray(words).view("<u4").astype(np.uint32)
+
+
+def mma_fragments(words: np.ndarray) -> np.ndarray:
+    """Mask words [8R, kw] in the order of the B fragments of
+    ``mma.m16n8k256.b1``: uint32 [R, kw/8, 32, 2], where lane
+    (g = lane>>2, t = lane&3) of step s for output byte row i holds words
+    8s+t and 8s+t+4 of matrix row 8i+g (output bit g)."""
+    r8, kw = words.shape
+    f = words.reshape(r8 // 8, 8, kw // 8, 2, 4)   # [i, g, s, h, t]
+    return np.ascontiguousarray(f.transpose(0, 2, 1, 4, 3)).reshape(
+        r8 // 8, kw // 8, 32, 2)
+
+
 def prepare_bitmatrix(matrix, w: int = 8) -> np.ndarray:
     """Host: a GF(2^w) coding matrix -> the int8 GF(2) bit-matrix
     operand."""
@@ -173,10 +200,10 @@ class BitOperand:
     product is a XOR of whole packet rows: the operand keeps, per output
     row, the list of input rows it XORs (CSR: ``rowptr`` int32 [R+1],
     ``idx`` u8), sent to each device once, and the XOR kernel runs.
-    Otherwise its rows are packed into u32 masks [8R, kw] (bit i of word
-    q = column 32q+i, taken mod 2 as the int32 product is), sent to each
-    device once, and the popcount kernel runs.  Codecs keep one per
-    matrix."""
+    Otherwise its rows are packed into u32 mask words [8R, kw] (bit i of
+    word q = column 32q+i, taken mod 2 as the int32 product is), laid out
+    as the mma's B fragments (:func:`mma_fragments`), sent to each device
+    once, and the popcount kernel runs.  Codecs keep one per matrix."""
 
     def __init__(self, mbits) -> None:
         mb = np.ascontiguousarray(np.asarray(mbits), dtype=np.int8)
@@ -206,17 +233,16 @@ class BitOperand:
                          f"{self.K}")
 
     def masks(self, device: torch.device) -> torch.Tensor:
+        """The popcount kernel's operand on ``device``: int32 [R, kw/8,
+        32, 2], the mask words in mma fragment order, copied there
+        once."""
         with self._lock:
             got = self._masks.get(device)
             if got is None:
-                kw = self.kw
-                bits = np.zeros((8 * self.R, 32 * kw), dtype=np.uint8)
-                bits[:, :8 * self.K] = self.mbits & 1
-                words = np.packbits(bits, axis=1, bitorder="little")
-                words = np.ascontiguousarray(words).view("<u4")
+                frags = mma_fragments(mask_words(self.mbits, self.kw))
                 # a synchronous copy: the masks are whole before any
                 # stream uses them
-                got = torch.from_numpy(words.view(np.int32)).to(device)
+                got = torch.from_numpy(frags.view(np.int32)).to(device)
                 self._masks[device] = got
             return got
 
@@ -252,13 +278,15 @@ def _launch(op: BitOperand, x: torch.Tensor, out: torch.Tensor,
             offs: np.ndarray, widths: np.ndarray, w: int) -> None:
     """One popcount-kernel launch on the current stream for at most
     MAX_JOBS jobs.  It takes any operand; the main path sends it only
-    those that are not 0/1 packet matrices."""
+    those that are not 0/1 packet matrices.  ``out`` may be ``x`` itself
+    (R == K, the same rows): a warp reads every input row of its columns
+    before it writes them."""
     kw = op.kw
-    smem = 8 * op.R * kw * 4 + (op.K + op.R) * 8
-    if smem > MAX_SMEM:
+    smem = (op.K + op.R) * 8  # the job's row offsets
+    if smem > DEFAULT_SMEM:
         raise ValueError(f"gf2 kernel: a {8 * op.R}x{8 * op.K} bit-matrix "
                          f"needs {smem} bytes of shared memory, more than "
-                         f"{MAX_SMEM}")
+                         f"{DEFAULT_SMEM}")
     masks = op.masks(x.device)
     err = _build.lib().gf2_matmul_launch(
         x.data_ptr(), x.stride(0), out.data_ptr(), out.stride(0),

@@ -28,7 +28,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
               and [24, 24], liberation and a K=96 decode, ragged widths,
               3-job packet batches of unequal odd widths for the encode and
               decode operands of five techniques (w 4, 6, 7, 8) and for
-              shec's, one full-width coalesced batch;
+              shec's, random operands on the popcount (tensor-core)
+              kernel in each K bucket (16, 32, 64, 128), one full-width
+              coalesced batch;
 5. gf256i     the interleaved GF(2^8) kernel (K2, K1's body and operand
               with an interleaved index) against its plain version, bit
               for bit: (R, k) in {(4, 8), (2, 4), (3, 3), (8, 8)
@@ -52,7 +54,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
               XOR kernel on both, the popcount kernel on neither);
 8. shec       the same through ``shec k=8 m=4 c=3``, read back with data
               shards 0, 1, 2 lost (the shec decode on the popcount
-              kernel);
+              kernel, two launches per object: contribution and solve);
 9. lrc        ``lrc k=4 m=2 l=3``: 64 objects encoded, one chunk lost and
               rebuilt from its local group;
 10. ecbench   the device EC engine bench (``ceph_tpu_torch.tools.ecbench``)
@@ -69,9 +71,12 @@ per iteration in a CUDA graph and replay it, and the counts are of the
 captured launches).  Then each kernel is timed at its path's batch
 shape, beside its plain version and its bound: ``ms`` is device time per
 launch from a CUDA graph of launches, ``call_ms`` the eager wrapper call
-with CUDA events.  The K1 and K2 rows carry ``sass``: registers,
-stack/local bytes and SASS counts of their main instantiations, read
-from the built library.  Output, every number beside the card's
+with CUDA events; the popcount row times both of shec's read shapes
+(``ms`` the contribution, ``solve_ms`` the solve).  The K1, K2 and
+popcount rows carry ``sass``: registers, stack/local bytes and SASS
+counts of their main instantiations, read from the built library; the
+run fails unless the popcount kernel's SASS holds tensor-core
+instructions.  Output, every number beside the card's
 name and power limit: one line per phase, then the card line from
 nvidia-smi, then the kernel table as one JSON line, then the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
@@ -191,20 +196,29 @@ INT32_OPS = {"LOP3", "SHF", "IADD3", "ISETP", "LEA", "SEL", "PRMT", "IABS",
              "IMNMX", "POPC", "FLO", "BMSK", "PLOP3", "MOV"}
 
 
-def gf256_sass(log) -> dict:
+def kernel_sass(log) -> dict:
     """Registers, local-memory bytes and static SASS instruction counts of
-    the GF(2^8) kernel's main instantiations in the built library, read
-    with cuobjdump: K1's 4 x 8 encode and 8 x 8 decode buckets and K2's
-    interleaved 4 x 8, plain doubling.  A thread owns one word column,
-    so the kernel's count, prologue and guards included, is its count
-    per word column."""
+    the kernels' main instantiations in the built library, read with
+    cuobjdump: K1's 4 x 8 encode and 8 x 8 decode buckets and K2's
+    interleaved 4 x 8, plain doubling (a thread owns one word column, so
+    the kernel's count, prologue and guards included, is its count per
+    word column); and K3's popcount kernel in each of its K buckets
+    (``popcount_k16``, the m16n8k128 form, runs shec's reads; k32, k64
+    and k128 take 1, 2 and 4 steps of m16n8k256), whose tensor-core
+    instructions (``BMMA``, ``IMMA``) and ``POPC`` are counted too."""
     import re
 
     from ceph_tpu_torch.ops import _build
 
-    want = {(4, 8, 0): "enc_4x8", (8, 8, 0): "dec_8x8",
-            (4, 8, 1): "inter_4x8"}
-    name = re.compile(r"gf256_matmul_kernelILi(\d+)ELi(\d+)ELb0ELb([01])E")
+    want = {("gf256", 4, 8, 0): "enc_4x8", ("gf256", 8, 8, 0): "dec_8x8",
+            ("gf256", 4, 8, 1): "inter_4x8", ("gf2", 1, 1): "popcount_k16",
+            ("gf2", 1, 0): "popcount_k32", ("gf2", 2, 0): "popcount_k64",
+            ("gf2", 4, 0): "popcount_k128"}
+    popcount = ("popcount_k16", "popcount_k32", "popcount_k64",
+                "popcount_k128")
+    gf256_name = re.compile(
+        r"gf256_matmul_kernelILi(\d+)ELi(\d+)ELb0ELb([01])E")
+    gf2_name = re.compile(r"gf2_matmul_kernelILi(\d+)ELb([01])EE")
     tool, path = _build.cuda_bin("cuobjdump"), _build.lib()._name
 
     def dump(flag: str) -> str:
@@ -212,8 +226,11 @@ def gf256_sass(log) -> dict:
                               text=True, timeout=300, check=True).stdout
 
     def which(line: str):
-        f = name.search(line)
-        return want.get((int(f[1]), int(f[2]), int(f[3]))) if f else None
+        f = gf256_name.search(line)
+        if f:
+            return want.get(("gf256", int(f[1]), int(f[2]), int(f[3])))
+        f = gf2_name.search(line)
+        return want.get(("gf2", int(f[1]), int(f[2]))) if f else None
 
     out, cur = {}, None
     for line in dump("-res-usage").splitlines():
@@ -225,7 +242,7 @@ def gf256_sass(log) -> dict:
         if cur and m:
             out[cur] = {"regs": int(m[1]), "stack": int(m[2]),
                         "local": int(m[3]), "sass": 0, "int32": 0,
-                        "lop3": 0}
+                        "lop3": 0, "bmma": 0, "imma": 0, "popc": 0}
     op = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?"
                     r"([A-Z][A-Z0-9_]*)")
     cur = None
@@ -239,15 +256,25 @@ def gf256_sass(log) -> dict:
             c = out[cur]
             c["sass"] += 1
             c["int32"] += m[1] in INT32_OPS
-            c["lop3"] += m[1] == "LOP3"
+            for key in ("lop3", "bmma", "imma", "popc"):
+                c[key] += m[1] == key.upper()
     require(set(out) == set(want.values())
             and all(c["sass"] for c in out.values()),
             f"cuobjdump found the main instantiations: {sorted(out)}")
     log("gf256 K1 and K2 SASS per word column (registers, stack/local "
         "bytes, instructions, INT32 pipe, LOP3): " + "; ".join(
-            f"{k} {c['regs']} regs, {c['stack']}/{c['local']} B, "
-            f"{c['sass']}, {c['int32']}, {c['lop3']}"
-            for k, c in sorted(out.items())))
+            f"{k} {out[k]['regs']} regs, {out[k]['stack']}/"
+            f"{out[k]['local']} B, {out[k]['sass']}, {out[k]['int32']}, "
+            f"{out[k]['lop3']}" for k in ("dec_8x8", "enc_4x8", "inter_4x8")))
+    log("gf2 popcount kernel SASS (registers, stack/local bytes, "
+        "instructions, BMMA, IMMA, POPC): " + "; ".join(
+            f"{k} {out[k]['regs']} regs, {out[k]['stack']}/"
+            f"{out[k]['local']} B, {out[k]['sass']}, {out[k]['bmma']}, "
+            f"{out[k]['imma']}, {out[k]['popc']}"
+            for k in popcount))
+    # a fall back to LOP3/POPC code would compute the same bytes slower
+    require(all(out[k]["bmma"] + out[k]["imma"] > 0 for k in popcount),
+            "the popcount kernel runs on tensor cores (BMMA/IMMA in SASS)")
     return out
 
 
@@ -430,6 +457,19 @@ def phase_gf2(torch, dev, log) -> None:
         run(op, lambda: g2.gf2_matmul_packets(op, x, out, offs, widths, w))
         require(torch.equal(out, want), f"gf2 3-job packet batch {name}")
         checked += 1
+    # the popcount kernel in every K bucket (16, 32, 64, 128) and odd row
+    # counts: random -3..3 operands (never 0/1 packet matrices)
+    rng = np.random.default_rng(SEED)
+    for R, K in ((3, 1), (8, 16), (8, 17), (17, 33), (3, 64), (96, 65),
+                 (5, 128)):
+        op = g2.BitOperand(rng.integers(-3, 4, (8 * R, 8 * K),
+                                        dtype=np.int8))
+        for n in (3, 4099, 65536):
+            x = rand(K, n)
+            got = run(op, lambda: g2.gf2_matmul_bytes(op, x))
+            require(torch.equal(got, g2.gf2_matmul_bytes_plain(op, x)),
+                    f"gf2 popcount {8 * R}x{8 * K} n={n}")
+            checked += 1
     # one full-width coalesced batch: two 512 KiB jobs side by side
     half = 512 << 10
     x = rand(8, 2 * half)
@@ -443,8 +483,9 @@ def phase_gf2(torch, dev, log) -> None:
         f"({', '.join(f'{n} {list(op.mbits.shape)}' for n, op in cases)}, "
         "ragged n; 3-job packet batches of "
         f"{', '.join(n for n, _, _ in packet_cases)} on the XOR kernel and "
-        "of shec's two operands on the popcount kernel; a full-width "
-        "packet batch)")
+        "of shec's two operands on the popcount kernel; random operands "
+        "on the popcount kernel at every step bucket; a full-width packet "
+        "batch)")
 
 
 def phase_gf256i(torch, dev, log) -> None:
@@ -745,7 +786,7 @@ def drive_path(torch, dev, log, name: str, profile: str, lost,
         f"{logical / r_wall / 1e9:.3f} GB/s; CRCs and bytes exact; "
         f"launches: write {w_counts}, read {r_counts}")
     return {"counts": counts, "w_counts": w_counts, "r_counts": r_counts,
-            "codec": codec, "width": width,
+            "codec": codec, "width": width, "nobj": nobj,
             "batch_jobs": batch_jobs, "survivors": survivors}
 
 
@@ -767,11 +808,15 @@ def phase_bitmatrix(torch, dev, log) -> dict:
 
 
 def phase_shec(torch, dev, log) -> dict:
-    return drive_path(torch, dev, log, "shec", "plugin=shec k=8 m=4 c=3",
-                      lost=(0, 1, 2),
-                      need_write=("gf256_matmul", "crc32c_rows"),
-                      need_read=("gf2_matmul",), absent=("gf2_xor",),
-                      queue_read=False)
+    res = drive_path(torch, dev, log, "shec", "plugin=shec k=8 m=4 c=3",
+                     lost=(0, 1, 2),
+                     need_write=("gf256_matmul", "crc32c_rows"),
+                     need_read=("gf2_matmul",), absent=("gf2_xor",),
+                     queue_read=False)
+    # each degraded read: one contribution and one solve launch
+    require(res["r_counts"]["gf2_matmul"] == 2 * res["nobj"],
+            f"shec: two popcount launches per object read: {res['r_counts']}")
+    return res
 
 
 def phase_lrc(torch, dev, log, nobj: int = 64, obj_bytes: int = 4 * MiB,
@@ -958,45 +1003,62 @@ def time_gf2(torch, dev, log, bm: dict) -> dict:
 
 
 def time_gf2_popcount(torch, dev, log, sh: dict) -> dict:
-    """K3's popcount kernel at the shec path's read shape: the [24, 64]
-    contribution operand on one object's [k, width] data planes.  Its
-    bound keeps the JAX kernel's int8 operation count (it evaluates every
-    bit product, as that kernel does)."""
+    """K3's popcount kernel at the shec path's two read shapes, one object
+    each: the [24, 64] contribution operand on the [k, width] data planes
+    (the row's ``ms``) and the [24, 24] solve operand on the [3, width]
+    residual (``solve_ms``).  Each read launches both once, so each shape
+    takes half the path's launches.  Their bounds keep the JAX kernel's
+    int8 operation count (it evaluates every bit product, as the tensor
+    cores do)."""
     from ceph_tpu_torch.ops import gf2_matmul as g2
 
     codec = sh["codec"]
     k, width = codec.k, sh["width"]
     lost = tuple(s for s in range(k) if s not in sh["survivors"])
-    _, _, op = codec.solve_operands(lost, tuple(sh["survivors"]))
+    _, s_op, c_op = codec.solve_operands(lost, tuple(sh["survivors"]))
     g = torch.Generator(device=dev).manual_seed(SEED + 7)
-    bufs = rotating(torch, dev, g, k, width)
-    outs = [torch.empty((op.R, width), dtype=torch.uint8, device=dev)
-            for _ in bufs]
-    it = iter(range(1 << 30))
+    res = {}
+    for name, op in (("contrib", c_op), ("solve", s_op)):
+        bufs = rotating(torch, dev, g, op.K, width)
+        outs = [torch.empty((op.R, width), dtype=torch.uint8, device=dev)
+                for _ in bufs]
+        it = iter(range(1 << 30))
 
-    def dec():
-        i = next(it) % len(bufs)
-        g2.gf2_matmul_bytes(op, bufs[i], out=outs[i])
+        def dec():
+            i = next(it) % len(bufs)
+            g2.gf2_matmul_bytes(op, bufs[i], out=outs[i])
 
-    ms = graph_ms(torch, dec)
-    call_ms = event_ms(torch, dec, 40)
-    x = bufs[0]
-    want = g2.gf2_matmul_bytes_plain(op, x)
-    err = int((g2.gf2_matmul_bytes(op, x).int() - want.int()).abs().max()
-              .item())
-    plain_ms = event_ms(torch, lambda: g2.gf2_matmul_bytes_plain(op, x), 3,
-                        warmup=1)
-    b_ms, b_by = bound((k + op.R) * width,
-                       2 * op.mbits.shape[0] * op.mbits.shape[1] * width,
-                       INT8_OPS_PER_S)
-    log(f"gf2_matmul (popcount) {list(op.mbits.shape)} on [{k}, {width}]: "
-        f"{ms:.4f} ms, per eager call {call_ms:.4f} ms")
+        ms = graph_ms(torch, dec)
+        call_ms = event_ms(torch, dec, 40)
+        x = bufs[0]
+        want = g2.gf2_matmul_bytes_plain(op, x)
+        err = int((g2.gf2_matmul_bytes(op, x).int() - want.int()).abs()
+                  .max().item())
+        plain_ms = event_ms(torch, lambda: g2.gf2_matmul_bytes_plain(op, x),
+                            3, warmup=1)
+        b_ms, b_by = bound((op.K + op.R) * width,
+                           2 * op.mbits.shape[0] * op.mbits.shape[1] * width,
+                           INT8_OPS_PER_S)
+        res[name] = {"ms": ms, "call_ms": call_ms, "err": err,
+                     "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                     "launches": sh["r_counts"]["gf2_matmul"] // 2}
+        log(f"gf2_matmul (popcount) {name} {list(op.mbits.shape)} on "
+            f"[{op.K}, {width}]: {ms:.4f} ms (bound {b_ms:.4f} ms, "
+            f"{b_by}), per eager call {call_ms:.4f} ms, plain "
+            f"{plain_ms:.3f} ms, max_abs_err {err}")
+    c, sv = res["contrib"], res["solve"]
     return {"name": "gf2_matmul", "route": "cuda",
             "source": "ceph_tpu_torch/csrc/gf2_matmul.cu",
             "replaces": "ceph_tpu/ops/gf2_matmul.py:87",
-            "launches": sh["counts"]["gf2_matmul"], "max_abs_err": err,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": None, "call_ms": call_ms}
+            "launches": sh["counts"]["gf2_matmul"],
+            "max_abs_err": max(c["err"], sv["err"]),
+            "ms": c["ms"], "plain_ms": c["plain_ms"],
+            "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
+            "library_ms": None, "call_ms": c["call_ms"],
+            "contrib_launches": c["launches"], "solve_ms": sv["ms"],
+            "solve_call_ms": sv["call_ms"], "solve_plain_ms": sv["plain_ms"],
+            "solve_bound_ms": sv["bound_ms"],
+            "solve_launches": sv["launches"]}
 
 
 def time_kernels(torch, dev, log, main: dict) -> list:
@@ -1096,7 +1158,7 @@ def main() -> int:
     _build.lib()
     log(f"build: kernels built in {_build.build_seconds:.1f} s "
         f"into {_build.BUILD_DIR}")
-    sass = gf256_sass(log)
+    sass = kernel_sass(log)
     phase_gf256(torch, dev, log)
     phase_crc(torch, dev, log)
     phase_gf2(torch, dev, log)
@@ -1110,6 +1172,8 @@ def main() -> int:
     kernels[0]["sass"] = {n: sass[n] for n in ("enc_4x8", "dec_8x8")}
     kernels.append(time_gf2(torch, dev, log, bm_res))
     kernels.append(time_gf2_popcount(torch, dev, log, sh_res))
+    kernels[-1]["sass"] = {n: sass[n] for n in (
+        "popcount_k16", "popcount_k32", "popcount_k64", "popcount_k128")}
     kernels.append(time_gf256i(torch, dev, log, eb_res))
     kernels[-1]["sass"] = {"inter_4x8": sass["inter_4x8"]}
     for kr in kernels:

@@ -214,6 +214,99 @@ def test_gf2_popcount_kernel_runs_shec_decode(dev):
     assert torch.equal(got, gf2_matmul.gf2_matmul_bytes_plain(contrib_op, x))
 
 
+def _popcount(op, x, out, offs, widths, w):
+    """One launch of the popcount (tensor-core) kernel, whatever the
+    operand's structure; its count moves by one."""
+    before = gf2_matmul.launches.value
+    gf2_matmul._launch(op, x, out, np.asarray(offs, np.int64),
+                       np.asarray(widths, np.int64), w)
+    assert gf2_matmul.launches.value == before + 1
+    return out
+
+
+POPCOUNT_K = [1, 3, 4, 5, 8, 16, 17, 32, 33, 64, 65, 128]
+POPCOUNT_N = [1, 3, 15, 16, 17, 4099, 1000003]
+
+
+@pytest.mark.parametrize("R", [1, 3, 8, 17, 96])
+@pytest.mark.parametrize("K", POPCOUNT_K)
+def test_gf2_popcount_kernel_bucket_edges(dev, K, R):
+    """Random 0/1 and -3..3 matrices at every step-bucket edge of K, over
+    ragged widths, through the tensor-core kernel: bit-equal to plain."""
+    rng = np.random.default_rng(1000 * K + R)
+    g = torch.Generator(device=dev).manual_seed(K * 131 + R)
+    for lo, hi in ((0, 2), (-3, 4)):
+        op = gf2_matmul.BitOperand(
+            rng.integers(lo, hi, (8 * R, 8 * K), dtype=np.int8))
+        for n in POPCOUNT_N:
+            x = torch.randint(0, 256, (K, n), dtype=torch.uint8, device=dev,
+                              generator=g)
+            got = _popcount(op, x, torch.empty((R, n), dtype=torch.uint8,
+                                               device=dev), [0], [n], 1)
+            assert torch.equal(got, gf2_matmul.gf2_matmul_bytes_plain(op, x)), \
+                f"K={K} R={R} n={n} entries {lo}..{hi - 1}"
+
+
+@pytest.mark.parametrize("kin,rout", [(1, 1), (4, 2), (8, 4), (16, 3)])
+def test_gf2_popcount_kernel_packet_batch(dev, kin, rout):
+    """A 3-job batch with w = 8 at odd offsets and unequal widths: each
+    job's packets through the kernel equal plain; columns between jobs
+    keep their bytes."""
+    w = 8
+    rng = np.random.default_rng(kin * 10 + rout)
+    op = gf2_matmul.BitOperand(
+        rng.integers(-3, 4, (8 * w * rout, 8 * w * kin), dtype=np.int8))
+    widths = [w * 3001, w * 517, w * 12347]
+    offs = [3, 3 + widths[0] + 5, 3 + widths[0] + 5 + widths[1] + 1]
+    P = offs[-1] + widths[-1] + 7
+    g = torch.Generator(device=dev).manual_seed(kin + 17 * rout)
+    x = torch.randint(0, 256, (kin, P), dtype=torch.uint8, device=dev,
+                      generator=g)
+    out = torch.randint(0, 256, (rout, P), dtype=torch.uint8, device=dev,
+                        generator=g)
+    want = gf2_matmul.gf2_matmul_packets_plain(op, x, out.clone(), offs,
+                                               widths, w)
+    assert torch.equal(_popcount(op, x, out, offs, widths, w), want)
+
+
+@pytest.mark.parametrize("K", [3, 8, 32, 33, 128])
+@pytest.mark.parametrize("n", [4099, 1 << 17])
+def test_gf2_popcount_kernel_in_place(dev, K, n):
+    """out may be x itself when R == K: a warp reads every input row of
+    its columns before it writes them."""
+    op = gf2_matmul.BitOperand(np.random.default_rng(K).integers(
+        -3, 4, (8 * K, 8 * K), dtype=np.int8))
+    x = torch.randint(0, 256, (K, n), dtype=torch.uint8, device=dev)
+    want = gf2_matmul.gf2_matmul_bytes_plain(op, x)
+    _popcount(op, x, x, [0], [n], 1)
+    assert torch.equal(x, want)
+
+
+@pytest.mark.parametrize("R,K", [(3, 8), (1, 40), (2, 128)])
+def test_gf2_popcount_kernel_one_hot_matrices(dev, R, K):
+    """A matrix with one set entry per (output bit, input bit) copies that
+    input bit to that output bit and nothing else: pins which fragment
+    row, column and k-bit each operand word stands for."""
+    n = 67
+    x = torch.randint(0, 256, (K, n), dtype=torch.uint8, device=dev)
+    rng = np.random.default_rng(R * K)
+    pairs = [(rb, kb) for rb in range(8 * R) for kb in range(8 * K)]
+    if len(pairs) > 2048:  # every output bit and every input bit, sampled
+        pick = rng.choice(len(pairs), 2048, replace=False)
+        pairs = [pairs[i] for i in pick] + [(rb, rb % (8 * K))
+                                            for rb in range(8 * R)] + \
+            [(kb % (8 * R), kb) for kb in range(8 * K)]
+    for rb, kb in pairs:
+        mbits = np.zeros((8 * R, 8 * K), np.int8)
+        mbits[rb, kb] = 1
+        op = gf2_matmul.BitOperand(mbits)
+        got = _popcount(op, x, torch.empty((R, n), dtype=torch.uint8,
+                                           device=dev), [0], [n], 1)
+        want = torch.zeros((R, n), dtype=torch.uint8, device=dev)
+        want[rb // 8] = ((x[kb // 8] >> (kb % 8)) & 1) << (rb % 8)
+        assert torch.equal(got, want), f"one-hot ({rb}, {kb})"
+
+
 @pytest.mark.parametrize("shift", [0, 1, 7, 13])
 def test_crc_kernel_at_segment_boundaries(dev, shift):
     """Rows of length 0, 1, seg-1, seg, seg+1, 3*seg+7 (seg = the

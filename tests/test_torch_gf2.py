@@ -38,6 +38,22 @@ def test_plain_matches_reference(R, K, n):
     assert np.array_equal(got.numpy(), want)
 
 
+@pytest.mark.parametrize("which", ["contrib", "solve"])
+@pytest.mark.parametrize("n", [1, 3, 17, 4099, 65537])
+def test_plain_matches_reference_on_shec_operands(which, n):
+    """shec k=8 m=4 c=3's two read operands ([24, 64] contribution and
+    [24, 24] solve, data shards 0-2 lost) through the plain version equal
+    ceph_tpu's gf2_matmul_bytes_ref at ragged widths, tolerance 0."""
+    sh = codec_from_profile("plugin=shec k=8 m=4 c=3", device="cpu")
+    _, s_op, c_op = sh.solve_operands((0, 1, 2), tuple(range(3, 12)))
+    op = c_op if which == "contrib" else s_op
+    assert op.mbits.shape == ((24, 64) if which == "contrib" else (24, 24))
+    x = _rand(n + op.K, (op.K, n))
+    want = np.asarray(ref_gf2.gf2_matmul_bytes_ref(op.mbits, x))
+    got = gf2_matmul.gf2_matmul_bytes_plain(op, torch.from_numpy(x))
+    assert np.array_equal(got.numpy(), want)
+
+
 def test_non_binary_entries_reduce_mod_two_like_the_reference():
     rng = np.random.default_rng(7)
     mbits = rng.integers(-128, 128, (32, 64), dtype=np.int8)
@@ -84,18 +100,51 @@ def test_identity_bitmatrix_is_noop():
 @pytest.mark.parametrize("R,K", [(4, 8), (64, 64), (96, 96), (3, 5)])
 def test_kernel_masks_hold_the_bitmatrix(R, K):
     """The kernel's operand: row r's bits, packed little-endian into kw
-    u32 words, are row r of mbits mod 2, zero-padded to 32*kw columns."""
+    u32 words, are row r of mbits mod 2, zero-padded to 32*kw columns,
+    and lie in mma B-fragment order: lane 4g+t of step s for output row
+    i holds words 8s+t and 8s+t+4 of row 8i+g."""
     rng = np.random.default_rng(R + K)
     mbits = rng.integers(-3, 4, (8 * R, 8 * K), dtype=np.int8)
     op = gf2_matmul.BitOperand(mbits)
     masks = op.masks(torch.device("cpu"))
-    assert masks.dtype == torch.int32 and masks.shape == (8 * R, op.kw)
-    assert 4 * op.kw >= K and op.kw in gf2_matmul.KW_BUCKETS
-    bits = np.unpackbits(masks.numpy().view(np.uint8), axis=1,
-                         bitorder="little")
+    kw = op.kw
+    assert masks.dtype == torch.int32
+    assert masks.shape == (R, kw // 8, 32, 2)
+    assert 4 * kw >= K and kw in gf2_matmul.KW_BUCKETS
+    frags = masks.numpy().view(np.uint32)
+    words = np.empty((8 * R, kw), dtype=np.uint32)
+    for lane in range(32):
+        g, t = lane >> 2, lane & 3
+        for s in range(kw // 8):
+            for h in range(2):
+                words[g::8, 8 * s + 4 * h + t] = frags[:, s, lane, h]
+    bits = np.unpackbits(words.view(np.uint8), axis=1, bitorder="little")
     assert np.array_equal(bits[:, :8 * K], mbits & 1)
     assert not bits[:, 8 * K:].any()
     assert op.masks(torch.device("cpu")) is masks  # cached per device
+
+
+@pytest.mark.parametrize("K", [1, 3, 4, 5, 8, 16, 17, 32, 33, 64, 65, 128])
+def test_one_hot_bit_lands_in_its_fragment_slot(K):
+    """A matrix with one set entry (output bit 8i+b, input bit 8L+c) puts
+    exactly one bit in the operand: lane 4b + (L%16)//4 of step L//32, for
+    output row i, register (L%32)//16, bit 8*(L%4) + c.  The bucket is the
+    least number of whole 256-bit steps that holds K rows."""
+    R = 3
+    kw = gf2_matmul.BitOperand(np.ones((8 * R, 8 * K), np.int8)).kw
+    assert kw == 8 * (1 if K <= 32 else 2 if K <= 64 else 4)
+    rng = np.random.default_rng(K)
+    for _ in range(12):
+        i, b = int(rng.integers(R)), int(rng.integers(8))
+        L, c = int(rng.integers(K)), int(rng.integers(8))
+        mbits = np.zeros((8 * R, 8 * K), np.int8)
+        mbits[8 * i + b, 8 * L + c] = 1
+        frags = gf2_matmul.BitOperand(mbits).masks(
+            torch.device("cpu")).numpy().view(np.uint32)
+        want = np.zeros_like(frags)
+        want[i, L // 32, 4 * b + (L % 16) // 4, (L % 32) // 16] = \
+            1 << (8 * (L % 4) + c)
+        assert np.array_equal(frags, want)
 
 
 def test_masks_are_built_once_under_concurrent_callers():
