@@ -179,15 +179,35 @@ class ErasureCodeLrc(ErasureCode):
                           for layer in self.layers))
 
     # -- coding -----------------------------------------------------------
-    def encode(self, want_to_encode, data: bytes):
-        planes, blocksize = self.encode_prepare(data)
-        host = np.zeros((self._chunk_count, blocksize), dtype=np.uint8)
-        for i in range(self._data_chunk_count):
-            host[self.chunk_index(i)] = planes[i]
-        full = torch.from_numpy(host).to(self.device)
+    def _encode_full(self, data: np.ndarray) -> torch.Tensor:
+        """uint8 data planes [k, n] -> every chunk [chunks, n] on the
+        device: the data planes at their chunk positions, then each
+        layer's coding from the chunks the layers above wrote."""
+        data = np.ascontiguousarray(data, dtype=np.uint8)
+        if data.ndim != 2 or data.shape[0] != self._data_chunk_count:
+            raise ValueError(f"lrc data must be uint8 "
+                             f"[{self._data_chunk_count}, n], got "
+                             f"{data.shape}")
+        full = torch.zeros((self._chunk_count, data.shape[1]),
+                           dtype=torch.uint8, device=self.device)
+        pos = [self.chunk_index(i) for i in range(self._data_chunk_count)]
+        full[pos] = torch.from_numpy(data).to(self.device)
         for layer in self.layers:
             full[layer.coding] = layer.codec.encode_planes(full[layer.data])
-        host = full.cpu().numpy()
+        return full
+
+    def encode_array(self, data: np.ndarray) -> np.ndarray:
+        """uint8 data planes [k, n] -> the [m, n] planes of the chunk
+        positions that hold no data, in chunk order (the coding chunks
+        of every layer, each product on the device)."""
+        data_pos = {self.chunk_index(i)
+                    for i in range(self._data_chunk_count)}
+        coding = [c for c in range(self._chunk_count) if c not in data_pos]
+        return self._encode_full(data)[coding].cpu().numpy()
+
+    def encode(self, want_to_encode, data: bytes):
+        planes, _ = self.encode_prepare(data)
+        host = self._encode_full(planes).cpu().numpy()
         return {i: host[i] for i in want_to_encode}
 
     def decode(self, want_to_read: Iterable[int],

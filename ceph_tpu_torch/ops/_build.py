@@ -26,7 +26,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("gf256.cu", "crc32c.cu", "gf2_matmul.cu")
+SOURCES = ("gf256.cu", "crc32c.cu", "gf2_matmul.cu", "crush.cu")
 CUDA_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a"]
 LIB_NAME = "ceph_tpu_torch_kernels"
 
@@ -82,6 +82,9 @@ _SIGNATURES = {
     #  rowptr, idx, stream)
     "gf2_xor_packets_launch": [_P, _I64, _P, _I64, _P, _P, _I32, _I32,
                                _I32, _I32, _P, _P, _P],
+    # (args: RuleArgs*, stream)
+    "crush_rule_launch": [_P, _P],
+    "crush_rule_args_size": [],
 }
 
 

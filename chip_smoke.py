@@ -57,7 +57,20 @@ Phases, each of which fails the run (non-zero exit, no result line):
               kernel, two launches per object: contribution and solve);
 9. lrc        ``lrc k=4 m=2 l=3``: 64 objects encoded, one chunk lost and
               rebuilt from its local group;
-10. ecbench   the device EC engine bench (``ceph_tpu_torch.tools.ecbench``)
+10. crush     CRUSH placement (K6, the rule walk, and K7, the staged
+              sweeps over it) on the BASELINE map: build_flat_cluster(1024,
+              hosts=64), chooseleaf firstn 3 type host, all reweights
+              1.0.  sweep_device over 10,485,760 ids (chunk 2^19: 41
+              launches), held row for row against the exact program in
+              one call; the kernel against the plain walk on the card over
+              the first 2^20 ids; 3 distinct OSDs on 3 distinct hosts per
+              row and the per-OSD spread; a rebalance (one host's 16 OSDs
+              at weight 0, 8 OSDs at half weight: no placement on a
+              weight-0 OSD, the share moved); chooseleaf indep 12 (the
+              isa k=8 m=4 pool) over 2^22 ids with no holes; the small maps
+              of ``crush.samples`` at budgets 0, 1, 3; and ``crushtool
+              --test`` over 2^20 ids with no bad mapping;
+11. ecbench   the device EC engine bench (``ceph_tpu_torch.tools.ecbench``)
               at its full sizes with a short calibration target: both
               engines pinned against the host oracle, the autotune over
               layout x tile x doubling variant at 16 MiB, encode and
@@ -72,11 +85,17 @@ captured launches).  Then each kernel is timed at its path's batch
 shape, beside its plain version and its bound: ``ms`` is device time per
 launch from a CUDA graph of launches, ``call_ms`` the eager wrapper call
 with CUDA events; the popcount row times both of shec's read shapes
-(``ms`` the contribution, ``solve_ms`` the solve).  The K1, K2 and
-popcount rows carry ``sass``: registers, stack/local bytes and SASS
-counts of their main instantiations, read from the built library; the
-run fails unless the popcount kernel's SASS holds tensor-core
-instructions.  Output, every number beside the card's
+(``ms`` the contribution, ``solve_ms`` the solve).  The crush phase
+zeroes the counts just before its main sweep and reads them just after
+(41 ``crush_rule`` launches and nothing else); the ``crush_rule`` row
+times the sweep's one-attempt launch over one 2^19-id chunk (``ms``),
+the exact launch over it, the eager ``compile_rule`` call, and carries
+the sweep's rate, stages and the exact program's time, its bound taken
+from the draws and hashes the kernel counted in this run.  The K1, K2,
+popcount and crush_rule rows carry ``sass``: registers, stack/local
+bytes and SASS counts of their main instantiations, read from the built
+library; the run fails unless the popcount kernel's SASS holds
+tensor-core instructions.  Output, every number beside the card's
 name and power limit: one line per phase, then the card line from
 nvidia-smi, then the kernel table as one JSON line, then the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
@@ -100,6 +119,19 @@ SEED = 20261016
 MiB = 1 << 20
 ECBENCH_TARGET_S = 0.1  # seconds per calibrated bench call (its default: 0.5)
 ECBENCH_CAP_S = 2.0
+# CRUSH (K6, K7): the BASELINE map of bench.py:1762-1771 and the sweep
+# size of Ceph's crushtool --test and ParallelPGMapper
+CRUSH_OSDS, CRUSH_HOSTS = 1024, 64
+CRUSH_IDS = 20 << 19        # 10,485,760 object ids
+CRUSH_CHUNK = 1 << 19
+CRUSH_HOLD = 1 << 20        # ids on which the kernel is held to the plain walk
+CRUSH_EC_IDS = 1 << 22
+# integer ops of one straw2 draw, counted from csrc/crush.cu: hash32_3 (3
+# seed XORs and 5 mixes of 9 sub-sub-shift-xor lines: 183), crush_ln (20),
+# the 64-bit divide as one op, the compare and select (3); an is_out hash
+# (hash32_2: 2 + 3 x 36 = 110) plus its mask and compare (2)
+DRAW_OPS = 183 + 20 + 1 + 3
+HASH_OPS = 110 + 2
 
 
 def require(cond: bool, what: str) -> None:
@@ -205,7 +237,8 @@ def kernel_sass(log) -> dict:
     word column); and K3's popcount kernel in each of its K buckets
     (``popcount_k16``, the m16n8k128 form, runs shec's reads; k32, k64
     and k128 take 1, 2 and 4 steps of m16n8k256), whose tensor-core
-    instructions (``BMMA``, ``IMMA``) and ``POPC`` are counted too."""
+    instructions (``BMMA``, ``IMMA``) and ``POPC`` are counted too; and
+    the CRUSH rule walk (K6, ``crush_rule``)."""
     import re
 
     from ceph_tpu_torch.ops import _build
@@ -213,7 +246,7 @@ def kernel_sass(log) -> dict:
     want = {("gf256", 4, 8, 0): "enc_4x8", ("gf256", 8, 8, 0): "dec_8x8",
             ("gf256", 4, 8, 1): "inter_4x8", ("gf2", 1, 1): "popcount_k16",
             ("gf2", 1, 0): "popcount_k32", ("gf2", 2, 0): "popcount_k64",
-            ("gf2", 4, 0): "popcount_k128"}
+            ("gf2", 4, 0): "popcount_k128", ("crush",): "crush_rule"}
     popcount = ("popcount_k16", "popcount_k32", "popcount_k64",
                 "popcount_k128")
     gf256_name = re.compile(
@@ -230,7 +263,9 @@ def kernel_sass(log) -> dict:
         if f:
             return want.get(("gf256", int(f[1]), int(f[2]), int(f[3])))
         f = gf2_name.search(line)
-        return want.get(("gf2", int(f[1]), int(f[2]))) if f else None
+        if f:
+            return want.get(("gf2", int(f[1]), int(f[2])))
+        return want[("crush",)] if "crush_rule_kernel" in line else None
 
     out, cur = {}, None
     for line in dump("-res-usage").splitlines():
@@ -244,8 +279,8 @@ def kernel_sass(log) -> dict:
                         "local": int(m[3]), "sass": 0, "int32": 0,
                         "lop3": 0, "bmma": 0, "imma": 0, "popc": 0}
     op = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?"
-                    r"([A-Z][A-Z0-9_]*)")
-    cur = None
+                    r"([A-Z][A-Z0-9_]*)((?:\.[A-Z0-9_]+)*)")
+    cur, crush_ops = None, []
     for line in dump("-sass").splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
@@ -258,6 +293,16 @@ def kernel_sass(log) -> dict:
             c["int32"] += m[1] in INT32_OPS
             for key in ("lop3", "bmma", "imma", "popc"):
                 c[key] += m[1] == key.upper()
+            if cur == "crush_rule":
+                crush_ops.append(m[1] + m[2])
+    # the 64-bit divide of the straw2 draw: the subroutine (RET to RET)
+    # around the I2F.U64.RP that starts its reciprocal
+    if "I2F.U64.RP" in crush_ops:
+        i = crush_ops.index("I2F.U64.RP")
+        rets = [j for j, o in enumerate(crush_ops) if o.startswith("RET")]
+        lo = max([j for j in rets if j < i], default=-1) + 1
+        hi = min([j for j in rets if j > i], default=len(crush_ops) - 1)
+        out["crush_rule"]["udiv64_sass"] = hi - lo + 1
     require(set(out) == set(want.values())
             and all(c["sass"] for c in out.values()),
             f"cuobjdump found the main instantiations: {sorted(out)}")
@@ -272,6 +317,10 @@ def kernel_sass(log) -> dict:
             f"{out[k]['local']} B, {out[k]['sass']}, {out[k]['bmma']}, "
             f"{out[k]['imma']}, {out[k]['popc']}"
             for k in popcount))
+    c = out["crush_rule"]
+    log(f"crush rule-walk kernel (K6) SASS: {c['regs']} registers, "
+        f"{c['stack']}/{c['local']} B stack/local, {c['sass']} instructions, "
+        f"the 64-bit divide routine {c.get('udiv64_sass')} instructions")
     # a fall back to LOP3/POPC code would compute the same bytes slower
     require(all(out[k]["bmma"] + out[k]["imma"] > 0 for k in popcount),
             "the popcount kernel runs on tensor cores (BMMA/IMMA in SASS)")
@@ -655,10 +704,11 @@ def phase_crc(torch, dev, log) -> None:
 
 def launch_counts() -> tuple:
     from ceph_tpu_torch.ops import crc32c_device as cd
-    from ceph_tpu_torch.ops import gf2_matmul, gf256, gf256_planes
+    from ceph_tpu_torch.ops import crush_rule, gf2_matmul, gf256, gf256_planes
 
     return (gf256.launches, cd.launches, gf2_matmul.launches,
-            gf2_matmul.xor_launches, gf256_planes.launches)
+            gf2_matmul.xor_launches, gf256_planes.launches,
+            crush_rule.launches)
 
 
 def reset_counts() -> None:
@@ -864,6 +914,248 @@ def phase_lrc(torch, dev, log, nobj: int = 64, obj_bytes: int = 4 * MiB,
         f"{logical / w_wall / 1e9:.3f} GB/s; lost chunk {lost}, read plan "
         f"{sorted(minimum)} inside local group {sorted(local)}, rebuilt in "
         f"{r_wall:.3f} s; bytes exact; launches {counts}")
+
+
+def crush_bound(stats, ids: int, result_max: int):
+    """(bound ms, "bytes"/"operations") of a rule walk that made
+    ``stats`` (straw2 draws, other hashes, bucket choices) over ``ids``
+    ids: each id read once (4 B) and its row written once."""
+    draws, others, _ = (int(v) for v in stats)
+    return bound(ids * (4 + 4 * result_max),
+                 draws * DRAW_OPS + others * HASH_OPS)
+
+
+def phase_crush(torch, dev, log) -> dict:
+    """K6 and K7 on the BASELINE configuration: build_flat_cluster(1024,
+    hosts=64) (64 straw2 hosts of 16 OSDs under a straw2 root),
+    chooseleaf firstn 3 type host over 10,485,760 ids, then the
+    rebalance, the EC pool's indep 12, the small maps and crushtool."""
+    import contextlib
+    import io
+
+    from ceph_tpu_torch.crush import map as cmap
+    from ceph_tpu_torch.crush import mapper, samples
+    from ceph_tpu_torch.ops import crush_rule
+    from ceph_tpu_torch.tools import crushtool
+
+    m, root = cmap.build_flat_cluster(CRUSH_OSDS, hosts=CRUSH_HOSTS)
+    flat = m.flatten()
+    per = CRUSH_OSDS // CRUSH_HOSTS
+    steps = [(cmap.OP_TAKE, root, 0), (cmap.OP_CHOOSELEAF_FIRSTN, 3, 1),
+             (cmap.OP_EMIT, 0, 0)]
+    xs = torch.arange(CRUSH_IDS, dtype=torch.int32, device=dev)
+    dw = np.full(CRUSH_OSDS, 0x10000, dtype=np.uint32)
+    rm = mapper.device_map(flat, device=dev)
+
+    def sweep(w, **kw):
+        return mapper.sweep_device(flat, steps, 3, xs, w, chunk=CRUSH_CHUNK,
+                                   device=dev, **kw)
+
+    def hold(rows, stp, r, w, what):
+        """The kernel's rows for the first CRUSH_HOLD ids against the plain
+        walk on the card, bit for bit; returns max |kernel - plain|."""
+        ww = torch.from_numpy(w.view(np.int32)).to(dev)
+        err = 0
+        for lo in range(0, CRUSH_HOLD, 1 << 18):
+            hi = min(lo + (1 << 18), CRUSH_HOLD)
+            want, _ = crush_rule.rule_plain(
+                rm, crush_rule.RuleSpec(stp, r), ww, xs[lo:hi])
+            got = rows[lo:hi]
+            err = max(err, int((got.long() - want.long()).abs().max()))
+            require(torch.equal(got, want), f"crush: {what}: kernel rows "
+                    f"{lo}.. equal the plain walk's")
+        return err
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.monotonic() - t0
+
+    # 1. the sweep: warm, then the main-path run between the counts
+    sweep(dw)
+    torch.cuda.synchronize()
+    reset_counts()
+    (placed, overflow), _ = timed(lambda: sweep(dw))
+    counts = read_counts()
+    n_chunks = CRUSH_IDS // CRUSH_CHUNK
+    require(counts["crush_rule"] == 2 * n_chunks + 1
+            and all(v == 0 for k, v in counts.items() if k != "crush_rule"),
+            f"crush: the sweep ran 2 launches a chunk and one exact launch "
+            f"of crush_rule and nothing else: {counts}")
+    require(not bool(overflow), "crush: the healthy sweep does not overflow")
+    walls = [timed(lambda: sweep(dw))[1] for _ in range(3)]
+    sweep_s = float(np.median(walls))
+    events = {}
+    sweep(dw, stage_events=events)
+    torch.cuda.synchronize()
+    stages = {f"stage{k}": {"launches": len(v), "ms": sum(
+        a.elapsed_time(b) for a, b in v)} for k, v in sorted(events.items())}
+
+    # 2. the exact program over every id in one call
+    full = mapper.compile_rule(flat, steps, 3, device=dev)
+    full(xs[:CRUSH_CHUNK], dw)
+    exact, exact_s = timed(lambda: full(xs, dw))
+    require(torch.equal(placed, exact), "crush: the staged sweep equals the "
+            f"exact program on all {CRUSH_IDS} ids")
+    # the stages' loads: ids unclean after one attempt, after MID_BUDGET
+    unclean = [int((~mapper.compile_rule(
+        flat, steps, 3, budget=b, device=dev)(xs, dw)[1]).sum())
+        for b in (1, mapper.MID_BUDGET)]
+    stats = torch.zeros(3, dtype=torch.int64, device=dev)
+    out = torch.empty_like(exact)
+    crush_rule.launch(rm, full.spec, torch.from_numpy(dw.view(np.int32)).to(
+        dev), xs, out, stats=stats)
+    all_bound, all_by = crush_bound(stats.tolist(), CRUSH_IDS, 3)
+
+    # 3. the kernel against the plain walk on the card
+    err = hold(exact, steps, 3, dw, "healthy map")
+
+    # 4. invariants over all ids
+    require(bool(((exact >= 0) & (exact < CRUSH_OSDS)).all()),
+            "crush: every row holds 3 OSDs, no ITEM_NONE")
+    hosts = exact.long() // per
+    require(bool(((hosts[:, 0] != hosts[:, 1]) & (hosts[:, 0] != hosts[:, 2])
+                  & (hosts[:, 1] != hosts[:, 2])).all()),
+            "crush: every row's 3 OSDs lie on 3 distinct hosts")
+    per_osd = torch.bincount(exact.flatten().long(), minlength=CRUSH_OSDS
+                             ).double()
+    mean = float(per_osd.mean())
+    log(f"crush: sweep_device of {CRUSH_IDS} ids (chooseleaf firstn 3 type "
+        f"host, {CRUSH_OSDS} OSDs / {CRUSH_HOSTS} hosts, chunk "
+        f"{CRUSH_CHUNK}): ids unclean after stage 1 {unclean[0]}, after "
+        f"stage 2 {unclean[1]}; median {sweep_s * 1e3:.3f} ms = "
+        f"{CRUSH_IDS / sweep_s:.4e} ids/s ({3 * CRUSH_IDS / sweep_s:.4e} "
+        f"OSD placements/s), calls {[round(w * 1e3, 3) for w in walls]} ms, "
+        f"stages {json.dumps(stages)}; exact program in one call "
+        f"{exact_s * 1e3:.3f} ms, rows equal; walk stats {stats.tolist()} "
+        f"(straw2 draws, other hashes, bucket choices), bound "
+        f"{all_bound:.4f} ms ({all_by}); per-OSD count min "
+        f"{int(per_osd.min())} max {int(per_osd.max())} stddev "
+        f"{float(per_osd.std()):.2f} mean {mean:.2f} "
+        f"({float(per_osd.std()) / mean * 100:.3f} %)")
+
+    # 5. rebalance: one host out, 8 OSDs at half weight
+    dw2 = dw.copy()
+    gone = np.arange(5 * per, 6 * per)
+    half = np.arange(8) * 127 + 3
+    dw2[gone], dw2[half] = 0, 0x8000
+    (moved, overflow2), rebal_s = timed(lambda: sweep(dw2))
+    if bool(overflow2):
+        log("crush: the rebalance sweep overflowed its capacities; sweep() "
+            "takes it")
+        moved = torch.from_numpy(mapper.sweep(
+            flat, steps, 3, xs, dw2, chunk=CRUSH_CHUNK, device=dev)).to(dev)
+    require(torch.equal(moved, full(xs, dw2)),
+            "crush: the rebalance sweep equals the exact program")
+    require(not bool(torch.isin(moved, torch.from_numpy(gone).to(dev).to(
+        torch.int32)).any()), "crush: no placement on a weight-0 OSD")
+    share = float((moved != exact).sum()) / (3 * CRUSH_IDS)
+    err = max(err, hold(moved, steps, 3, dw2, "rebalanced map"))
+    log(f"crush: rebalance (host 5's {per} OSDs at weight 0, OSDs "
+        f"{half.tolist()} at 0x8000): sweep {rebal_s * 1e3:.3f} ms, overflow "
+        f"{bool(overflow2)}, {share * 100:.4f} % of placements moved")
+
+    # 6. the EC pool of the main path (isa k=8 m=4): chooseleaf indep 12
+    ec_steps = [(cmap.OP_TAKE, root, 0), (cmap.OP_CHOOSELEAF_INDEP, 12, 1),
+                (cmap.OP_EMIT, 0, 0)]
+    ec_fn = mapper.compile_rule(flat, ec_steps, 12, device=dev)
+    ec_fn(xs[:CRUSH_CHUNK], dw)
+    ec, ec_s = timed(lambda: ec_fn(xs[:CRUSH_EC_IDS], dw))
+    require(bool((ec != cmap.ITEM_NONE).all()),
+            "crush: the healthy map leaves no hole in an indep 12 row")
+    err = max(err, hold(ec, ec_steps, 12, dw, "indep 12"))
+    log(f"crush: chooseleaf indep 12 over {CRUSH_EC_IDS} ids in "
+        f"{ec_s * 1e3:.3f} ms, no holes")
+
+    # 7. the small maps, every budget, kernel against plain
+    n_small = 0
+    for case in samples.cases():
+        cflat = case.map.flatten()
+        crm = mapper.device_map(cflat, case.choose_args, dev)
+        spec = crush_rule.RuleSpec(case.steps, case.result_max)
+        w = torch.from_numpy(case.dev_weights.view(np.int32)).to(dev)
+        x = torch.from_numpy(samples.ids(17, 2048)).to(dev)
+        for budget in (0, 1, 3):
+            o = torch.empty((2048, case.result_max), dtype=torch.int32,
+                            device=dev)
+            c = torch.empty(2048, dtype=torch.uint8, device=dev)
+            crush_rule.launch(crm, spec, w, x, o, budget=budget, clean=c)
+            want, want_clean = crush_rule.rule_plain(crm, spec, w, x, budget)
+            require(torch.equal(o, want) and torch.equal(c.bool(),
+                                                         want_clean),
+                    f"crush: small case {case.name} at budget {budget}: "
+                    "kernel rows and clean flags equal the plain walk's")
+            n_small += 1
+
+    # 8. crushtool --test on the card
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = crushtool.main(["--build", "--num_osds", str(CRUSH_OSDS),
+                             "host", "straw2", str(per), "root", "straw2",
+                             "0", "--test", "--num-rep", "3", "--min-x", "0",
+                             "--max-x", str(CRUSH_HOLD - 1),
+                             "--show-statistics", "--device", str(dev)])
+    st = json.loads(buf.getvalue())["statistics"]
+    require(rc == 0 and st["bad_mappings"] == 0
+            and st["total_mappings"] == CRUSH_HOLD,
+            f"crushtool --test: no bad mappings: {st}")
+    log(f"crush: {n_small} small cases (every bucket algorithm, firstn and "
+        "indep, choose_args, legacy tunables, OP_SET_* steps) at budgets 0, "
+        f"1, 3 equal the plain walk; crushtool --test: {json.dumps(st)}")
+    return {"launches": counts["crush_rule"], "max_abs_err": err,
+            "sweep_ms": sweep_s * 1e3, "sweep_ids_per_s": CRUSH_IDS / sweep_s,
+            "exact_ms": exact_s * 1e3, "stages": stages, "unclean": unclean,
+            "sweep_bound_ms": all_bound, "walk_stats": stats.tolist(),
+            "moved_share": share, "ec_ms": ec_s * 1e3, "rm": rm,
+            "flat": flat, "steps": steps, "xs": xs, "dw": dw}
+
+
+def time_crush(torch, dev, log, cr: dict, sass: dict) -> dict:
+    """K6's row: the main path's commonest launch (the one-attempt pass
+    over one chunk) from a CUDA graph, the exact walk over a chunk, the
+    eager compile_rule call, the plain walk, and the bound of that
+    launch's own work."""
+    from ceph_tpu_torch.crush import mapper
+    from ceph_tpu_torch.ops import crush_rule
+
+    rm, xs = cr["rm"], cr["xs"][:CRUSH_CHUNK]
+    spec = crush_rule.RuleSpec(cr["steps"], 3)
+    w = torch.from_numpy(cr["dw"].view(np.int32)).to(dev)
+    out = torch.empty((CRUSH_CHUNK, 3), dtype=torch.int32, device=dev)
+    bad = torch.empty(CRUSH_CHUNK // 8, dtype=torch.int32, device=dev)
+    cnt = torch.zeros(1, dtype=torch.int32, device=dev)
+    ms = graph_ms(torch, lambda: crush_rule.launch(
+        rm, spec, w, xs, out, budget=1, bad=bad, bad_count=cnt), iters=5,
+        reps=3)
+    exact_ms = graph_ms(torch, lambda: crush_rule.launch(
+        rm, spec, w, xs, out), iters=5, reps=3)
+    fn = mapper.compile_rule(cr["flat"], cr["steps"], 3, device=dev)
+    call_ms = event_ms(torch, lambda: fn(xs, cr["dw"]), 5)
+    plain_ms = event_ms(torch, lambda: crush_rule.rule_plain(
+        rm, spec, w, xs, 1), 1, warmup=1)
+    stats = torch.zeros(3, dtype=torch.int64, device=dev)
+    crush_rule.launch(rm, spec, w, xs, out, budget=1, bad=bad, bad_count=cnt,
+                      stats=stats)
+    b_ms, b_by = crush_bound(stats.tolist(), CRUSH_CHUNK, 3)
+    c = sass["crush_rule"]
+    log(f"crush_rule: one-attempt launch over {CRUSH_CHUNK} ids {ms:.4f} ms "
+        f"(bound {b_ms:.4f} ms, {b_by}), exact launch {exact_ms:.4f} ms, "
+        f"eager compile_rule call {call_ms:.4f} ms, plain {plain_ms:.1f} ms")
+    return {"name": "crush_rule", "route": "cuda",
+            "source": "ceph_tpu_torch/csrc/crush.cu",
+            "replaces": "ceph_tpu/crush/mapper.py:1103",
+            "launches": cr["launches"], "max_abs_err": cr["max_abs_err"],
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None, "call_ms": call_ms,
+            "exact_chunk_ms": exact_ms, "regs": c["regs"],
+            "stack": c["stack"], "local": c["local"],
+            "sweep_ms": cr["sweep_ms"], "sweep_ids_per_s":
+            cr["sweep_ids_per_s"], "exact_ms": cr["exact_ms"],
+            "sweep_bound_ms": cr["sweep_bound_ms"], "stages": cr["stages"],
+            "unclean": cr["unclean"],
+            "sass": {"crush_rule": c}}
 
 
 def phase_ecbench(torch, dev, log) -> dict:
@@ -1167,6 +1459,7 @@ def main() -> int:
     bm_res = phase_bitmatrix(torch, dev, log)
     sh_res = phase_shec(torch, dev, log)
     phase_lrc(torch, dev, log)
+    cr_res = phase_crush(torch, dev, log)
     eb_res = phase_ecbench(torch, dev, log)
     kernels = time_kernels(torch, dev, log, main_res)
     kernels[0]["sass"] = {n: sass[n] for n in ("enc_4x8", "dec_8x8")}
@@ -1176,6 +1469,7 @@ def main() -> int:
         "popcount_k16", "popcount_k32", "popcount_k64", "popcount_k128")}
     kernels.append(time_gf256i(torch, dev, log, eb_res))
     kernels[-1]["sass"] = {"inter_4x8": sass["inter_4x8"]}
+    kernels.append(time_crush(torch, dev, log, cr_res, sass))
     for kr in kernels:
         log(f"{kr['name']}: {kr['ms']:.4f} ms, plain {kr['plain_ms']:.3f} "
             f"ms, bound {kr['bound_ms']:.4f} ms ({kr['bound_by']}), "

@@ -11,10 +11,13 @@ import numpy as np
 import pytest
 import torch
 
+from ceph_tpu_torch.crush import map as cmap
+from ceph_tpu_torch.crush import mapper, samples
 from ceph_tpu_torch.ec import codec_from_profile, matrices
 from ceph_tpu_torch.gpu.queue import StripeBatchQueue
 from ceph_tpu_torch.ops import crc32c_device as cd
-from ceph_tpu_torch.ops import benchloop, gf2_matmul, gf256, gf256_planes
+from ceph_tpu_torch.ops import benchloop, crush_rule, gf2_matmul, gf256
+from ceph_tpu_torch.ops import gf256_planes
 from ceph_tpu_torch.osd.ecutil import StripeInfo
 from ceph_tpu_torch.tools import ecbench
 
@@ -471,3 +474,114 @@ def test_ecbench_runs_on_the_card_at_small_sizes(dev):
     assert res["timing"] == "cuda_graph"
     assert all(isinstance(r["decode_gbps"], float)
                for r in res["ec_sweep"].values())
+
+
+# -- K6: the CRUSH rule walk -------------------------------------------------
+
+CRUSH_CASES = [c.name for c in samples.cases()]
+
+
+def _crush_walk(dev, case, xs, budget):
+    flat = case.map.flatten()
+    rm = mapper.device_map(flat, case.choose_args, dev)
+    spec = crush_rule.RuleSpec(case.steps, case.result_max)
+    w = torch.from_numpy(case.dev_weights.view(np.int32)).to(dev)
+    x = torch.from_numpy(xs).to(dev)
+    out = torch.empty((len(xs), case.result_max), dtype=torch.int32,
+                      device=dev)
+    clean = torch.empty(len(xs), dtype=torch.uint8, device=dev)
+    before = crush_rule.launches.value
+    crush_rule.launch(rm, spec, w, x, out, budget=budget, clean=clean)
+    assert crush_rule.launches.value == before + 1
+    torch.cuda.synchronize()
+    want, want_clean = crush_rule.rule_plain(rm, spec, w, x, budget)
+    return out, clean.bool(), want, want_clean
+
+
+@pytest.mark.parametrize("budget", [0, 1, 3])
+@pytest.mark.parametrize("name", CRUSH_CASES)
+def test_crush_kernel_equals_plain_on_every_sample(dev, name, budget):
+    case = samples.case(name)
+    out, clean, want, want_clean = _crush_walk(dev, case,
+                                               samples.ids(17, 2048), budget)
+    assert torch.equal(out, want)
+    assert torch.equal(clean, want_clean)
+
+
+def test_crush_kernel_budgets_clean_rows_are_the_full_walk(dev):
+    case = samples.case("chooseleaf_firstn_3")
+    xs = samples.ids(3, 1 << 16)
+    full = _crush_walk(dev, case, xs, 0)[0]
+    for budget in (1, 3):
+        out, clean, _, _ = _crush_walk(dev, case, xs, budget)
+        assert 0 < int(clean.sum()) < len(xs)
+        assert torch.equal(out[clean], full[clean])
+
+
+def test_crush_compile_rule_on_the_card_equals_plain_at_scale(dev):
+    m, root = cmap.build_flat_cluster(1024, hosts=64)
+    flat = m.flatten()
+    steps = [(cmap.OP_TAKE, root, 0), (cmap.OP_CHOOSELEAF_FIRSTN, 3, 1),
+             (cmap.OP_EMIT, 0, 0)]
+    xs = np.arange(1 << 18, dtype=np.int32)
+    dw = np.full(1024, 0x10000, dtype=np.uint32)
+    got = mapper.compile_rule(flat, steps, 3, device=dev)(xs, dw)
+    want = mapper.compile_rule(flat, steps, 3, device="cpu")(xs[:4096], dw)
+    assert torch.equal(got[:4096].cpu(), want)
+    rm = mapper.device_map(flat, device=dev)
+    plain, _ = crush_rule.rule_plain(
+        rm, crush_rule.RuleSpec(steps, 3),
+        torch.from_numpy(dw.view(np.int32)).to(dev),
+        torch.from_numpy(xs).to(dev))
+    assert torch.equal(got, plain)
+
+
+def test_crush_sweep_device_matches_exact_and_flags_overflow(dev):
+    m, root = cmap.build_flat_cluster(64, hosts=8)
+    flat = m.flatten()
+    steps = [(cmap.OP_TAKE, root, 0), (cmap.OP_CHOOSELEAF_FIRSTN, 3, 1),
+             (cmap.OP_EMIT, 0, 0)]
+    dw = np.full(64, 0x10000, dtype=np.uint32)
+    dw[5], dw[17], dw[40] = 0, 0x4000, 0
+    xs = np.arange(1 << 16, dtype=np.int32)
+    exact = mapper.compile_rule(flat, steps, 3, device=dev)(xs, dw)
+    # 8 hosts for 3 replicas retry far more than the 64-host map: half
+    # capacity at stage 2 and a quarter of the ids at stage 3
+    got, overflow = mapper.sweep_device(flat, steps, 3, xs, dw, chunk=4096,
+                                        bad_div=2, bad2_div=4, device=dev)
+    assert not bool(overflow)
+    assert torch.equal(got, exact)
+    host = mapper.sweep(flat, steps, 3, xs, dw, chunk=8192, device=dev)
+    assert np.array_equal(host, exact.cpu().numpy())
+    low = np.zeros(64, dtype=np.uint32)
+    low[:4] = 0x10000
+    _, overflow = mapper.sweep_device(flat, steps, 3, xs[:1024], low,
+                                      chunk=1024, bad_div=256, device=dev)
+    assert bool(overflow)
+    got, overflow = mapper.sweep_device(flat, steps, 3, xs[:1024], low,
+                                        chunk=1024, bad_div=1, bad2_div=1,
+                                        device=dev)
+    assert not bool(overflow)
+    assert torch.equal(got, mapper.compile_rule(flat, steps, 3, device=dev)(
+        xs[:1024], low))
+
+
+def test_crush_kernel_append_buffer_counts_past_capacity(dev):
+    case = samples.case("chooseleaf_firstn_3")
+    flat = case.map.flatten()
+    rm = mapper.device_map(flat, device=dev)
+    spec = crush_rule.RuleSpec(case.steps, 3)
+    dw = case.dev_weights.copy()
+    dw[[3, 7, 20]] = 0
+    w = torch.from_numpy(dw.view(np.int32)).to(dev)
+    xs = torch.from_numpy(samples.ids(2, 4096)).to(dev)
+    out = torch.empty((4096, 3), dtype=torch.int32, device=dev)
+    bad = torch.full((64,), -1, dtype=torch.int32, device=dev)
+    count = torch.zeros(1, dtype=torch.int32, device=dev)
+    crush_rule.launch(rm, spec, w, xs, out, budget=1, bad=bad,
+                      bad_count=count, idx_base=100000)
+    _, clean = crush_rule.rule_plain(rm, spec, w, xs, 1)
+    unclean = set((torch.nonzero(~clean).squeeze(1) + 100000).tolist())
+    assert int(count[0]) == len(unclean) > 64
+    got = bad.tolist()
+    assert len(set(got)) == 64 and set(got) <= unclean

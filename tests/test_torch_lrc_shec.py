@@ -131,6 +131,29 @@ def test_lrc_explicit_layers_with_inner_plugin_profiles():
 
 
 @pytest.mark.parametrize("profile", [
+    {"k": "4", "m": "2", "l": "3"},
+    # Ceph's documented low-level lrc profile (erasure-code-lrc.rst)
+    {"mapping": "__DD__DD",
+     "layers": '[ [ "_cDD_cDD", "" ], [ "cDDD____", "" ], '
+               '[ "____cDDD", "" ] ]'}])
+def test_lrc_encode_array_equals_reference_coding_chunks(profile):
+    port, ref = _lrc_pair(profile)
+    n, k = port.get_chunk_count(), port.get_data_chunk_count()
+    payload = _payload(11, 5000)
+    planes, blocksize = port.encode_prepare(payload)
+    coding = port.encode_array(planes)
+    data_pos = [port.chunk_index(i) for i in range(k)]
+    coding_pos = [c for c in range(n) if c not in data_pos]
+    assert coding.dtype == np.uint8
+    assert coding.shape == (n - k, blocksize)
+    want = ref.encode(range(n), payload)
+    for row, c in zip(coding, coding_pos):
+        assert np.array_equal(row, np.asarray(want[c])), c
+    with pytest.raises(ValueError):
+        port.encode_array(planes[:-1])
+
+
+@pytest.mark.parametrize("profile", [
     {"k": "4", "m": "2"},              # l missing
     {"k": "4", "m": "2", "l": "5"},    # (k+m) % l
     {"k": "8", "m": "4", "l": "4"},    # (k+m)/l = 3 does not divide k

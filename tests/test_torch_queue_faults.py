@@ -52,18 +52,27 @@ def test_shec_decode_is_refused_at_submit(queue, lost):
         assert np.array_equal(got[s], data[s])
 
 
+@pytest.mark.parametrize("route", ["encode_array", "encode"])
 @pytest.mark.parametrize("submit", ["encode_async", "encode_crc_async"])
-def test_lrc_encode_is_refused_at_submit(queue, submit):
+def test_lrc_encode_is_refused_at_submit(queue, submit, route):
     codec = codec_from_profile(LRC, device="cpu")
     with pytest.raises(TypeError, match="ErasureCodeLrc.*encode_array"):
         getattr(queue, submit)(codec, np.zeros((4, 4096), np.uint8))
     assert queue.jobs == 0 and queue._thread is None
-    # lrc still encodes, through encode_array, as the reference's chunks
+    # lrc still encodes as the reference's chunks: through encode_array,
+    # as the refusal advises, and through the byte API
     ref = ref_codec_from_profile(LRC)
     payload = _data(7, 1, 4 * 4096).tobytes()
     n = codec.get_chunk_count()
-    got = codec.encode(range(n), payload)
     want = ref.encode(range(n), payload)
+    if route == "encode_array":
+        planes, _ = codec.encode_prepare(payload)
+        data_pos = [codec.chunk_index(i) for i in range(codec.k)]
+        coding_pos = [c for c in range(n) if c not in data_pos]
+        got = dict(zip(coding_pos, codec.encode_array(planes)))
+        got.update(zip(data_pos, planes))
+    else:
+        got = codec.encode(range(n), payload)
     assert sorted(got) == sorted(want)
     for s in got:
         assert np.array_equal(np.asarray(got[s]), np.asarray(want[s]))

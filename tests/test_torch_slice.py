@@ -324,6 +324,8 @@ def test_importing_the_port_loads_neither_jax_nor_the_reference():
             "('jax', 'jaxlib', 'ceph_tpu'))\n"
             "assert not bad, bad\n"
             "assert 'ceph_tpu_torch.gpu.queue' in sys.modules\n"
+            "assert 'ceph_tpu_torch.crush.mapper' in sys.modules\n"
+            "assert 'ceph_tpu_torch.tools.crushtool' in sys.modules\n"
             "print('clean')\n")
     env = dict(os.environ, PYTHONPATH=str(REPO))
     out = subprocess.run([sys.executable, "-c", code], cwd=str(REPO),
@@ -334,16 +336,27 @@ def test_importing_the_port_loads_neither_jax_nor_the_reference():
 
 def test_no_device_without_cuda_raises(monkeypatch):
     from ceph_tpu_torch import resolve_device
+    from ceph_tpu_torch.crush import map as cmap
+    from ceph_tpu_torch.crush import mapper
     from ceph_tpu_torch.ec import instance
     from ceph_tpu_torch.ops.crc32c_device import crc32c_dev
+    from ceph_tpu_torch.tools import crushtool
 
+    m, root = cmap.build_flat_cluster(4)
+    flat = m.flatten()
+    steps = [(cmap.OP_TAKE, root, 0), (cmap.OP_CHOOSE_FIRSTN, 2, 0),
+             (cmap.OP_EMIT, 0, 0)]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for call in (lambda: resolve_device(),
                  lambda: resolve_device("cuda"),
                  lambda: codec_from_profile(PROFILE),
                  lambda: instance().factory("isa", {"k": "4", "m": "2"}),
                  lambda: StripeBatchQueue(),
-                 lambda: crc32c_dev(b"abc")):
+                 lambda: crc32c_dev(b"abc"),
+                 lambda: mapper.compile_rule(flat, steps, 2),
+                 lambda: mapper.sweep_device(flat, steps, 2, [0], [1 << 16]),
+                 lambda: crushtool.main(["--build", "--num_osds", "4",
+                                         "root", "straw2", "0", "--test"])):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
     # naming the CPU is the one way to run there
