@@ -11,9 +11,15 @@ Because the hash is masked to 16 bits, crush_ln over the straw2 domain
 has exactly 65536 distinct outputs; :func:`ln16_table` tabulates them
 once, and the torch draw gathers from it.  Every function takes
 ``xp=np`` (the default) or ``xp=torch``; the torch twins compute in
-int64 on the tensors' device.  The reference's ``fastcmp_bounds`` (a
-TPU workaround that draws by hash order) has no counterpart: the port's
-kernel draws exactly.
+int64 on the tensors' device.
+
+:func:`fastcmp_bounds` is the reference's proof that a hash order is a
+draw order: in a bucket whose items share one weight w <= bound[2], a
+16-bit hash at least 2 above another always draws strictly higher.  The
+reference uses it to flag near ties for a later exact stage; the port's
+kernel (``csrc/crush.cu``) settles a near tie in place with the exact
+draw, so its draws stay exact and only hash distances below 2 or
+unequal weights pay for crush_ln and the divide.
 """
 
 from __future__ import annotations
@@ -104,6 +110,28 @@ def ln16_table() -> np.ndarray:
 def ln16_tensor(device: torch.device) -> torch.Tensor:
     """:func:`ln16_table` as an int64 tensor on ``device``."""
     return torch.from_numpy(ln16_table()).to(device)
+
+
+@functools.lru_cache(maxsize=None)
+def fastcmp_bounds() -> dict:
+    """{delta: bound}: for every pair of 16-bit hash values u_i < u_j
+    with u_j - u_i >= delta, the straw2 magnitudes satisfy
+    n(u_i) - n(u_j) >= bound, where n(u) = 2^48 - crush_ln(u).
+
+    crush_ln's fixed-point interpolation is not monotone (adjacent
+    values can invert), but the inversion is local: at distance >= 2
+    the magnitudes separate by more than 2^25.  So in a bucket whose
+    items share one positive weight w <= bound[d], floor(n_i / w) >
+    floor(n_j / w) (as a - b >= w gives floor(a/w) > floor(b/w)): the
+    item with the higher hash draws strictly higher.
+
+    Computed exactly from the table by a suffix maximum: bound[d] =
+    min_u [n(u) - max_{v >= u+d} n(v)].  A copy of
+    ``ceph_tpu/crush/ln.py:70-93``.
+    """
+    n = (-ln16_table()).astype(np.int64)
+    sm = np.maximum.accumulate(n[::-1])[::-1]
+    return {d: int((n[:-d] - sm[d:]).min()) for d in (2, 3, 4)}
 
 
 def div64_trunc(num, den, xp=np):

@@ -9,14 +9,18 @@ batch's worst-case retries, the straw2 quotient from u32 limbs, and
 hash-order ("fastcmp") draws that flag ambiguous lanes.  Here the walk
 is ``ops/crush_rule.py``: on the card the CUDA kernel ``csrc/crush.cu``,
 one thread per object id running Ceph's scalar ``crush_do_rule`` with
-exact 64-bit draws; on the CPU its plain PyTorch version.
+exact draws (the same hash-order rule, with each near tie settled in
+place by the exact 64-bit draw); on the CPU its plain PyTorch version.
 
-The staged sweeps keep their structure and capacities: a one-attempt
+The staged sweeps keep the reference's three stages: a one-attempt
 pass (budget 1), a pass at :data:`MID_BUDGET` over the unclean ids, and
-the exact walk over what is left.  Each stage is one launch of the same
-kernel at a different budget.  The port's ``clean`` has no draw
-ambiguity among its reasons (its draws are exact), so its unclean sets
-are subsets of the reference's, and its results are the same.
+the exact walk over what is left, each one launch of the same kernel at
+a different budget.  Stage 1 runs a launch per chunk, all appending to
+one sweep-wide buffer; stages 2 and 3 run once per sweep, so a sweep is
+``n_chunks + 2`` launches chained on the device.  The port's ``clean``
+has no draw ambiguity among its reasons (its draws are exact), so its
+unclean sets are subsets of the reference's, and its results are the
+same.
 
 Every entry point takes ``device=``: ``None`` means CUDA and raises
 without a card; ``"cpu"`` runs the plain version.
@@ -164,15 +168,14 @@ def compile_rule(
 def _stages(rm, spec, w, xs, out, chunk: int, cap: int, cap2: int,
             stage_events=None):
     """The three staged launches over xs (a multiple of chunk long) into
-    out, chained on the device: per chunk a budget-1 pass appending its
-    unclean ids to a chunk/cap buffer and a MID_BUDGET pass over them
-    appending to the sweep's stage-3 buffer; then the exact walk over
-    that.  Returns the device counts (per-chunk stage-1, stage-3)."""
+    out, chained on the device: per chunk a budget-1 pass appending the
+    global indices of its unclean ids to one sweep-wide buffer of cap
+    entries; one MID_BUDGET pass over that buffer appending the ids still
+    unclean to a buffer of cap2; the exact walk over that.  Returns the
+    device counts of the two buffers (each may pass its capacity)."""
     dev = xs.device
-    n = xs.numel()
-    n_chunks = n // chunk
     bad1 = torch.empty(cap, dtype=torch.int32, device=dev)
-    counts1 = torch.zeros(n_chunks, dtype=torch.int32, device=dev)
+    count1 = torch.zeros(1, dtype=torch.int32, device=dev)
     bad3 = torch.empty(cap2, dtype=torch.int32, device=dev)
     count3 = torch.zeros(1, dtype=torch.int32, device=dev)
 
@@ -187,18 +190,17 @@ def _stages(rm, spec, w, xs, out, chunk: int, cap: int, cap2: int,
         t1.record()
         stage_events.setdefault(stage, []).append((t0, t1))
 
-    for c in range(n_chunks):
-        lo = c * chunk
+    for lo in range(0, xs.numel(), chunk):
         sub, sub_out = xs[lo:lo + chunk], out[lo:lo + chunk]
-        cnt = counts1[c:c + 1]
         timed(1, lambda: crush_rule.launch(
-            rm, spec, w, sub, sub_out, budget=1, bad=bad1, bad_count=cnt))
-        timed(2, lambda: crush_rule.launch(
-            rm, spec, w, sub, sub_out, budget=MID_BUDGET, lanes=bad1,
-            lane_count=cnt, bad=bad3, bad_count=count3, idx_base=lo))
+            rm, spec, w, sub, sub_out, budget=1, bad=bad1, bad_count=count1,
+            idx_base=lo))
+    timed(2, lambda: crush_rule.launch(
+        rm, spec, w, xs, out, budget=MID_BUDGET, lanes=bad1,
+        lane_count=count1, bad=bad3, bad_count=count3))
     timed(3, lambda: crush_rule.launch(
         rm, spec, w, xs, out, budget=0, lanes=bad3, lane_count=count3))
-    return counts1, count3
+    return count1, count3
 
 
 def sweep(
@@ -213,11 +215,11 @@ def sweep(
 ) -> np.ndarray:
     """Full-cluster placement sweep (the ParallelPGMapper workload,
     reference src/osd/OSDMapMapping.h:17) as three stages, returned on
-    the host: a one-attempt pass over each chunk, a :data:`MID_BUDGET`
-    pass over its unclean ids, and the exact walk over the residue, each
-    stage sized to the whole chunk so that nothing can overflow.
-    Bit-exact with the full walk on every id (a clean id's row is the
-    full walk's)."""
+    the host: a one-attempt pass over each chunk, one :data:`MID_BUDGET`
+    pass over every unclean id, and the exact walk over the residue --
+    :func:`sweep_device`'s schedule with every buffer sized to all the
+    ids, so that nothing can overflow.  Bit-exact with the full walk on
+    every id (a clean id's row is the full walk's)."""
     dev = resolve_device(device)
     x = _as_ids(xs, dev).reshape(-1)
     n = x.numel()
@@ -231,9 +233,7 @@ def sweep(
     spec = crush_rule.RuleSpec(steps, result_max)
     w = _as_weights(dev_weights, dev)
     out = torch.empty((x.numel(), result_max), dtype=torch.int32, device=dev)
-    for lo in range(0, x.numel(), chunk):
-        _stages(rm, spec, w, x[lo:lo + chunk], out[lo:lo + chunk], chunk,
-                chunk, chunk)
+    _stages(rm, spec, w, x, out, chunk, x.numel(), x.numel())
     return out[:n].cpu().numpy()
 
 
@@ -253,20 +253,23 @@ def sweep_device(
     """Device-resident staged sweep: placements and the overflow flag
     stay on the device, and nothing waits on the host.
 
-    The same three stages as :func:`sweep` at fixed capacities:
+    The same three stages as :func:`sweep` at fixed capacities, in
+    ``n / chunk + 2`` launches:
 
-    1. a one-attempt pass over each chunk, whose unclean ids the kernel
-       appends to a buffer of chunk/bad_div entries;
-    2. a :data:`MID_BUDGET` pass over them, appending the ids still
-       unclean to one sweep-wide buffer of max(n/bad2_div, 2048);
-    3. the exact walk over that buffer, once, after every chunk.
+    1. a one-attempt pass over each chunk, whose unclean ids every
+       chunk's launch appends to one sweep-wide buffer of
+       max(1, n/bad_div) entries (the reference sizes a buffer per
+       chunk, chunk/bad_div: the same share of the ids);
+    2. one :data:`MID_BUDGET` pass over that buffer, appending the ids
+       still unclean to a buffer of min(n, max(n/bad2_div, 2048));
+    3. the exact walk over that buffer, once.
 
-    If a stage's unclean count passes its capacity, the returned flag is
-    True and the caller must fall back to :func:`sweep` (ids past the
-    capacity keep an earlier stage's row, which may differ from the full
-    walk's).  bad_div=1, bad2_div=1 gives full capacity at every stage.
-    ``stage_events`` (a dict, CUDA only) collects a (start, end) CUDA
-    event pair per launch under its stage number.
+    If a buffer's sweep-wide unclean count passes its capacity, the
+    returned flag is True and the caller must fall back to :func:`sweep`
+    (ids past the capacity keep an earlier stage's row, which may differ
+    from the full walk's).  bad_div=1, bad2_div=1 gives full capacity at
+    every stage.  ``stage_events`` (a dict, CUDA only) collects a (start,
+    end) CUDA event pair per launch under its stage number.
 
     xs length must be a multiple of `chunk`.  Returns (placements i32
     [N, result_max] ON DEVICE, overflow bool ON DEVICE)."""
@@ -277,13 +280,12 @@ def sweep_device(
     if chunk <= 0 or n % chunk:
         raise ValueError(f"{n} ids are not a whole number of {chunk}-id "
                          "chunks")
-    cap = max(1, chunk // bad_div)
+    cap = max(1, n // bad_div)
     cap2 = min(n, max(n // bad2_div, 2048))
     rm = device_map(flat, choose_args, dev)
     spec = crush_rule.RuleSpec(steps, result_max)
     out = torch.empty((n, result_max), dtype=torch.int32, device=dev)
-    counts1, count3 = _stages(rm, spec, _as_weights(dev_weights, dev), x,
-                              out, chunk, cap, cap2, stage_events)
-    overflow = (counts1 > cap).any() | (count3[0] > cap2)
-    return out, overflow
+    count1, count3 = _stages(rm, spec, _as_weights(dev_weights, dev), x,
+                             out, chunk, cap, cap2, stage_events)
+    return out, (count1[0] > cap) | (count3[0] > cap2)
 

@@ -5,7 +5,9 @@ randomness but the ids, which the caller draws): every bucket algorithm,
 flat and mixed hierarchies, firstn and indep, choose then chooseleaf,
 reweighted and out devices, zero-weight items, ``choose_args`` weight
 sets, the legacy tunables (local retries and the perm fallback),
-``OP_SET_*`` steps, and numrep 0, negative and past the result width.
+``OP_SET_*`` steps, numrep 0, negative and past the result width, and
+straw2 weight classes on both sides of the hash-order bound
+(``ln.fastcmp_bounds()[2]``).
 The CPU tests hold the plain walk against the reference package on
 these maps; ``chip_smoke.py`` and the card tests hold the kernel against
 the plain walk on them, at every budget.
@@ -17,6 +19,7 @@ from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
 
+from ceph_tpu_torch.crush import ln
 from ceph_tpu_torch.crush import map as cmap
 from ceph_tpu_torch.crush.map import (
     ALG_LIST,
@@ -86,6 +89,22 @@ def _hosts(n_hosts: int, per: int, host_alg: int = ALG_STRAW2,
                           [0x10000] * per) for h in range(n_hosts)]
     return m, m.add_bucket(root_alg, 10, hosts,
                            [0x10000 * per] * n_hosts), hosts
+
+
+def weighted_cluster(n_osds: int, hosts: int):
+    """``cmap.build_flat_cluster(n_osds, hosts=hosts)`` with every fourth
+    OSD at straw2 weight 0x20000 and each host's weight in the root the
+    sum of its OSDs': host buckets that mix two weights.  Returns (map,
+    root_id)."""
+    m = cmap.CrushMap()
+    per = n_osds // hosts
+    ids, sums = [], []
+    for h in range(hosts):
+        osds = list(range(h * per, (h + 1) * per))
+        w = [0x20000 if o % 4 == 0 else 0x10000 for o in osds]
+        ids.append(m.add_bucket(ALG_STRAW2, 1, osds, w))
+        sums.append(sum(w))
+    return m, m.add_bucket(ALG_STRAW2, 10, ids, sums)
 
 
 def _rule(root: int, *choose) -> list:
@@ -163,6 +182,18 @@ def cases() -> List[Case]:
           hosts[1]: [0x10000, 0, 0x10000, 0x10000]}
     add("choose_args", m, _rule(root, (OP_CHOOSELEAF_FIRSTN, 3, 1)), 3,
         ca=ca, oracle="reference")
+
+    # equal weights at and past the hash-order bound, unequal neighbours,
+    # zero weights first and inside a bucket
+    fm = ln.fastcmp_bounds()[2]
+    classes = [0, 0x10000, 0x10000, fm, fm, fm + 1, 0x4000000, 0x4000000]
+    m = cmap.CrushMap()
+    hosts = [m.add_bucket(ALG_STRAW2, 1, [h * 8 + i for i in range(8)],
+                          classes[2 * h:] + classes[:2 * h])
+             for h in range(4)]
+    root = m.add_bucket(ALG_STRAW2, 10, hosts, [fm, fm, fm + 1, 0x10000])
+    add("straw2_weight_classes", m,
+        _rule(root, (OP_CHOOSELEAF_FIRSTN, 3, 1)), 3)
 
     m, root = cmap.build_flat_cluster(32, hosts=8)
     m.tunables = cmap.Tunables(

@@ -12,11 +12,23 @@
 //
 // - straw2 (mapper.c:334-384): draw = -((2^48 - crush_ln(hash3(x, id, r)
 //   & 0xffff)) / w) in exact 64-bit math, S64_MIN for w == 0; the
-//   strictly greater draw wins, so ties keep the first item.  sm_90 has
-//   no 64-bit integer divide: the compiler emits a software sequence;
-//   the ln tables are read from device memory through the read-only
-//   path (lanes index them differently, which the constant cache would
-//   serialise);
+//   strictly greater draw wins, so ties keep the first item.  The scan
+//   keeps a running leader (index, hash u_L, weight w_L, its exact draw
+//   once computed) and settles each item against it by the cheapest
+//   exact rule: a zero weight loses, a zero-weight leader loses to any
+//   positive weight, an equal weight and an equal hash keep the leader,
+//   and an equal weight w <= fast_max (crush/ln.py fastcmp_bounds()[2],
+//   about 856.4 in 16.16) at hash distance >= 2 is decided by the hashes
+//   alone (the ln table's inversions are local to distance 1).  Anything
+//   else (distance 1, unequal weights, w > fast_max) compares the two
+//   exact draws.  Each step is an exact pairwise comparison under
+//   "strictly greater replaces", so the leader is always the C scan's
+//   high.  On a map whose buckets share one weight only about 2 draws in
+//   65536 take crush_ln and the quotient.  sm_90 has no 64-bit divide,
+//   so the quotient is a multiply by the item's reciprocal magic =
+//   floor((2^64 - 1) / w) (uploaded with the weights) and one correction
+//   (ceph_tpu/crush/mapper.py:126-137 does the same in 16-bit limbs);
+//   the ln tables are read through the read-only path;
 // - uniform (mapper.c:73 bucket_perm_choose): the lazily built
 //   permutation is path independent (step p swaps p and p + hash3(x, id,
 //   p) % (size - p)), so perm[pr] is found by tracing position pr back
@@ -40,11 +52,16 @@
 // sweep's stages chain on the device without a host sync.
 //
 // Bound: operations.  The healthy 1024-OSD / 64-host map with chooseleaf
-// firstn 3 draws about 3 x (64 + 16) straw2 items per id, each a hash32_3
-// (183 integer ops: 3 seed XORs and 5 mixes of 36), a crush_ln (about
-// 20) and a 64-bit divide; the output is 12 bytes an id.  The launch can
-// count its draws and other hashes into a stats buffer, so the bound is
-// taken from the work a run did (chip_smoke.py crush_bound).
+// firstn 3 draws about 3 x (64 + 16) straw2 items per id.  The yardstick
+// (chip_smoke.py crush_bound) still prices every draw as the full exact
+// draw of the C code: a hash32_3 (183 integer ops: 3 seed XORs and 5
+// mixes of 36), a crush_ln (about 20) and a 64-bit divide; the output is
+// 12 bytes an id.  The launch can count its draws, other hashes, bucket
+// choices and the draws settled on the exact path into a stats buffer,
+// so the bound is taken from the work a run did.  A draw on the
+// hash-order path still costs the hash32_3, two loads and the compares,
+// nearly all on the integer ALU pipe; chip_smoke.py reads that pipe's
+// issue floor from the built kernel's SASS.
 
 #include <cooperative_groups.h>
 #include <cooperative_groups/reduce.h>
@@ -68,12 +85,17 @@ constexpr uint32_t kHashSeed = 1315423911u;
 constexpr int kMaxResult = 32;  // ops/crush_rule.py MAX_RESULT
 constexpr int kMaxSteps = 32;   // ops/crush_rule.py MAX_STEPS
 constexpr int kThreads = 128;
+// Blocks an SM keeps resident: caps the kernel at 72 registers (65536 /
+// (7 x 128)); left to itself the compiler takes 96 for the straw2 scan's
+// hoisted fields, which timed no faster and holds 5 blocks an SM.
+constexpr int kMinBlocks = 7;
 
 // Mirrored field for field by ops/crush_rule.py _RuleArgs.
 struct RuleArgs {
   // the map ([B, S] row-major; u32 planes as raw words)
   const int32_t* items;
   const uint32_t* weights;  // straw2 weights with choose_args applied
+  const unsigned long long* magic;  // [B, S] floor((2^64 - 1) / weight)
   const int32_t* sizes;
   const int32_t* algs;
   const int32_t* types;
@@ -92,10 +114,12 @@ struct RuleArgs {
   const int32_t* lane_count;  // number of valid entries of lanes, or null
   int32_t* bad;               // append buffer for unclean ids, or null
   int32_t* bad_count;         // its counter (counts past bad_cap too)
-  unsigned long long* stats;  // [3]: straw2 draws, other hashes, chooses
+  // [4]: straw2 draws, other hashes, chooses, draws settled exactly
+  unsigned long long* stats;
   int64_t n;  // threads: ids without a lane list, else the list's capacity
   int32_t n_buckets, max_size, max_devices, weight_max, tree_stride;
   int32_t result_max, budget, bad_cap, idx_base;
+  uint32_t fast_max;  // the largest weight whose hash order is its draw order
   // choose_total_tries, choose_local_tries, choose_local_fallback_tries,
   // chooseleaf_descend_once, chooseleaf_vary_r, chooseleaf_stable
   int32_t tunables[6];
@@ -107,7 +131,7 @@ struct Walk {
   uint32_t x;
   int budget;
   bool clean;
-  unsigned draws, hashes, chooses;
+  unsigned draws, hashes, chooses, exact;
 };
 
 __device__ __forceinline__ void hashmix(uint32_t& a, uint32_t& b,
@@ -178,30 +202,69 @@ __device__ __forceinline__ int32_t item_at(const RuleArgs& a, int bno,
   return __ldg(a.items + static_cast<int64_t>(bno) * a.max_size + i);
 }
 
+// The exact straw2 draw of item `at` (weight wt > 0): -(mag / wt), the
+// quotient as mulhi(mag, magic) plus one correction, since the estimate
+// is q or q - 1 for mag <= 2^48 (ops/crush_rule.py recip_div_plain).  Out
+// of line: the scan's hot loop keeps only the hash and the compares.
+__device__ __noinline__ int64_t straw2_exact(const RuleArgs& a, int64_t at,
+                                             uint32_t u, uint32_t wt) {
+  const uint64_t mag = (1ull << 48) - crush_ln(a, u);
+  uint64_t q = __umul64hi(mag, __ldg(a.magic + at));
+  if (mag - q * wt >= wt) ++q;
+  return -static_cast<int64_t>(q);
+}
+
 __device__ __forceinline__ int straw2_choose(const RuleArgs& a, int bno,
                                              int size, uint32_t r, Walk& w) {
+  // the walk's fields in registers: bucket_choose is a call, and its
+  // loads through `a` and `w` would otherwise repeat every item
   const int64_t row = static_cast<int64_t>(bno) * a.max_size;
+  const uint32_t* wts = a.weights + row;
+  const int32_t* items = a.items + row;
+  const uint32_t x = w.x, fast_max = a.fast_max;
+  // the leader: index, hash, weight and (once `known`) its exact draw.
+  // It starts as item 0 at weight 0, whose draw S64_MIN every positive
+  // weight beats: so item 0 leads whatever its weight.
   int high = 0;
-  int64_t high_draw = 0;
+  uint32_t hw = 0, hu = 0;
+  int64_t hdraw = INT64_MIN;
+  bool known = true;
+  unsigned exact = 0;
   for (int i = 0; i < size; ++i) {
-    const uint32_t wt = __ldg(a.weights + row + i);
-    int64_t draw = INT64_MIN;
-    if (wt != 0) {
-      const uint32_t u =
-          hash3(w.x, static_cast<uint32_t>(__ldg(a.items + row + i)), r) &
-          0xffff;
-      // 2^48 - crush_ln(u) >= 0, so the truncating s64 divide of
-      // div64_s64 is the unsigned quotient of the magnitude, negated
-      const uint64_t mag = (1ull << 48) - crush_ln(a, u);
-      draw = -static_cast<int64_t>(mag / wt);
+    const uint32_t wt = __ldg(wts + i);
+    if (wt == 0) continue;  // draws S64_MIN: never strictly greater
+    const uint32_t u =
+        hash3(x, static_cast<uint32_t>(__ldg(items + i)), r) & 0xffff;
+    if (hw != 0) {
+      if (wt == hw) {
+        if (u == hu) continue;  // equal draws: the first item stays
+        if (wt <= fast_max && (u >= hu + 2 || u + 2 <= hu)) {
+          if (u > hu) {  // hash order is draw order
+            high = i;
+            hu = u;
+            known = false;
+          }
+          continue;
+        }
+      }
+      ++exact;
+      if (!known) {
+        hdraw = straw2_exact(a, row + high, hu, hw);
+        known = true;
+      }
+      const int64_t draw = straw2_exact(a, row + i, u, wt);
+      if (draw <= hdraw) continue;
+      hdraw = draw;
+    } else {
+      known = false;  // a zero-weight leader loses to any positive weight
     }
-    if (i == 0 || draw > high_draw) {
-      high = i;
-      high_draw = draw;
-    }
+    high = i;
+    hu = u;
+    hw = wt;
   }
   w.draws += size;
-  return item_at(a, bno, high);
+  w.exact += exact;
+  return __ldg(items + high);
 }
 
 // perm[pr] of bucket_perm_choose's permutation, traced back from step pr.
@@ -597,7 +660,7 @@ __device__ __forceinline__ void add_stat(unsigned long long* at,
   if (g.thread_rank() == 0) atomicAdd(at, sum);
 }
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
     crush_rule_kernel(const __grid_constant__ RuleArgs a) {
   const int64_t t = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   int64_t n = a.n;
@@ -607,7 +670,7 @@ __global__ void __launch_bounds__(kThreads)
   }
   if (t >= n) return;
   const int64_t lane = a.lanes ? a.lanes[t] : t;
-  Walk w{static_cast<uint32_t>(a.xs[lane]), a.budget, true, 0, 0, 0};
+  Walk w{static_cast<uint32_t>(a.xs[lane]), a.budget, true, 0, 0, 0, 0};
   do_rule(a, w, a.out + lane * a.result_max);
   if (a.clean) a.clean[lane] = w.clean;
   if (!w.clean && a.bad) {
@@ -618,6 +681,7 @@ __global__ void __launch_bounds__(kThreads)
     add_stat(a.stats, w.draws);
     add_stat(a.stats + 1, w.hashes);
     add_stat(a.stats + 2, w.chooses);
+    add_stat(a.stats + 3, w.exact);
   }
 }
 

@@ -22,7 +22,12 @@ full walk and its row is the full walk's.
 Two implementations of the same function:
 
 - :func:`launch` on a CUDA tensor runs ``csrc/crush.cu`` (count
-  ``crush_rule``): one thread per id runs the scalar walk.  It can walk
+  ``crush_rule``): one thread per id runs the scalar walk.  Its straw2
+  scan keeps a running leader and takes the exact draw only where the
+  hash order does not settle a comparison (``ln.fastcmp_bounds``), the
+  quotient as a multiply by a reciprocal; :func:`straw2_scan_plain` and
+  :func:`recip_div_plain` are those two pieces as PyTorch ops, for the
+  tests.  It can walk
   a list of ids read from the device (a previous stage's append buffer
   and its count) and append its own unclean ids to another, so that a
   staged sweep chains on the device without a host sync;
@@ -74,6 +79,9 @@ launches = _build.LaunchCount("crush_rule")
 
 MAX_RESULT = 32  # csrc kMaxResult: entries of a work vector
 MAX_STEPS = 32   # csrc kMaxSteps: steps of a rule
+# the launch's counters: straw2 draws, other hashes, bucket choices, and
+# the straw2 draws settled on the exact path
+N_STATS = 4
 _M32 = 0xFFFFFFFF
 _CHOOSES = (OP_CHOOSE_FIRSTN, OP_CHOOSE_INDEP, OP_CHOOSELEAF_FIRSTN,
             OP_CHOOSELEAF_INDEP)
@@ -91,15 +99,24 @@ def _u32_values(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.int64) & _M32
 
 
+def recip_magic(weights) -> np.ndarray:
+    """floor((2^64 - 1) / w) for each u32 weight (1 for w == 0, whose
+    draw never divides), as the int64 bits of the u64 values: the
+    reciprocal operand of the kernel's straw2 quotient."""
+    w = np.maximum(np.asarray(weights, dtype=np.uint64), np.uint64(1))
+    return (np.uint64(0xFFFFFFFFFFFFFFFF) // w).view(np.int64)
+
+
 class RuleMap:
     """A flattened map on one device, as the rule walk reads it.
 
     ``weights`` are the straw2 draw weights: the map's, with
     ``choose_args`` ({bucket_id: [16.16 weights]}) substituted in straw2
     buckets only, as the reference's ``bucket_straw2_choose`` consults
-    its weight set (``ceph_tpu/crush/mapper.py:111-126``).  The kernel
-    takes the int32 planes (u32 fields as their bits); the plain version
-    takes int64 copies made on first use."""
+    its weight set (``ceph_tpu/crush/mapper.py:111-126``).  ``magic``
+    holds each weight's :func:`recip_magic` (a choose_args map has its
+    own).  The kernel takes the int32 planes (u32 fields as their bits);
+    the plain version takes int64 copies made on first use."""
 
     def __init__(self, flat: FlatMap, choose_args=None,
                  device: torch.device = torch.device("cpu")) -> None:
@@ -134,6 +151,7 @@ class RuleMap:
 
         self.items = dev(torch.from_numpy(items.copy()))
         self.weights = dev(_u32_words(weights))
+        self.magic = dev(torch.from_numpy(recip_magic(weights)))
         self.sizes = dev(torch.from_numpy(sizes.copy()))
         self.algs = dev(torch.from_numpy(algs.copy()))
         self.types = dev(torch.from_numpy(
@@ -208,6 +226,76 @@ class RuleSpec:
 
 def _nz(mask: torch.Tensor) -> torch.Tensor:
     return mask.nonzero().squeeze(1)
+
+
+def _limbs(v: torch.Tensor) -> list:
+    """The four 16-bit limbs of the 64-bit words ``v`` (int64 bits)."""
+    return [(v >> (16 * i)) & 0xFFFF for i in range(4)]
+
+
+def recip_div_plain(mag: torch.Tensor, wt: torch.Tensor,
+                    magic: torch.Tensor) -> torch.Tensor:
+    """mag // wt as the kernel computes it: q = mulhi(mag, magic), then
+    q += 1 if mag - q * wt >= wt.  ``magic`` is :func:`recip_magic` of
+    ``wt`` (int64 bits).  Exact for 0 <= mag <= 2^48 and wt in [1,
+    2^32): magic * wt lies in (2^64 - 1 - wt, 2^64 - 1], so mag * magic /
+    2^64 lies in (mag / wt - 2^-16, mag / wt) and the estimate is q or
+    q - 1.  The 128-bit product is summed in 16-bit limbs, every partial
+    inside int64."""
+    mag, wt = mag.to(torch.int64), wt.to(torch.int64)
+    a, b = _limbs(mag), _limbs(magic.to(torch.int64))
+    carry = torch.zeros_like(a[0])
+    hi = torch.zeros_like(a[0])
+    for col in range(8):
+        t = carry
+        for i in range(max(0, col - 3), min(col, 3) + 1):
+            t = t + a[i] * b[col - i]
+        if col >= 4:
+            hi = hi | ((t & 0xFFFF) << (16 * (col - 4)))
+        carry = t >> 16
+    return hi + (mag - hi * wt >= wt).to(torch.int64)
+
+
+def straw2_scan_plain(u: torch.Tensor, w: torch.Tensor,
+                      fast_max: Optional[int] = None):
+    """The kernel's straw2 leader scan over rows of 16-bit hashes ``u``
+    and u32 weights ``w`` ([L, S], every column an item): (the winning
+    column [L], the comparisons settled on the exact path [L]).
+
+    Each item meets the leader once: a zero weight loses, a zero-weight
+    leader loses to any positive weight, equal weights with equal hashes
+    keep the leader, equal weights w <= ``fast_max`` (default
+    ``ln.fastcmp_bounds()[2]``) at hash distance >= 2 go by the hashes,
+    and anything else compares the exact draws (:func:`recip_div_plain`
+    over the ln table).  Its result is the straw2 choose of mapper.c:
+    the first index of the strictly greatest draw."""
+    if fast_max is None:
+        fast_max = ln.fastcmp_bounds()[2]
+    u, w = u.to(torch.int64), w.to(torch.int64)
+    magic = torch.from_numpy(recip_magic(w.cpu().numpy())).to(w.device)
+    mag = -ln.ln16_tensor(u.device)[u]
+
+    def draw(j, col):
+        return -recip_div_plain(mag[j, col], w[j, col], magic[j, col])
+
+    L = u.shape[0]
+    rows = torch.arange(L, device=u.device)
+    high = torch.zeros(L, dtype=torch.int64, device=u.device)
+    exact = torch.zeros_like(high)
+    for i in range(1, u.shape[1]):
+        ui, wi = u[:, i], w[:, i]
+        hu, hw = u[rows, high], w[rows, high]
+        live = (wi != 0) & (hw != 0)
+        same = live & (wi == hw)
+        tie = same & (ui == hu)
+        by_hash = same & ~tie & (wi <= fast_max) & ((ui - hu).abs() >= 2)
+        slow = _nz(live & ~tie & ~by_hash)
+        take = ((wi != 0) & (hw == 0)) | (by_hash & (ui > hu))
+        if slow.numel():
+            take[slow] = draw(slow, i) > draw(slow, high[slow])
+        exact[slow] += 1
+        high = torch.where(take, i, high)
+    return high, exact
 
 
 class _PlainWalk:
@@ -624,14 +712,14 @@ class _RuleArgs(ctypes.Structure):
     """Mirror of ``RuleArgs`` in csrc/crush.cu, field for field."""
 
     _fields_ = [(name, ctypes.c_void_p) for name in (
-        "items", "weights", "sizes", "algs", "types", "straws",
+        "items", "weights", "magic", "sizes", "algs", "types", "straws",
         "sum_weights", "tree_weights", "tree_nodes", "dev_weights", "rh_lh",
         "ll", "xs", "out", "clean", "lanes", "lane_count", "bad",
         "bad_count", "stats")] + [("n", ctypes.c_int64)] + [
         (name, ctypes.c_int32) for name in (
             "n_buckets", "max_size", "max_devices", "weight_max",
             "tree_stride", "result_max", "budget", "bad_cap", "idx_base")] + [
-        ("tunables", ctypes.c_int32 * 6), ("n_steps", ctypes.c_int32),
+        ("fast_max", ctypes.c_uint32), ("tunables", ctypes.c_int32 * 6), ("n_steps", ctypes.c_int32),
         ("steps", ctypes.c_int32 * (3 * MAX_STEPS))]
 
 
@@ -666,8 +754,9 @@ def launch(rm: RuleMap, rule: RuleSpec, dev_weights: torch.Tensor,
       index (plus ``idx_base``) of each unclean walked id; the count
       goes on past the capacity, so ``bad_count > cap`` tells an
       overflow;
-    - ``stats`` (int64 [3], CUDA only): add the walk's straw2 draws,
-      other hashes and bucket choices.
+    - ``stats`` (int64 [N_STATS], CUDA only): add the walk's straw2
+      draws, other hashes, bucket choices and straw2 draws settled on
+      the exact path.
 
     On a CUDA tensor one kernel launch does it, on the current stream,
     without a host sync; on a CPU tensor :func:`rule_plain` does."""
@@ -697,10 +786,13 @@ def launch(rm: RuleMap, rule: RuleSpec, dev_weights: torch.Tensor,
     _check(stats, torch.int64, "stats", dev)
     if dev_weights.numel() < 1:
         raise ValueError("dev_weights must hold at least one weight")
+    if stats is not None and stats.numel() != N_STATS:
+        raise ValueError(f"stats must hold {N_STATS} counters")
     rh_lh, ll = rm.tables()
     a = _RuleArgs()
-    a.items, a.weights, a.sizes = _ptr(rm.items), _ptr(rm.weights), \
-        _ptr(rm.sizes)
+    a.items, a.weights, a.magic = _ptr(rm.items), _ptr(rm.weights), \
+        _ptr(rm.magic)
+    a.sizes, a.fast_max = _ptr(rm.sizes), ln.fastcmp_bounds()[2]
     a.algs, a.types, a.straws = _ptr(rm.algs), _ptr(rm.types), \
         _ptr(rm.straws)
     a.sum_weights, a.tree_weights = _ptr(rm.sum_weights), \

@@ -60,15 +60,20 @@ Phases, each of which fails the run (non-zero exit, no result line):
 10. crush     CRUSH placement (K6, the rule walk, and K7, the staged
               sweeps over it) on the BASELINE map: build_flat_cluster(1024,
               hosts=64), chooseleaf firstn 3 type host, all reweights
-              1.0.  sweep_device over 10,485,760 ids (chunk 2^19: 41
-              launches), held row for row against the exact program in
-              one call; the kernel against the plain walk on the card over
-              the first 2^20 ids; 3 distinct OSDs on 3 distinct hosts per
-              row and the per-OSD spread; a rebalance (one host's 16 OSDs
-              at weight 0, 8 OSDs at half weight: no placement on a
-              weight-0 OSD, the share moved); chooseleaf indep 12 (the
-              isa k=8 m=4 pool) over 2^22 ids with no holes; the small maps
-              of ``crush.samples`` at budgets 0, 1, 3; and ``crushtool
+              1.0.  sweep_device over 10,485,760 ids (chunk 2^19: 20
+              stage-1 launches, one stage-2 and one exact), held row for
+              row against the exact program in one call, and the share of
+              draws the kernel settled on the exact path; the kernel
+              against the plain walk on the card over the first 2^20 ids;
+              3 distinct OSDs on 3 distinct hosts per row and the per-OSD
+              spread; a rebalance (one host's 16 OSDs at weight 0, 8 OSDs
+              at half weight: no placement on a weight-0 OSD, the share
+              moved); the same map with every fourth OSD at weight
+              0x20000, one timed compile_rule over 2^21 ids whose first
+              2^20 rows equal the plain walk's (the exact draw and its
+              reciprocal divide at scale); chooseleaf indep 12 (the isa
+              k=8 m=4 pool) over 2^22 ids with no holes; the small maps of
+              ``crush.samples`` at budgets 0, 1, 3; and ``crushtool
               --test`` over 2^20 ids with no bad mapping;
 11. ecbench   the device EC engine bench (``ceph_tpu_torch.tools.ecbench``)
               at its full sizes with a short calibration target: both
@@ -87,11 +92,13 @@ launch from a CUDA graph of launches, ``call_ms`` the eager wrapper call
 with CUDA events; the popcount row times both of shec's read shapes
 (``ms`` the contribution, ``solve_ms`` the solve).  The crush phase
 zeroes the counts just before its main sweep and reads them just after
-(41 ``crush_rule`` launches and nothing else); the ``crush_rule`` row
+(22 ``crush_rule`` launches and nothing else); the ``crush_rule`` row
 times the sweep's one-attempt launch over one 2^19-id chunk (``ms``),
 the exact launch over it, the eager ``compile_rule`` call, and carries
 the sweep's rate, stages and the exact program's time, its bound taken
-from the draws and hashes the kernel counted in this run.  The K1, K2,
+from the draws and hashes the kernel counted in this run, and the
+straw2 loop's ALU-pipe issue floor (its SASS per draw, 64 lanes a cycle
+per SM at the card's top SM clock).  The K1, K2,
 popcount and crush_rule rows carry ``sass``: registers, stack/local
 bytes and SASS counts of their main instantiations, read from the built
 library; the run fails unless the popcount kernel's SASS holds
@@ -105,6 +112,7 @@ exits non-zero before doing anything.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import threading
@@ -126,6 +134,7 @@ CRUSH_IDS = 20 << 19        # 10,485,760 object ids
 CRUSH_CHUNK = 1 << 19
 CRUSH_HOLD = 1 << 20        # ids on which the kernel is held to the plain walk
 CRUSH_EC_IDS = 1 << 22
+CRUSH_MIXED_IDS = 1 << 21   # ids of the mixed-weight map's timed call
 # integer ops of one straw2 draw, counted from csrc/crush.cu: hash32_3 (3
 # seed XORs and 5 mixes of 9 sub-sub-shift-xor lines: 183), crush_ln (20),
 # the 64-bit divide as one op, the compare and select (3); an is_out hash
@@ -238,9 +247,7 @@ def kernel_sass(log) -> dict:
     (``popcount_k16``, the m16n8k128 form, runs shec's reads; k32, k64
     and k128 take 1, 2 and 4 steps of m16n8k256), whose tensor-core
     instructions (``BMMA``, ``IMMA``) and ``POPC`` are counted too; and
-    the CRUSH rule walk (K6, ``crush_rule``)."""
-    import re
-
+    the CRUSH rule walk (K6, ``crush_rule``) with its straw2 loop."""
     from ceph_tpu_torch.ops import _build
 
     want = {("gf256", 4, 8, 0): "enc_4x8", ("gf256", 8, 8, 0): "dec_8x8",
@@ -280,6 +287,7 @@ def kernel_sass(log) -> dict:
                         "lop3": 0, "bmma": 0, "imma": 0, "popc": 0}
     op = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?"
                     r"([A-Z][A-Z0-9_]*)((?:\.[A-Z0-9_]+)*)")
+    addr = re.compile(r"/\*([0-9a-f]{4,})\*/")
     cur, crush_ops = None, []
     for line in dump("-sass").splitlines():
         m = re.search(r"Function : (\S+)", line)
@@ -294,15 +302,9 @@ def kernel_sass(log) -> dict:
             for key in ("lop3", "bmma", "imma", "popc"):
                 c[key] += m[1] == key.upper()
             if cur == "crush_rule":
-                crush_ops.append(m[1] + m[2])
-    # the 64-bit divide of the straw2 draw: the subroutine (RET to RET)
-    # around the I2F.U64.RP that starts its reciprocal
-    if "I2F.U64.RP" in crush_ops:
-        i = crush_ops.index("I2F.U64.RP")
-        rets = [j for j, o in enumerate(crush_ops) if o.startswith("RET")]
-        lo = max([j for j in rets if j < i], default=-1) + 1
-        hi = min([j for j in rets if j > i], default=len(crush_ops) - 1)
-        out["crush_rule"]["udiv64_sass"] = hi - lo + 1
+                crush_ops.append((int(addr.search(line)[1], 16), m[1],
+                                  line))
+    out["crush_rule"].update(straw2_loop(crush_ops))
     require(set(out) == set(want.values())
             and all(c["sass"] for c in out.values()),
             f"cuobjdump found the main instantiations: {sorted(out)}")
@@ -318,13 +320,42 @@ def kernel_sass(log) -> dict:
             f"{out[k]['imma']}, {out[k]['popc']}"
             for k in popcount))
     c = out["crush_rule"]
+    require(c["straw2_hashes"] > 0, "cuobjdump found K6's straw2 loop")
     log(f"crush rule-walk kernel (K6) SASS: {c['regs']} registers, "
-        f"{c['stack']}/{c['local']} B stack/local, {c['sass']} instructions, "
-        f"the 64-bit divide routine {c.get('udiv64_sass')} instructions")
+        f"{c['stack']}/{c['local']} B stack/local, {c['sass']} instructions; "
+        f"the straw2 loop {c['straw2_sass']} instructions for "
+        f"{c['straw2_hashes']} hash32_3, {c['straw2_alu']} on the ALU pipe, "
+        f"{c['straw2_alu_per_draw']:.1f} a draw")
     # a fall back to LOP3/POPC code would compute the same bytes slower
     require(all(out[k]["bmma"] + out[k]["imma"] > 0 for k in popcount),
             "the popcount kernel runs on tensor cores (BMMA/IMMA in SASS)")
     return out
+
+
+def straw2_loop(ops) -> dict:
+    """The straw2 scan's loop in K6's SASS, from (address, opcode, line)
+    triples: the smallest loop (a backward branch and its target) that
+    holds a hash32_3 (its immediate 231232 = 0x38740) and a call (the
+    exact draw, out of line).  Its instructions on the ALU pipe (INT32_OPS)
+    over its hash32_3 count are the issue cost of one draw on the
+    hash-order path, the exact path's call set-up included."""
+    best = None
+    for at, name, line in ops:
+        tgt = re.search(r"BRA\s.*?(0x[0-9a-f]+)\s*;", line)
+        if name != "BRA" or not tgt or int(tgt[1], 16) >= at:
+            continue
+        body = [o for o in ops if int(tgt[1], 16) <= o[0] <= at]
+        hashes = sum("0x38740" in o[2] for o in body)
+        if hashes and any(o[1] == "CALL" for o in body) and (
+                best is None or len(body) < len(best[0])):
+            best = (body, hashes)
+    if best is None:
+        return {"straw2_sass": 0, "straw2_hashes": 0, "straw2_alu": 0,
+                "straw2_alu_per_draw": 0.0}
+    body, hashes = best
+    alu = sum(o[1] in INT32_OPS for o in body)
+    return {"straw2_sass": len(body), "straw2_hashes": hashes,
+            "straw2_alu": alu, "straw2_alu_per_draw": alu / hashes}
 
 
 def phase_gf256(torch, dev, log) -> None:
@@ -918,9 +949,10 @@ def phase_lrc(torch, dev, log, nobj: int = 64, obj_bytes: int = 4 * MiB,
 
 def crush_bound(stats, ids: int, result_max: int):
     """(bound ms, "bytes"/"operations") of a rule walk that made
-    ``stats`` (straw2 draws, other hashes, bucket choices) over ``ids``
-    ids: each id read once (4 B) and its row written once."""
-    draws, others, _ = (int(v) for v in stats)
+    ``stats`` (straw2 draws, other hashes, ...) over ``ids`` ids: each id
+    read once (4 B) and its row written once.  Every draw is priced as
+    the full exact draw, whichever path the kernel took."""
+    draws, others = (int(v) for v in stats[:2])
     return bound(ids * (4 + 4 * result_max),
                  draws * DRAW_OPS + others * HASH_OPS)
 
@@ -938,11 +970,14 @@ def phase_crush(torch, dev, log) -> dict:
     from ceph_tpu_torch.ops import crush_rule
     from ceph_tpu_torch.tools import crushtool
 
+    def firstn3(root):
+        return [(cmap.OP_TAKE, root, 0), (cmap.OP_CHOOSELEAF_FIRSTN, 3, 1),
+                (cmap.OP_EMIT, 0, 0)]
+
     m, root = cmap.build_flat_cluster(CRUSH_OSDS, hosts=CRUSH_HOSTS)
     flat = m.flatten()
     per = CRUSH_OSDS // CRUSH_HOSTS
-    steps = [(cmap.OP_TAKE, root, 0), (cmap.OP_CHOOSELEAF_FIRSTN, 3, 1),
-             (cmap.OP_EMIT, 0, 0)]
+    steps = firstn3(root)
     xs = torch.arange(CRUSH_IDS, dtype=torch.int32, device=dev)
     dw = np.full(CRUSH_OSDS, 0x10000, dtype=np.uint32)
     rm = mapper.device_map(flat, device=dev)
@@ -951,7 +986,7 @@ def phase_crush(torch, dev, log) -> dict:
         return mapper.sweep_device(flat, steps, 3, xs, w, chunk=CRUSH_CHUNK,
                                    device=dev, **kw)
 
-    def hold(rows, stp, r, w, what):
+    def hold(rows, stp, r, w, what, on=rm):
         """The kernel's rows for the first CRUSH_HOLD ids against the plain
         walk on the card, bit for bit; returns max |kernel - plain|."""
         ww = torch.from_numpy(w.view(np.int32)).to(dev)
@@ -959,7 +994,7 @@ def phase_crush(torch, dev, log) -> dict:
         for lo in range(0, CRUSH_HOLD, 1 << 18):
             hi = min(lo + (1 << 18), CRUSH_HOLD)
             want, _ = crush_rule.rule_plain(
-                rm, crush_rule.RuleSpec(stp, r), ww, xs[lo:hi])
+                on, crush_rule.RuleSpec(stp, r), ww, xs[lo:hi])
             got = rows[lo:hi]
             err = max(err, int((got.long() - want.long()).abs().max()))
             require(torch.equal(got, want), f"crush: {what}: kernel rows "
@@ -980,10 +1015,10 @@ def phase_crush(torch, dev, log) -> dict:
     (placed, overflow), _ = timed(lambda: sweep(dw))
     counts = read_counts()
     n_chunks = CRUSH_IDS // CRUSH_CHUNK
-    require(counts["crush_rule"] == 2 * n_chunks + 1
+    require(counts["crush_rule"] == n_chunks + 2
             and all(v == 0 for k, v in counts.items() if k != "crush_rule"),
-            f"crush: the sweep ran 2 launches a chunk and one exact launch "
-            f"of crush_rule and nothing else: {counts}")
+            f"crush: the sweep ran one crush_rule launch a chunk, one "
+            f"MID_BUDGET and one exact launch, and nothing else: {counts}")
     require(not bool(overflow), "crush: the healthy sweep does not overflow")
     walls = [timed(lambda: sweep(dw))[1] for _ in range(3)]
     sweep_s = float(np.median(walls))
@@ -1003,11 +1038,12 @@ def phase_crush(torch, dev, log) -> dict:
     unclean = [int((~mapper.compile_rule(
         flat, steps, 3, budget=b, device=dev)(xs, dw)[1]).sum())
         for b in (1, mapper.MID_BUDGET)]
-    stats = torch.zeros(3, dtype=torch.int64, device=dev)
+    stats = torch.zeros(crush_rule.N_STATS, dtype=torch.int64, device=dev)
     out = torch.empty_like(exact)
     crush_rule.launch(rm, full.spec, torch.from_numpy(dw.view(np.int32)).to(
         dev), xs, out, stats=stats)
     all_bound, all_by = crush_bound(stats.tolist(), CRUSH_IDS, 3)
+    exact_share = stats[3].item() / stats[0].item()
 
     # 3. the kernel against the plain walk on the card
     err = hold(exact, steps, 3, dw, "healthy map")
@@ -1030,7 +1066,8 @@ def phase_crush(torch, dev, log) -> dict:
         f"OSD placements/s), calls {[round(w * 1e3, 3) for w in walls]} ms, "
         f"stages {json.dumps(stages)}; exact program in one call "
         f"{exact_s * 1e3:.3f} ms, rows equal; walk stats {stats.tolist()} "
-        f"(straw2 draws, other hashes, bucket choices), bound "
+        f"(straw2 draws, other hashes, bucket choices, draws settled on the "
+        f"exact path: {exact_share * 100:.5f} % of draws), bound "
         f"{all_bound:.4f} ms ({all_by}); per-OSD count min "
         f"{int(per_osd.min())} max {int(per_osd.max())} stddev "
         f"{float(per_osd.std()):.2f} mean {mean:.2f} "
@@ -1057,7 +1094,26 @@ def phase_crush(torch, dev, log) -> dict:
         f"{half.tolist()} at 0x8000): sweep {rebal_s * 1e3:.3f} ms, overflow "
         f"{bool(overflow2)}, {share * 100:.4f} % of placements moved")
 
-    # 6. the EC pool of the main path (isa k=8 m=4): chooseleaf indep 12
+    # 6. mixed weights: every fourth OSD at 0x20000, the hosts' weights
+    # their sums; the host scans take the exact draw and its reciprocal
+    mm, mroot = samples.weighted_cluster(CRUSH_OSDS, CRUSH_HOSTS)
+    mflat, msteps = mm.flatten(), firstn3(mroot)
+    mrm = mapper.device_map(mflat, device=dev)
+    mfn = mapper.compile_rule(mflat, msteps, 3, device=dev)
+    mfn(xs[:CRUSH_CHUNK], dw)
+    mixed, mixed_s = timed(lambda: mfn(xs[:CRUSH_MIXED_IDS], dw))
+    mstats = torch.zeros(crush_rule.N_STATS, dtype=torch.int64, device=dev)
+    crush_rule.launch(mrm, mfn.spec, torch.from_numpy(dw.view(np.int32)).to(
+        dev), xs[:CRUSH_MIXED_IDS], torch.empty_like(mixed), stats=mstats)
+    mixed_share = mstats[3].item() / mstats[0].item()
+    err = max(err, hold(mixed, msteps, 3, dw, "mixed-weight map", mrm))
+    log(f"crush: mixed-weight map (every fourth OSD at 0x20000) "
+        f"compile_rule over {CRUSH_MIXED_IDS} ids in {mixed_s * 1e3:.3f} ms "
+        f"({CRUSH_MIXED_IDS / mixed_s:.4e} ids/s), walk stats "
+        f"{mstats.tolist()}: {mixed_share * 100:.3f} % of draws settled on "
+        "the exact path; the first CRUSH_HOLD rows equal the plain walk's")
+
+    # 7. the EC pool of the main path (isa k=8 m=4): chooseleaf indep 12
     ec_steps = [(cmap.OP_TAKE, root, 0), (cmap.OP_CHOOSELEAF_INDEP, 12, 1),
                 (cmap.OP_EMIT, 0, 0)]
     ec_fn = mapper.compile_rule(flat, ec_steps, 12, device=dev)
@@ -1069,7 +1125,7 @@ def phase_crush(torch, dev, log) -> dict:
     log(f"crush: chooseleaf indep 12 over {CRUSH_EC_IDS} ids in "
         f"{ec_s * 1e3:.3f} ms, no holes")
 
-    # 7. the small maps, every budget, kernel against plain
+    # 8. the small maps, every budget, kernel against plain
     n_small = 0
     for case in samples.cases():
         cflat = case.map.flatten()
@@ -1089,7 +1145,7 @@ def phase_crush(torch, dev, log) -> dict:
                     "kernel rows and clean flags equal the plain walk's")
             n_small += 1
 
-    # 8. crushtool --test on the card
+    # 9. crushtool --test on the card
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         rc = crushtool.main(["--build", "--num_osds", str(CRUSH_OSDS),
@@ -1108,6 +1164,8 @@ def phase_crush(torch, dev, log) -> dict:
             "sweep_ms": sweep_s * 1e3, "sweep_ids_per_s": CRUSH_IDS / sweep_s,
             "exact_ms": exact_s * 1e3, "stages": stages, "unclean": unclean,
             "sweep_bound_ms": all_bound, "walk_stats": stats.tolist(),
+            "exact_share": exact_share, "mixed_ms": mixed_s * 1e3,
+            "mixed_exact_share": mixed_share,
             "moved_share": share, "ec_ms": ec_s * 1e3, "rm": rm,
             "flat": flat, "steps": steps, "xs": xs, "dw": dw}
 
@@ -1135,14 +1193,27 @@ def time_crush(torch, dev, log, cr: dict, sass: dict) -> dict:
     call_ms = event_ms(torch, lambda: fn(xs, cr["dw"]), 5)
     plain_ms = event_ms(torch, lambda: crush_rule.rule_plain(
         rm, spec, w, xs, 1), 1, warmup=1)
-    stats = torch.zeros(3, dtype=torch.int64, device=dev)
+    stats = torch.zeros(crush_rule.N_STATS, dtype=torch.int64, device=dev)
     crush_rule.launch(rm, spec, w, xs, out, budget=1, bad=bad, bad_count=cnt,
                       stats=stats)
     b_ms, b_by = crush_bound(stats.tolist(), CRUSH_CHUNK, 3)
     c = sass["crush_rule"]
+    # the straw2 loop's ALU-pipe issue floor: its instructions per draw
+    # over 16 lanes a cycle on each of 4 schedulers, every SM, at the
+    # card's top SM clock
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,"
+         "nounits"], capture_output=True, text=True, timeout=60,
+        check=True).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    alu_ms = (stats[0].item() * c["straw2_alu_per_draw"]
+              / (64 * sms * mhz * 1e6) * 1e3)
     log(f"crush_rule: one-attempt launch over {CRUSH_CHUNK} ids {ms:.4f} ms "
-        f"(bound {b_ms:.4f} ms, {b_by}), exact launch {exact_ms:.4f} ms, "
-        f"eager compile_rule call {call_ms:.4f} ms, plain {plain_ms:.1f} ms")
+        f"(bound {b_ms:.4f} ms, {b_by}; the straw2 loop's ALU issue floor "
+        f"{alu_ms:.4f} ms: {stats[0].item()} draws x "
+        f"{c['straw2_alu_per_draw']:.1f} / (64 x {sms} SMs x {mhz:.0f} "
+        f"MHz)), exact launch {exact_ms:.4f} ms, eager compile_rule call "
+        f"{call_ms:.4f} ms, plain {plain_ms:.1f} ms")
     return {"name": "crush_rule", "route": "cuda",
             "source": "ceph_tpu_torch/csrc/crush.cu",
             "replaces": "ceph_tpu/crush/mapper.py:1103",
@@ -1154,7 +1225,9 @@ def time_crush(torch, dev, log, cr: dict, sass: dict) -> dict:
             "sweep_ms": cr["sweep_ms"], "sweep_ids_per_s":
             cr["sweep_ids_per_s"], "exact_ms": cr["exact_ms"],
             "sweep_bound_ms": cr["sweep_bound_ms"], "stages": cr["stages"],
-            "unclean": cr["unclean"],
+            "unclean": cr["unclean"], "alu_floor_ms": alu_ms,
+            "exact_share": cr["exact_share"], "mixed_ms": cr["mixed_ms"],
+            "mixed_exact_share": cr["mixed_exact_share"],
             "sass": {"crush_rule": c}}
 
 

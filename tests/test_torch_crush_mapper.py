@@ -227,6 +227,27 @@ def test_sweep_device_overflow_flag():
     assert not bool(overflow)
     np.testing.assert_array_equal(got.numpy(),
                                   _oracle(flat, steps, xs, nrep, dev_w))
+    # the stage-1 capacity is sweep-wide, n // bad_div: with the ids that
+    # one attempt leaves unclean put first, the first of 4 chunks holds
+    # more of them than chunk // bad_div, and the flag still fires only
+    # when the whole sweep's count passes n // bad_div
+    dev_w = np.full(64, 0x10000, dtype=np.uint32)
+    dev_w[5], dev_w[17], dev_w[40] = 0, 0x4000, 0
+    clean = mapper.compile_rule(flat, steps, nrep, one_shot=True,
+                                device="cpu")(xs, dev_w)[1].numpy()
+    xs = np.concatenate([xs[~clean], xs[clean]])
+    unclean = int((~clean).sum())
+    k = 1024 // unclean
+    assert unclean > 256 // k
+    for bad_div, want in ((k, False), (k + 1, True)):
+        _, overflow = mapper.sweep_device(flat, steps, nrep, xs, dev_w,
+                                          chunk=256, bad_div=bad_div,
+                                          bad2_div=1, device="cpu")
+        assert bool(overflow) == want
+    np.testing.assert_array_equal(
+        mapper.sweep_device(flat, steps, nrep, xs, dev_w, chunk=256,
+                            bad_div=k, bad2_div=1, device="cpu")[0].numpy(),
+        _oracle(flat, steps, xs, nrep, dev_w))
 
 
 def test_sweep_device_single_chunk_whole_batch():

@@ -518,6 +518,72 @@ def test_crush_kernel_budgets_clean_rows_are_the_full_walk(dev):
         assert torch.equal(out[clean], full[clean])
 
 
+@pytest.mark.parametrize("budget", [0, 1, 3])
+def test_crush_kernel_equals_plain_on_a_mixed_weight_map(dev, budget):
+    """Every fourth OSD at twice the weight: the host buckets' straw2
+    scans mix the hash-order path with the exact draw and its
+    reciprocal divide."""
+    m, root = samples.weighted_cluster(1024, 64)
+    flat = m.flatten()
+    steps = [(cmap.OP_TAKE, root, 0), (cmap.OP_CHOOSELEAF_FIRSTN, 3, 1),
+             (cmap.OP_EMIT, 0, 0)]
+    rm = mapper.device_map(flat, device=dev)
+    spec = crush_rule.RuleSpec(steps, 3)
+    w = torch.full((1024,), 0x10000, dtype=torch.int32, device=dev)
+    x = torch.from_numpy(samples.ids(5, 1 << 16)).to(dev)
+    out = torch.empty((1 << 16, 3), dtype=torch.int32, device=dev)
+    clean = torch.empty(1 << 16, dtype=torch.uint8, device=dev)
+    stats = torch.zeros(crush_rule.N_STATS, dtype=torch.int64, device=dev)
+    crush_rule.launch(rm, spec, w, x, out, budget=budget, clean=clean,
+                      stats=stats)
+    want, want_clean = crush_rule.rule_plain(rm, spec, w, x, budget)
+    assert torch.equal(out, want)
+    assert torch.equal(clean.bool(), want_clean)
+    draws, _, _, exact = stats.tolist()
+    assert 0.05 * draws < exact < draws
+
+
+def test_crush_exact_path_count_is_positive_and_rare(dev):
+    """On the BASELINE map (one weight a bucket) only hash distances of
+    1 take the exact draw: about 2 comparisons in 65536."""
+    m, root = cmap.build_flat_cluster(1024, hosts=64)
+    rm = mapper.device_map(m.flatten(), device=dev)
+    spec = crush_rule.RuleSpec([(cmap.OP_TAKE, root, 0),
+                                (cmap.OP_CHOOSELEAF_FIRSTN, 3, 1),
+                                (cmap.OP_EMIT, 0, 0)], 3)
+    x = torch.arange(1 << 20, dtype=torch.int32, device=dev)
+    out = torch.empty((1 << 20, 3), dtype=torch.int32, device=dev)
+    stats = torch.zeros(crush_rule.N_STATS, dtype=torch.int64, device=dev)
+    crush_rule.launch(rm, spec, torch.full((1024,), 0x10000,
+                                           dtype=torch.int32, device=dev),
+                      x, out, stats=stats)
+    draws, _, chooses, exact = stats.tolist()
+    assert chooses >= 6 << 20 and draws >= 240 << 20
+    assert 0 < exact < draws // 10000
+    with pytest.raises(ValueError):
+        crush_rule.launch(rm, spec, torch.full((1024,), 0x10000,
+                                               dtype=torch.int32, device=dev),
+                          x, out, stats=stats[:3])
+
+
+def test_crush_sweep_device_makes_n_chunks_plus_two_launches(dev):
+    m, root = cmap.build_flat_cluster(1024, hosts=64)
+    flat = m.flatten()
+    steps = [(cmap.OP_TAKE, root, 0), (cmap.OP_CHOOSELEAF_FIRSTN, 3, 1),
+             (cmap.OP_EMIT, 0, 0)]
+    xs = torch.arange(1 << 18, dtype=torch.int32, device=dev)
+    dw = np.full(1024, 0x10000, dtype=np.uint32)
+    exact = mapper.compile_rule(flat, steps, 3, device=dev)(xs, dw)
+    before = crush_rule.launches.value
+    events = {}
+    got, overflow = mapper.sweep_device(flat, steps, 3, xs, dw, chunk=1 << 15,
+                                        device=dev, stage_events=events)
+    assert crush_rule.launches.value == before + 8 + 2
+    assert {k: len(v) for k, v in events.items()} == {1: 8, 2: 1, 3: 1}
+    assert not bool(overflow)
+    assert torch.equal(got, exact)
+
+
 def test_crush_compile_rule_on_the_card_equals_plain_at_scale(dev):
     m, root = cmap.build_flat_cluster(1024, hosts=64)
     flat = m.flatten()
