@@ -1,3 +1,3 @@
 """Device runtime of the port: the stripe-batch queue, its staging
-pool, and the covering-bucket rule for batch widths (the counterpart of
-``ceph_tpu/tpu/``)."""
+pool, the covering-bucket rule for batch widths, and the device watch
+(the counterpart of ``ceph_tpu/tpu/``)."""

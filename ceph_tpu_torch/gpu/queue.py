@@ -36,8 +36,12 @@ A batch on the device:
    ``dec`` — the contract of queue.py:323,330,502.
 
 The worker sets its CUDA device and orders the upload, the kernels and
-the downloads on one stream of its own.  (The clay kinds ``cdec`` and
-``crep``, the mesh path and the device watch come with later slices.)
+the downloads on one stream of its own.  Each batch passes the
+``queue.batch.dispatch`` failpoint before it is dispatched (an error
+armed there reaches every future of that batch, and the worker serves
+on), and each completed batch is noted in the device watch
+(``gpu/devwatch.py``).  (The clay kinds ``cdec`` and ``crep`` and the
+mesh path come with later slices.)
 """
 
 from __future__ import annotations
@@ -51,9 +55,10 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
+from ceph_tpu_torch.core import failpoint as fp
 from ceph_tpu_torch.core.perf import PerfCounters, SnapshotRing
 from ceph_tpu_torch.device import resolve_device
-from ceph_tpu_torch.gpu import shapebucket
+from ceph_tpu_torch.gpu import devwatch, shapebucket
 from ceph_tpu_torch.gpu.staging import DevPathStats, StagingPool
 from ceph_tpu_torch.ops import gf256
 from ceph_tpu_torch.ops.crc32c_device import crc32c_rows
@@ -244,6 +249,9 @@ class StripeBatchQueue:
         for j in batch:
             self.perf.hinc("lat_encq_wait_us", (t_start - j.t_enq) * 1e6)
         try:
+            if fp.enabled("queue.batch.dispatch"):
+                fp.failpoint("queue.batch.dispatch", jobs=len(batch),
+                             kind=batch[0].kind)
             if stream is None:
                 results = self._device_batch(batch)
             else:
@@ -271,6 +279,9 @@ class StripeBatchQueue:
         self.device_time_s += t_compute - t_start
         self.perf.hinc("lat_device_us", (t_compute - t_start) * 1e6)
         self.perf.hinc("lat_encq_dispatch_us", (t_done - t_compute) * 1e6)
+        devwatch.watch().note_batch(kind, len(batch),
+                                    [(j.rows, j.width) for j in batch],
+                                    t_compute - t_start)
 
     def _upload(self, batch: List[_Job], slot) -> torch.Tensor:
         """Jobs' planes, job after job, into the staging slot; one copy

@@ -6,8 +6,10 @@ Port of ``DevPathStats`` (``ceph_tpu/tpu/staging.py:68``) and
 device, so a coalesced batch crosses host -> device in one DMA from it.
 ``acquire`` blocks while every slot is in use (backpressure, never
 drops); a payload larger than a slot gets a buffer of its own.
-(``DeviceBuf``, the payload handle of the OSD write pipeline, comes with
-the OSD binding.)
+Both take lockdep-named locks, the reference's names
+(``staging.stats``, ``staging.pool``).  (``DeviceBuf``, the payload
+handle of the OSD write pipeline, and its ``staging.seal`` failpoint
+site come with slice 1e.)
 """
 
 from __future__ import annotations
@@ -16,6 +18,8 @@ import threading
 from typing import Dict, Optional
 
 import torch
+
+from ceph_tpu_torch.core.lockdep import make_lock
 
 DEFAULT_SLOT_BYTES = 128 << 10
 DEFAULT_SLOTS = 64
@@ -26,7 +30,7 @@ class DevPathStats:
     invariant."""
 
     def __init__(self) -> None:
-        self._lock = threading.Lock()
+        self._lock = make_lock("staging.stats")
         self.h2d_bytes = 0           # payload bytes uploaded (batch build)
         self.d2h_bytes = 0           # payload bytes fetched back to host
         self.staged_batches = 0      # coalesced device batches uploaded
@@ -77,7 +81,7 @@ class StagingPool:
         self.stats = stats or DevPathStats()
         self._slab: Optional[torch.Tensor] = None
         self._free = list(range(self.nslots - 1, -1, -1))
-        self._cond = threading.Condition(threading.Lock())
+        self._cond = threading.Condition(make_lock("staging.pool"))
 
     @property
     def occupancy(self) -> int:

@@ -33,17 +33,20 @@ LIB_NAME = "ceph_tpu_torch_kernels"
 _lock = threading.Lock()
 _lib = None
 build_seconds = None  # wall time of this process's build, once done
+COUNTS: list = []     # every LaunchCount, in creation order
 
 
 class LaunchCount:
     """Launches of one kernel: the wrapper adds one where it launches
     the kernel and nowhere else (a run reads it to show which kernels
-    its path went through)."""
+    its path went through).  Every count registers itself in
+    :data:`COUNTS`, which the device watch reads."""
 
     def __init__(self, name: str) -> None:
         self.name = name
         self._lock = threading.Lock()
         self._n = 0
+        COUNTS.append(self)
 
     def inc(self) -> None:
         with self._lock:

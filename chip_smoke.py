@@ -48,6 +48,18 @@ Phases, each of which fails the run (non-zero exit, no result line):
               shard), then read back degraded through
               ``decode_data_async`` with shards 6, 7, 10, 11 lost, byte
               for byte;
+6b. core     the core host layer on that path (``ceph_tpu_torch/core``):
+              the host CRC-32C (``core.crc``) equal to the card's CRC
+              kernel on a main batch's rows (2 jobs x 12 shards x 512
+              KiB, and x 128 KiB) and on 1 B, 4 KiB + 3 B and 4 MiB
+              buffers, with its host rate at 4 MiB; a write and degraded
+              read of 32 x 4 MiB (isa k=8 m=4, shards 6, 7, 10, 11 lost)
+              through a queue built under lockdep, bytes and CRCs exact,
+              no LockOrderError; ``queue.batch.dispatch`` armed with
+              ``error`` and ``once`` failing exactly one batch's jobs,
+              then 8 writes exact; and a Context's admin socket answering
+              ``device compile dump`` with those checks' launches per
+              kernel and the queue's batch count;
 7. bitmatrix  the same 1 GiB write through ``jerasure k=8 m=4
               technique=cauchy_good``, read back degraded through
               ``codec.decode_array`` with shards 6, 7, 10, 11 lost (the
@@ -83,7 +95,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
               the envelope; it is K2's path.
 
 Each path zeroes the kernel launch counts just before its writes and
-reads them just after, then likewise for its reads; each kernel of each
+reads them just after, then likewise for its reads (the core phase
+zeroes them before its lockdep run and reads them after its failpoint
+check); each kernel of each
 half must have run (for ecbench, K2 and K1: its loops capture one launch
 per iteration in a CUDA graph and replay it, and the counts are of the
 captured launches).  Then each kernel is timed at its path's batch
@@ -879,6 +893,196 @@ def phase_main(torch, dev, log) -> dict:
                       need_read=("gf256_matmul",), queue_read=True)
 
 
+CORE_OBJS = 32              # objects of the core phase's lockdep run
+CORE_FAIL_WRITES = 8        # writes sent at the armed failpoint
+
+
+def phase_core(torch, dev, log) -> dict:
+    """The core host layer on the card's path, in four checks; each
+    raises on failure.
+
+    1. the host CRC-32C (``core.crc``) against the card's CRC kernel on
+       the rows of a main write batch and on 1 B, 4 KiB + 3 B (at an odd
+       offset) and 4 MiB buffers, and the host CRC's rate at 4 MiB;
+    2. a main write and degraded read of 32 x 4 MiB (isa k=8 m=4, shards
+       6, 7, 10, 11 lost) through a queue built under lockdep: bytes and
+       CRCs (against the host CRC) exact, no LockOrderError;
+    3. ``queue.batch.dispatch`` armed with ``error`` and ``once``: the
+       jobs of exactly one batch raise FailpointError, the point is hit
+       once, and the next 8 writes complete with their CRCs exact;
+    4. a Context's admin socket answers ``device compile dump`` with the
+       launches per kernel of checks 2 and 3 and the queue's batches.
+
+    The launch counts are zeroed just before check 2 and read just after
+    check 3."""
+    import tempfile
+
+    from ceph_tpu_torch.core import crc as hcrc
+    from ceph_tpu_torch.core import failpoint as fp
+    from ceph_tpu_torch.core import lockdep
+    from ceph_tpu_torch.core.admin_socket import admin_command
+    from ceph_tpu_torch.core.context import Context
+    from ceph_tpu_torch.ec import codec_from_profile
+    from ceph_tpu_torch.gpu import devwatch
+    from ceph_tpu_torch.gpu.queue import StripeBatchQueue
+    from ceph_tpu_torch.ops import crc32c_device as cd
+    from ceph_tpu_torch.osd.ecutil import StripeInfo
+
+    rng = np.random.default_rng(SEED + 13)
+    profile = "plugin=isa k=8 m=4 technique=reed_sol_van"
+    lost = (6, 7, 10, 11)
+
+    # 1. host CRC against the card's CRC kernel
+    width = 4 * MiB // 8
+    rows_checked = 0
+    for w in (width, 128 << 10):  # a main batch's rows, and a chunk's
+        full = torch.from_numpy(rng.integers(
+            0, 256, (12, 2 * w + 8), dtype=np.uint8)).to(dev)
+        offs, lens = [3, 3 + w], [w, w]
+        card = cd.crc32c_rows(full, offs, lens)
+        host = full.cpu().numpy()
+        want = [[hcrc.crc32c(host[s, o:o + n]) for s in range(12)]
+                for o, n in zip(offs, lens)]
+        require(card.tolist() == want,
+                f"core: crc32c_rows on the card equals the host CRC over "
+                f"2 jobs x 12 shards x {w} B")
+        rows_checked += 24
+    big = rng.integers(0, 256, 4 * MiB + 8, dtype=np.uint8)
+    bufs = {"1 B": big[:1], "4 KiB + 3 B at offset 3": big[3:3 + 4099],
+            "4 MiB": big[:4 * MiB]}
+    for what, buf in bufs.items():
+        for init in (0, 0x9E3779B9):
+            require(cd.crc32c_dev(buf, init, device=dev)
+                    == hcrc.crc32c(buf, init),
+                    f"core: crc32c_dev on the card equals the host CRC, "
+                    f"{what}, init {init:#x}")
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        hcrc.crc32c(bufs["4 MiB"])
+        times.append(time.perf_counter() - t0)
+    host_mbs = 4 * MiB / min(times) / 1e6
+
+    # 2. the main path under lockdep
+    codec = codec_from_profile(profile, device=dev)
+    k, m = codec.k, codec.m
+    si = StripeInfo(k, codec.get_chunk_size(1 * MiB))
+    g = torch.Generator(device=dev).manual_seed(SEED + 13)
+    objs = torch.randint(0, 256, (CORE_OBJS, 4 * MiB), dtype=torch.uint8,
+                         device=dev, generator=g).cpu().numpy()
+    planes = [si.interleave(memoryview(o))[0] for o in objs]
+    survivors = [s for s in range(k + m) if s not in lost]
+    dw = devwatch.watch()
+    batches0 = dw.batches
+    lockdep.reset()
+    lockdep.enable(True)
+    try:
+        q = StripeBatchQueue(device=dev)
+        require(isinstance(q.pool._cond._lock, lockdep.DMutex),
+                "core: the queue built under lockdep takes checked locks")
+        coding = [None] * CORE_OBJS
+        crcs = [None] * CORE_OBJS
+        decoded = [None] * CORE_OBJS
+
+        def write(i):
+            coding[i], crcs[i] = q.encode_crc_async(
+                codec, planes[i], size=4 * MiB).result()
+
+        def read(i):
+            avail = {s: planes[i][s] if s < k else coding[i][s - k]
+                     for s in survivors}
+            decoded[i] = q.decode_data_async(codec, avail).result()
+
+        reset_counts()
+        w_wall = run_threads(write, CORE_OBJS, 8)
+        r_wall = run_threads(read, CORE_OBJS, 8)
+        edges = lockdep.edge_graph()
+    finally:
+        lockdep.enable(False)
+        lockdep.reset()
+    n_edges = sum(len(v) for v in edges.values())
+    require("staging.stats" in edges.get("staging.pool", {}),
+            f"core: lockdep saw the staging pool's nested lock: {edges}")
+    for i in range(CORE_OBJS):
+        shards = list(planes[i]) + list(coding[i])
+        require([int(c) for c in crcs[i]]
+                == [hcrc.crc32c(sh) for sh in shards],
+                f"core: object {i}'s CRCs equal the host CRC of its shards")
+        require(si.deinterleave(decoded[i], 4 * MiB) == objs[i].tobytes(),
+                f"core: degraded read of object {i} under lockdep")
+
+    # 3. a failpoint on the card's path
+    seen = []
+
+    def fail(ctx):
+        seen.append(ctx["jobs"])
+        fp.error()(ctx)
+
+    fp.disarm_all()
+    try:
+        fp.arm("queue.batch.dispatch", fail, once=True)
+        outcome = [None] * CORE_FAIL_WRITES
+
+        def armed_write(i):
+            try:
+                outcome[i] = q.encode_crc_async(
+                    codec, planes[i % CORE_OBJS]).result()
+            except fp.FailpointError as e:
+                outcome[i] = e
+
+        jobs0 = q.jobs
+        run_threads(armed_write, CORE_FAIL_WRITES, CORE_FAIL_WRITES)
+        failed = sum(isinstance(o, fp.FailpointError) for o in outcome)
+        require(fp.hits("queue.batch.dispatch") == 1
+                and fp.fired("queue.batch.dispatch") == 1,
+                "core: queue.batch.dispatch hit and fired once")
+        require(len(seen) == 1 and failed == seen[0]
+                and q.jobs - jobs0 == CORE_FAIL_WRITES - failed,
+                f"core: exactly the {seen} jobs of one batch raised "
+                f"FailpointError ({failed} did)")
+        for i in range(8):
+            j = i % CORE_OBJS
+            c, cr = q.encode_crc_async(codec, planes[j]).result()
+            require(np.array_equal(c, coding[j])
+                    and [int(x) for x in cr]
+                    == [hcrc.crc32c(sh) for sh in
+                        list(planes[j]) + list(c)],
+                    f"core: write {i} after the failpoint, CRCs exact")
+    finally:
+        fp.disarm_all()
+        q.stop()
+    counts = read_counts()
+    require(counts["gf256_matmul"] > 0 and counts["crc32c_rows"] > 0,
+            f"core: the path ran gf256_matmul and crc32c_rows: {counts}")
+
+    # 4. the admin socket
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_asok_") as tmp:
+        sock = f"{tmp}/osd.0.asok"
+        ctx = Context("osd.0", {"admin_socket": sock})
+        try:
+            dump = admin_command(sock, "device compile dump")
+        finally:
+            ctx.shutdown()
+    require(dump["launches"] == counts,
+            f"core: the dump's launches {dump['launches']} equal the "
+            f"counts of checks 2 and 3 {counts}")
+    require(dump["batches"]["total"] - batches0 == q.batches,
+            f"core: the dump's batches ({dump['batches']['total']} - "
+            f"{batches0}) equal the queue's {q.batches}")
+    logical = CORE_OBJS * 4 * MiB
+    log(f"core: host crc32c equals the card's on {rows_checked} batch rows "
+        f"and 1 B / 4 KiB + 3 B / 4 MiB buffers; host crc32c "
+        f"{host_mbs:.1f} MB/s at 4 MiB; under lockdep wrote "
+        f"{CORE_OBJS} x 4 MiB in {w_wall:.3f} s = "
+        f"{logical / w_wall / 1e9:.3f} GB/s and read degraded (lost "
+        f"{list(lost)}) in {r_wall:.3f} s = {logical / r_wall / 1e9:.3f} "
+        f"GB/s, {n_edges} lock-order edges, no LockOrderError; "
+        f"queue.batch.dispatch failed {failed} of {CORE_FAIL_WRITES} jobs "
+        f"(one batch), then 8 writes exact; device compile dump: "
+        f"launches {dump['launches']}, {q.batches} batches")
+    return {"host_crc_mbs": host_mbs, "edges": n_edges, "counts": counts}
+
+
 def phase_bitmatrix(torch, dev, log) -> dict:
     return drive_path(torch, dev, log, "bitmatrix",
                       "plugin=jerasure k=8 m=4 technique=cauchy_good "
@@ -1529,6 +1733,7 @@ def main() -> int:
     phase_gf2(torch, dev, log)
     phase_gf256i(torch, dev, log)
     main_res = phase_main(torch, dev, log)
+    phase_core(torch, dev, log)
     bm_res = phase_bitmatrix(torch, dev, log)
     sh_res = phase_shec(torch, dev, log)
     phase_lrc(torch, dev, log)

@@ -651,3 +651,77 @@ def test_crush_kernel_append_buffer_counts_past_capacity(dev):
     assert int(count[0]) == len(unclean) > 64
     got = bad.tolist()
     assert len(set(got)) == 64 and set(got) <= unclean
+
+
+# -- the core layer on the card's path ----------------------------------------
+
+
+def test_core_queue_under_lockdep_on_the_card(dev):
+    """A queue built with the port's lockdep armed writes and
+    degraded-reads on the card with checked locks and no
+    LockOrderError; the CRCs equal the host CRC-32C of each shard."""
+    from ceph_tpu_torch.core import lockdep
+    from ceph_tpu_torch.core.crc import crc32c
+
+    was = lockdep.enabled()
+    lockdep.reset()
+    lockdep.enable(True)
+    codec = codec_from_profile("plugin=isa k=8 m=4", device=dev)
+    rng = np.random.default_rng(13)
+    planes = [rng.integers(0, 256, (8, 128 << 10), dtype=np.uint8)
+              for _ in range(6)]
+    try:
+        q = StripeBatchQueue(device=dev)
+        assert isinstance(q.pool._cond._lock, lockdep.DMutex)
+        try:
+            res = [f.result(timeout=120) for f in
+                   [q.encode_crc_async(codec, p) for p in planes]]
+            for p, (c, crcs) in zip(planes, res):
+                assert np.array_equal(c, codec.encode_array(p))
+                assert [int(x) for x in crcs] == \
+                    [crc32c(s) for s in list(p) + list(c)]
+            for p, (c, _) in zip(planes, res):
+                avail = {s: p[s] if s < 8 else c[s - 8]
+                         for s in (0, 1, 2, 3, 4, 5, 8, 9)}
+                d = q.decode_data_async(codec, avail).result(timeout=120)
+                assert np.array_equal(d, p)
+        finally:
+            q.stop()
+        assert "staging.stats" in lockdep.edge_graph()["staging.pool"]
+    finally:
+        lockdep.enable(was)
+        lockdep.reset()
+
+
+def test_core_dispatch_failpoint_on_the_card(dev):
+    """queue.batch.dispatch armed once with an error fails exactly the
+    jobs of one batch on the card; the next writes complete."""
+    from ceph_tpu_torch.core import failpoint as fp
+    from ceph_tpu_torch.core.crc import crc32c
+
+    codec = codec_from_profile("plugin=isa k=8 m=4", device=dev)
+    rng = np.random.default_rng(14)
+    planes = [rng.integers(0, 256, (8, 64 << 10), dtype=np.uint8)
+              for _ in range(6)]
+    seen = []
+
+    def fail(ctx):
+        seen.append(ctx["jobs"])
+        fp.error()(ctx)
+
+    fp.disarm_all()
+    q = StripeBatchQueue(device=dev)
+    try:
+        fp.arm("queue.batch.dispatch", fail, once=True)
+        futs = [q.encode_crc_async(codec, p) for p in planes]
+        failed = [f for f in futs
+                  if isinstance(f.exception(timeout=120), fp.FailpointError)]
+        assert fp.hits("queue.batch.dispatch") == 1
+        assert len(failed) == seen[0] and q.jobs == len(planes) - seen[0]
+        for p in planes:
+            c, crcs = q.encode_crc_async(codec, p).result(timeout=120)
+            assert [int(x) for x in crcs] == \
+                [crc32c(s) for s in list(p) + list(c)]
+    finally:
+        q.stop()
+        fp.disarm_all()
