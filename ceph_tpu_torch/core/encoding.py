@@ -69,11 +69,15 @@ class Encoder:
 
     def blob(self, v) -> "Encoder":
         """u32-length-prefixed byte string (reference bufferlist
-        encode).  Accepts any bytes-like object zero-copy — and a
-        DeviceBuf payload handle, materialized through its sanctioned
-        (accounted) wire view."""
+        encode).  Accepts any contiguous buffer zero-copy (bytes, a
+        memoryview, a uint8 ndarray) — and a DeviceBuf payload handle,
+        materialized through its sanctioned (accounted) wire view."""
         if hasattr(v, "wire_view"):  # DeviceBuf duck-type
             v = v.wire_view()
+        if not isinstance(v, (bytes, bytearray)):
+            # any contiguous buffer (a memoryview, a uint8 ndarray) as
+            # flat bytes: ``bytearray += ndarray`` would broadcast
+            v = memoryview(v).cast("B")
         self.u32(len(v))
         self.buf += v
         return self

@@ -51,10 +51,13 @@ holds call sites to, so a typo is impossible to arm.
 
 Port of ``ceph_tpu/core/failpoint.py``: the same points, actions,
 modifiers, DSL, barriers and seeded per-point streams.  The port's
-sites so far: ``queue.batch.dispatch`` (``gpu/queue.py``).  The
-``error(EIO)`` action raises the store's ``StoreError``, resolved when
-it fires; the port's store arrives with slice 1c, and until then
-firing it raises ``NotImplementedError`` naming that slice.
+sites so far: ``queue.batch.dispatch`` (``gpu/queue.py``),
+``msg.frame.deliver`` (``msg/messenger.py``) and the store's
+``store.commit_batch.sync``, ``store.corrupt_chunk`` and
+``store.corrupt_xattr`` (``store/objectstore.py``).  The
+``error(EIO)`` action raises the port's ``store.objectstore.StoreError``,
+imported when the action is parsed (``objectstore`` imports this
+module).
 """
 
 from __future__ import annotations
@@ -177,7 +180,7 @@ _ERRORS = {
     "FailpointError": FailpointError,
     "OSError": OSError,
     "IOError": OSError,
-    "EIO": None,  # resolved when it fires, to the store's StoreError
+    "EIO": None,  # resolved lazily to StoreError (import cycle)
     "RuntimeError": RuntimeError,
     "ConnectionResetError": ConnectionResetError,
     "TimeoutError": TimeoutError,
@@ -186,9 +189,9 @@ _ERRORS = {
 
 def _resolve_error(name: str):
     if name == "EIO":
-        raise NotImplementedError(
-            "failpoint error(EIO) raises the store's StoreError, and the "
-            "port's store (store/objectstore.py) arrives with slice 1c")
+        from ceph_tpu_torch.store.objectstore import StoreError
+
+        return StoreError
     exc = _ERRORS.get(name)
     if exc is None:
         raise ValueError(f"failpoint: unknown error class {name!r}")
@@ -283,13 +286,11 @@ def sleep_ms(ms: float) -> Callable[[dict], None]:
 
 
 def error(exc=FailpointError) -> Callable[[dict], None]:
-    """Raise ``exc`` (a class or an instance) at the point; a class
-    NAME is resolved through :func:`_resolve_error` when it fires."""
+    """Raise ``exc`` (a class or an instance) at the point."""
     def act(ctx: dict) -> None:
-        cls = _resolve_error(exc) if isinstance(exc, str) else exc
-        if isinstance(cls, BaseException):
-            raise cls
-        raise cls(f"injected at failpoint ({ctx})")
+        if isinstance(exc, BaseException):
+            raise exc
+        raise exc(f"injected at failpoint ({ctx})")
 
     act.__name__ = "error"
     return act
@@ -507,8 +508,6 @@ def _parse_action(spec: str):
     if kind == "sleep":
         return sleep_ms(float(arg))
     if kind == "error":
-        if arg == "EIO":
-            return error("EIO")  # the store's class, when it fires
         return error(_resolve_error(arg) if arg else FailpointError)
     if kind == "kill":
         return kill()

@@ -60,6 +60,24 @@ Phases, each of which fails the run (non-zero exit, no result line):
               then 8 writes exact; and a Context's admin socket answering
               ``device compile dump`` with those checks' launches per
               kernel and the queue's batch count;
+6c. wire     the wire and the store (``ceph_tpu_torch/msg``, ``auth``,
+              ``store``) on that path, under lockdep: 64 seeded 4 MiB
+              objects (isa k=8 m=4, 1 MiB stripe) encoded on the card
+              (K1 and the CRC kernel), each object's shards sent by the
+              primary messenger ``client.0`` as one sub-write to each of
+              four peer messengers ``osd.1`` .. ``osd.4`` (127.0.0.1,
+              cephx authorizers bound to the dialed address, frame CRCs
+              on), each peer committing its shards ``s % 4 == N - 1`` and
+              the card's CRCs in one Transaction to its own MemStore and
+              acking; every stored shard read back through its extent
+              seals with the host CRC equal to the card's; a messenger
+              without an authorizer refused and never delivered; then
+              osd.4 shut down (shards 3, 7, 11) and ``store.corrupt_chunk``
+              armed for shard 6 on osd.3, whose reads fail their seal
+              (``ChecksumError``, ``read_verify_fail``) and come back as
+              errors, and every object decoded degraded through
+              ``decode_data_async`` (K1) from the eight survivors, byte for
+              byte;
 7. bitmatrix  the same 1 GiB write through ``jerasure k=8 m=4
               technique=cauchy_good``, read back degraded through
               ``codec.decode_array`` with shards 6, 7, 10, 11 lost (the
@@ -97,13 +115,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
 Each path zeroes the kernel launch counts just before its writes and
 reads them just after, then likewise for its reads (the core phase
 zeroes them before its lockdep run and reads them after its failpoint
-check); each kernel of each
+check; the wire phase's write half is its sends and acks, its read half
+the sub-reads and decodes); each kernel of each
 half must have run (for ecbench, K2 and K1: its loops capture one launch
 per iteration in a CUDA graph and replay it, and the counts are of the
 captured launches).  Then each kernel is timed at its path's batch
 shape, beside its plain version and its bound: ``ms`` is device time per
 launch from a CUDA graph of launches, ``call_ms`` the eager wrapper call
-with CUDA events; the popcount row times both of shec's read shapes
+with CUDA events; the K1 and CRC rows carry their launches in the wire
+phase's two halves (``wire_launches``); the popcount row times both of
+shec's read shapes
 (``ms`` the contribution, ``solve_ms`` the solve).  The crush phase
 zeroes the counts just before its main sweep and reads them just after
 (22 ``crush_rule`` launches and nothing else); the ``crush_rule`` row
@@ -1083,6 +1104,423 @@ def phase_core(torch, dev, log) -> dict:
     return {"host_crc_mbs": host_mbs, "edges": n_edges, "counts": counts}
 
 
+# -- the wire phase: the card's shards through the messenger and the store ---
+
+WIRE_PROFILE = "plugin=isa k=8 m=4 technique=reed_sol_van"  # ``main``'s
+WIRE_OBJS = 64               # 4 MiB objects (RADOS's and RBD's default size)
+WIRE_PEERS = 4               # osd.1 .. osd.4; osd.N holds shards s % 4 == N - 1
+WIRE_DOWN = (4,)             # shut down before the degraded read
+WIRE_CORRUPT = (3, 6)        # (peer, shard) whose read fails its extent seal
+WIRE_TYPES = (9201, 9202, 9203, 9204)
+WIRE_WAIT_S = 120.0
+
+
+def wire_messages():
+    """The phase's sub-write, sub-write ack, sub-read and sub-read reply,
+    registered in the port's message registry on first use.  They are
+    local to this script: the OSD's own messages come with the port's
+    OSD.  One payload shape serves all four: an object name and, per
+    shard, its id, bytes and CRC-32C, plus an error per shard that
+    failed."""
+    from ceph_tpu_torch.msg.message import MSG_REGISTRY, Message, register
+
+    if WIRE_TYPES[0] in MSG_REGISTRY:
+        return tuple(MSG_REGISTRY[t] for t in WIRE_TYPES)
+
+    class _Shards(Message):
+        def __init__(self, oid: str = "", ids=(), data=(), crcs=(),
+                     errors=None) -> None:
+            super().__init__()
+            self.oid = oid
+            self.ids = [int(s) for s in ids]
+            self.data = list(data)
+            self.crcs = [int(c) for c in crcs]
+            self.errors = dict(errors or {})
+
+        def encode_payload(self, e) -> None:
+            e.string(self.oid)
+            e.seq(self.ids, lambda enc, s: enc.u8(s))
+            e.seq(self.data, lambda enc, b: enc.blob(b))
+            e.seq(self.crcs, lambda enc, c: enc.u32(c))
+            e.mapping(self.errors, lambda enc, s: enc.u8(s),
+                      lambda enc, v: enc.string(v))
+
+        def decode_payload(self, d) -> None:
+            self.oid = d.string()
+            self.ids = d.seq(lambda dd: dd.u8())
+            self.data = d.seq(lambda dd: dd.blob())
+            self.crcs = d.seq(lambda dd: dd.u32())
+            self.errors = d.mapping(lambda dd: dd.u8(), lambda dd: dd.string())
+
+    made = []
+    for name, code in zip(("MWireWrite", "MWireWriteAck", "MWireRead",
+                           "MWireReadReply"), WIRE_TYPES):
+        made.append(register(type(name, (_Shards,), {"TYPE": code})))
+    return tuple(made)
+
+
+def run_wire(torch, dev, *, nobj: int = WIRE_OBJS,
+             obj_bytes: int = 4 * MiB, stripe_bytes: int = 1 * MiB,
+             peers: int = WIRE_PEERS, down=WIRE_DOWN, corrupt=WIRE_CORRUPT,
+             threads: int = 8) -> dict:
+    """The first half of the OSD's EC sub-write and its degraded read,
+    through the port's host layers, under lockdep:
+
+    1. one primary messenger (``client.0``) and ``peers`` peer
+       messengers (``osd.1`` ..), each peer with its own MemStore, on
+       127.0.0.1; cephx on: a keyring, a CephxServer, the primary's
+       authorizer (bound to the dialed address) as its provider,
+       ``verify_authorizer`` with a seen-cache and the peer's own
+       address as each peer's verifier; ``ms_crc_data`` on;
+    2. write: ``nobj`` seeded objects through
+       ``StripeBatchQueue.encode_crc_async`` (K1 and the CRC kernel on
+       the card), from ``threads`` threads; each peer gets one sub-write
+       per object with the shards ``s % peers == peer - 1`` and the
+       card's CRC of each, commits them in one Transaction (the data,
+       and the card's CRC as attribute ``crc``) and acks; the primary
+       waits for every ack;
+    3. check: every stored shard passes its store's extent seals, and
+       the host CRC (``core.crc``) of the bytes read back and the stored
+       attribute both equal the card's CRC; a messenger without an
+       authorizer dials peer 1, is refused twice, and its sub-write is
+       never delivered;
+    4. degraded read: the peers in ``down`` shut down;
+       ``store.corrupt_chunk`` is armed for ``corrupt`` = (peer, shard),
+       whose reads fail their seal (ChecksumError, counted in
+       ``read_verify_fail``) and come back as errors; every object is
+       decoded from the first k survivors through ``decode_data_async``
+       (K1 on the card) and must equal what was written.
+
+    The launch counts are zeroed just before the writes and read just
+    after them, then zeroed just before the reads and read just after.
+    Returns the counts, rates, what was written and read, and the
+    counters; raises on any failed check."""
+    from ceph_tpu_torch.auth import CephxClient, CephxServer, Keyring
+    from ceph_tpu_torch.auth import verify_authorizer
+    from ceph_tpu_torch.core import failpoint as fp
+    from ceph_tpu_torch.core import lockdep
+    from ceph_tpu_torch.core.context import Context
+    from ceph_tpu_torch.core.crc import crc32c
+    from ceph_tpu_torch.ec import codec_from_profile
+    from ceph_tpu_torch.gpu.queue import StripeBatchQueue
+    from ceph_tpu_torch.msg.message import EntityName
+    from ceph_tpu_torch.msg.messenger import Dispatcher, Messenger
+    from ceph_tpu_torch.osd.ecutil import StripeInfo
+    from ceph_tpu_torch.store.memstore import MemStore
+    from ceph_tpu_torch.store.objectstore import (ChecksumError, Collection,
+                                                  GHObject, StoreError,
+                                                  Transaction)
+
+    MWrite, MWriteAck, MRead, MReadReply = wire_messages()
+    cid = Collection("2.0_head")
+    codec = codec_from_profile(WIRE_PROFILE, device=dev)
+    k, m = codec.k, codec.m
+    si = StripeInfo(k, codec.get_chunk_size(stripe_bytes))
+    holder = {s: s % peers + 1 for s in range(k + m)}
+    c_peer, c_shard = corrupt
+    require(holder[c_shard] == c_peer and c_peer not in down
+            and not any(str(c_shard) in str(s) for s in holder
+                        if s != c_shard),
+            f"wire: peer {c_peer} holds shard {c_shard} and stays up, and "
+            "the failpoint's shard match selects that shard alone")
+    lost = sorted([s for s in holder if holder[s] in down] + [c_shard])
+    survivors = [s for s in range(k + m) if s not in lost]
+    require(len(lost) <= m, f"wire: {lost} lost, at most m = {m}")
+    g = torch.Generator(device=dev).manual_seed(SEED + 14)
+    objs = torch.randint(0, 256, (nobj, obj_bytes), dtype=torch.uint8,
+                         device=dev, generator=g).cpu().numpy()
+    planes = [si.interleave(memoryview(o))[0] for o in objs]
+    oids = [f"rbd_data.{i:016x}" for i in range(nobj)]
+
+    class Peer(Dispatcher):
+        def __init__(self) -> None:
+            self.store = MemStore()
+            self.store.mkfs()
+            self.store.mount()
+            t = Transaction()
+            t.create_collection(cid)
+            self.store.queue_transaction(t)
+            self.srcs = []
+            self.busy = []  # seconds in the store, one entry per message
+
+        def ms_dispatch(self, conn, msg) -> bool:
+            self.srcs.append(str(msg.src))
+            t0 = time.perf_counter()
+            if isinstance(msg, MWrite):
+                t = Transaction()
+                for s, data, crc in zip(msg.ids, msg.data, msg.crcs):
+                    o = GHObject(msg.oid, shard=s)
+                    t.write(cid, o, 0, data)
+                    t.setattrs(cid, o, {"crc": crc.to_bytes(4, "little")})
+                errors = {}
+                try:
+                    self.store.queue_transaction(t)
+                except StoreError as e:
+                    errors = {255: repr(e)}
+                reply = MWriteAck(msg.oid, msg.ids, errors=errors)
+            elif isinstance(msg, MRead):
+                ids, data, errors = [], [], {}
+                for s in msg.ids:
+                    try:
+                        data.append(self.store.read(
+                            cid, GHObject(msg.oid, shard=s)))
+                        ids.append(s)
+                    except ChecksumError as e:
+                        errors[s] = repr(e)
+                reply = MReadReply(msg.oid, ids, data, errors=errors)
+            else:
+                return False
+            self.busy.append(time.perf_counter() - t0)
+            reply.tid = msg.tid
+            conn.send(reply)
+            return True
+
+    class Primary(Dispatcher):
+        def __init__(self) -> None:
+            self.cond = threading.Condition()
+            self.replies = {}
+
+        def ms_can_fast_dispatch(self, msg) -> bool:
+            return True  # an append under a short lock
+
+        def ms_dispatch(self, conn, msg) -> bool:
+            with self.cond:
+                self.replies.setdefault(msg.tid, []).append(msg)
+                self.cond.notify_all()
+            return True
+
+        def wait(self, tid: int, n: int) -> list:
+            with self.cond:
+                require(self.cond.wait_for(
+                    lambda: len(self.replies.get(tid, ())) >= n,
+                    WIRE_WAIT_S), f"wire: {n} replies to tid {tid}")
+                return self.replies.pop(tid)
+
+    kr = Keyring()
+    kr.add("service")
+    secret = kr.add("client.0")
+    auth_server = CephxServer(kr)
+    cx = CephxClient("client.0", secret)
+    ch = auth_server.get_challenge("client.0")
+    cc = SEED.to_bytes(16, "little")
+    cx.accept_reply(*auth_server.handle_request(
+        "client.0", cc, cx.make_proof(ch, cc)))
+    verdicts = {n: [] for n in range(1, peers + 1)}
+
+    def verifier(n: int, target: str):
+        seen = {}
+
+        def check(blob) -> bool:
+            try:
+                verify_authorizer(auth_server.service_secret, blob,
+                                  expect_target=target, seen=seen)
+                ok = True
+            except Exception:  # noqa: BLE001 — any refusal is a "no"
+                ok = False
+            verdicts[n].append(ok)
+            return ok
+        return check
+
+    was = lockdep.enabled()
+    lockdep.reset()
+    lockdep.enable(True)
+    msgrs = []
+    fp.disarm_all()
+    q = None
+    try:
+        names = ["client.0"] + [f"osd.{n}" for n in range(1, peers + 1)]
+        ctxs = [Context(name) for name in names]
+        primary = Messenger(ctxs[0], EntityName("client", 0))
+        prim = Primary()
+        primary.add_dispatcher(prim)
+        primary.set_auth(provider=cx.build_authorizer)
+        msgrs.append(primary)
+        peer_d, peer_m = {}, {}
+        for n in range(1, peers + 1):
+            pm = Messenger(ctxs[n], EntityName("osd", n))
+            peer_d[n] = Peer()
+            pm.add_dispatcher(peer_d[n])
+            pm.start()
+            pm.set_auth(verifier=verifier(n, f"{pm.addr[0]}:{pm.addr[1]}"))
+            peer_m[n] = pm
+            msgrs.append(pm)
+        primary.start()
+        require(all(pm.addr[0] == "127.0.0.1" for pm in msgrs),
+                "wire: every messenger binds 127.0.0.1")
+        conns = {n: primary.connect(peer_m[n].addr) for n in peer_m}
+        q = StripeBatchQueue(device=dev)
+        coding = [None] * nobj
+        crcs = [None] * nobj
+        wire_bytes = [0, 0]  # shard bytes: sub-writes, sub-read replies
+
+        def write(i):
+            c, cr = q.encode_crc_async(codec, planes[i],
+                                       size=obj_bytes).result()
+            coding[i], crcs[i] = c, [int(x) for x in cr]
+            for n, conn in conns.items():
+                ids = [s for s in range(k + m) if holder[s] == n]
+                data = [planes[i][s] if s < k else c[s - k] for s in ids]
+                msg = MWrite(oids[i], ids, data, [crcs[i][s] for s in ids])
+                msg.tid = i + 1
+                conn.send(msg)
+            acks = prim.wait(i + 1, len(conns))
+            require(all(not a.errors for a in acks),
+                    f"wire: object {i} committed on every peer: "
+                    f"{[a.errors for a in acks if a.errors]}")
+
+        reset_counts()
+        w_wall = run_threads(write, nobj, threads)
+        w_counts = read_counts()
+        wire_bytes[0] = sum(c.shape[1] for c in coding) * (k + m)
+        w_store_s = sum(sum(pd.busy) for pd in peer_d.values())
+
+        # 3. every stored shard against the card's CRC, through the seals
+        # (one thread: two host CRC passes over every stored byte)
+        t_check = time.perf_counter()
+        verified = 0
+        for n, pd in peer_d.items():
+            for i in range(nobj):
+                for s in (s for s in range(k + m) if holder[s] == n):
+                    o = GHObject(oids[i], shard=s)
+                    got = pd.store.read(cid, o)
+                    attr = int.from_bytes(pd.store.getattr(cid, o, "crc"),
+                                          "little")
+                    require(crc32c(got) == crcs[i][s] == attr,
+                            f"wire: osd.{n} object {i} shard {s}: host CRC "
+                            "of the stored bytes and the stored attribute "
+                            "equal the card's CRC")
+                    verified += 1
+        check_s = time.perf_counter() - t_check
+        intruder = Messenger(None, EntityName("client", 666))
+        msgrs.append(intruder)
+        intruder.start()
+        intruder.send_message(MWrite("intruder", [0], [b"x" * 64], [0]),
+                              peer_m[1].addr)
+        deadline = time.monotonic() + 30
+        while (verdicts[1].count(False) < 2
+               and time.monotonic() < deadline):
+            time.sleep(0.01)
+        intruder.shutdown()
+        require(verdicts[1].count(False) >= 2
+                and "client.666" not in peer_d[1].srcs
+                and not peer_d[1].store.exists(
+                    cid, GHObject("intruder", shard=0)),
+                f"wire: the unauthenticated messenger was refused "
+                f"{verdicts[1].count(False)} times and never delivered")
+        require(all(v and all(v) for n, v in verdicts.items() if n != 1)
+                and verdicts[1].count(True) >= 1,
+                f"wire: the primary's sessions were authorized: {verdicts}")
+
+        # 4. the degraded read
+        for n in down:
+            peer_m[n].shutdown()
+        fp.arm("store.corrupt_chunk", fp.CORRUPT_ACTION,
+               match={"shard": str(c_shard)})
+        fails0 = peer_d[c_peer].store.perf.value("read_verify_fail")
+        decoded = [None] * nobj
+        got_shards = [None] * nobj
+
+        def read(i):
+            tid = nobj + i + 1
+            asked = [n for n in conns if n not in down]
+            for n in asked:
+                msg = MRead(oids[i], [s for s in range(k + m)
+                                      if holder[s] == n])
+                msg.tid = tid
+                conns[n].send(msg)
+            avail, failed = {}, []
+            for rep in prim.wait(tid, len(asked)):
+                avail.update(zip(rep.ids, rep.data))
+                failed.extend(rep.errors)
+            require(sorted(failed) == [c_shard] and c_shard not in avail,
+                    f"wire: object {i}: only shard {c_shard} failed its "
+                    f"seal ({failed}) and its bytes were not returned")
+            got_shards[i] = avail
+            decoded[i] = q.decode_data_async(
+                codec, {s: np.frombuffer(avail[s], np.uint8)
+                        for s in survivors}).result()
+
+        reset_counts()
+        r_wall = run_threads(read, nobj, threads)
+        r_counts = read_counts()
+        r_store_s = sum(sum(pd.busy) for pd in peer_d.values()) - w_store_s
+        seal_fails = (peer_d[c_peer].store.perf.value("read_verify_fail")
+                      - fails0)
+        fp.disarm_all()
+        edges = lockdep.edge_graph()
+        perf = {name: c.perf.dump()[f"msgr.{name}"]
+                for name, c in zip(names, ctxs)}
+    finally:
+        fp.disarm_all()
+        if q is not None:
+            q.stop()
+        for mm in msgrs:
+            mm.shutdown()
+        lockdep.enable(was)
+        lockdep.reset()
+    require(seal_fails == nobj,
+            f"wire: osd.{c_peer} counted {seal_fails} read_verify_fail, one "
+            f"per object ({nobj})")
+    for i in range(nobj):
+        for s, b in got_shards[i].items():
+            require(crc32c(b) == crcs[i][s],
+                    f"wire: object {i} shard {s} came back as written")
+            verified += 1
+        require(si.deinterleave(decoded[i], obj_bytes) == objs[i].tobytes(),
+                f"wire: degraded read of object {i} returns what was written")
+    wire_bytes[1] = sum(len(b) for a in got_shards for b in a.values())
+    frames = sum(int(p["frames_per_drain"]["sum"]) for p in perf.values())
+    msgr_acks = sum(p["acks_dedicated"] + p["acks_piggybacked"]
+                    for p in perf.values())
+    logical = nobj * obj_bytes
+    return {"w_counts": w_counts, "r_counts": r_counts,
+            "w_gbs": logical / w_wall / 1e9, "r_gbs": logical / r_wall / 1e9,
+            "w_wall": w_wall, "r_wall": r_wall, "lost": lost,
+            "w_store_s": w_store_s, "r_store_s": r_store_s,
+            "check_s": check_s,
+            "survivors": survivors, "planes": planes, "coding": coding,
+            "crcs": crcs, "decoded": decoded, "objs": objs, "si": si,
+            "wire_bytes": wire_bytes, "frames": frames,
+            "msgr_acks": msgr_acks, "sub_acks": nobj * peers,
+            "verified": verified, "seal_fails": seal_fails,
+            "edges": sum(len(v) for v in edges.values()), "edge_graph": edges,
+            "refused": verdicts[1].count(False)}
+
+
+def phase_wire(torch, dev, log) -> dict:
+    """``run_wire`` at full width: isa k=8 m=4 (the ``main`` profile), a
+    1 MiB stripe, 64 x 4 MiB objects, four peers; osd.4 (shards 3, 7,
+    11) down and shard 6 rotten on osd.3 for the degraded read.  The
+    write half must launch K1 and the CRC kernel, the read half K1."""
+    res = run_wire(torch, dev)
+    require(res["lost"] == [3, 6, 7, 11], f"wire: lost {res['lost']}")
+    for half, counts, need in (("write", res["w_counts"],
+                                ("gf256_matmul", "crc32c_rows")),
+                               ("read", res["r_counts"], ("gf256_matmul",))):
+        require(all(counts[n] > 0 for n in need),
+                f"wire: the {half} ran {list(need)}: {counts}")
+    wb = res["wire_bytes"]
+    log(f"wire: isa k=8 m=4, 1 MiB stripe, {WIRE_OBJS} x 4 MiB through the "
+        f"queue, the messenger (cephx, ms_crc_data) and {WIRE_PEERS} "
+        f"MemStores: write {res['w_gbs']:.3f} GB/s ({res['w_wall']:.3f} s), "
+        f"degraded read (lost {res['lost']}: osd.4 down, shard 6 rotten) "
+        f"{res['r_gbs']:.3f} GB/s ({res['r_wall']:.3f} s); peers' store time "
+        f"summed {res['w_store_s']:.3f} s in the write, "
+        f"{res['r_store_s']:.3f} s in the read; the one-thread check of "
+        f"every stored shard (two host CRC passes) {res['check_s']:.3f} s; "
+        f"shard bytes on the wire {wb[0]} written + {wb[1]} read; "
+        f"{res['frames']} frames sent, "
+        f"{res['sub_acks']} sub-write acks, {res['msgr_acks']} session "
+        f"acks; {res['verified']} seal-verified shard reads, "
+        f"{res['seal_fails']} seal failures; unauthenticated messenger "
+        f"refused {res['refused']} times, nothing delivered; "
+        f"{res['edges']} lock-order edges {res['edge_graph']}, no "
+        f"LockOrderError; launches: write {res['w_counts']}, read "
+        f"{res['r_counts']}; host CRC equals the card's on every stored "
+        "shard; every byte exact")
+    return res
+
+
 def phase_bitmatrix(torch, dev, log) -> dict:
     return drive_path(torch, dev, log, "bitmatrix",
                       "plugin=jerasure k=8 m=4 technique=cauchy_good "
@@ -1734,6 +2172,7 @@ def main() -> int:
     phase_gf256i(torch, dev, log)
     main_res = phase_main(torch, dev, log)
     phase_core(torch, dev, log)
+    wire_res = phase_wire(torch, dev, log)
     bm_res = phase_bitmatrix(torch, dev, log)
     sh_res = phase_shec(torch, dev, log)
     phase_lrc(torch, dev, log)
@@ -1741,6 +2180,9 @@ def main() -> int:
     eb_res = phase_ecbench(torch, dev, log)
     kernels = time_kernels(torch, dev, log, main_res)
     kernels[0]["sass"] = {n: sass[n] for n in ("enc_4x8", "dec_8x8")}
+    for kr in kernels[:2]:  # K1 and the CRC: their launches in the wire phase
+        kr["wire_launches"] = {"write": wire_res["w_counts"][kr["name"]],
+                               "read": wire_res["r_counts"][kr["name"]]}
     kernels.append(time_gf2(torch, dev, log, bm_res))
     kernels.append(time_gf2_popcount(torch, dev, log, sh_res))
     kernels[-1]["sass"] = {n: sass[n] for n in (

@@ -725,3 +725,25 @@ def test_core_dispatch_failpoint_on_the_card(dev):
     finally:
         q.stop()
         fp.disarm_all()
+
+
+# -- the wire slice on the card's path ----------------------------------------
+
+
+def test_wire_path_on_the_card(dev):
+    """The wire phase's code at a small size: the card's shards through
+    the messenger (cephx on) into four MemStores and back, one peer down
+    and one shard rotten; K1 and the CRC kernel launch in the write, K1
+    in the degraded read, and every byte comes back."""
+    import chip_smoke
+
+    res = chip_smoke.run_wire(torch, dev, nobj=4, obj_bytes=1 << 20,
+                              threads=2)
+    assert res["lost"] == [3, 6, 7, 11]
+    assert res["w_counts"]["gf256_matmul"] > 0
+    assert res["w_counts"]["crc32c_rows"] > 0
+    assert res["r_counts"]["gf256_matmul"] > 0
+    assert res["seal_fails"] == 4 and res["refused"] >= 2
+    for i, obj in enumerate(res["objs"]):
+        assert res["si"].deinterleave(res["decoded"][i], len(obj)) == \
+            obj.tobytes()

@@ -1,7 +1,8 @@
 """The port's failpoint registry (``ceph_tpu_torch/core/failpoint.py``),
 case for case against the registry unit cases of
 ``tests/test_failpoints.py`` (``:53-110``), plus its point table against
-the reference's and the routes that wait for later slices.
+the reference's, and ``error(EIO)`` raising each package's own store
+error.
 
 The reference's other cases need the filestore (queue 1 item 5) and the
 MiniCluster (slice 1j).
@@ -137,10 +138,11 @@ def test_seeded_streams_equal_the_reference(seed):
 
 
 def test_eio_waits_for_the_store_slice():
-    """error(EIO) arms in both packages; firing it raises the store's
-    StoreError in the reference and, until the port's store lands
-    (slice 1c), an error that names that slice."""
+    """error(EIO) arms in both packages, and firing it raises each
+    package's own store StoreError (the port's since its store landed
+    with slice 1c)."""
     from ceph_tpu.store.objectstore import StoreError
+    from ceph_tpu_torch.store.objectstore import StoreError as PortStoreError
 
     ref_fp.disarm_all()
     try:
@@ -151,6 +153,8 @@ def test_eio_waits_for_the_store_slice():
         ref_fp.disarm_all()
     assert fp.arm_from_spec("store.filestore.read=error(EIO):once") == \
         ["store.filestore.read"]
-    with pytest.raises(NotImplementedError, match="slice 1c"):
+    with pytest.raises(PortStoreError) as got:
         fp.failpoint("store.filestore.read")
+    assert not isinstance(got.value, StoreError)
     assert fp.fired("store.filestore.read") == 1
+    assert fp.failpoint("store.filestore.read") is None  # once: disarmed

@@ -293,9 +293,12 @@ def test_staging_pool_backpressure_blocks_then_releases():
     assert pool.occupancy == 0
 
 
+ROOT_SCRIPTS = ("chip_smoke.py", "wire_trace.py")
+
+
 def _port_files():
     files = sorted((REPO / "ceph_tpu_torch").rglob("*.py"))
-    return files + [REPO / "chip_smoke.py"]
+    return files + [REPO / name for name in ROOT_SCRIPTS]
 
 
 def test_port_sources_import_neither_jax_nor_the_reference():
@@ -316,16 +319,19 @@ def test_port_sources_import_neither_jax_nor_the_reference():
 def test_importing_the_port_loads_neither_jax_nor_the_reference():
     mods = sorted({".".join(p.relative_to(REPO).with_suffix("").parts)
                    .removesuffix(".__init__")
-                   for p in _port_files() if p.name != "chip_smoke.py"})
+                   for p in _port_files() if p.name not in ROOT_SCRIPTS})
     code = ("import sys\n"
             + "".join(f"import {m}\n" for m in mods)
-            + "import chip_smoke\n"
+            + "import chip_smoke\nimport wire_trace\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'ceph_tpu'))\n"
             "assert not bad, bad\n"
             "assert 'ceph_tpu_torch.gpu.queue' in sys.modules\n"
             "assert 'ceph_tpu_torch.crush.mapper' in sys.modules\n"
             "assert 'ceph_tpu_torch.tools.crushtool' in sys.modules\n"
+            "assert 'ceph_tpu_torch.msg.messenger' in sys.modules\n"
+            "assert 'ceph_tpu_torch.auth.cephx' in sys.modules\n"
+            "assert 'ceph_tpu_torch.store.memstore' in sys.modules\n"
             "print('clean')\n")
     env = dict(os.environ, PYTHONPATH=str(REPO))
     out = subprocess.run([sys.executable, "-c", code], cwd=str(REPO),
