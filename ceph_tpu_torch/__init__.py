@@ -15,12 +15,16 @@ write and its degraded read, and CRUSH placement:
             plain PyTorch version of the same function, plus the
             packed-planes products (planar and interleaved) and the
             bench's timing loops;
-- ``osd``   the stripe geometry (object bytes <-> data planes);
+- ``osd``   the stripe geometry (object bytes <-> data planes), the
+            core types, and placement on the host: OSDMap (object ->
+            PG -> OSDs on the rule walk), its codec and incrementals;
+- ``mgr``   the upmap and crush-compat balancers over full-pool sweeps;
 - ``crush`` CRUSH placement: hashes, crush_ln, the map and its text
             compiler, and the rule walk with its staged sweeps, whose
             kernel is ``csrc/crush.cu`` (``ops/crush_rule.py``);
 - ``tools`` the device EC engine bench (``python -m
-            ceph_tpu_torch.tools.ecbench``) and ``crushtool``.
+            ceph_tpu_torch.tools.ecbench``), ``crushtool`` and
+            ``osdmaptool``.
 
 Every entry point takes ``device=``.  Left out, it means CUDA, and a
 process without a CUDA device raises instead of running on the CPU.

@@ -1,2 +1,3 @@
-"""OSD-side geometry of the port (the OSD itself comes in a later
-slice)."""
+"""OSD-side host layer of the port: the stripe geometry (``ecutil``),
+the core types, and placement on the host (``osdmap``, ``map_codec``,
+``map_inc``); the OSD itself comes in a later slice."""

@@ -6,15 +6,15 @@ distribution test).  The --test sweep is one launch of the rule-walk
 kernel over the whole x range (``crush.mapper.compile_rule``), on CUDA
 unless ``--device cpu`` asks for the plain version.
 
-The binary map file (``-i``, and ``-o`` outside ``-d``) needs the map
-codec, which comes with the OSD map's slice of the port; until then
-those flags raise.  Text maps (``-c``, ``-d``) and ``--build`` work.
+Binary map files (``-i``, and ``-o`` outside ``-d``) are the map
+codec's bytes (``osd/map_codec.py``), the reference tool's format.
 
 Examples:
   python -m ceph_tpu_torch.tools.crushtool --build --num_osds 64 \\
       host straw2 4 root straw2 0 --test --num-rep 3 --min-x 0 \\
       --max-x 9999 --show-statistics --show-utilization
-  python -m ceph_tpu_torch.tools.crushtool -c map.txt -d -o map2.txt
+  python -m ceph_tpu_torch.tools.crushtool -c map.txt -o map.bin
+  python -m ceph_tpu_torch.tools.crushtool -d -i map.bin -o map2.txt
 """
 
 from __future__ import annotations
@@ -25,14 +25,12 @@ import sys
 
 import numpy as np
 
+from ceph_tpu_torch.core.encoding import Decoder, Encoder
 from ceph_tpu_torch.crush import map as cmap
 from ceph_tpu_torch.crush import mapper
+from ceph_tpu_torch.osd.map_codec import decode_crush, encode_crush
 
 ITEM_NONE = cmap.ITEM_NONE
-BINARY_PENDING = ("binary crush map files need the map codec "
-                  "(ceph_tpu/osd/map_codec.py), which the port takes with "
-                  "slice 1d (placement on the host); use -c/-d text maps "
-                  "or --build")
 
 
 def build_map(num_osds: int, layers) -> cmap.CrushMap:
@@ -115,12 +113,12 @@ def run_test(m: cmap.CrushMap, args, device=None) -> dict:
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="crushtool")
-    p.add_argument("-i", "--infn", help="input map file (binary: pending)")
+    p.add_argument("-i", "--infn", help="input map file")
     p.add_argument("-o", "--outfn", help="output map file")
     p.add_argument("-d", "--decompile", action="store_true",
-                   help="decompile the map to text (CrushCompiler role)")
+                   help="decompile -i map to text (CrushCompiler role)")
     p.add_argument("-c", "--compile", dest="compilefn", metavar="TEXTFN",
-                   help="compile a text map")
+                   help="compile a text map (write binary with -o)")
     p.add_argument("--build", action="store_true")
     p.add_argument("--num_osds", type=int, default=0)
     p.add_argument("layers", nargs="*",
@@ -141,9 +139,6 @@ def main(argv=None) -> int:
     args = p.parse_args(argv)
     args.weight = [(int(o), w) for o, w in args.weight]
 
-    if args.infn or (args.outfn and not args.decompile):
-        print(f"crushtool: {BINARY_PENDING}", file=sys.stderr)
-        raise NotImplementedError(BINARY_PENDING)
     if args.build:
         if args.num_osds <= 0 or len(args.layers) % 3:
             print("--build needs --num_osds and name alg size triples",
@@ -158,8 +153,11 @@ def main(argv=None) -> int:
 
         with open(args.compilefn) as f:
             m = compile_text(f.read())
+    elif args.infn:
+        with open(args.infn, "rb") as f:
+            m = decode_crush(Decoder(f.read()))
     else:
-        print("need --build or -c", file=sys.stderr)
+        print("need --build, -c or -i", file=sys.stderr)
         return 1
 
     if args.decompile:
@@ -172,6 +170,13 @@ def main(argv=None) -> int:
         else:
             sys.stdout.write(text)
         return 0
+
+    if args.outfn:
+        e = Encoder()
+        encode_crush(e, m)
+        with open(args.outfn, "wb") as f:
+            f.write(e.bytes())
+        print(f"wrote crush map to {args.outfn}")
     if args.test:
         print(json.dumps(run_test(m, args, args.device), indent=1))
     return 0

@@ -105,6 +105,25 @@ Phases, each of which fails the run (non-zero exit, no result line):
               k=8 m=4 pool) over 2^22 ids with no holes; the small maps of
               ``crush.samples`` at budgets 0, 1, 3; and ``crushtool
               --test`` over 2^20 ids with no bad mapping;
+10b. placement  placement on the host (``ceph_tpu_torch/osd``, ``mgr``,
+              ``tools/osdmaptool``) on the crush phase's map, with a
+              replicated pool (size 3, ``chooseleaf firstn 0 type host``,
+              16384 PGs) and an isa k=8 m=4 pool (size 12, ``chooseleaf
+              indep 12 type host``, 4096 PGs), Ceph's guidance of about
+              100 PGs per OSD: ``map_pgs`` on both pools (median of 3, one
+              K6 launch a pool a call), every row equal to the same map
+              decoded onto the CPU (the plain walk); ``pg_to_up_acting``
+              on 512 seeded PGs a pool (one launch each) equal to the
+              sweep's rows; host 5 down and out through an encoded
+              Incremental (no out OSD up, untouched PGs keep their rows,
+              the share of slots moved); the upmap balancer (max_deviation
+              1.0, 64 moves) on both pools without raising the stddev and
+              keeping each failure domain, its map carried by an
+              Incremental into a clone that places the same; the
+              crush-compat balancer (12 iterations) on pool 1; osdmaptool
+              --createsimple 1024 --pg_num 16384, --test-map-pgs and
+              --upmap on the card, and crushtool -d -i of that map's
+              binary crush map;
 11. ecbench   the device EC engine bench (``ceph_tpu_torch.tools.ecbench``)
               at its full sizes with a short calibration target: both
               engines pinned against the host oracle, the autotune over
@@ -133,7 +152,9 @@ the exact launch over it, the eager ``compile_rule`` call, and carries
 the sweep's rate, stages and the exact program's time, its bound taken
 from the draws and hashes the kernel counted in this run, and the
 straw2 loop's ALU-pipe issue floor (its SASS per draw, 64 lanes a cycle
-per SM at the card's top SM clock).  The K1, K2,
+per SM at the card's top SM clock); it also carries the placement
+phase's K6 launches (``placement_launches``, each step's counted between
+zeroed counts) and its sweep ms per pool.  The K1, K2,
 popcount and crush_rule rows carry ``sass``: registers, stack/local
 bytes and SASS counts of their main instantiations, read from the built
 library; the run fails unless the popcount kernel's SASS holds
@@ -1812,6 +1833,314 @@ def phase_crush(torch, dev, log) -> dict:
             "flat": flat, "steps": steps, "xs": xs, "dw": dw}
 
 
+# -- the placement phase: OSDMap, its codec and incrementals, the balancers --
+
+# BASELINE's 1024-OSD map (the crush phase's) under two pools sized by
+# Ceph's placement-group guidance (about 100 PGs per OSD, split evenly
+# between the pools and rounded to powers of two: 98,304 slots, 96 per
+# OSD): (pool id, name, type, size, min_size, pg_num, profile)
+PLACE_POOLS = ((1, "rbd", 1, 3, 2, 16384, ""),
+               (2, "ec84", 3, 12, 9, 4096,
+                "plugin=isa k=8 m=4 technique=reed_sol_van"))
+PLACE_SCALAR = 512          # seeded PGs per pool through pg_to_up_acting
+PLACE_MOVES = 64            # the upmap balancer's max_moves (its default)
+PLACE_HOST = 5              # the host marked down and out
+
+
+def placement_map(dev, n_osds: int = CRUSH_OSDS, hosts: int = CRUSH_HOSTS,
+                  pools=PLACE_POOLS):
+    """build_flat_cluster(n_osds, hosts) with a replicated pool on
+    ``chooseleaf firstn 0 type host`` and an erasure pool on ``chooseleaf
+    indep <size> type host``, as an OSDMap on ``dev``."""
+    from ceph_tpu_torch.crush import map as cmap
+    from ceph_tpu_torch.osd.osdmap import OSDMap, PGPool, POOL_REPLICATED
+
+    cm, root = cmap.build_flat_cluster(n_osds, hosts=hosts)
+    m = OSDMap(cm, max_osd=n_osds, device=dev)
+    for pid, name, ptype, size, min_size, pg_num, profile in pools:
+        firstn = ptype == POOL_REPLICATED
+        rid = cm.add_simple_rule(name, root, 1,
+                                 mode="firstn" if firstn else "indep",
+                                 num=0 if firstn else size)
+        m.add_pool(PGPool(pid, ptype, size=size, min_size=min_size,
+                          pg_num=pg_num, pgp_num=pg_num, crush_rule=rid,
+                          erasure_code_profile=profile, name=name))
+    return m
+
+
+def run_placement(torch, dev, *, n_osds: int = CRUSH_OSDS,
+                  hosts: int = CRUSH_HOSTS, pools=PLACE_POOLS,
+                  scalar: int = PLACE_SCALAR, moves: int = PLACE_MOVES,
+                  compat_iters: int = 12, tool_osds: int = CRUSH_OSDS,
+                  tool_pg_num: int = 16384, reps: int = 3) -> dict:
+    """Placement on the host over the rule walk, each step a check that
+    fails the run: both pools swept by ``map_pgs`` (one K6 launch a pool
+    a call, median of ``reps``), held against the same map decoded onto
+    the CPU (the plain walk); ``pg_to_up_acting`` on ``scalar`` seeded
+    PGs a pool (one launch each) equal to the sweep's rows; a host marked
+    down and out through an encoded Incremental; the upmap balancer on
+    both pools, its map carried by an Incremental into a clone; the
+    crush-compat balancer on pool 1; osdmaptool and crushtool on a map
+    of ``tool_osds`` OSDs.  Returns the numbers and the K6 launches
+    the steps made (``launches``), counted between zeroed counts."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+
+    from ceph_tpu_torch.crush import mapper
+    from ceph_tpu_torch.crush.compiler import decompile
+    from ceph_tpu_torch.mgr.balancer import (CrushCompatBalancer,
+                                             UpmapBalancer)
+    from ceph_tpu_torch.osd import map_codec, map_inc
+    from ceph_tpu_torch.ops import crush_rule
+    from ceph_tpu_torch.osd.osdmap import CRUSH_ITEM_NONE as NONE
+    from ceph_tpu_torch.osd.osdmap import seeds_as_ids
+    from ceph_tpu_torch.tools import crushtool, osdmaptool
+
+    dev = torch.device(dev)
+    t_phase = time.perf_counter()
+    res = {"launches": 0, "sweep_ms": {}, "ids_per_s": {}, "plain_ms": {},
+           "moved": {}, "balance": {}}
+
+    def counted(what, fn, want=None):
+        """fn() between zeroed launch counts: only K6 may launch, ``want``
+        times where given; returns fn's result and its wall seconds."""
+        reset_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        wall = time.perf_counter() - t0
+        c = read_counts()
+        res["launches"] += c["crush_rule"]
+        require(all(v == 0 for k, v in c.items() if k != "crush_rule"),
+                f"placement: {what} launched only crush_rule: {c}")
+        if dev.type == "cuda" and want is not None:
+            require(c["crush_rule"] == want, f"placement: {what} made "
+                    f"{want} crush_rule launches: {c}")
+        return out, wall
+
+    m = placement_map(dev, n_osds, hosts, pools)
+    per = n_osds // hosts
+    sweeps = {}
+
+    def walker(pool, n):
+        """The pool's rule walk alone (a call uploads the ids and the
+        weights, launches and copies the rows back) and the ids of its
+        first n PGs."""
+        fn = mapper.compile_rule(m.crush.flatten(),
+                                 m.crush.rules[pool.crush_rule].steps,
+                                 pool.size, device=dev)
+        return fn, seeds_as_ids(pool.pps_vector(np.arange(n)))
+
+    # 1. each pool swept: warm (the device map's upload), then timed,
+    # and its walk alone, to split the sweep's wall
+    res["walk_ms"] = {}
+    for pid, pool in m.pools.items():
+        counted(f"map_pgs({pid}) warm", lambda: m.map_pgs(pid), 1)
+        fn, ids = walker(pool, pool.pg_num)
+        walls, walks = [], []
+        for _ in range(reps):
+            sweeps[pid], wall = counted(f"map_pgs({pid})",
+                                        lambda: m.map_pgs(pid), 1)
+            walls.append(wall)
+            walks.append(counted(f"walk({pid})", lambda: fn(
+                ids, m.osd_weight).cpu(), 1)[1])
+        s = float(np.median(walls))
+        res["sweep_ms"][pid] = s * 1e3
+        res["walk_ms"][pid] = float(np.median(walks)) * 1e3
+        res["ids_per_s"][pid] = pool.pg_num / s
+
+    # 2. the same map decoded onto the CPU: the plain walk's rows
+    cpu = map_codec.decode_osdmap(map_codec.encode_osdmap(m), device="cpu")
+    err = 0
+    for pid in m.pools:
+        t0 = time.perf_counter()
+        want = cpu.map_pgs(pid)
+        res["plain_ms"][pid] = (time.perf_counter() - t0) * 1e3
+        for k in want:
+            require(np.array_equal(sweeps[pid][k], want[k]), f"placement: "
+                    f"pool {pid} {k} rows equal the plain walk's")
+        err = max(err, int(np.abs(sweeps[pid]["raw"].astype(np.int64)
+                                  - want["raw"]).max()))
+    res["max_abs_err"] = err
+
+    # 3. the per-op path: one launch per call, equal to the sweep's row
+    rng = np.random.default_rng(SEED + 15)
+    calls, scalar_s = 0, 0.0
+    for pid, pool in m.pools.items():
+        pgs = rng.choice(pool.pg_num, min(scalar, pool.pg_num),
+                         replace=False)
+        got, wall = counted(f"pg_to_up_acting x {len(pgs)}", lambda: [
+            m.pg_to_up_acting((pid, int(ps))) for ps in pgs], len(pgs))
+        calls, scalar_s = calls + len(pgs), scalar_s + wall
+        sw = sweeps[pid]
+        for ps, (up, upp, act, actp) in zip(pgs, got):
+            row = [int(v) for v in sw["up"][ps]]
+            if pool.can_shift_osds():
+                row = [v for v in row if v != NONE]
+            require(up == row and act == row and upp == sw["up_primary"][ps]
+                    and actp == sw["acting_primary"][ps],
+                    f"placement: pg {pid}.{ps:x} scalar equals the sweep")
+    res["scalar_calls_per_s"] = calls / scalar_s
+    # the share of a call that is the N=1 walk itself: the two uploads,
+    # the launch and the copy back, without the pipeline's host work
+    fn, ids = walker(m.pools[1], min(scalar, m.pools[1].pg_num))
+    _, walk_s = counted("the N=1 walk", lambda: [
+        fn(ids[i:i + 1], m.osd_weight).cpu() for i in range(len(ids))],
+        len(ids))
+    res["walk_us"] = walk_s / len(ids) * 1e6
+
+    # 4. a host down and out, shipped as an encoded Incremental
+    base = map_inc.clone_map(m)
+    changed = map_inc.clone_map(m)
+    gone = list(range(PLACE_HOST * per, (PLACE_HOST + 1) * per))
+    for osd in gone:
+        changed.set_osd_down(osd)
+        changed.set_osd_out(osd)
+    blob = map_inc.diff_maps(base, changed).encode()
+    applied = map_inc.Incremental.decode(blob).apply(base)
+    require(map_codec.encode_osdmap(applied)
+            == map_codec.encode_osdmap(changed),
+            "placement: the applied Incremental equals the changed map")
+    slots = moved = 0
+    for pid in m.pools:
+        after, _ = counted(f"map_pgs({pid}) host out",
+                           lambda: applied.map_pgs(pid), 1)
+        up0, up1 = sweeps[pid]["up"], after["up"]
+        require(not np.isin(up1, gone).any(), f"placement: pool {pid}: no "
+                "up row holds an out OSD")
+        keep = ~np.isin(up0, gone).any(axis=1)
+        require(np.array_equal(up1[keep], up0[keep]), f"placement: pool "
+                f"{pid}: PGs with no member on host {PLACE_HOST} keep their "
+                "up rows")
+        n_moved = int((up1 != up0).sum())
+        res["moved"][pid] = n_moved / up0.size
+        slots, moved = slots + up0.size, moved + n_moved
+    res["moved_share"] = moved / slots
+    res["inc_bytes"] = len(blob)
+
+    # 5. the upmap balancer on both pools; its map carried into a clone
+    unbalanced = map_inc.clone_map(m)
+    bal = UpmapBalancer(m, max_deviation=1.0, max_moves=moves)
+    for pid in m.pools:
+        rep, wall = counted(f"upmap balancer pool {pid}",
+                            lambda: bal.optimize_pool(pid))
+        require(rep.after_stddev <= rep.before_stddev and rep.moves,
+                f"placement: pool {pid} upmap balancer moved and did not "
+                f"raise the stddev: {rep.before_stddev} -> "
+                f"{rep.after_stddev}, {len(rep.moves)} moves")
+        up, _ = counted(f"map_pgs({pid}) balanced",
+                        lambda: m.map_pgs(pid)["up"], 1)
+        for (_, ps), _ in rep.moves:
+            osds = [int(o) for o in up[ps] if o != NONE]
+            doms = [bal.domain_of[o] for o in osds]
+            require(len(set(doms)) == len(doms), f"placement: pg {pid}."
+                    f"{ps:x} keeps its failure domain: {osds}")
+        res["balance"][f"upmap_{pid}"] = {
+            "before": rep.before_stddev, "after": rep.after_stddev,
+            "moves": len(rep.moves), "wall_s": wall}
+    inc = map_inc.Incremental.decode(
+        map_inc.diff_maps(unbalanced, m).encode())
+    carried = inc.apply(unbalanced)
+    for pid in m.pools:
+        (got, want), _ = counted(f"map_pgs({pid}) carried", lambda: (
+            carried.map_pgs(pid), m.map_pgs(pid)), 2)
+        require(all(np.array_equal(got[k], want[k]) for k in want),
+                f"placement: pool {pid}: the carried map places as the "
+                "balanced one")
+    res["upmap_inc_bytes"] = len(inc.encode())
+
+    # 6. the crush-compat balancer on pool 1: a new device map per step
+    compat = map_inc.clone_map(unbalanced)
+    rep, wall = counted("crush-compat balancer", lambda: CrushCompatBalancer(
+        compat, max_iterations=compat_iters).optimize([1]))
+    require(rep.after_stddev <= rep.before_stddev and not rep.moves
+            and not compat.pg_upmap_items and "-1" in compat.crush.choose_args,
+            f"placement: crush-compat did not raise the stddev: "
+            f"{rep.before_stddev} -> {rep.after_stddev}")
+    res["balance"]["crush_compat_1"] = {
+        "before": rep.before_stddev, "after": rep.after_stddev,
+        "iterations": compat_iters, "wall_s": wall}
+    # what each of its steps pays for a new map: the flat arrays, then
+    # their device copy (each step's map_pgs builds both)
+    t0 = time.perf_counter()
+    flat = compat.crush.flatten()
+    t1 = time.perf_counter()
+    crush_rule.RuleMap(flat, None, dev).tables()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    res["flatten_ms"] = (t1 - t0) * 1e3
+    res["upload_ms"] = (time.perf_counter() - t1) * 1e3
+
+    # 7. osdmaptool and crushtool on their map files
+    dev_args = [] if dev.type == "cuda" else ["--device", str(dev)]
+
+    def tool(fn, argv):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf), \
+                contextlib.redirect_stderr(io.StringIO()):
+            rc = fn(argv + dev_args)
+        require(rc == 0, f"placement: {argv} exits 0")
+        return buf.getvalue()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        f, cf = os.path.join(tmp, "osdmap"), os.path.join(tmp, "crush")
+        tool(osdmaptool.main, ["--createsimple", str(tool_osds),
+                               "--pg_num", str(tool_pg_num), "-o", f])
+        out, _ = counted("osdmaptool --test-map-pgs", lambda: json.loads(
+            tool(osdmaptool.main, [f, "--test-map-pgs"])), 1)
+        require(out["pool_pgs_examined"] == tool_pg_num
+                and sum(out["osd_pg_counts"].values()) == 3 * tool_pg_num,
+                f"placement: osdmaptool --test-map-pgs: {out['summary']}")
+        up, wall = counted("osdmaptool --upmap", lambda: json.loads(tool(
+            osdmaptool.main, [f, "--upmap", "--upmap-max", str(moves)])))
+        sd = up["stddev"]["pool.1"]
+        require(up["upmaps"] and sd["after"] <= sd["before"],
+                f"placement: osdmaptool --upmap: {sd}")
+        with open(f, "rb") as fh:
+            tm = map_codec.decode_osdmap(fh.read(), device=dev)
+        with open(cf, "wb") as fh:
+            fh.write(map_inc.crush_bytes(tm))
+        text = tool(crushtool.main, ["-d", "-i", cf])
+        require(text == decompile(tm.crush), "placement: crushtool -d -i "
+                "of the map's binary crush map")
+        res["tool"] = {"summary": out["summary"], "upmaps": len(up["upmaps"]),
+                       "stddev": sd, "upmap_wall_s": wall}
+    res["wall_s"] = time.perf_counter() - t_phase
+    return res
+
+
+def phase_placement(torch, dev, log) -> dict:
+    """``run_placement`` at full width: the crush phase's 1024-OSD map
+    with a 16384-PG replicated pool and a 4096-PG isa k=8 m=4 pool."""
+    res = run_placement(torch, dev)
+    names = {p[0]: p[1] for p in PLACE_POOLS}
+    sweep = ", ".join(
+        f"{names[p]} {res['sweep_ms'][p]:.3f} ms ({res['ids_per_s'][p]:.4e} "
+        f"PGs/s; its walk alone {res['walk_ms'][p]:.3f} ms; plain walk on "
+        f"the CPU {res['plain_ms'][p]:.1f} ms)"
+        for p in res["sweep_ms"])
+    bal = "; ".join(
+        f"{k}: stddev {v['before']:.4f} -> {v['after']:.4f}, "
+        f"{v.get('moves', 0)} moves, {v['wall_s']:.3f} s"
+        for k, v in res["balance"].items())
+    log(f"placement: {CRUSH_OSDS} OSDs / {CRUSH_HOSTS} hosts; map_pgs "
+        f"median of 3, one crush_rule launch each: {sweep}; rows equal the "
+        f"plain walk's; pg_to_up_acting {res['scalar_calls_per_s']:.1f} "
+        f"calls/s (one launch each; the N=1 walk alone {res['walk_us']:.1f} "
+        f"us a call), equal to the sweep; host "
+        f"{PLACE_HOST} down and out by a {res['inc_bytes']} B Incremental: "
+        f"{res['moved_share'] * 100:.4f} % of slots moved "
+        f"({json.dumps(res['moved'])}), no out OSD up, untouched PGs kept; "
+        f"{bal} (a new map: flatten {res['flatten_ms']:.3f} ms, device "
+        f"copy {res['upload_ms']:.3f} ms); the upmap map carried by a {res['upmap_inc_bytes']} B "
+        f"Incremental places the same; osdmaptool on {CRUSH_OSDS} OSDs: "
+        f"{json.dumps(res['tool'])}; crushtool -d -i of its crush map; "
+        f"{res['launches']} crush_rule launches; phase "
+        f"{res['wall_s']:.1f} s")
+    return res
+
+
 def time_crush(torch, dev, log, cr: dict, sass: dict) -> dict:
     """K6's row: the main path's commonest launch (the one-attempt pass
     over one chunk) from a CUDA graph, the exact walk over a chunk, the
@@ -2177,6 +2506,7 @@ def main() -> int:
     sh_res = phase_shec(torch, dev, log)
     phase_lrc(torch, dev, log)
     cr_res = phase_crush(torch, dev, log)
+    pl_res = phase_placement(torch, dev, log)
     eb_res = phase_ecbench(torch, dev, log)
     kernels = time_kernels(torch, dev, log, main_res)
     kernels[0]["sass"] = {n: sass[n] for n in ("enc_4x8", "dec_8x8")}
@@ -2190,6 +2520,8 @@ def main() -> int:
     kernels.append(time_gf256i(torch, dev, log, eb_res))
     kernels[-1]["sass"] = {"inter_4x8": sass["inter_4x8"]}
     kernels.append(time_crush(torch, dev, log, cr_res, sass))
+    kernels[-1]["placement_launches"] = pl_res["launches"]
+    kernels[-1]["placement_sweep_ms"] = pl_res["sweep_ms"]
     for kr in kernels:
         log(f"{kr['name']}: {kr['ms']:.4f} ms, plain {kr['plain_ms']:.3f} "
             f"ms, bound {kr['bound_ms']:.4f} ms ({kr['bound_by']}), "

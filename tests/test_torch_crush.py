@@ -1,10 +1,10 @@
 """The port's CRUSH host modules held against ceph_tpu on the CPU, bit for
 bit, mirroring tests/test_crush_hash.py and tests/test_crush_compiler.py
-(all but the binary-codec case, which waits for the map codec): rjenkins
+(the binary-codec case on the port's ``osd/map_codec.py``): rjenkins
 hashes and crush_ln in numpy and torch, the straw2 draw, the map
-map constructors and their flattened arrays, a map carried across from the
-reference's arrays (``flatmap_from_arrays``), the text compiler, and
-``crushtool --test`` against the reference tool."""
+constructors and their flattened arrays, a map carried across from the
+reference's arrays (``flatmap_from_arrays``), the text compiler, the
+binary map codec, and ``crushtool`` against the reference tool."""
 
 import contextlib
 import dataclasses
@@ -275,6 +275,25 @@ def test_compile_errors():
             ref_compiler.compile_text(bad)
 
 
+def test_binary_codec_carries_names_and_choose_args():
+    from ceph_tpu.core.encoding import Encoder as RefEncoder
+    from ceph_tpu.osd.map_codec import encode_crush as ref_encode_crush
+    from ceph_tpu_torch.core.encoding import Decoder, Encoder
+    from ceph_tpu_torch.osd.map_codec import decode_crush, encode_crush
+
+    cm = compile_text(TEXT)
+    assert cm.choose_args and cm.bucket_names
+    e = Encoder()
+    encode_crush(e, cm)
+    cm2 = decode_crush(Decoder(e.bytes()))
+    assert cm2.bucket_names == cm.bucket_names
+    assert cm2.choose_args == cm.choose_args
+    assert decompile(cm2) == decompile(cm)
+    re_ = RefEncoder()
+    ref_encode_crush(re_, ref_compiler.compile_text(TEXT))
+    assert e.bytes() == re_.bytes()
+
+
 # -- crushtool ----------------------------------------------------------------
 
 sys.path.insert(0, str(REPO / "tools"))
@@ -305,6 +324,8 @@ def test_crushtool_test_equals_reference_tool(extra):
 
 
 def test_crushtool_text_maps_and_pending_binary(tmp_path):
+    """Text maps, and the binary flags that once raised: ``-o`` writes the
+    map codec's bytes (the reference tool's), ``-i`` reads them."""
     src = tmp_path / "map.txt"
     src.write_text(TEXT)
     out = tmp_path / "map2.txt"
@@ -316,8 +337,15 @@ def test_crushtool_text_maps_and_pending_binary(tmp_path):
                                          "--show-statistics",
                                          "--device", "cpu"])
     assert rc == 0 and json.loads(text)["statistics"]["bad_mappings"] == 0
-    for argv in (["-i", str(src), "--test"],
-                 ["--build", "--num_osds", "4", "root", "straw2", "0",
-                  "-o", str(tmp_path / "m.bin")]):
-        with pytest.raises(NotImplementedError, match="1d"):
-            _capture(crushtool.main, argv)
+    port_bin, ref_bin = tmp_path / "p.bin", tmp_path / "r.bin"
+    rc, _ = _capture(crushtool.main, ["-c", str(src), "-o", str(port_bin)])
+    rrc, _ = _capture(ref_crushtool.main, ["-c", str(src), "-o", str(ref_bin)])
+    assert rc == rrc == 0
+    assert port_bin.read_bytes() == ref_bin.read_bytes()
+    argv = ["-i", str(ref_bin), "--test", "--num-rep", "2", "--max-x", "99",
+            "--show-mappings"]
+    rc, text = _capture(crushtool.main, argv + ["--device", "cpu"])
+    rrc, rtext = _capture(ref_crushtool.main, argv)
+    assert rc == rrc == 0 and json.loads(text) == json.loads(rtext)
+    rc, text = _capture(crushtool.main, ["-d", "-i", str(port_bin)])
+    assert rc == 0 and text == decompile(compile_text(TEXT))

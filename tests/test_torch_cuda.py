@@ -747,3 +747,94 @@ def test_wire_path_on_the_card(dev):
     for i, obj in enumerate(res["objs"]):
         assert res["si"].deinterleave(res["decoded"][i], len(obj)) == \
             obj.tobytes()
+
+
+# -- placement on the host on the card's path ---------------------------------
+
+PLACE_SMALL = dict(n_osds=48, hosts=16, pools=(
+    (1, "rbd", 1, 3, 2, 256, ""),
+    (2, "ec84", 3, 12, 9, 64, "plugin=isa k=8 m=4 technique=reed_sol_van")))
+
+
+def _placement_pair(dev):
+    """The placement phase's map at a small size on the card, and the same
+    map decoded onto the CPU (the plain walk)."""
+    import chip_smoke
+    from ceph_tpu_torch.osd import map_codec
+
+    m = chip_smoke.placement_map(dev, PLACE_SMALL["n_osds"],
+                                 PLACE_SMALL["hosts"], PLACE_SMALL["pools"])
+    return m, map_codec.decode_osdmap(map_codec.encode_osdmap(m),
+                                      device="cpu")
+
+
+@pytest.mark.parametrize("pid", [1, 2])
+def test_osdmap_map_pgs_kernel_equals_plain(dev, pid):
+    m, cpu = _placement_pair(dev)
+    assert m.device == dev
+    before = crush_rule.launches.value
+    got = m.map_pgs(pid)
+    assert crush_rule.launches.value == before + 1
+    want = cpu.map_pgs(pid)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+@pytest.mark.parametrize("pid", [1, 2])
+def test_osdmap_scalar_path_is_one_launch_equal_to_plain(dev, pid):
+    m, cpu = _placement_pair(dev)
+    m.set_osd_down(3)
+    m.set_osd_out(20)
+    cpu.set_osd_down(3)
+    cpu.set_osd_out(20)
+    for ps in range(0, m.pools[pid].pg_num, 7):
+        before = crush_rule.launches.value
+        got = m.pg_to_up_acting((pid, ps))
+        assert crush_rule.launches.value == before + 1
+        assert got == cpu.pg_to_up_acting((pid, ps)), ps
+
+
+def test_upmap_balancer_on_the_card_equals_plain(dev):
+    from ceph_tpu_torch.mgr import UpmapBalancer
+    from ceph_tpu_torch.osd import map_codec
+
+    m, cpu = _placement_pair(dev)
+    before = crush_rule.launches.value
+    got = UpmapBalancer(m, max_deviation=0.5, max_moves=8).optimize()
+    want = UpmapBalancer(cpu, max_deviation=0.5, max_moves=8).optimize()
+    assert [r.moves for r in got] == [r.moves for r in want]
+    assert any(r.moves for r in got)
+    # each pool: a sweep before, one per move, one after
+    assert crush_rule.launches.value == before + sum(
+        len(r.moves) + 2 for r in got)
+    assert map_codec.encode_osdmap(m) == map_codec.encode_osdmap(cpu)
+
+
+def test_osdmaptool_on_the_card_equals_plain(dev, tmp_path):
+    import contextlib
+    import io
+
+    from ceph_tpu_torch.tools import osdmaptool
+
+    f = str(tmp_path / "osdmap")
+    osdmaptool.main(["--createsimple", "32", "--pg_num", "128", "-o", f])
+    outs = []
+    for extra in ([], ["--device", "cpu"]):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            assert osdmaptool.main([f, "--test-map-pgs", "--upmap",
+                                    "--upmap-max", "8"] + extra) == 0
+        outs.append(buf.getvalue())
+    assert outs[0] == outs[1] and '"upmaps"' in outs[0]
+
+
+def test_placement_phase_on_the_card(dev):
+    """The placement phase's code at a small size: each step's launches
+    as the phase counts them, every check of the phase."""
+    import chip_smoke
+
+    res = chip_smoke.run_placement(torch, dev, scalar=8, moves=6,
+                                   compat_iters=2, tool_osds=16,
+                                   tool_pg_num=64, reps=1, **PLACE_SMALL)
+    assert res["launches"] > 0 and res["max_abs_err"] == 0
+    assert res["balance"]["upmap_1"]["moves"] > 0

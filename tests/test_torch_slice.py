@@ -332,6 +332,9 @@ def test_importing_the_port_loads_neither_jax_nor_the_reference():
             "assert 'ceph_tpu_torch.msg.messenger' in sys.modules\n"
             "assert 'ceph_tpu_torch.auth.cephx' in sys.modules\n"
             "assert 'ceph_tpu_torch.store.memstore' in sys.modules\n"
+            "assert 'ceph_tpu_torch.osd.map_inc' in sys.modules\n"
+            "assert 'ceph_tpu_torch.mgr.balancer' in sys.modules\n"
+            "assert 'ceph_tpu_torch.tools.osdmaptool' in sys.modules\n"
             "print('clean')\n")
     env = dict(os.environ, PYTHONPATH=str(REPO))
     out = subprocess.run([sys.executable, "-c", code], cwd=str(REPO),
@@ -346,9 +349,11 @@ def test_no_device_without_cuda_raises(monkeypatch):
     from ceph_tpu_torch.crush import mapper
     from ceph_tpu_torch.ec import instance
     from ceph_tpu_torch.ops.crc32c_device import crc32c_dev
-    from ceph_tpu_torch.tools import crushtool
+    from ceph_tpu_torch.osd import map_codec, map_inc, osdmap
+    from ceph_tpu_torch.tools import crushtool, osdmaptool
 
     m, root = cmap.build_flat_cluster(4)
+    cpu_map = osdmap.OSDMap(m, device="cpu")
     flat = m.flatten()
     steps = [(cmap.OP_TAKE, root, 0), (cmap.OP_CHOOSE_FIRSTN, 2, 0),
              (cmap.OP_EMIT, 0, 0)]
@@ -362,7 +367,14 @@ def test_no_device_without_cuda_raises(monkeypatch):
                  lambda: mapper.compile_rule(flat, steps, 2),
                  lambda: mapper.sweep_device(flat, steps, 2, [0], [1 << 16]),
                  lambda: crushtool.main(["--build", "--num_osds", "4",
-                                         "root", "straw2", "0", "--test"])):
+                                         "root", "straw2", "0", "--test"]),
+                 lambda: osdmap.OSDMap(m),
+                 lambda: map_codec.decode_osdmap(
+                     map_codec.encode_osdmap(cpu_map)),
+                 lambda: map_inc.decode_value(
+                     map_inc.encode_full_value(cpu_map), None),
+                 lambda: osdmaptool.main(["--createsimple", "8",
+                                          "--test-map-pgs"])):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
     # naming the CPU is the one way to run there
