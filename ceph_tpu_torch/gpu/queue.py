@@ -18,8 +18,9 @@ one batch.
 
 A batch on the device:
 
-1. the jobs' planes are copied job after job into one pinned staging
-   slot and cross host -> device in ONE copy;
+1. the jobs' planes are copied job after job into one pinned upload
+   buffer (the queue's own, ``_upload_pool``) and cross host -> device
+   in ONE copy;
 2. on the device they are laid side by side into a [rows, P] batch,
    P the covering bucket of the total width (queue.py:469), the pad
    zero-filled; for ``encp`` the batch has m more rows below, and the
@@ -63,10 +64,11 @@ from ceph_tpu_torch.gpu.staging import DevPathStats, StagingPool
 from ceph_tpu_torch.ops import gf256
 from ceph_tpu_torch.ops.crc32c_device import crc32c_rows
 
-# one slot holds a full coalesced batch of the 1 MiB-stripe config
-# (k=8 x 1 Mi columns); a larger batch gets a pinned buffer of its own
-STAGING_SLOT_BYTES = 16 << 20
-STAGING_SLOTS = 2
+# the batch upload buffer: one slot holds a full coalesced batch of the
+# 1 MiB-stripe config (k=8 x 1 Mi columns); a larger batch gets a pinned
+# buffer of its own
+UPLOAD_SLOT_BYTES = 16 << 20
+UPLOAD_SLOTS = 2
 
 
 class _Job:
@@ -109,11 +111,15 @@ class StripeBatchQueue:
         # concurrent submits coalesced (decode-only slice separately)
         self.batch_jobs: Dict[int, int] = {}
         self.dec_batch_jobs: Dict[int, int] = {}
+        # the payload staging pool (the reference's queue.pool: payloads
+        # land here through DeviceBuf.stage and hold their slot until
+        # sealed) and, apart from it, the worker's own upload buffer, so
+        # staged payloads waiting on a batch never starve the batch
+        pin = self.device.type == "cuda"
         self.stats = DevPathStats()
-        self.pool = StagingPool(slot_bytes=STAGING_SLOT_BYTES,
-                                slots=STAGING_SLOTS,
-                                pin=self.device.type == "cuda",
-                                stats=self.stats)
+        self.pool = StagingPool(pin=pin, stats=self.stats)
+        self._upload_pool = StagingPool(slot_bytes=UPLOAD_SLOT_BYTES,
+                                        slots=UPLOAD_SLOTS, pin=pin)
         self.perf = PerfCounters("gpu.queue")
         self.perf.add_histogram(
             "lat_encq_wait_us", "job enqueue -> batch start (us)")
@@ -284,7 +290,7 @@ class StripeBatchQueue:
                                     t_compute - t_start)
 
     def _upload(self, batch: List[_Job], slot) -> torch.Tensor:
-        """Jobs' planes, job after job, into the staging slot; one copy
+        """Jobs' planes, job after job, into the upload slot; one copy
         to the device.  Returns the flat device buffer."""
         host = slot.arr.numpy()
         off = 0
@@ -321,7 +327,7 @@ class StripeBatchQueue:
         total = sum(widths)
         offs = np.cumsum([0] + widths[:-1]).astype(np.int64)
         padded = shapebucket.covering(total, 1)
-        slot = self.pool.acquire(rows * total)
+        slot = self._upload_pool.acquire(rows * total)
         try:
             flat = self._upload(batch, slot)
             if kind == "dec":
@@ -348,4 +354,4 @@ class StripeBatchQueue:
         finally:
             if self.device.type == "cuda":
                 torch.cuda.current_stream(self.device).synchronize()
-            self.pool.release(slot)
+            self._upload_pool.release(slot)

@@ -21,9 +21,9 @@ the reference's byte for byte, so the two packages' messengers talk to
 each other.  Its locks come from the port's lockdep (``msgr.xq``,
 ``msgr.conns``), its loop's crash handler from ``core.crash``, and its
 frame CRC is the host ``core.crc`` over a view of the frame buffer.
-Payloads are host bytes (bytes, bytearray, memoryview or a flat uint8
-ndarray); device-resident payload handles arrive with the port's
-``DeviceBuf`` (ROADMAP queue 1 item 1e).
+A payload is host bytes (bytes, bytearray, memoryview or a flat uint8
+ndarray) or a ``gpu.staging.DeviceBuf``, which ``Encoder.blob`` reads
+through its counted ``wire_view`` as the frame is built.
 """
 
 from __future__ import annotations

@@ -35,12 +35,36 @@ class StripeInfo:
     def logical_to_next_chunk_offset(self, off: int) -> int:
         return -(-off // self.stripe_width) * self.chunk_size
 
+    def aligned_logical_offset_to_chunk_offset(self, off: int) -> int:
+        if off % self.stripe_width:
+            raise ValueError(f"offset {off} is not stripe-aligned "
+                             f"({self.stripe_width})")
+        return off // self.k
+
+    def aligned_chunk_offset_to_logical_offset(self, off: int) -> int:
+        if off % self.chunk_size:
+            raise ValueError(f"offset {off} is not chunk-aligned "
+                             f"({self.chunk_size})")
+        return off * self.k
+
+    def aligned_offset_len_to_chunk(self, off: int,
+                                    length: int) -> Tuple[int, int]:
+        return (self.aligned_logical_offset_to_chunk_offset(off),
+                self.aligned_logical_offset_to_chunk_offset(length))
+
     def offset_len_to_stripe_bounds(self, off: int,
                                     length: int) -> Tuple[int, int]:
         """Smallest stripe-aligned (offset, length) covering the range."""
         start = self.logical_to_prev_stripe_offset(off)
         end = self.logical_to_next_stripe_offset(off + length)
         return start, end - start
+
+    def stripe_range(self, off: int, length: int) -> Tuple[int, int]:
+        """(first stripe, one-past-last stripe) covering the range."""
+        s0 = off // self.stripe_width
+        if length <= 0:
+            return s0, s0
+        return s0, -(-(off + length) // self.stripe_width)
 
     def object_stripes(self, size: int) -> int:
         return max(1, -(-size // self.stripe_width))

@@ -147,7 +147,9 @@ class MemStore(ObjectStore):
             end = op.off + len(op.data)
             if len(o.data) < end:
                 o.data.extend(b"\0" * (end - len(o.data)))
-            o.data[op.off:end] = op.data
+            # op_payload: a DeviceBuf lands here through its one
+            # sanctioned view; the slice assignment copies it in
+            o.data[op.off:end] = os_.op_payload(op)
             self._note_data_write(op.cid, op.oid)
             return
         if code == os_.OP_ZERO:

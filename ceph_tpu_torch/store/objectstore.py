@@ -13,11 +13,11 @@ transactions to replica shards.
 
 Port of ``ceph_tpu/store/objectstore.py``, name for name: a
 Transaction's bytes and an ExtentSeals record are the reference's byte
-for byte.  Write payloads are host bytes (anything ``bytes()`` takes: a
-bytes-like object or a contiguous uint8 ndarray); device-resident
-payload handles arrive with the port's ``DeviceBuf`` (ROADMAP queue 1
-item 1e).  The seals and their verification use the host CRC-32C
-(``core.crc``).
+for byte.  A write payload is host bytes (anything ``bytes()`` takes) or
+a ``gpu.staging.DeviceBuf`` handle, which the op list carries
+un-materialized until a sink reads it: ``Op.encode`` (through
+``Encoder.blob``) or the store's apply (``op_payload``).  The seals and
+their verification use the host CRC-32C (``core.crc``).
 """
 
 from __future__ import annotations
@@ -168,8 +168,14 @@ class Transaction:
         self.ops.append(Op(OP_TOUCH, cid, oid))
 
     def write(self, cid: Collection, oid: GHObject, off: int, data) -> None:
-        """`data` is anything ``bytes()`` takes (a bytes-like object or
-        a contiguous uint8 ndarray); the op keeps its bytes."""
+        """`data` is anything ``bytes()`` takes, or a DeviceBuf payload
+        handle: the handle rides the op list un-materialized and becomes
+        host bytes only at a sink (``op_payload`` at apply, ``Op.encode``
+        on the wire)."""
+        if hasattr(data, "wire_view"):  # DeviceBuf: keep the handle
+            self.ops.append(Op(OP_WRITE, cid, oid, off=off,
+                               length=len(data), data=data))
+            return
         data = bytes(data)
         self.ops.append(Op(OP_WRITE, cid, oid, off=off, length=len(data),
                            data=data))
@@ -241,6 +247,18 @@ class Transaction:
     @classmethod
     def from_bytes(cls, data: bytes) -> "Transaction":
         return cls.decode(Decoder(data))
+
+
+def op_payload(op: Op, copy: bool = False):
+    """A write op's payload as a host buffer for the store's apply: the
+    one sanctioned sink at apply for a DeviceBuf (which counts its own
+    fetch).  ``copy=True`` for a store that keeps the buffer: a view
+    into a staging slot must not outlive the slot's release."""
+    d = op.data
+    if hasattr(d, "wire_view"):
+        v = d.wire_view()
+        return bytes(v) if copy else v
+    return d
 
 
 class ValidationOverlay:

@@ -1,2 +1,2 @@
 """Command-line tools of the port: ``ecbench`` (the device EC engine
-bench), ``crushtool`` and ``osdmaptool``."""
+bench), ``crushtool``, ``osdmaptool`` and ``dencoder``."""

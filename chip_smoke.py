@@ -60,24 +60,39 @@ Phases, each of which fails the run (non-zero exit, no result line):
               then 8 writes exact; and a Context's admin socket answering
               ``device compile dump`` with those checks' launches per
               kernel and the queue's batch count;
-6c. wire     the wire and the store (``ceph_tpu_torch/msg``, ``auth``,
-              ``store``) on that path, under lockdep: 64 seeded 4 MiB
-              objects (isa k=8 m=4, 1 MiB stripe) encoded on the card
-              (K1 and the CRC kernel), each object's shards sent by the
-              primary messenger ``client.0`` as one sub-write to each of
-              four peer messengers ``osd.1`` .. ``osd.4`` (127.0.0.1,
-              cephx authorizers bound to the dialed address, frame CRCs
-              on), each peer committing its shards ``s % 4 == N - 1`` and
-              the card's CRCs in one Transaction to its own MemStore and
-              acking; every stored shard read back through its extent
-              seals with the host CRC equal to the card's; a messenger
-              without an authorizer refused and never delivered; then
-              osd.4 shut down (shards 3, 7, 11) and ``store.corrupt_chunk``
-              armed for shard 6 on osd.3, whose reads fail their seal
-              (``ChecksumError``, ``read_verify_fail``) and come back as
-              errors, and every object decoded degraded through
-              ``decode_data_async`` (K1) from the eight survivors, byte for
-              byte;
+6c. wire     the wire, the store and the OSD's bookkeeping
+              (``ceph_tpu_torch/msg``, ``auth``, ``store``, ``osd``
+              messages and PG log, ``gpu/staging`` DeviceBuf) on that path,
+              under lockdep: the queue's staging pool set to 16 slots of 4
+              MiB; 64 seeded 4 MiB objects (isa k=8 m=4, 1 MiB stripe) each
+              staged, interleaved from its slot and encoded on the card (K1
+              and the CRC kernel); the primary messenger ``client.0`` sends
+              each of four peer messengers ``osd.1`` .. ``osd.4``
+              (127.0.0.1, cephx authorizers bound to the dialed address,
+              frame CRCs on) one ``MECSubWriteVec`` per object: a
+              Transaction writing the peer's shards ``s % 4 == N - 1`` from
+              DeviceBuf handles (data shards host views of the planes,
+              parity device handles) with the card's CRCs, one PG log entry
+              and one full-replace rollback row per shard; the slot is
+              sealed once every transaction is encoded; each peer commits
+              the transaction with the entry's log rows in its PG meta
+              object in one store transaction and answers
+              ``MECSubWriteVecReply``; checked: no unsanctioned host copy,
+              each parity handle fetched once, every slot back and at most
+              16 in use, 64 ordered log entries on every peer, every stored
+              shard read back through its extent seals with the host CRC
+              equal to the card's, and the ``devbuf`` check (object 0's
+              parity by K1 on a CUDA tensor, wrapped as that tensor, reads
+              back as the queue's parity with one counted fetch); a
+              messenger without an authorizer refused and never delivered;
+              then osd.4 shut down (shards 3, 7, 11) and
+              ``store.corrupt_chunk`` armed for shard 6 on osd.3; each live
+              peer gets one ``MECSubReadVec`` per object and answers one
+              ``MECSubReadVecReply`` whose rows carry the data and the
+              ``crc`` attribute, the rotten shard's as -EIO without data
+              (``ChecksumError``, ``read_verify_fail``), and every object is
+              decoded degraded through ``decode_data_async`` (K1) from the
+              eight survivors, byte for byte;
 7. bitmatrix  the same 1 GiB write through ``jerasure k=8 m=4
               technique=cauchy_good``, read back degraded through
               ``codec.decode_array`` with shards 6, 7, 10, 11 lost (the
@@ -1132,60 +1147,20 @@ WIRE_OBJS = 64               # 4 MiB objects (RADOS's and RBD's default size)
 WIRE_PEERS = 4               # osd.1 .. osd.4; osd.N holds shards s % 4 == N - 1
 WIRE_DOWN = (4,)             # shut down before the degraded read
 WIRE_CORRUPT = (3, 6)        # (peer, shard) whose read fails its extent seal
-WIRE_TYPES = (9201, 9202, 9203, 9204)
+WIRE_SLOTS = 16              # staging slots of an object each (tpu_staging_slots)
+WIRE_PGID = (2, 0)           # the PG the phase writes into
+WIRE_EPOCH = 7               # its map epoch, stamped on every message and entry
+WIRE_META = "_pgmeta_"       # the PG meta object that holds the log's omap
+RB_FULL = 1                  # full-replace rollback rows (the backend's RB_FULL)
 WIRE_WAIT_S = 120.0
-
-
-def wire_messages():
-    """The phase's sub-write, sub-write ack, sub-read and sub-read reply,
-    registered in the port's message registry on first use.  They are
-    local to this script: the OSD's own messages come with the port's
-    OSD.  One payload shape serves all four: an object name and, per
-    shard, its id, bytes and CRC-32C, plus an error per shard that
-    failed."""
-    from ceph_tpu_torch.msg.message import MSG_REGISTRY, Message, register
-
-    if WIRE_TYPES[0] in MSG_REGISTRY:
-        return tuple(MSG_REGISTRY[t] for t in WIRE_TYPES)
-
-    class _Shards(Message):
-        def __init__(self, oid: str = "", ids=(), data=(), crcs=(),
-                     errors=None) -> None:
-            super().__init__()
-            self.oid = oid
-            self.ids = [int(s) for s in ids]
-            self.data = list(data)
-            self.crcs = [int(c) for c in crcs]
-            self.errors = dict(errors or {})
-
-        def encode_payload(self, e) -> None:
-            e.string(self.oid)
-            e.seq(self.ids, lambda enc, s: enc.u8(s))
-            e.seq(self.data, lambda enc, b: enc.blob(b))
-            e.seq(self.crcs, lambda enc, c: enc.u32(c))
-            e.mapping(self.errors, lambda enc, s: enc.u8(s),
-                      lambda enc, v: enc.string(v))
-
-        def decode_payload(self, d) -> None:
-            self.oid = d.string()
-            self.ids = d.seq(lambda dd: dd.u8())
-            self.data = d.seq(lambda dd: dd.blob())
-            self.crcs = d.seq(lambda dd: dd.u32())
-            self.errors = d.mapping(lambda dd: dd.u8(), lambda dd: dd.string())
-
-    made = []
-    for name, code in zip(("MWireWrite", "MWireWriteAck", "MWireRead",
-                           "MWireReadReply"), WIRE_TYPES):
-        made.append(register(type(name, (_Shards,), {"TYPE": code})))
-    return tuple(made)
 
 
 def run_wire(torch, dev, *, nobj: int = WIRE_OBJS,
              obj_bytes: int = 4 * MiB, stripe_bytes: int = 1 * MiB,
              peers: int = WIRE_PEERS, down=WIRE_DOWN, corrupt=WIRE_CORRUPT,
              threads: int = 8) -> dict:
-    """The first half of the OSD's EC sub-write and its degraded read,
-    through the port's host layers, under lockdep:
+    """The OSD's EC sub-write and its degraded read in Ceph's own
+    messages, through the port's host layers, under lockdep:
 
     1. one primary messenger (``client.0``) and ``peers`` peer
        messengers (``osd.1`` ..), each peer with its own MemStore, on
@@ -1193,29 +1168,54 @@ def run_wire(torch, dev, *, nobj: int = WIRE_OBJS,
        authorizer (bound to the dialed address) as its provider,
        ``verify_authorizer`` with a seen-cache and the peer's own
        address as each peer's verifier; ``ms_crc_data`` on;
-    2. write: ``nobj`` seeded objects through
+    2. write, from ``threads`` threads, as the EC backend's device path
+       does (``ceph_tpu/osd/backend.py:844-940``): the queue's staging
+       pool is configured to ``WIRE_SLOTS`` slots of an object each (a
+       daemon's tpu_staging_* conf, restored at the end); each seeded
+       object is staged (``DeviceBuf.stage``), interleaved from
+       ``np1d()``, encoded with its CRCs through
        ``StripeBatchQueue.encode_crc_async`` (K1 and the CRC kernel on
-       the card), from ``threads`` threads; each peer gets one sub-write
-       per object with the shards ``s % peers == peer - 1`` and the
-       card's CRC of each, commits them in one Transaction (the data,
-       and the card's CRC as attribute ``crc``) and acks; the primary
-       waits for every ack;
-    3. check: every stored shard passes its store's extent seals, and
-       the host CRC (``core.crc``) of the bytes read back and the stored
-       attribute both equal the card's CRC; a messenger without an
-       authorizer dials peer 1, is refused twice, and its sub-write is
-       never delivered;
-    4. degraded read: the peers in ``down`` shut down;
+       the card) and bound to its planes (``attach_planes``); its data
+       shards are ``wrap_host`` handles of the plane rows, its parity
+       ``wrap_device`` handles; each peer gets one ``MECSubWriteVec``
+       carrying one Transaction (each of its shards ``s % peers == peer
+       - 1`` written from its handle, the card's CRC as attribute
+       ``crc``), one ``LogEntry`` (version ``i + 1`` at ``WIRE_EPOCH``)
+       and one ``RB_FULL`` row per shard; ``seal()`` runs once every
+       peer's transaction is encoded (those encodes are the sinks that
+       read the payload);
+    3. each peer decodes the transaction, adds ``PGLog.omap_additions``
+       of the entry to the PG meta object in the same transaction,
+       commits it and answers ``MECSubWriteVecReply``; the primary waits
+       for every reply;
+    4. check: the write made no unsanctioned host copy
+       (``payload_host_touches`` 0), fetched each parity handle once
+       (``d2h_bytes`` = ``nobj * m`` chunks), left no staging slot in use
+       and used at most ``WIRE_SLOTS``; each peer's ``PGLog.from_omap``
+       of its meta object holds the ``nobj`` entries in order; every
+       stored shard passes its store's extent seals, and the host CRC
+       (``core.crc``) of the bytes read back and the stored attribute
+       both equal the card's CRC; the parity of object 0 computed by K1
+       on a tensor of ``dev`` and wrapped by ``wrap_device`` as that
+       tensor reads back equal to the queue's parity with ``d2h_bytes``
+       grown by its size; a messenger without an authorizer dials peer
+       1, is refused twice, and its sub-write is never delivered;
+    5. degraded read: the peers in ``down`` shut down;
        ``store.corrupt_chunk`` is armed for ``corrupt`` = (peer, shard),
        whose reads fail their seal (ChecksumError, counted in
-       ``read_verify_fail``) and come back as errors; every object is
-       decoded from the first k survivors through ``decode_data_async``
-       (K1 on the card) and must equal what was written.
+       ``read_verify_fail``); each live peer gets one ``MECSubReadVec``
+       of whole-chunk rows and answers one ``MECSubReadVecReply``, each
+       row with its data and its ``crc`` attribute, the rotten one as
+       ``-EIO`` without data; every object is decoded from the first k
+       survivors through ``decode_data_async`` (K1 on the card) and
+       must equal what was written.
 
     The launch counts are zeroed just before the writes and read just
     after them, then zeroed just before the reads and read just after.
-    Returns the counts, rates, what was written and read, and the
-    counters; raises on any failed check."""
+    Returns the counts, rates, what was written and read, the peers' PG
+    meta omaps and the counters; raises on any failed check."""
+    import errno
+
     from ceph_tpu_torch.auth import CephxClient, CephxServer, Keyring
     from ceph_tpu_torch.auth import verify_authorizer
     from ceph_tpu_torch.core import failpoint as fp
@@ -1224,20 +1224,27 @@ def run_wire(torch, dev, *, nobj: int = WIRE_OBJS,
     from ceph_tpu_torch.core.crc import crc32c
     from ceph_tpu_torch.ec import codec_from_profile
     from ceph_tpu_torch.gpu.queue import StripeBatchQueue
+    from ceph_tpu_torch.gpu.staging import DeviceBuf
     from ceph_tpu_torch.msg.message import EntityName
     from ceph_tpu_torch.msg.messenger import Dispatcher, Messenger
+    from ceph_tpu_torch.ops import gf256
+    from ceph_tpu_torch.osd import messages as om
     from ceph_tpu_torch.osd.ecutil import StripeInfo
+    from ceph_tpu_torch.osd.pglog import PGLog
+    from ceph_tpu_torch.osd.types import LOG_MODIFY, EVersion, LogEntry
     from ceph_tpu_torch.store.memstore import MemStore
     from ceph_tpu_torch.store.objectstore import (ChecksumError, Collection,
                                                   GHObject, StoreError,
                                                   Transaction)
 
-    MWrite, MWriteAck, MRead, MReadReply = wire_messages()
-    cid = Collection("2.0_head")
+    cid = Collection(f"{WIRE_PGID[0]}.{WIRE_PGID[1]:x}_head")
+    meta = GHObject(WIRE_META)
     codec = codec_from_profile(WIRE_PROFILE, device=dev)
     k, m = codec.k, codec.m
     si = StripeInfo(k, codec.get_chunk_size(stripe_bytes))
     holder = {s: s % peers + 1 for s in range(k + m)}
+    shards_of = {n: [s for s in range(k + m) if holder[s] == n]
+                 for n in range(1, peers + 1)}
     c_peer, c_shard = corrupt
     require(holder[c_shard] == c_peer and c_peer not in down
             and not any(str(c_shard) in str(s) for s in holder
@@ -1250,7 +1257,6 @@ def run_wire(torch, dev, *, nobj: int = WIRE_OBJS,
     g = torch.Generator(device=dev).manual_seed(SEED + 14)
     objs = torch.randint(0, 256, (nobj, obj_bytes), dtype=torch.uint8,
                          device=dev, generator=g).cpu().numpy()
-    planes = [si.interleave(memoryview(o))[0] for o in objs]
     oids = [f"rbd_data.{i:016x}" for i in range(nobj)]
 
     class Peer(Dispatcher):
@@ -1260,35 +1266,43 @@ def run_wire(torch, dev, *, nobj: int = WIRE_OBJS,
             self.store.mount()
             t = Transaction()
             t.create_collection(cid)
+            t.touch(cid, meta)
             self.store.queue_transaction(t)
             self.srcs = []
             self.busy = []  # seconds in the store, one entry per message
 
+        def sub_write(self, msg) -> int:
+            """The peer's commit: the primary's transaction and the log
+            entries' omap rows, in one store transaction."""
+            t = Transaction.from_bytes(msg.txn)
+            t.omap_setkeys(cid, meta, PGLog().omap_additions(msg.entries))
+            try:
+                self.store.queue_transaction(t)
+            except StoreError:
+                return -errno.EIO
+            return 0
+
+        def sub_read(self, msg) -> list:
+            rows = []
+            for shard, oid, off, length in msg.reads:
+                o = GHObject(oid, shard=shard)
+                try:
+                    data = self.store.read(cid, o, off, length)
+                    attrs = {"crc": self.store.getattr(cid, o, "crc")}
+                    rows.append((shard, oid, data, 0, attrs, {}))
+                except ChecksumError:
+                    rows.append((shard, oid, b"", -errno.EIO, {}, {}))
+            return rows
+
         def ms_dispatch(self, conn, msg) -> bool:
             self.srcs.append(str(msg.src))
             t0 = time.perf_counter()
-            if isinstance(msg, MWrite):
-                t = Transaction()
-                for s, data, crc in zip(msg.ids, msg.data, msg.crcs):
-                    o = GHObject(msg.oid, shard=s)
-                    t.write(cid, o, 0, data)
-                    t.setattrs(cid, o, {"crc": crc.to_bytes(4, "little")})
-                errors = {}
-                try:
-                    self.store.queue_transaction(t)
-                except StoreError as e:
-                    errors = {255: repr(e)}
-                reply = MWriteAck(msg.oid, msg.ids, errors=errors)
-            elif isinstance(msg, MRead):
-                ids, data, errors = [], [], {}
-                for s in msg.ids:
-                    try:
-                        data.append(self.store.read(
-                            cid, GHObject(msg.oid, shard=s)))
-                        ids.append(s)
-                    except ChecksumError as e:
-                        errors[s] = repr(e)
-                reply = MReadReply(msg.oid, ids, data, errors=errors)
+            if isinstance(msg, om.MECSubWriteVec):
+                reply = om.MECSubWriteVecReply(msg.pgid, msg.epoch,
+                                               self.sub_write(msg))
+            elif isinstance(msg, om.MECSubReadVec):
+                reply = om.MECSubReadVecReply(msg.pgid, msg.epoch,
+                                              self.sub_read(msg))
             else:
                 return False
             self.busy.append(time.perf_counter() - t0)
@@ -1316,6 +1330,26 @@ def run_wire(torch, dev, *, nobj: int = WIRE_OBJS,
                     lambda: len(self.replies.get(tid, ())) >= n,
                     WIRE_WAIT_S), f"wire: {n} replies to tid {tid}")
                 return self.replies.pop(tid)
+
+    def sub_write_vec(i: int, ids, chunks, crc_of) -> "om.MECSubWriteVec":
+        """Object i's shards ``ids`` for one peer: one Transaction (each
+        shard from its payload, the card's CRC as ``crc``) and one log
+        entry.  Encoding the transaction is the sink that reads the
+        payloads."""
+        t = Transaction()
+        for s in ids:
+            o = GHObject(oids[i], shard=s)
+            t.write(cid, o, 0, chunks[s])
+            t.setattrs(cid, o, {"crc": crc_of[s].to_bytes(4, "little")})
+        entry = LogEntry(op=LOG_MODIFY, oid=oids[i],
+                         version=EVersion(WIRE_EPOCH, i + 1),
+                         prior_version=EVersion(),
+                         reqid=f"client.0:{i + 1}")
+        msg = om.MECSubWriteVec(WIRE_PGID, WIRE_EPOCH, oids[i],
+                                t.to_bytes(), [entry],
+                                rb=[(s, RB_FULL, 0, 0) for s in ids])
+        msg.tid = i + 1
+        return msg
 
     kr = Keyring()
     kr.add("service")
@@ -1348,6 +1382,7 @@ def run_wire(torch, dev, *, nobj: int = WIRE_OBJS,
     msgrs = []
     fp.disarm_all()
     q = None
+    geometry = None
     try:
         names = ["client.0"] + [f"osd.{n}" for n in range(1, peers + 1)]
         ctxs = [Context(name) for name in names]
@@ -1370,38 +1405,80 @@ def run_wire(torch, dev, *, nobj: int = WIRE_OBJS,
                 "wire: every messenger binds 127.0.0.1")
         conns = {n: primary.connect(peer_m[n].addr) for n in peer_m}
         q = StripeBatchQueue(device=dev)
+        geometry = (q.pool.slot_bytes, q.pool.nslots)
+        require(q.pool.configure(obj_bytes, WIRE_SLOTS),
+                "wire: the idle staging pool takes the phase's geometry")
+        planes = [None] * nobj
         coding = [None] * nobj
         crcs = [None] * nobj
         wire_bytes = [0, 0]  # shard bytes: sub-writes, sub-read replies
 
         def write(i):
-            c, cr = q.encode_crc_async(codec, planes[i],
-                                       size=obj_bytes).result()
-            coding[i], crcs[i] = c, [int(x) for x in cr]
-            for n, conn in conns.items():
-                ids = [s for s in range(k + m) if holder[s] == n]
-                data = [planes[i][s] if s < k else c[s - k] for s in ids]
-                msg = MWrite(oids[i], ids, data, [crcs[i][s] for s in ids])
-                msg.tid = i + 1
-                conn.send(msg)
+            buf = DeviceBuf.stage(q.pool, objs[i], timeout=WIRE_WAIT_S)
+            require(buf is not None, f"wire: object {i} staged")
+            try:
+                planes[i] = si.interleave(buf.np1d())[0]
+                c, cr = q.encode_crc_async(codec, planes[i],
+                                           size=obj_bytes).result()
+                buf.attach_planes(planes[i], k, si.chunk_size)
+                coding[i], crcs[i] = c, [int(x) for x in cr]
+                chunks = ([DeviceBuf.wrap_host(planes[i][s], q.stats)
+                           for s in range(k)]
+                          + [DeviceBuf.wrap_device(c[j], q.stats)
+                             for j in range(m)])
+                msgs = [(n, sub_write_vec(i, shards_of[n], chunks, crcs[i]))
+                        for n in conns]
+            finally:
+                buf.seal()
+            for n, msg in msgs:
+                conns[n].send(msg)
             acks = prim.wait(i + 1, len(conns))
-            require(all(not a.errors for a in acks),
+            require(all(isinstance(a, om.MECSubWriteVecReply)
+                        and a.result == 0 for a in acks),
                     f"wire: object {i} committed on every peer: "
-                    f"{[a.errors for a in acks if a.errors]}")
+                    f"{[a.result for a in acks]}")
 
+        stats0 = q.stats.snapshot()
         reset_counts()
         w_wall = run_threads(write, nobj, threads)
         w_counts = read_counts()
+        stats1 = q.stats.snapshot()
+        occupancy = q.pool.occupancy
         wire_bytes[0] = sum(c.shape[1] for c in coding) * (k + m)
         w_store_s = sum(sum(pd.busy) for pd in peer_d.values())
+        width = coding[0].shape[1]
+        devpath = {key: stats1[key] - stats0[key] for key in
+                   ("h2d_bytes", "d2h_bytes", "payload_host_touches",
+                    "staged_batches")}
+        devpath["pool_occupancy_hw"] = stats1["pool_occupancy_hw"]
+        devpath["occupancy_after"] = occupancy
+        require(devpath["payload_host_touches"] == 0,
+                f"wire: the write made no unsanctioned host copy {devpath}")
+        require(devpath["d2h_bytes"] == nobj * m * width,
+                f"wire: each parity handle fetched once at its "
+                f"transaction's encode: {devpath['d2h_bytes']} == "
+                f"{nobj} x {m} x {width}")
+        require(occupancy == 0
+                and 0 < devpath["pool_occupancy_hw"] <= WIRE_SLOTS,
+                f"wire: every staging slot sealed back, at most "
+                f"{WIRE_SLOTS} in use: {devpath}")
 
-        # 3. every stored shard against the card's CRC, through the seals
-        # (one thread: two host CRC passes over every stored byte)
+        # 4. the peers' logs, then every stored shard against the card's
+        # CRC through the seals (one thread: two host CRC passes a byte)
+        pg_omaps = {n: pd.store.omap_get(cid, meta)
+                    for n, pd in peer_d.items()}
+        for n, omap in pg_omaps.items():
+            log = PGLog.from_omap(omap)
+            require([(en.version, en.oid) for en in log.entries]
+                    == [(EVersion(WIRE_EPOCH, i + 1), oids[i])
+                        for i in range(nobj)],
+                    f"wire: osd.{n}'s PG log holds the {nobj} entries in "
+                    f"order ({len(log)} entries)")
         t_check = time.perf_counter()
         verified = 0
         for n, pd in peer_d.items():
             for i in range(nobj):
-                for s in (s for s in range(k + m) if holder[s] == n):
+                for s in shards_of[n]:
                     o = GHObject(oids[i], shard=s)
                     got = pd.store.read(cid, o)
                     attr = int.from_bytes(pd.store.getattr(cid, o, "crc"),
@@ -1412,11 +1489,30 @@ def run_wire(torch, dev, *, nobj: int = WIRE_OBJS,
                             "equal the card's CRC")
                     verified += 1
         check_s = time.perf_counter() - t_check
+
+        # the device branch of DeviceBuf: object 0's parity by K1 on a
+        # tensor of ``dev``, wrapped as that tensor
+        k1_before = gf256.launches.value
+        par = codec.encode_planes(torch.from_numpy(planes[0]).to(dev))
+        d2h0 = q.stats.snapshot()["d2h_bytes"]
+        view = DeviceBuf.wrap_device(par, q.stats).wire_view()
+        devbuf = {"on": str(par.device), "bytes": par.numel(),
+                  "d2h_grew": q.stats.snapshot()["d2h_bytes"] - d2h0,
+                  "k1_launches": gf256.launches.value - k1_before}
+        require(bytes(view) == coding[0].tobytes()
+                and devbuf["d2h_grew"] == m * width
+                and devbuf["k1_launches"] == int(dev.type == "cuda"),
+                f"wire: devbuf: a parity tensor on {par.device} reads back "
+                f"as the queue's parity with one fetch of its size {devbuf}")
+
         intruder = Messenger(None, EntityName("client", 666))
         msgrs.append(intruder)
         intruder.start()
-        intruder.send_message(MWrite("intruder", [0], [b"x" * 64], [0]),
-                              peer_m[1].addr)
+        t = Transaction()
+        t.write(cid, GHObject("intruder", shard=0), 0, b"x" * 64)
+        intruder.send_message(
+            om.MECSubWriteVec(WIRE_PGID, WIRE_EPOCH, "intruder",
+                              t.to_bytes()), peer_m[1].addr)
         deadline = time.monotonic() + 30
         while (verdicts[1].count(False) < 2
                and time.monotonic() < deadline):
@@ -1432,7 +1528,7 @@ def run_wire(torch, dev, *, nobj: int = WIRE_OBJS,
                 and verdicts[1].count(True) >= 1,
                 f"wire: the primary's sessions were authorized: {verdicts}")
 
-        # 4. the degraded read
+        # 5. the degraded read
         for n in down:
             peer_m[n].shutdown()
         fp.arm("store.corrupt_chunk", fp.CORRUPT_ACTION,
@@ -1440,23 +1536,30 @@ def run_wire(torch, dev, *, nobj: int = WIRE_OBJS,
         fails0 = peer_d[c_peer].store.perf.value("read_verify_fail")
         decoded = [None] * nobj
         got_shards = [None] * nobj
+        got_crcs = [None] * nobj
 
         def read(i):
             tid = nobj + i + 1
             asked = [n for n in conns if n not in down]
             for n in asked:
-                msg = MRead(oids[i], [s for s in range(k + m)
-                                      if holder[s] == n])
+                msg = om.MECSubReadVec(WIRE_PGID, WIRE_EPOCH,
+                                       [(s, oids[i], 0, 0)
+                                        for s in shards_of[n]])
                 msg.tid = tid
                 conns[n].send(msg)
-            avail, failed = {}, []
+            avail, crc_attr, failed = {}, {}, []
             for rep in prim.wait(tid, len(asked)):
-                avail.update(zip(rep.ids, rep.data))
-                failed.extend(rep.errors)
-            require(sorted(failed) == [c_shard] and c_shard not in avail,
+                for shard, oid, data, result, attrs, _ in rep.rows:
+                    if result:
+                        failed.append((shard, result, len(data)))
+                    else:
+                        avail[shard] = data
+                        crc_attr[shard] = attrs["crc"]
+            require(failed == [(c_shard, -errno.EIO, 0)]
+                    and c_shard not in avail,
                     f"wire: object {i}: only shard {c_shard} failed its "
-                    f"seal ({failed}) and its bytes were not returned")
-            got_shards[i] = avail
+                    f"seal, as -EIO without data ({failed})")
+            got_shards[i], got_crcs[i] = avail, crc_attr
             decoded[i] = q.decode_data_async(
                 codec, {s: np.frombuffer(avail[s], np.uint8)
                         for s in survivors}).result()
@@ -1474,6 +1577,8 @@ def run_wire(torch, dev, *, nobj: int = WIRE_OBJS,
     finally:
         fp.disarm_all()
         if q is not None:
+            if geometry is not None:
+                q.pool.configure(*geometry)
             q.stop()
         for mm in msgrs:
             mm.shutdown()
@@ -1484,8 +1589,10 @@ def run_wire(torch, dev, *, nobj: int = WIRE_OBJS,
             f"per object ({nobj})")
     for i in range(nobj):
         for s, b in got_shards[i].items():
-            require(crc32c(b) == crcs[i][s],
-                    f"wire: object {i} shard {s} came back as written")
+            require(crc32c(b) == crcs[i][s]
+                    == int.from_bytes(got_crcs[i][s], "little"),
+                    f"wire: object {i} shard {s} came back as written, "
+                    "with its crc attribute")
             verified += 1
         require(si.deinterleave(decoded[i], obj_bytes) == objs[i].tobytes(),
                 f"wire: degraded read of object {i} returns what was written")
@@ -1504,6 +1611,7 @@ def run_wire(torch, dev, *, nobj: int = WIRE_OBJS,
             "wire_bytes": wire_bytes, "frames": frames,
             "msgr_acks": msgr_acks, "sub_acks": nobj * peers,
             "verified": verified, "seal_fails": seal_fails,
+            "devpath": devpath, "devbuf": devbuf, "pg_omaps": pg_omaps,
             "edges": sum(len(v) for v in edges.values()), "edge_graph": edges,
             "refused": verdicts[1].count(False)}
 
@@ -1521,9 +1629,14 @@ def phase_wire(torch, dev, log) -> dict:
         require(all(counts[n] > 0 for n in need),
                 f"wire: the {half} ran {list(need)}: {counts}")
     wb = res["wire_bytes"]
-    log(f"wire: isa k=8 m=4, 1 MiB stripe, {WIRE_OBJS} x 4 MiB through the "
-        f"queue, the messenger (cephx, ms_crc_data) and {WIRE_PEERS} "
-        f"MemStores: write {res['w_gbs']:.3f} GB/s ({res['w_wall']:.3f} s), "
+    checks = {"devpath": res["devpath"], "devbuf": res["devbuf"],
+              "pg_log_entries": {n: len(o) for n, o in
+                                 res["pg_omaps"].items()}}
+    log(f"wire: isa k=8 m=4, 1 MiB stripe, {WIRE_OBJS} x 4 MiB staged "
+        f"({WIRE_SLOTS} slots), through the queue, MECSubWriteVec / "
+        f"MECSubReadVec over the messenger (cephx, ms_crc_data) and "
+        f"{WIRE_PEERS} MemStores with their PG logs: write "
+        f"{res['w_gbs']:.3f} GB/s ({res['w_wall']:.3f} s), "
         f"degraded read (lost {res['lost']}: osd.4 down, shard 6 rotten) "
         f"{res['r_gbs']:.3f} GB/s ({res['r_wall']:.3f} s); peers' store time "
         f"summed {res['w_store_s']:.3f} s in the write, "
@@ -1531,14 +1644,14 @@ def phase_wire(torch, dev, log) -> dict:
         f"every stored shard (two host CRC passes) {res['check_s']:.3f} s; "
         f"shard bytes on the wire {wb[0]} written + {wb[1]} read; "
         f"{res['frames']} frames sent, "
-        f"{res['sub_acks']} sub-write acks, {res['msgr_acks']} session "
+        f"{res['sub_acks']} sub-write replies, {res['msgr_acks']} session "
         f"acks; {res['verified']} seal-verified shard reads, "
-        f"{res['seal_fails']} seal failures; unauthenticated messenger "
-        f"refused {res['refused']} times, nothing delivered; "
+        f"{res['seal_fails']} seal failures (-EIO rows); unauthenticated "
+        f"messenger refused {res['refused']} times, nothing delivered; "
         f"{res['edges']} lock-order edges {res['edge_graph']}, no "
         f"LockOrderError; launches: write {res['w_counts']}, read "
         f"{res['r_counts']}; host CRC equals the card's on every stored "
-        "shard; every byte exact")
+        f"shard; every byte exact; checks {json.dumps(checks)}")
     return res
 
 

@@ -747,6 +747,75 @@ def test_wire_path_on_the_card(dev):
     for i, obj in enumerate(res["objs"]):
         assert res["si"].deinterleave(res["decoded"][i], len(obj)) == \
             obj.tobytes()
+    width = res["coding"][0].shape[1]
+    assert res["devpath"]["payload_host_touches"] == 0
+    assert res["devpath"]["d2h_bytes"] == 4 * 4 * width
+    assert res["devbuf"]["on"].startswith("cuda")
+    assert res["devbuf"]["k1_launches"] == 1
+    assert res["devbuf"]["d2h_grew"] == 4 * width
+    assert all(len(o) == 4 for o in res["pg_omaps"].values())
+
+
+def test_devbuf_parity_tensor_on_the_card(dev):
+    """The ``devbuf`` check: an object's parity by K1 on a CUDA tensor,
+    wrapped by ``wrap_device`` as that tensor, reads back (one counted
+    fetch of its size) equal to the queue's parity of the object."""
+    from ceph_tpu_torch.gpu.staging import DeviceBuf
+
+    codec = codec_from_profile("plugin=isa k=8 m=4", device=dev)
+    rng = np.random.default_rng(16)
+    planes = rng.integers(0, 256, (8, 128 << 10), dtype=np.uint8)
+    q = StripeBatchQueue(device=dev)
+    try:
+        coding, _ = q.encode_crc_async(codec, planes).result(timeout=120)
+        before = gf256.launches.value
+        par = codec.encode_planes(torch.from_numpy(planes).to(dev))
+        assert gf256.launches.value == before + 1 and par.is_cuda
+        buf = DeviceBuf.wrap_device(par, q.stats)
+        d0 = q.stats.d2h_bytes
+        assert bytes(buf.wire_view()) == coding.tobytes()
+        assert q.stats.d2h_bytes - d0 == coding.size
+        assert buf[10:20] == coding.reshape(-1)[10:20].tobytes()
+        assert q.stats.d2h_bytes - d0 == coding.size + 10
+        assert q.stats.payload_host_touches == 0
+    finally:
+        q.stop()
+
+
+def test_devicebuf_around_a_cuda_tensor(dev):
+    """A staged payload on the queue's pinned pool whose planes are a
+    CUDA tensor: the slot's view is a flat host buffer, the sealed
+    handle reads its planes from the card (one counted fetch a read),
+    and ``wrap_host`` refuses a tensor on the card."""
+    from ceph_tpu_torch.gpu.staging import DeviceBuf, StagingPool
+
+    q = StripeBatchQueue(device=dev)
+    try:
+        assert q.pool.pin and isinstance(q.pool, StagingPool)
+        payload = np.random.default_rng(17).integers(
+            0, 256, 96 << 10, dtype=np.uint8).tobytes()
+        buf = DeviceBuf.stage(q.pool, payload)
+        assert buf is not None and q.pool.occupancy == 1
+        view = buf.wire_view()
+        assert memoryview(view).cast("B").nbytes == len(payload)
+        assert bytes(view) == payload and q.stats.d2h_bytes == 0
+        si = StripeInfo(4, 8 << 10)
+        planes, _ = si.interleave(payload)
+        buf.attach_planes(torch.from_numpy(planes).to(dev), 4, 8 << 10)
+        buf.seal()
+        assert q.pool.occupancy == 0
+        assert bytes(buf.wire_view()) == payload
+        assert q.stats.d2h_bytes == len(payload)
+        assert buf[100:164] == payload[100:164]
+        assert buf.np1d().tobytes() == payload
+        assert buf.tobytes() == payload
+        assert q.stats.d2h_bytes == 3 * len(payload) + 64
+        assert q.stats.payload_host_touches == 1
+        with pytest.raises(ValueError):
+            DeviceBuf.wrap_host(torch.zeros(8, dtype=torch.uint8,
+                                            device=dev), q.stats)
+    finally:
+        q.stop()
 
 
 # -- placement on the host on the card's path ---------------------------------

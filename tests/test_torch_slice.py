@@ -335,6 +335,13 @@ def test_importing_the_port_loads_neither_jax_nor_the_reference():
             "assert 'ceph_tpu_torch.osd.map_inc' in sys.modules\n"
             "assert 'ceph_tpu_torch.mgr.balancer' in sys.modules\n"
             "assert 'ceph_tpu_torch.tools.osdmaptool' in sys.modules\n"
+            "assert 'ceph_tpu_torch.osd.messages' in sys.modules\n"
+            "assert 'ceph_tpu_torch.osd.pglog' in sys.modules\n"
+            "assert 'ceph_tpu_torch.mon.messages' in sys.modules\n"
+            "assert 'ceph_tpu_torch.tools.dencoder' in sys.modules\n"
+            "from ceph_tpu_torch.gpu.staging import (DeviceBuf, "
+            "StagingPool, devpath_enabled)\n"
+            "assert StagingPool.configure and DeviceBuf.seal\n"
             "print('clean')\n")
     env = dict(os.environ, PYTHONPATH=str(REPO))
     out = subprocess.run([sys.executable, "-c", code], cwd=str(REPO),

@@ -2,14 +2,17 @@
 ``wire`` phase's own code) with ``device="cpu"`` at a small size, held
 against ``ceph_tpu``.
 
-The port's queue encodes with the plain kernels, the messenger carries
-the shards to the peers under cephx, each peer's MemStore commits and
-seals them, the peers read them back through the seals (one shard
-rotten by ``store.corrupt_chunk``, and in the four-peer case one peer
-down), and the queue decodes.  The reference is ``ceph_tpu``'s
-``codec.encode_array``, ``core.crc.crc32c`` and ``codec.decode`` on the
-same objects: shards, CRCs and decoded bytes must be exact.  The card's
-twin is in ``tests/test_torch_cuda.py``.
+Each object is staged in the queue's payload pool, encoded with the
+plain kernels and sent as ``MECSubWriteVec`` messages whose transactions
+read ``DeviceBuf`` handles; each peer's MemStore commits and seals the
+shards with the PG log entry in the same transaction, the peers serve
+``MECSubReadVec`` rows back through the seals (one shard rotten by
+``store.corrupt_chunk``, answered as -EIO, and in the four-peer case one
+peer down), and the queue decodes.  The reference is ``ceph_tpu``'s
+``codec.encode_array``, ``core.crc.crc32c``, ``codec.decode`` and
+``PGLog`` on the same objects: shards, CRCs, decoded bytes and each
+peer's log must be exact.  The card's twin is in
+``tests/test_torch_cuda.py``.
 """
 
 import numpy as np
@@ -19,8 +22,10 @@ import torch
 import chip_smoke
 from ceph_tpu.core.crc import crc32c as ref_crc32c
 from ceph_tpu.ec import codec_from_profile as ref_codec_from_profile
+from ceph_tpu.osd.pglog import PGLog as RefPGLog
 from ceph_tpu_torch.core import failpoint as fp
 from ceph_tpu_torch.core import lockdep
+from ceph_tpu_torch.osd.pglog import PGLog
 
 K, M = 8, 4
 
@@ -69,6 +74,31 @@ def test_wire_slice_on_the_cpu_matches_the_reference(peers, down, corrupt,
     assert res["verified"] == 4 * (K + M) + 4 * (K + M - len(lost))
     # lockdep was armed for the run and saw the queue's nested locks
     assert "staging.stats" in res["edge_graph"]["staging.pool"]
+    assert "staging.stats" in res["edge_graph"]["staging.devbuf"]
+    # the write staged each object, fetched each parity handle once (at
+    # its transaction's encode) and made no unsanctioned host copy
+    dp = res["devpath"]
+    assert dp["payload_host_touches"] == 0
+    assert dp["d2h_bytes"] == 4 * M * width
+    assert dp["h2d_bytes"] == 4 * (64 << 10) and dp["staged_batches"] >= 1
+    assert dp["occupancy_after"] == 0
+    assert 0 < dp["pool_occupancy_hw"] <= min(2, chip_smoke.WIRE_SLOTS)
+    assert res["devbuf"] == {"on": "cpu", "bytes": M * width,
+                             "d2h_grew": M * width, "k1_launches": 0}
+    # each peer's PG log: the reference reads the same omap to the same
+    # entries, and its own rows for them are the same bytes
+    assert sorted(res["pg_omaps"]) == list(range(1, peers + 1))
+    for omap in res["pg_omaps"].values():
+        port_log, ref_log = PGLog.from_omap(omap), RefPGLog.from_omap(omap)
+        got = [(e.op, e.oid, e.version.epoch, e.version.version,
+                e.prior_version.version, e.reqid) for e in port_log.entries]
+        assert got == [(e.op, e.oid, e.version.epoch, e.version.version,
+                        e.prior_version.version, e.reqid)
+                       for e in ref_log.entries]
+        assert [v for _, _, _, v, _, _ in got] == [1, 2, 3, 4]
+        assert ref_log.omap_additions(ref_log.entries) == omap
+        assert (port_log.head.version, port_log.tail.version) == (
+            ref_log.head.version, ref_log.tail.version) == (4, 0)
 
 
 def test_wire_trace_accounts_for_every_crc_byte_on_the_cpu():

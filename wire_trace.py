@@ -6,8 +6,9 @@ rate from 1 and 4 threads.
     python3 wire_trace.py
 
 It needs a CUDA card and builds the kernels as ``chip_smoke.py`` does.
-The traced run splits each of ``run_wire``'s two windows (the write
-and the degraded read, one ``run_threads`` call each) into:
+The traced run splits each of ``run_wire``'s two windows (the write in
+MECSubWriteVec messages and the degraded read in MECSubReadVec ones, one
+``run_threads`` call each) into:
 
 - the host CRC by call site: the frame CRC on send (``_frame_of``) and
   on receive (``_read_one``), the store's seals on write
@@ -19,9 +20,9 @@ and the degraded read, one ``run_threads`` call each) into:
 - where the threads are: every 5 ms a sampler reads each thread's
   innermost frames and counts them by thread group (primary loop, peer
   loops, the peers' dispatch threads, the writer or reader threads,
-  the queue's worker) and by what the thread does (CRC, message codec,
-  store, messenger, waiting on a lock, on the card's queue or on
-  replies, idle);
+  the queue's worker) and by what the thread does (CRC, message codec
+  with the OSD messages and the PG log, staging, store, messenger,
+  waiting on a lock, on the card's queue or on replies, idle);
 - on the card: kernel and copy intervals from ``torch.profiler``, merged,
   over the wall (the card's idle share is one less that).
 
@@ -122,8 +123,11 @@ def activity(frame) -> str:
     mod = _repo_module(_where(f)[0])
     if mod == "core/crc.py":
         return "crc"
-    if mod in ("core/encoding.py", "msg/message.py"):
+    if mod in ("core/encoding.py", "msg/message.py", "osd/messages.py",
+               "osd/pglog.py", "osd/types.py"):
         return "message codec"
+    if mod == "gpu/staging.py":
+        return "staging"
     if mod.startswith("store/"):
         return "store"
     if mod == "msg/messenger.py":
