@@ -184,6 +184,13 @@ class BitmatrixCodec(ErasureCode):
         # likewise k*w*sizeof(int), ErasureCodeJerasure.cc get_alignment)
         return self._k * self.w * 16
 
+    def supports_partial_writes(self) -> bool:
+        # a chunk row is w packets of n/w bytes: a parity byte mixes
+        # bytes n/w apart, so an extent re-encoded alone takes other
+        # packets than the whole chunk did (the reference answers True
+        # here and its RMW then writes parity no decode agrees with)
+        return False
+
     def operand(self, M: np.ndarray) -> gf2_matmul.BitOperand:
         """The prepared bit-matrix of the 0/1 packet matrix M, cached per
         matrix so its masks cross to the card once."""

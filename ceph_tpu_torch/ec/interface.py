@@ -77,6 +77,12 @@ class ErasureCode:
     def get_sub_chunk_count(self) -> int:
         return 1
 
+    def supports_partial_writes(self) -> bool:
+        """Whether a parity byte depends only on the same byte offset of
+        each data chunk, so a chunk extent can be re-encoded alone (the
+        partial-stripe RMW precondition, interface.py:85)."""
+        return self.get_sub_chunk_count() == 1
+
     def get_alignment(self) -> int:
         return SIMD_ALIGN
 

@@ -178,6 +178,10 @@ class ErasureCodeLrc(ErasureCode):
         return math.lcm(*(layer.codec.get_alignment()
                           for layer in self.layers))
 
+    def supports_partial_writes(self) -> bool:
+        return all(layer.codec.supports_partial_writes()
+                   for layer in self.layers)
+
     # -- coding -----------------------------------------------------------
     def _encode_full(self, data: np.ndarray) -> torch.Tensor:
         """uint8 data planes [k, n] -> every chunk [chunks, n] on the

@@ -13,7 +13,9 @@ per process from ``csrc/`` (``ops/_build.py``), and each wrapper counts
 its launches (``_build.LaunchCount``).  So this watch reports what the
 port has:
 
-- the kernel build: whether it ran, its wall seconds, its directory;
+- the kernel build: whether it ran, its wall seconds, its directory,
+  and its [start, end] stamps, which :meth:`DeviceWatch.compile_overlap_s`
+  reads to blame a queue job that waited on it (``:537``);
 - launches per kernel, read from every ``LaunchCount``;
 - the queue's batches: a total, their device seconds, and a bounded
   ring of the recent ones (kind, jobs, shapes, seconds).
@@ -67,6 +69,26 @@ class DeviceWatch:
             self.batch_seconds += float(dur_s)
 
     @staticmethod
+    def compile_activity_since(t0: float) -> bool:
+        """Cheap pre-check of the queue's blame loop (``:530``): False
+        means the kernel build is not running and did not end after
+        ``t0``, so no overlap query over [t0, now] can be nonzero."""
+        b0, b1 = _build.build_t0, _build.build_t1
+        return b0 is not None and (b1 is None or b1 > t0)
+
+    @staticmethod
+    def compile_overlap_s(t0: float, t1: float) -> float:
+        """Seconds of [t0, t1] (monotonic) that the kernel build
+        overlapped, a build still running counting up to now: the
+        port's one compile, which every kernel launch waits on."""
+        b0, b1 = _build.build_t0, _build.build_t1
+        if b0 is None or t1 <= t0:
+            return 0.0
+        if b1 is None:
+            b1 = time.monotonic()
+        return max(0.0, min(t1, b1) - max(t0, b0))
+
+    @staticmethod
     def launches() -> Dict[str, int]:
         """Launches per kernel since each count was last reset."""
         return {c.name: c.value for c in _build.COUNTS}
@@ -75,6 +97,8 @@ class DeviceWatch:
     def build() -> Dict[str, Any]:
         return {"built": _build.build_seconds is not None,
                 "seconds": _build.build_seconds,
+                "live": (_build.build_t0 is not None
+                         and _build.build_t1 is None),
                 "dir": str(_build.BUILD_DIR),
                 "sources": list(_build.SOURCES)}
 
@@ -99,8 +123,9 @@ class DeviceWatch:
             }
 
     def device_state(self) -> Dict[str, Any]:
-        """The crash-report device section: the queue's depth and
-        staging occupancy, the kernel build, the launches and the last
+        """The crash-report device section: the queue's depth, staging
+        occupancy and the batch on its worker now (``in_flight_batch``,
+        ``:662``), the kernel build, the launches and the last
         batches."""
         now = time.monotonic()
         out: Dict[str, Any] = {}
@@ -110,6 +135,7 @@ class DeviceWatch:
                 out["queue_depth"] = q._q.qsize()
                 out["staging_slots_used"] = q.pool.occupancy
                 out["staging"] = q.stats.snapshot()
+                out["in_flight_batch"] = q.inflight_batch()
             except Exception as e:  # a torn queue must not kill the
                 out["queue_error"] = repr(e)  # crash report itself
         out["build"] = self.build()

@@ -41,12 +41,27 @@ the downloads on one stream of its own.  Each batch passes the
 ``queue.batch.dispatch`` failpoint before it is dispatched (an error
 armed there reaches every future of that batch, and the worker serves
 on), and each completed batch is noted in the device watch
-(``gpu/devwatch.py``).  (The clay kinds ``cdec`` and ``crep`` and the
-mesh path come with later slices.)
+(``gpu/devwatch.py``).  While a batch is on the worker,
+``inflight_batch()`` describes it (queue.py:130), for the crash
+report's device section.
+
+Each entry point takes ``trop=``, the client op riding the job.  The
+reference blames a live XLA compile on an op (queue.py:530-563); the
+port's one compile is the kernel build at first use
+(``ops/_build.py``), so a job whose [enqueue, compute-done] window
+overlapped that build gets the ``compile_wait`` annotation and the
+``lat_compile_wait_us`` sample of its tracker.  With no build in the
+window this costs one comparison per batch.
+
+``default_queue(device)`` is the process's queue for one resolved
+device (queue.py:581): the CPU's and the card's never mix, and every
+one is stopped at interpreter exit.  (The clay kinds ``cdec`` and
+``crep`` and the mesh path come with later slices.)
 """
 
 from __future__ import annotations
 
+import atexit
 import queue
 import threading
 import time
@@ -73,10 +88,11 @@ UPLOAD_SLOTS = 2
 
 class _Job:
     __slots__ = ("codec", "planes", "rows", "width", "kind", "sig", "size",
-                 "t_enq", "future")
+                 "t_enq", "trop", "future")
 
     def __init__(self, codec, planes: Sequence[np.ndarray], kind: str,
-                 sig: Tuple[int, ...] = (), size: int = 0) -> None:
+                 sig: Tuple[int, ...] = (), size: int = 0,
+                 trop=None) -> None:
         self.codec = codec
         self.planes = planes        # rows x width host uint8 (2-D or list)
         self.rows = len(planes)
@@ -85,6 +101,7 @@ class _Job:
         self.sig = sig              # dec: survivor ids
         self.size = size or self.rows * self.width  # real payload bytes
         self.t_enq = time.monotonic()
+        self.trop = trop            # the client op (TrackedOp), for blame
         self.future: Future = Future()
 
 
@@ -137,6 +154,19 @@ class StripeBatchQueue:
             "staging_slots_used", "pinned staging pool slots in use")
         self.device_time_s = 0.0
         self._gauge_ring = SnapshotRing(capacity=32)
+        # the batch on the worker right now (kind, jobs, shapes, start
+        # stamp), None while it coalesces or idles
+        self._inflight_info: "Dict | None" = None
+
+    def inflight_batch(self) -> "Dict | None":
+        """The batch the worker is running now, with its age in
+        seconds; None when idle."""
+        info = self._inflight_info
+        if info is None:
+            return None
+        out = dict(info)
+        out["age_s"] = round(time.monotonic() - out.pop("t0"), 3)
+        return out
 
     def sample(self, window_s: float = 10.0) -> None:
         """Refresh the queue-depth, busy and staging gauges."""
@@ -172,26 +202,28 @@ class StripeBatchQueue:
             raise TypeError(f"{type(codec).__name__} has no encode_planes; "
                             "encode it through codec.encode_array")
 
-    def encode_async(self, codec, planes: np.ndarray) -> Future:
+    def encode_async(self, codec, planes: np.ndarray,
+                     trop=None) -> Future:
         """planes uint8 [k, n] -> Future of coding planes [m, n]."""
         self._check_encodes(codec)
         planes = np.ascontiguousarray(planes, dtype=np.uint8)
-        return self._submit(_Job(codec, planes, "enc"))
+        return self._submit(_Job(codec, planes, "enc", trop=trop))
 
     def encode(self, codec, planes: np.ndarray) -> np.ndarray:
         return self.encode_async(codec, planes).result()
 
     def encode_crc_async(self, codec, planes: np.ndarray,
-                         size: int = 0) -> Future:
+                         size: int = 0, trop=None) -> Future:
         """Fused encode + per-shard crc32c: planes uint8 [k, n] ->
         Future of (coding [m, n], crcs u32 [k+m]).  Only the coding
         planes and the 4-byte digests come back to the host."""
         self._check_encodes(codec)
         planes = np.ascontiguousarray(planes, dtype=np.uint8)
-        return self._submit(_Job(codec, planes, "encp", size=size))
+        return self._submit(_Job(codec, planes, "encp", size=size,
+                                 trop=trop))
 
-    def decode_data_async(self, codec,
-                          available: Dict[int, np.ndarray]) -> Future:
+    def decode_data_async(self, codec, available: Dict[int, np.ndarray],
+                          trop=None) -> Future:
         """Survivor planes {shard: [n]} -> Future of data planes [k, n].
         Jobs sharing a survivor signature coalesce into one recovery
         product."""
@@ -203,7 +235,7 @@ class StripeBatchQueue:
             raise ValueError(f"need {codec.k} survivors, have {len(sig)}")
         width = len(available[sig[0]])
         rows = _host_rows([available[i] for i in sig], width)
-        return self._submit(_Job(codec, rows, "dec", sig=sig))
+        return self._submit(_Job(codec, rows, "dec", sig=sig, trop=trop))
 
     def decode_data(self, codec, available) -> np.ndarray:
         return self.decode_data_async(codec, available).result()
@@ -254,6 +286,11 @@ class StripeBatchQueue:
         t_start = time.monotonic()
         for j in batch:
             self.perf.hinc("lat_encq_wait_us", (t_start - j.t_enq) * 1e6)
+        # published before the failpoint, so a stalled dispatch shows
+        # in the crash report's device section with its shapes
+        self._inflight_info = {
+            "kind": batch[0].kind, "jobs": len(batch),
+            "shapes": [[j.rows, j.width] for j in batch], "t0": t_start}
         try:
             if fp.enabled("queue.batch.dispatch"):
                 fp.failpoint("queue.batch.dispatch", jobs=len(batch),
@@ -271,6 +308,8 @@ class StripeBatchQueue:
                 if not j.future.done():
                     j.future.set_exception(e)
             return
+        finally:
+            self._inflight_info = None
         kind = batch[0].kind
         self.stats.inc("staged_batches")
         self.stats.inc("h2d_bytes", sum(j.size for j in batch))
@@ -285,9 +324,28 @@ class StripeBatchQueue:
         self.device_time_s += t_compute - t_start
         self.perf.hinc("lat_device_us", (t_compute - t_start) * 1e6)
         self.perf.hinc("lat_encq_dispatch_us", (t_done - t_compute) * 1e6)
-        devwatch.watch().note_batch(kind, len(batch),
-                                    [(j.rows, j.width) for j in batch],
-                                    t_compute - t_start)
+        dw = devwatch.watch()
+        dw.note_batch(kind, len(batch), [(j.rows, j.width) for j in batch],
+                      t_compute - t_start)
+        if dw.compile_activity_since(min(j.t_enq for j in batch)):
+            self._blame_build(dw, batch, t_compute)
+
+    @staticmethod
+    def _blame_build(dw, batch: List[_Job], t_compute: float) -> None:
+        """Annotate each op whose job waited on the kernel build: the
+        event ``compile_wait`` (timeline only, annotation=True) and its
+        tracker's ``lat_compile_wait_us``."""
+        for j in batch:
+            if j.trop is None:
+                continue
+            wait = dw.compile_overlap_s(j.t_enq, t_compute)
+            if wait <= 0:
+                continue
+            j.trop.mark_event("compile_wait", f"{wait * 1e3:.1f}ms",
+                              annotation=True)
+            trk = getattr(j.trop, "tracker", None)
+            if trk is not None and trk.perf is not None:
+                trk.perf.hinc("lat_compile_wait_us", wait * 1e6)
 
     def _upload(self, batch: List[_Job], slot) -> torch.Tensor:
         """Jobs' planes, job after job, into the upload slot; one copy
@@ -355,3 +413,27 @@ class StripeBatchQueue:
             if self.device.type == "cuda":
                 torch.cuda.current_stream(self.device).synchronize()
             self._upload_pool.release(slot)
+
+
+_defaults: Dict[str, StripeBatchQueue] = {}
+_defaults_lock = threading.Lock()
+
+
+def default_queue(device=None) -> StripeBatchQueue:
+    """The process's queue for ``device`` (resolved: None is the card,
+    and raises without one).  One queue per device, so a CPU run and a
+    card run never share a worker, a pool or its counters."""
+    dev = resolve_device(device)
+    with _defaults_lock:
+        q = _defaults.get(str(dev))
+        if q is None:
+            q = _defaults[str(dev)] = StripeBatchQueue(device=dev)
+        return q
+
+
+@atexit.register
+def _stop_defaults() -> None:
+    with _defaults_lock:
+        queues = list(_defaults.values())
+    for q in queues:
+        q.stop(timeout=2.0)

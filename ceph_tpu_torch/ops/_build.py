@@ -33,6 +33,11 @@ LIB_NAME = "ceph_tpu_torch_kernels"
 _lock = threading.Lock()
 _lib = None
 build_seconds = None  # wall time of this process's build, once done
+# monotonic stamps of the build: build_t0 set as it starts, build_t1 as
+# it ends (None while it runs); the device watch blames a queue job
+# whose wait overlapped them (the queue's ``compile_wait``)
+build_t0 = None
+build_t1 = None
 COUNTS: list = []     # every LaunchCount, in creation order
 
 
@@ -122,11 +127,15 @@ def _compile() -> str:
 def lib() -> ctypes.CDLL:
     """The kernel library, built on first call (raises if the build
     fails; there is no fallback)."""
-    global _lib, build_seconds
+    global _lib, build_seconds, build_t0, build_t1
     with _lock:
         if _lib is None:
-            t0 = time.monotonic()
-            dll = ctypes.CDLL(_compile())
+            t0 = build_t0 = time.monotonic()
+            build_t1 = None
+            try:
+                dll = ctypes.CDLL(_compile())
+            finally:
+                build_t1 = time.monotonic()
             for name, argtypes in _SIGNATURES.items():
                 fn = getattr(dll, name)
                 fn.argtypes = argtypes

@@ -60,39 +60,48 @@ Phases, each of which fails the run (non-zero exit, no result line):
               then 8 writes exact; and a Context's admin socket answering
               ``device compile dump`` with those checks' launches per
               kernel and the queue's batch count;
-6c. wire     the wire, the store and the OSD's bookkeeping
-              (``ceph_tpu_torch/msg``, ``auth``, ``store``, ``osd``
-              messages and PG log, ``gpu/staging`` DeviceBuf) on that path,
-              under lockdep: the queue's staging pool set to 16 slots of 4
-              MiB; 64 seeded 4 MiB objects (isa k=8 m=4, 1 MiB stripe) each
-              staged, interleaved from its slot and encoded on the card (K1
-              and the CRC kernel); the primary messenger ``client.0`` sends
-              each of four peer messengers ``osd.1`` .. ``osd.4``
-              (127.0.0.1, cephx authorizers bound to the dialed address,
-              frame CRCs on) one ``MECSubWriteVec`` per object: a
-              Transaction writing the peer's shards ``s % 4 == N - 1`` from
-              DeviceBuf handles (data shards host views of the planes,
-              parity device handles) with the card's CRCs, one PG log entry
-              and one full-replace rollback row per shard; the slot is
-              sealed once every transaction is encoded; each peer commits
-              the transaction with the entry's log rows in its PG meta
-              object in one store transaction and answers
-              ``MECSubWriteVecReply``; checked: no unsanctioned host copy,
-              each parity handle fetched once, every slot back and at most
-              16 in use, 64 ordered log entries on every peer, every stored
-              shard read back through its extent seals with the host CRC
-              equal to the card's, and the ``devbuf`` check (object 0's
-              parity by K1 on a CUDA tensor, wrapped as that tensor, reads
-              back as the queue's parity with one counted fetch); a
-              messenger without an authorizer refused and never delivered;
-              then osd.4 shut down (shards 3, 7, 11) and
-              ``store.corrupt_chunk`` armed for shard 6 on osd.3; each live
-              peer gets one ``MECSubReadVec`` per object and answers one
-              ``MECSubReadVecReply`` whose rows carry the data and the
-              ``crc`` attribute, the rotten shard's as -EIO without data
-              (``ChecksumError``, ``read_verify_fail``), and every object is
-              decoded degraded through ``decode_data_async`` (K1) from the
-              eight survivors, byte for byte;
+6c. wire     the EC backend on the wire and in the stores
+              (``ceph_tpu_torch/osd/backend.py`` with ``msg``, ``auth``,
+              ``store``, the OSD messages and PG log, ``gpu/staging``
+              DeviceBuf), under lockdep: the primary ``osd.0`` and four
+              peers ``osd.1`` .. ``osd.4``, each an ``ECBackend`` over its
+              own MemStore behind a messenger (127.0.0.1, cephx
+              authorizers bound to the dialed address, frame CRCs on),
+              shard s on osd s % 5; the primary's queue built under
+              lockdep, its staging pool set to 16 slots of 4 MiB; 64
+              seeded 4 MiB objects (isa k=8 m=4, 1 MiB stripe) each
+              staged and written by ``ECBackend.submit`` with one PG log
+              entry (versions minted in submit order): the queue's
+              ``encp`` batch (K1 and the CRC kernel) codes it, each
+              shard's ``hinfo`` takes the card's CRC, the primary's three
+              shards go into its store through ``op_payload`` and each
+              peer gets one ``MECSubWriteVec`` (DeviceBuf handles: data
+              shards host views of the planes, parity device handles; the
+              log rows; a full-replace rollback row a shard), then the
+              slot is sealed; each peer applies it with
+              ``apply_sub_write_vec`` and answers
+              ``MECSubWriteVecReply``, which the primary's dispatcher
+              hands to ``handle_reply``; checked: no op in flight, an
+              ``encp`` batch wider than one write, no unsanctioned host
+              copy, each parity handle fetched once, every slot back and
+              at most 16 in use, the primary's shards applied through
+              ``op_payload`` before each seal, no host CRC in the
+              backend's write, 64 ordered log entries on every holder,
+              every stored shard read back through its extent seals with
+              the host CRC and its ``hinfo`` CRC equal to the card's CRC,
+              and the ``devbuf`` check (object 0's parity by K1 on a CUDA
+              tensor, wrapped as that tensor, reads back as the queue's
+              parity with one counted fetch); a messenger without an
+              authorizer refused and never delivered; then osd.4 shut
+              down (shards 4, 9) and ``store.corrupt_chunk`` armed for
+              shard 6 on osd.1; the primary reads its local shards with
+              ``read_local_chunk2``, each live peer gets one
+              ``MECSubReadVec`` per object and answers the rows of
+              ``PG.handle_sub_read_vec`` (the rotten shard's as ``ECRC``
+              without data: ``ChecksumError``, ``read_verify_fail``), and
+              ``reconstruct_async`` decodes every object through the
+              queue's ``dec`` kind (K1) from the nine survivors, byte for
+              byte;
 7. bitmatrix  the same 1 GiB write through ``jerasure k=8 m=4
               technique=cauchy_good``, read back degraded through
               ``codec.decode_array`` with shards 6, 7, 10, 11 lost (the
@@ -149,8 +158,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
 Each path zeroes the kernel launch counts just before its writes and
 reads them just after, then likewise for its reads (the core phase
 zeroes them before its lockdep run and reads them after its failpoint
-check; the wire phase's write half is its sends and acks, its read half
-the sub-reads and decodes); each kernel of each
+check; the wire phase's write half is its submits and commits, its read
+half the sub-reads and reconstructs); each kernel of each
 half must have run (for ecbench, K2 and K1: its loops capture one launch
 per iteration in a CUDA graph and replay it, and the counts are of the
 captured launches).  Then each kernel is timed at its path's batch
@@ -1140,80 +1149,85 @@ def phase_core(torch, dev, log) -> dict:
     return {"host_crc_mbs": host_mbs, "edges": n_edges, "counts": counts}
 
 
-# -- the wire phase: the card's shards through the messenger and the store ---
+# -- the wire phase: the EC backend's write and degraded read on the wire ---
 
 WIRE_PROFILE = "plugin=isa k=8 m=4 technique=reed_sol_van"  # ``main``'s
 WIRE_OBJS = 64               # 4 MiB objects (RADOS's and RBD's default size)
-WIRE_PEERS = 4               # osd.1 .. osd.4; osd.N holds shards s % 4 == N - 1
+WIRE_PEERS = 4               # osd.1 .. osd.4 beside the primary osd.0
 WIRE_DOWN = (4,)             # shut down before the degraded read
-WIRE_CORRUPT = (3, 6)        # (peer, shard) whose read fails its extent seal
+WIRE_CORRUPT = (1, 6)        # (peer, shard) whose read fails its extent seal
 WIRE_SLOTS = 16              # staging slots of an object each (tpu_staging_slots)
 WIRE_PGID = (2, 0)           # the PG the phase writes into
 WIRE_EPOCH = 7               # its map epoch, stamped on every message and entry
 WIRE_META = "_pgmeta_"       # the PG meta object that holds the log's omap
-RB_FULL = 1                  # full-replace rollback rows (the backend's RB_FULL)
 WIRE_WAIT_S = 120.0
+
+
+def wire_acting(n: int, peers: int) -> list:
+    """The phase's acting set: shard s on osd s % (peers + 1), so the
+    primary osd.0 holds its share as a Ceph primary does."""
+    return [s % (peers + 1) for s in range(n)]
 
 
 def run_wire(torch, dev, *, nobj: int = WIRE_OBJS,
              obj_bytes: int = 4 * MiB, stripe_bytes: int = 1 * MiB,
              peers: int = WIRE_PEERS, down=WIRE_DOWN, corrupt=WIRE_CORRUPT,
              threads: int = 8) -> dict:
-    """The OSD's EC sub-write and its degraded read in Ceph's own
-    messages, through the port's host layers, under lockdep:
+    """The EC object write and its degraded read through the port's
+    ``ECBackend`` (``ceph_tpu_torch/osd/backend.py``), its messages, the
+    messenger and the store, under lockdep:
 
-    1. one primary messenger (``client.0``) and ``peers`` peer
-       messengers (``osd.1`` ..), each peer with its own MemStore, on
-       127.0.0.1; cephx on: a keyring, a CephxServer, the primary's
-       authorizer (bound to the dialed address) as its provider,
-       ``verify_authorizer`` with a seen-cache and the peer's own
-       address as each peer's verifier; ``ms_crc_data`` on;
-    2. write, from ``threads`` threads, as the EC backend's device path
-       does (``ceph_tpu/osd/backend.py:844-940``): the queue's staging
-       pool is configured to ``WIRE_SLOTS`` slots of an object each (a
-       daemon's tpu_staging_* conf, restored at the end); each seeded
-       object is staged (``DeviceBuf.stage``), interleaved from
-       ``np1d()``, encoded with its CRCs through
-       ``StripeBatchQueue.encode_crc_async`` (K1 and the CRC kernel on
-       the card) and bound to its planes (``attach_planes``); its data
-       shards are ``wrap_host`` handles of the plane rows, its parity
-       ``wrap_device`` handles; each peer gets one ``MECSubWriteVec``
-       carrying one Transaction (each of its shards ``s % peers == peer
-       - 1`` written from its handle, the card's CRC as attribute
-       ``crc``), one ``LogEntry`` (version ``i + 1`` at ``WIRE_EPOCH``)
-       and one ``RB_FULL`` row per shard; ``seal()`` runs once every
-       peer's transaction is encoded (those encodes are the sinks that
-       read the payload);
-    3. each peer decodes the transaction, adds ``PGLog.omap_additions``
-       of the entry to the PG meta object in the same transaction,
-       commits it and answers ``MECSubWriteVecReply``; the primary waits
-       for every reply;
-    4. check: the write made no unsanctioned host copy
-       (``payload_host_touches`` 0), fetched each parity handle once
-       (``d2h_bytes`` = ``nobj * m`` chunks), left no staging slot in use
-       and used at most ``WIRE_SLOTS``; each peer's ``PGLog.from_omap``
-       of its meta object holds the ``nobj`` entries in order; every
-       stored shard passes its store's extent seals, and the host CRC
-       (``core.crc``) of the bytes read back and the stored attribute
-       both equal the card's CRC; the parity of object 0 computed by K1
-       on a tensor of ``dev`` and wrapped by ``wrap_device`` as that
-       tensor reads back equal to the queue's parity with ``d2h_bytes``
-       grown by its size; a messenger without an authorizer dials peer
-       1, is refused twice, and its sub-write is never delivered;
-    5. degraded read: the peers in ``down`` shut down;
+    1. the primary ``osd.0`` and ``peers`` peers (``osd.1`` ..), each an
+       ``ECBackend`` over its own MemStore behind a messenger on
+       127.0.0.1; cephx on (a keyring, a CephxServer, the primary's
+       authorizer bound to the dialed address, ``verify_authorizer`` with
+       a seen-cache and the peer's own address); ``ms_crc_data`` on.
+       The acting set puts shard s on osd ``s % (peers + 1)``.  The
+       primary's dispatcher hands each ``MECSubWriteVecReply`` to
+       ``be.handle_reply``; a peer answers ``MECSubWriteVec`` with
+       ``be.apply_sub_write_vec`` and a ``MECSubWriteVecReply``, and
+       ``MECSubReadVec`` with the rows ``PG.handle_sub_read_vec`` builds
+       (``read_local_chunk_runs2``/``read_local_chunk2``, ``shard_meta``);
+    2. write, from ``threads`` threads: the primary's queue is built
+       under lockdep and its staging pool configured to ``WIRE_SLOTS``
+       slots of an object each; each seeded object is staged
+       (``DeviceBuf.stage``) and submitted, its version minted under one
+       lock as the PG lock mints it, as ``be.submit(oid,
+       ObjectState(buf), [entry], PGLog().omap_additions([entry]),
+       acting, on_commit)``: the backend interleaves it, encodes it with
+       its CRCs in the queue's ``encp`` batch (K1 and the CRC kernel on
+       the card), stamps every shard's ``hinfo`` with the card's CRC,
+       applies the primary's shards to its store through ``op_payload``
+       and sends each peer one ``MECSubWriteVec`` (its shards from
+       ``DeviceBuf`` handles, the log rows, a full-replace rollback row
+       per shard), then seals the staged slot; the write waits for its
+       commit on every holder;
+    3. check: no op in flight; no unsanctioned host copy
+       (``payload_host_touches`` 0); each parity handle fetched once
+       (``d2h_bytes`` = ``nobj * m`` chunks); every slot back, at most
+       ``WIRE_SLOTS`` used; at each ``seal()`` the primary's store had
+       applied the local shards of every write so far through
+       ``op_payload``; the backend took no host CRC in the write; every
+       holder's ``PGLog.from_omap`` holds the ``nobj`` entries in
+       version order; every stored shard passes its extent seals and
+       its host CRC, its ``hinfo`` CRC and the card's CRC of it (from the
+       ``encp`` batch) are one; the ``devbuf`` check (object 0's parity
+       by K1 on a tensor of ``dev``, wrapped as that tensor, reads back
+       as the queue's parity with one counted fetch); a messenger
+       without an authorizer dials peer 1, is refused twice, and its
+       sub-write is never delivered;
+    4. degraded read: the peers in ``down`` shut down;
        ``store.corrupt_chunk`` is armed for ``corrupt`` = (peer, shard),
-       whose reads fail their seal (ChecksumError, counted in
-       ``read_verify_fail``); each live peer gets one ``MECSubReadVec``
-       of whole-chunk rows and answers one ``MECSubReadVecReply``, each
-       row with its data and its ``crc`` attribute, the rotten one as
-       ``-EIO`` without data; every object is decoded from the first k
-       survivors through ``decode_data_async`` (K1 on the card) and
-       must equal what was written.
+       whose read fails its seal and answers ``ECRC`` without data; each
+       object's local shards come from ``read_local_chunk2``, each live
+       peer gets one ``MECSubReadVec`` of whole-chunk rows, and
+       ``be.reconstruct_async`` decodes the survivors (K1 on the card
+       through the queue's ``dec`` kind) to what was written.
 
     The launch counts are zeroed just before the writes and read just
     after them, then zeroed just before the reads and read just after.
-    Returns the counts, rates, what was written and read, the peers' PG
-    meta omaps and the counters; raises on any failed check."""
+    Returns the counts, rates, what was written and read, every holder's
+    PG meta omap and the counters; raises on any failed check."""
     import errno
 
     from ceph_tpu_torch.auth import CephxClient, CephxServer, Keyring
@@ -1228,141 +1242,167 @@ def run_wire(torch, dev, *, nobj: int = WIRE_OBJS,
     from ceph_tpu_torch.msg.message import EntityName
     from ceph_tpu_torch.msg.messenger import Dispatcher, Messenger
     from ceph_tpu_torch.ops import gf256
+    from ceph_tpu_torch.osd import backend as ob
     from ceph_tpu_torch.osd import messages as om
     from ceph_tpu_torch.osd.ecutil import StripeInfo
     from ceph_tpu_torch.osd.pglog import PGLog
     from ceph_tpu_torch.osd.types import LOG_MODIFY, EVersion, LogEntry
+    from ceph_tpu_torch.store import objectstore as os_mod
     from ceph_tpu_torch.store.memstore import MemStore
-    from ceph_tpu_torch.store.objectstore import (ChecksumError, Collection,
-                                                  GHObject, StoreError,
-                                                  Transaction)
+    from ceph_tpu_torch.store.objectstore import (Collection, GHObject,
+                                                  StoreError, Transaction)
 
     cid = Collection(f"{WIRE_PGID[0]}.{WIRE_PGID[1]:x}_head")
     meta = GHObject(WIRE_META)
-    codec = codec_from_profile(WIRE_PROFILE, device=dev)
+    unit = codec_from_profile(WIRE_PROFILE, device=dev).get_chunk_size(
+        stripe_bytes)
+    codec = codec_from_profile(f"{WIRE_PROFILE} stripe_unit={unit}",
+                               device=dev)
     k, m = codec.k, codec.m
-    si = StripeInfo(k, codec.get_chunk_size(stripe_bytes))
-    holder = {s: s % peers + 1 for s in range(k + m)}
-    shards_of = {n: [s for s in range(k + m) if holder[s] == n]
-                 for n in range(1, peers + 1)}
+    n = k + m
+    si = StripeInfo(k, unit)
+    acting = wire_acting(n, peers)
+    shards_of = {o: [s for s in range(n) if acting[s] == o]
+                 for o in range(peers + 1)}
     c_peer, c_shard = corrupt
-    require(holder[c_shard] == c_peer and c_peer not in down
-            and not any(str(c_shard) in str(s) for s in holder
+    require(c_peer != 0 and acting[c_shard] == c_peer
+            and c_peer not in down
+            and not any(str(c_shard) in str(s) for s in range(n)
                         if s != c_shard),
             f"wire: peer {c_peer} holds shard {c_shard} and stays up, and "
             "the failpoint's shard match selects that shard alone")
-    lost = sorted([s for s in holder if holder[s] in down] + [c_shard])
-    survivors = [s for s in range(k + m) if s not in lost]
+    lost = sorted([s for s in range(n) if acting[s] in down] + [c_shard])
+    survivors = [s for s in range(n) if s not in lost]
     require(len(lost) <= m, f"wire: {lost} lost, at most m = {m}")
     g = torch.Generator(device=dev).manual_seed(SEED + 14)
     objs = torch.randint(0, 256, (nobj, obj_bytes), dtype=torch.uint8,
                          device=dev, generator=g).cpu().numpy()
     oids = [f"rbd_data.{i:016x}" for i in range(nobj)]
+    # the stripe-0 bytes of each object's planes: the key under which
+    # its encp batch's coding and CRCs are noted
+    key_of = {b"".join(objs[i][r * unit:r * unit + 16].tobytes()
+                       for r in range(k)): i for i in range(nobj)}
 
-    class Peer(Dispatcher):
-        def __init__(self) -> None:
-            self.store = MemStore()
-            self.store.mkfs()
-            self.store.mount()
-            t = Transaction()
-            t.create_collection(cid)
-            t.touch(cid, meta)
-            self.store.queue_transaction(t)
+    def new_store() -> MemStore:
+        st = MemStore()
+        st.mkfs()
+        st.mount()
+        t = Transaction()
+        t.create_collection(cid)
+        t.touch(cid, meta)
+        st.queue_transaction(t)
+        return st
+
+    def new_backend(whoami: int, store: MemStore, send) -> "ob.ECBackend":
+        return ob.ECBackend(WIRE_PGID, cid, store, whoami, send,
+                            lambda: WIRE_EPOCH, codec)
+
+    class PeerDispatcher(Dispatcher):
+        """osd.N: an ECBackend behind a thin dispatcher."""
+
+        def __init__(self, num: int) -> None:
+            self.store = new_store()
+            self.be = new_backend(num, self.store, None)
             self.srcs = []
-            self.busy = []  # seconds in the store, one entry per message
+            self.busy = []  # seconds serving, one entry per message
 
-        def sub_write(self, msg) -> int:
-            """The peer's commit: the primary's transaction and the log
-            entries' omap rows, in one store transaction."""
-            t = Transaction.from_bytes(msg.txn)
-            t.omap_setkeys(cid, meta, PGLog().omap_additions(msg.entries))
+        def sub_write(self, conn, msg) -> None:
+            def ack(result: int = 0) -> None:
+                rep = om.MECSubWriteVecReply(msg.pgid, msg.epoch, result)
+                rep.tid = msg.tid
+                conn.send(rep)
+
             try:
-                self.store.queue_transaction(t)
+                self.be.apply_sub_write_vec(msg, on_commit=ack)
             except StoreError:
-                return -errno.EIO
-            return 0
+                ack(-errno.EIO)
 
-        def sub_read(self, msg) -> list:
-            rows = []
-            for shard, oid, off, length in msg.reads:
-                o = GHObject(oid, shard=shard)
-                try:
-                    data = self.store.read(cid, o, off, length)
-                    attrs = {"crc": self.store.getattr(cid, o, "crc")}
-                    rows.append((shard, oid, data, 0, attrs, {}))
-                except ChecksumError:
-                    rows.append((shard, oid, b"", -errno.EIO, {}, {}))
-            return rows
+        def sub_read(self, msg) -> tuple:
+            """The rows ``PG.handle_sub_read_vec`` (pg.py:2401-2450)
+            builds: each (oid, shard) chunk read once through
+            ``read_local_chunk_runs2``/``read_local_chunk2`` with its
+            verdict, and its attrs and omap from ``shard_meta``."""
+            be = self.be
+            chunks, metas, rows, served = {}, {}, [], []
+            runs = (msg.runs if len(msg.runs) == len(msg.reads)
+                    else [[] for _ in msg.reads])
+            for (shard, oid, _off, _len), rr in zip(msg.reads, runs):
+                key = (oid, shard)
+                sv = 0
+                if rr:
+                    data, code, sv = be.read_local_chunk_runs2(oid, shard,
+                                                               rr)
+                if not sv:
+                    if key not in chunks:
+                        chunks[key] = be.read_local_chunk2(oid, shard)
+                    data, code = chunks[key]
+                if key not in metas:
+                    metas[key] = be.shard_meta(oid, shard)
+                attrs, omap = metas[key]
+                rows.append((shard, oid, data if data is not None else b"",
+                             0 if data is not None else code, attrs, omap))
+                served.append(sv)
+            return rows, served
 
         def ms_dispatch(self, conn, msg) -> bool:
             self.srcs.append(str(msg.src))
             t0 = time.perf_counter()
             if isinstance(msg, om.MECSubWriteVec):
-                reply = om.MECSubWriteVecReply(msg.pgid, msg.epoch,
-                                               self.sub_write(msg))
+                self.sub_write(conn, msg)
             elif isinstance(msg, om.MECSubReadVec):
-                reply = om.MECSubReadVecReply(msg.pgid, msg.epoch,
-                                              self.sub_read(msg))
+                rows, served = self.sub_read(msg)
+                rep = om.MECSubReadVecReply(msg.pgid, msg.epoch, rows,
+                                            served=served)
+                rep.tid = msg.tid
+                conn.send(rep)
             else:
                 return False
             self.busy.append(time.perf_counter() - t0)
-            reply.tid = msg.tid
-            conn.send(reply)
             return True
 
-    class Primary(Dispatcher):
+    class PrimaryDispatcher(Dispatcher):
+        """osd.0's dispatcher: a sub-write ack goes to the backend, a
+        sub-read reply to the read waiting on its tid."""
+
         def __init__(self) -> None:
+            self.be = None
             self.cond = threading.Condition()
             self.replies = {}
+            self.nacks = []  # sub-write replies with a nonzero result
 
         def ms_can_fast_dispatch(self, msg) -> bool:
-            return True  # an append under a short lock
+            return True  # an ack or an append under a short lock
 
         def ms_dispatch(self, conn, msg) -> bool:
+            if isinstance(msg, om.MECSubWriteVecReply):
+                if msg.result:
+                    self.nacks.append((msg.tid, str(msg.src), msg.result))
+                self.be.handle_reply(msg.tid, msg.src.num)
+                return True
             with self.cond:
                 self.replies.setdefault(msg.tid, []).append(msg)
                 self.cond.notify_all()
             return True
 
-        def wait(self, tid: int, n: int) -> list:
+        def wait(self, tid: int, count: int) -> list:
             with self.cond:
                 require(self.cond.wait_for(
-                    lambda: len(self.replies.get(tid, ())) >= n,
-                    WIRE_WAIT_S), f"wire: {n} replies to tid {tid}")
+                    lambda: len(self.replies.get(tid, ())) >= count,
+                    WIRE_WAIT_S), f"wire: {count} replies to tid {tid}")
                 return self.replies.pop(tid)
-
-    def sub_write_vec(i: int, ids, chunks, crc_of) -> "om.MECSubWriteVec":
-        """Object i's shards ``ids`` for one peer: one Transaction (each
-        shard from its payload, the card's CRC as ``crc``) and one log
-        entry.  Encoding the transaction is the sink that reads the
-        payloads."""
-        t = Transaction()
-        for s in ids:
-            o = GHObject(oids[i], shard=s)
-            t.write(cid, o, 0, chunks[s])
-            t.setattrs(cid, o, {"crc": crc_of[s].to_bytes(4, "little")})
-        entry = LogEntry(op=LOG_MODIFY, oid=oids[i],
-                         version=EVersion(WIRE_EPOCH, i + 1),
-                         prior_version=EVersion(),
-                         reqid=f"client.0:{i + 1}")
-        msg = om.MECSubWriteVec(WIRE_PGID, WIRE_EPOCH, oids[i],
-                                t.to_bytes(), [entry],
-                                rb=[(s, RB_FULL, 0, 0) for s in ids])
-        msg.tid = i + 1
-        return msg
 
     kr = Keyring()
     kr.add("service")
-    secret = kr.add("client.0")
+    secret = kr.add("osd.0")
     auth_server = CephxServer(kr)
-    cx = CephxClient("client.0", secret)
-    ch = auth_server.get_challenge("client.0")
+    cx = CephxClient("osd.0", secret)
+    ch = auth_server.get_challenge("osd.0")
     cc = SEED.to_bytes(16, "little")
     cx.accept_reply(*auth_server.handle_request(
-        "client.0", cc, cx.make_proof(ch, cc)))
-    verdicts = {n: [] for n in range(1, peers + 1)}
+        "osd.0", cc, cx.make_proof(ch, cc)))
+    verdicts = {num: [] for num in range(1, peers + 1)}
 
-    def verifier(n: int, target: str):
+    def verifier(num: int, target: str):
         seen = {}
 
         def check(blob) -> bool:
@@ -1372,7 +1412,7 @@ def run_wire(torch, dev, *, nobj: int = WIRE_OBJS,
                 ok = True
             except Exception:  # noqa: BLE001 — any refusal is a "no"
                 ok = False
-            verdicts[n].append(ok)
+            verdicts[num].append(ok)
             return ok
         return check
 
@@ -1383,117 +1423,183 @@ def run_wire(torch, dev, *, nobj: int = WIRE_OBJS,
     fp.disarm_all()
     q = None
     geometry = None
+    plain_op_payload = os_mod.op_payload
+    plain_be_crc = ob.crc32c
     try:
-        names = ["client.0"] + [f"osd.{n}" for n in range(1, peers + 1)]
+        names = [f"osd.{num}" for num in range(peers + 1)]
         ctxs = [Context(name) for name in names]
-        primary = Messenger(ctxs[0], EntityName("client", 0))
-        prim = Primary()
+        primary = Messenger(ctxs[0], EntityName("osd", 0))
+        prim = PrimaryDispatcher()
         primary.add_dispatcher(prim)
         primary.set_auth(provider=cx.build_authorizer)
         msgrs.append(primary)
         peer_d, peer_m = {}, {}
-        for n in range(1, peers + 1):
-            pm = Messenger(ctxs[n], EntityName("osd", n))
-            peer_d[n] = Peer()
-            pm.add_dispatcher(peer_d[n])
+        for num in range(1, peers + 1):
+            pm = Messenger(ctxs[num], EntityName("osd", num))
+            peer_d[num] = PeerDispatcher(num)
+            pm.add_dispatcher(peer_d[num])
             pm.start()
-            pm.set_auth(verifier=verifier(n, f"{pm.addr[0]}:{pm.addr[1]}"))
-            peer_m[n] = pm
+            pm.set_auth(verifier=verifier(num, f"{pm.addr[0]}:{pm.addr[1]}"))
+            peer_m[num] = pm
             msgrs.append(pm)
         primary.start()
         require(all(pm.addr[0] == "127.0.0.1" for pm in msgrs),
                 "wire: every messenger binds 127.0.0.1")
-        conns = {n: primary.connect(peer_m[n].addr) for n in peer_m}
-        q = StripeBatchQueue(device=dev)
+        conns = {num: primary.connect(peer_m[num].addr) for num in peer_m}
+        store0 = new_store()
+        be = prim.be = new_backend(0, store0,
+                                   lambda osd, msg: conns[osd].send(msg))
+        # the phase's own queue, built under lockdep and stopped at the
+        # end, in place of the process's default queue for ``dev``
+        q = be.queue = StripeBatchQueue(device=dev)
         geometry = (q.pool.slot_bytes, q.pool.nslots)
         require(q.pool.configure(obj_bytes, WIRE_SLOTS),
                 "wire: the idle staging pool takes the phase's geometry")
-        planes = [None] * nobj
-        coding = [None] * nobj
-        crcs = [None] * nobj
-        wire_bytes = [0, 0]  # shard bytes: sub-writes, sub-read replies
+        holders = {0: store0, **{num: pd.store
+                                 for num, pd in peer_d.items()}}
+
+        # what the card computed for each object, noted off each encp
+        # future before the backend's fan-out runs
+        card = {}
+        card_lock = threading.Lock()
+        plain_encode_crc = q.encode_crc_async
+
+        def encode_crc_async(codec_, planes, size=0, trop=None):
+            fut = plain_encode_crc(codec_, planes, size=size, trop=trop)
+            i = key_of[planes[:, :16].tobytes()]
+
+            def note(f) -> None:
+                if f.exception() is None:
+                    c, cr = f.result()
+                    with card_lock:
+                        card[i] = (c, [int(x) for x in cr])
+            fut.add_done_callback(note)
+            return fut
+
+        q.encode_crc_async = encode_crc_async
+        # DeviceBuf payloads applied through op_payload (the primary's
+        # local shards: the peers receive bytes), read at each seal()
+        applied = [0]
+        seals = []
+
+        def op_payload(op, copy=False):
+            if hasattr(op.data, "wire_view"):
+                applied[0] += 1
+            return plain_op_payload(op, copy)
+
+        host_crcs = [0]  # the backend's host CRC calls in the write
+
+        def be_crc(data, crc=0):
+            host_crcs[0] += 1
+            return plain_be_crc(data, crc)
+
+        versions = {}
+        submit_lock = threading.Lock()
 
         def write(i):
             buf = DeviceBuf.stage(q.pool, objs[i], timeout=WIRE_WAIT_S)
             require(buf is not None, f"wire: object {i} staged")
-            try:
-                planes[i] = si.interleave(buf.np1d())[0]
-                c, cr = q.encode_crc_async(codec, planes[i],
-                                           size=obj_bytes).result()
-                buf.attach_planes(planes[i], k, si.chunk_size)
-                coding[i], crcs[i] = c, [int(x) for x in cr]
-                chunks = ([DeviceBuf.wrap_host(planes[i][s], q.stats)
-                           for s in range(k)]
-                          + [DeviceBuf.wrap_device(c[j], q.stats)
-                             for j in range(m)])
-                msgs = [(n, sub_write_vec(i, shards_of[n], chunks, crcs[i]))
-                        for n in conns]
-            finally:
-                buf.seal()
-            for n, msg in msgs:
-                conns[n].send(msg)
-            acks = prim.wait(i + 1, len(conns))
-            require(all(isinstance(a, om.MECSubWriteVecReply)
-                        and a.result == 0 for a in acks),
-                    f"wire: object {i} committed on every peer: "
-                    f"{[a.result for a in acks]}")
+            done, sub = threading.Event(), threading.Event()
+            with submit_lock:  # the PG lock's role: versions in order
+                v = EVersion(WIRE_EPOCH, len(versions) + 1)
+                versions[i] = v
+                entry = LogEntry(op=LOG_MODIFY, oid=oids[i], version=v,
+                                 prior_version=EVersion(),
+                                 reqid=f"client.0:{i + 1}")
+                be.submit(oids[i], ob.ObjectState(buf), [entry],
+                          PGLog().omap_additions([entry]), acting,
+                          done.set, on_submitted=sub.set)
+            require(done.wait(WIRE_WAIT_S) and sub.wait(WIRE_WAIT_S),
+                    f"wire: object {i} committed on every holder and its "
+                    "fan-out done")
 
         stats0 = q.stats.snapshot()
-        reset_counts()
-        w_wall = run_threads(write, nobj, threads)
-        w_counts = read_counts()
+        os_mod.op_payload = op_payload
+        ob.crc32c = be_crc
+        fp.arm("staging.seal", lambda ctx: seals.append(applied[0]))
+        try:
+            reset_counts()
+            w_wall = run_threads(write, nobj, threads)
+            w_counts = read_counts()
+        finally:
+            fp.disarm("staging.seal")
+            ob.crc32c = plain_be_crc
+            os_mod.op_payload = plain_op_payload
+            del q.encode_crc_async
         stats1 = q.stats.snapshot()
+        batch_jobs = dict(q.batch_jobs)
         occupancy = q.pool.occupancy
-        wire_bytes[0] = sum(c.shape[1] for c in coding) * (k + m)
         w_store_s = sum(sum(pd.busy) for pd in peer_d.values())
+        require(not be.in_flight and not prim.nacks,
+                f"wire: no write left in flight ({len(be.in_flight)}) and "
+                f"none refused ({prim.nacks})")
+        require(sorted(card) == list(range(nobj)),
+                f"wire: the card coded every object ({len(card)})")
+        coding = [card[i][0] for i in range(nobj)]
+        crcs = [card[i][1] for i in range(nobj)]
         width = coding[0].shape[1]
+        local = len(shards_of[0])
         devpath = {key: stats1[key] - stats0[key] for key in
                    ("h2d_bytes", "d2h_bytes", "payload_host_touches",
                     "staged_batches")}
         devpath["pool_occupancy_hw"] = stats1["pool_occupancy_hw"]
         devpath["occupancy_after"] = occupancy
+        devpath["seals"] = len(seals)
+        devpath["local_applied"] = applied[0]
+        devpath["write_host_crcs"] = host_crcs[0]
         require(devpath["payload_host_touches"] == 0,
                 f"wire: the write made no unsanctioned host copy {devpath}")
         require(devpath["d2h_bytes"] == nobj * m * width,
-                f"wire: each parity handle fetched once at its "
-                f"transaction's encode: {devpath['d2h_bytes']} == "
-                f"{nobj} x {m} x {width}")
+                f"wire: each parity handle fetched once, at its local "
+                f"apply or its transaction's encode: {devpath['d2h_bytes']} "
+                f"== {nobj} x {m} x {width}")
         require(occupancy == 0
                 and 0 < devpath["pool_occupancy_hw"] <= WIRE_SLOTS,
                 f"wire: every staging slot sealed back, at most "
                 f"{WIRE_SLOTS} in use: {devpath}")
+        require(seals == [local * (j + 1) for j in range(nobj)],
+                f"wire: at each seal() the primary had applied its {local} "
+                f"shards of every write so far through op_payload: {seals}")
+        require(host_crcs[0] == 0,
+                f"wire: the backend took the host CRC {host_crcs[0]} times "
+                "in the write (hinfo takes the card's)")
 
-        # 4. the peers' logs, then every stored shard against the card's
-        # CRC through the seals (one thread: two host CRC passes a byte)
-        pg_omaps = {n: pd.store.omap_get(cid, meta)
-                    for n, pd in peer_d.items()}
-        for n, omap in pg_omaps.items():
+        # 3. every holder's log, then every stored shard against the
+        # card's CRC through the seals (one thread: two host CRC passes)
+        pg_omaps = {num: st.omap_get(cid, meta)
+                    for num, st in holders.items()}
+        by_version = sorted((v, oids[i]) for i, v in versions.items())
+        require([v.version for v, _ in by_version]
+                == list(range(1, nobj + 1)), "wire: versions 1 .. nobj")
+        for num, omap in pg_omaps.items():
             log = PGLog.from_omap(omap)
             require([(en.version, en.oid) for en in log.entries]
-                    == [(EVersion(WIRE_EPOCH, i + 1), oids[i])
-                        for i in range(nobj)],
-                    f"wire: osd.{n}'s PG log holds the {nobj} entries in "
+                    == by_version,
+                    f"wire: osd.{num}'s PG log holds the {nobj} entries in "
                     f"order ({len(log)} entries)")
         t_check = time.perf_counter()
         verified = 0
-        for n, pd in peer_d.items():
+        hinfos = {num: {} for num in holders}
+        for num, st in holders.items():
             for i in range(nobj):
-                for s in shards_of[n]:
+                for s in shards_of[num]:
                     o = GHObject(oids[i], shard=s)
-                    got = pd.store.read(cid, o)
-                    attr = int.from_bytes(pd.store.getattr(cid, o, "crc"),
-                                          "little")
-                    require(crc32c(got) == crcs[i][s] == attr,
-                            f"wire: osd.{n} object {i} shard {s}: host CRC "
-                            "of the stored bytes and the stored attribute "
+                    got = st.read(cid, o)
+                    blob = hinfos[num][(i, s)] = st.getattr(cid, o, "hinfo")
+                    size, hcrc, valid = ob.hinfo_decode(blob)
+                    require(valid and size == obj_bytes
+                            and crc32c(got) == crcs[i][s] == hcrc,
+                            f"wire: osd.{num} object {i} shard {s}: host "
+                            "CRC of the stored bytes and its hinfo CRC "
                             "equal the card's CRC")
                     verified += 1
         check_s = time.perf_counter() - t_check
 
         # the device branch of DeviceBuf: object 0's parity by K1 on a
         # tensor of ``dev``, wrapped as that tensor
+        planes0 = si.interleave(objs[0])[0]
         k1_before = gf256.launches.value
-        par = codec.encode_planes(torch.from_numpy(planes[0]).to(dev))
+        par = codec.encode_planes(torch.from_numpy(planes0).to(dev))
         d2h0 = q.stats.snapshot()["d2h_bytes"]
         view = DeviceBuf.wrap_device(par, q.stats).wire_view()
         devbuf = {"on": str(par.device), "bytes": par.numel(),
@@ -1524,45 +1630,55 @@ def run_wire(torch, dev, *, nobj: int = WIRE_OBJS,
                     cid, GHObject("intruder", shard=0)),
                 f"wire: the unauthenticated messenger was refused "
                 f"{verdicts[1].count(False)} times and never delivered")
-        require(all(v and all(v) for n, v in verdicts.items() if n != 1)
+        require(all(v and all(v) for num, v in verdicts.items() if num != 1)
                 and verdicts[1].count(True) >= 1,
                 f"wire: the primary's sessions were authorized: {verdicts}")
 
-        # 5. the degraded read
-        for n in down:
-            peer_m[n].shutdown()
+        # 4. the degraded read
+        for num in down:
+            peer_m[num].shutdown()
         fp.arm("store.corrupt_chunk", fp.CORRUPT_ACTION,
                match={"shard": str(c_shard)})
         fails0 = peer_d[c_peer].store.perf.value("read_verify_fail")
         decoded = [None] * nobj
         got_shards = [None] * nobj
-        got_crcs = [None] * nobj
+        got_attrs = [None] * nobj
+        asked = [num for num in peer_d if num not in down]
 
         def read(i):
             tid = nobj + i + 1
-            asked = [n for n in conns if n not in down]
-            for n in asked:
+            for num in asked:
                 msg = om.MECSubReadVec(WIRE_PGID, WIRE_EPOCH,
                                        [(s, oids[i], 0, 0)
-                                        for s in shards_of[n]])
+                                        for s in shards_of[num]])
                 msg.tid = tid
-                conns[n].send(msg)
-            avail, crc_attr, failed = {}, {}, []
+                conns[num].send(msg)
+            avail, attrs_of, failed = {}, {}, []
+            for s in shards_of[0]:  # the gather's local pre-scan
+                data, code = be.read_local_chunk2(oids[i], s)
+                if data is None:
+                    failed.append((s, code, 0))
+                else:
+                    avail[s] = data
+                    attrs_of[s] = be.shard_meta(oids[i], s)
             for rep in prim.wait(tid, len(asked)):
-                for shard, oid, data, result, attrs, _ in rep.rows:
+                for shard, oid, data, result, attrs, omap in rep.rows:
                     if result:
                         failed.append((shard, result, len(data)))
                     else:
                         avail[shard] = data
-                        crc_attr[shard] = attrs["crc"]
-            require(failed == [(c_shard, -errno.EIO, 0)]
+                        attrs_of[shard] = (attrs, omap)
+            require(failed == [(c_shard, ob.ECRC, 0)]
                     and c_shard not in avail,
                     f"wire: object {i}: only shard {c_shard} failed its "
-                    f"seal, as -EIO without data ({failed})")
-            got_shards[i], got_crcs[i] = avail, crc_attr
-            decoded[i] = q.decode_data_async(
-                codec, {s: np.frombuffer(avail[s], np.uint8)
-                        for s in survivors}).result()
+                    f"seal, as ECRC without data ({failed})")
+            got_shards[i], got_attrs[i] = avail, attrs_of
+            out, ev = [], threading.Event()
+            be.reconstruct_async(oids[i], avail, attrs_of[survivors[0]],
+                                 lambda st: (out.append(st), ev.set()))
+            require(ev.wait(WIRE_WAIT_S) and out[0] is not None,
+                    f"wire: object {i} reconstructed")
+            decoded[i] = out[0]
 
         reset_counts()
         r_wall = run_threads(read, nobj, threads)
@@ -1576,6 +1692,8 @@ def run_wire(torch, dev, *, nobj: int = WIRE_OBJS,
                 for name, c in zip(names, ctxs)}
     finally:
         fp.disarm_all()
+        ob.crc32c = plain_be_crc
+        os_mod.op_payload = plain_op_payload
         if q is not None:
             if geometry is not None:
                 q.pool.configure(*geometry)
@@ -1588,15 +1706,22 @@ def run_wire(torch, dev, *, nobj: int = WIRE_OBJS,
             f"wire: osd.{c_peer} counted {seal_fails} read_verify_fail, one "
             f"per object ({nobj})")
     for i in range(nobj):
+        require(sorted(got_shards[i]) == survivors,
+                f"wire: object {i} read from its survivors {survivors}")
         for s, b in got_shards[i].items():
-            require(crc32c(b) == crcs[i][s]
-                    == int.from_bytes(got_crcs[i][s], "little"),
+            _, hcrc, _ = ob.hinfo_decode(got_attrs[i][s][0]["hinfo"])
+            require(crc32c(b) == crcs[i][s] == hcrc,
                     f"wire: object {i} shard {s} came back as written, "
-                    "with its crc attribute")
+                    "with its hinfo")
             verified += 1
-        require(si.deinterleave(decoded[i], obj_bytes) == objs[i].tobytes(),
+        st = decoded[i]
+        require(st.data == objs[i].tobytes() and st.xattrs == {}
+                and st.omap == {},
                 f"wire: degraded read of object {i} returns what was written")
-    wire_bytes[1] = sum(len(b) for a in got_shards for b in a.values())
+    remote = n - len(shards_of[0])
+    wire_bytes = [nobj * remote * width,
+                  sum(len(b) for i in range(nobj)
+                      for s, b in got_shards[i].items() if acting[s] != 0)]
     frames = sum(int(p["frames_per_drain"]["sum"]) for p in perf.values())
     msgr_acks = sum(p["acks_dedicated"] + p["acks_piggybacked"]
                     for p in perf.values())
@@ -1605,53 +1730,62 @@ def run_wire(torch, dev, *, nobj: int = WIRE_OBJS,
             "w_gbs": logical / w_wall / 1e9, "r_gbs": logical / r_wall / 1e9,
             "w_wall": w_wall, "r_wall": r_wall, "lost": lost,
             "w_store_s": w_store_s, "r_store_s": r_store_s,
-            "check_s": check_s,
-            "survivors": survivors, "planes": planes, "coding": coding,
-            "crcs": crcs, "decoded": decoded, "objs": objs, "si": si,
+            "check_s": check_s, "acting": acting,
+            "survivors": survivors, "coding": coding, "crcs": crcs,
+            "decoded": [st.data for st in decoded], "objs": objs, "si": si,
             "wire_bytes": wire_bytes, "frames": frames,
             "msgr_acks": msgr_acks, "sub_acks": nobj * peers,
             "verified": verified, "seal_fails": seal_fails,
-            "devpath": devpath, "devbuf": devbuf, "pg_omaps": pg_omaps,
+            "batch_jobs": batch_jobs, "devpath": devpath, "devbuf": devbuf,
+            "pg_omaps": pg_omaps, "hinfos": hinfos,
             "edges": sum(len(v) for v in edges.values()), "edge_graph": edges,
             "refused": verdicts[1].count(False)}
 
 
 def phase_wire(torch, dev, log) -> dict:
     """``run_wire`` at full width: isa k=8 m=4 (the ``main`` profile), a
-    1 MiB stripe, 64 x 4 MiB objects, four peers; osd.4 (shards 3, 7,
-    11) down and shard 6 rotten on osd.3 for the degraded read.  The
-    write half must launch K1 and the CRC kernel, the read half K1."""
+    1 MiB stripe, 64 x 4 MiB objects, the primary and four peers; osd.4
+    (shards 4, 9) down and shard 6 rotten on osd.1 for the degraded read.
+    The write half must launch K1 and the CRC kernel, the read half K1,
+    and at least one encp batch must carry more than one write."""
     res = run_wire(torch, dev)
-    require(res["lost"] == [3, 6, 7, 11], f"wire: lost {res['lost']}")
+    require(res["lost"] == [4, 6, 9], f"wire: lost {res['lost']}")
     for half, counts, need in (("write", res["w_counts"],
                                 ("gf256_matmul", "crc32c_rows")),
                                ("read", res["r_counts"], ("gf256_matmul",))):
         require(all(counts[n] > 0 for n in need),
                 f"wire: the {half} ran {list(need)}: {counts}")
+    require(max(res["batch_jobs"]) > 1,
+            f"wire: an encp batch carried more than one write: "
+            f"{res['batch_jobs']}")
     wb = res["wire_bytes"]
     checks = {"devpath": res["devpath"], "devbuf": res["devbuf"],
-              "pg_log_entries": {n: len(o) for n, o in
-                                 res["pg_omaps"].items()}}
+              "encp_batch_jobs": res["batch_jobs"],
+              "pg_log_entries": {n: sum(k[0].isdigit() for k in o)
+                                 for n, o in res["pg_omaps"].items()},
+              "rollback_rows": {n: sum(k.startswith("rb_") for k in o)
+                                for n, o in res["pg_omaps"].items()}}
     log(f"wire: isa k=8 m=4, 1 MiB stripe, {WIRE_OBJS} x 4 MiB staged "
-        f"({WIRE_SLOTS} slots), through the queue, MECSubWriteVec / "
-        f"MECSubReadVec over the messenger (cephx, ms_crc_data) and "
-        f"{WIRE_PEERS} MemStores with their PG logs: write "
-        f"{res['w_gbs']:.3f} GB/s ({res['w_wall']:.3f} s), "
-        f"degraded read (lost {res['lost']}: osd.4 down, shard 6 rotten) "
-        f"{res['r_gbs']:.3f} GB/s ({res['r_wall']:.3f} s); peers' store time "
-        f"summed {res['w_store_s']:.3f} s in the write, "
+        f"({WIRE_SLOTS} slots), through ECBackend.submit (the queue's encp "
+        f"batch, the hinfo from the card's CRC, the primary's shards into "
+        f"its store through op_payload, one MECSubWriteVec a peer) over the "
+        f"messenger (cephx, ms_crc_data) to {WIRE_PEERS} peer ECBackends: "
+        f"write {res['w_gbs']:.3f} GB/s ({res['w_wall']:.3f} s), degraded "
+        f"read through reconstruct_async (lost {res['lost']}: osd.4 down, "
+        f"shard 6 rotten) {res['r_gbs']:.3f} GB/s ({res['r_wall']:.3f} s); "
+        f"peers' serving time summed {res['w_store_s']:.3f} s in the write, "
         f"{res['r_store_s']:.3f} s in the read; the one-thread check of "
         f"every stored shard (two host CRC passes) {res['check_s']:.3f} s; "
         f"shard bytes on the wire {wb[0]} written + {wb[1]} read; "
         f"{res['frames']} frames sent, "
         f"{res['sub_acks']} sub-write replies, {res['msgr_acks']} session "
         f"acks; {res['verified']} seal-verified shard reads, "
-        f"{res['seal_fails']} seal failures (-EIO rows); unauthenticated "
+        f"{res['seal_fails']} seal failures (ECRC rows); unauthenticated "
         f"messenger refused {res['refused']} times, nothing delivered; "
         f"{res['edges']} lock-order edges {res['edge_graph']}, no "
         f"LockOrderError; launches: write {res['w_counts']}, read "
-        f"{res['r_counts']}; host CRC equals the card's on every stored "
-        f"shard; every byte exact; checks {json.dumps(checks)}")
+        f"{res['r_counts']}; host CRC and hinfo equal the card's CRC on "
+        f"every stored shard; every byte exact; checks {json.dumps(checks)}")
     return res
 
 

@@ -732,28 +732,94 @@ def test_core_dispatch_failpoint_on_the_card(dev):
 
 def test_wire_path_on_the_card(dev):
     """The wire phase's code at a small size: the card's shards through
-    the messenger (cephx on) into four MemStores and back, one peer down
-    and one shard rotten; K1 and the CRC kernel launch in the write, K1
-    in the degraded read, and every byte comes back."""
+    the port's ECBackend (primary osd.0 and four peers, cephx on), one
+    peer down and one shard rotten; K1 and the CRC kernel launch in the
+    write, K1 in the degraded read, and every byte comes back.  The
+    phase's checks hold: no op in flight, the primary's shards applied
+    through op_payload before each seal, no host CRC in the backend's
+    write, each stored hinfo the card's CRC."""
     import chip_smoke
+    from ceph_tpu_torch.osd.backend import hinfo_decode
 
     res = chip_smoke.run_wire(torch, dev, nobj=4, obj_bytes=1 << 20,
                               threads=2)
-    assert res["lost"] == [3, 6, 7, 11]
+    assert res["lost"] == [4, 6, 9]
     assert res["w_counts"]["gf256_matmul"] > 0
     assert res["w_counts"]["crc32c_rows"] > 0
     assert res["r_counts"]["gf256_matmul"] > 0
     assert res["seal_fails"] == 4 and res["refused"] >= 2
     for i, obj in enumerate(res["objs"]):
-        assert res["si"].deinterleave(res["decoded"][i], len(obj)) == \
-            obj.tobytes()
+        assert res["decoded"][i] == obj.tobytes()
     width = res["coding"][0].shape[1]
-    assert res["devpath"]["payload_host_touches"] == 0
-    assert res["devpath"]["d2h_bytes"] == 4 * 4 * width
+    dp = res["devpath"]
+    assert dp["payload_host_touches"] == 0 and dp["write_host_crcs"] == 0
+    assert dp["d2h_bytes"] == 4 * 4 * width
+    assert dp["seals"] == 4 and dp["local_applied"] == 4 * 3
+    assert sum(w * c for w, c in res["batch_jobs"].items()) == 4
     assert res["devbuf"]["on"].startswith("cuda")
     assert res["devbuf"]["k1_launches"] == 1
     assert res["devbuf"]["d2h_grew"] == 4 * width
-    assert all(len(o) == 4 for o in res["pg_omaps"].values())
+    assert sorted(res["pg_omaps"]) == [0, 1, 2, 3, 4]
+    assert all(len([k for k in o if k[0].isdigit()]) == 4
+               for o in res["pg_omaps"].values())
+    for hinfos in res["hinfos"].values():
+        for (i, s), blob in hinfos.items():
+            assert hinfo_decode(blob) == (1 << 20, res["crcs"][i][s], True)
+
+
+@pytest.mark.parametrize("name", ["isa_2_1", "isa_8_4", "shec_8_4_3",
+                                  "lrc_4_2_3"])
+def test_backend_write_and_degraded_read_on_the_card(dev, name):
+    """The backend's write sequence (a staged full write, a second
+    object, a rewrite, a partial write, a delete) with codecs on the
+    card, held to the same sequence with ``device="cpu"`` codecs: the
+    same messages, the same stored shards, xattrs and omaps, the same
+    degraded reads; the RS writes launch K1 and the CRC kernel, the RS
+    reads K1."""
+    import test_torch_backend_xcheck as xc
+
+    profile, osds = xc.PROFILES[name]
+    cpu = xc._Cluster("ceph_tpu_torch", profile, osds)
+    want = xc._script(cpu, np.random.default_rng(31))
+    card = xc._Cluster("ceph_tpu_torch", profile, osds, device=dev)
+    assert card.primary.queue.device.type == "cuda"
+    k1, crc = gf256.launches.value, cd.launches.value
+    assert xc._script(card, np.random.default_rng(31)) == want
+    if "isa" in name:
+        assert gf256.launches.value > k1 and cd.launches.value > crc
+    assert card.sent == cpu.sent
+    assert card.dump() == cpu.dump()
+    lost = xc._lost(card)
+    k1 = gf256.launches.value
+    got = xc._reconstruct_async(card, "a", lost)
+    assert xc._state(got) == xc._state(xc._reconstruct_async(cpu, "a", lost))
+    assert got.data == want["a3"]
+    if "isa" in name:
+        assert gf256.launches.value > k1
+
+
+def test_recovery_engine_over_a_stub_pg_on_the_card(dev):
+    """The recovery engine's aggregation window over the stub PG with
+    the port's codec on the card: the same messages and recovered shards
+    as with ``device="cpu"``, its reconstructs through K1."""
+    import test_torch_recovery as tr
+
+    cpg, cosd, oids, _ = tr._aggregation_window("ceph_tpu_torch")
+    k1 = gf256.launches.value
+    gpg, gosd, _, _ = tr._aggregation_window("ceph_tpu_torch", device=dev)
+    assert gpg.backend.queue.device.type == "cuda"
+    assert gf256.launches.value > k1
+    with gpg.lock:
+        assert not gpg.missing
+    assert [(o, v.to_bytes()) for o, v in gosd.sent] == \
+        [(o, v.to_bytes()) for o, v in cosd.sent]
+    G = gpg.mods["objectstore"].GHObject
+    for oid in oids:
+        for shard in (0, 3):
+            assert gosd.store.read(gpg.coll, G(oid, shard=shard)) == \
+                cosd.store.read(cpg.coll, G(oid, shard=shard))
+            assert gosd.store.getattrs(gpg.coll, G(oid, shard=shard)) == \
+                cosd.store.getattrs(cpg.coll, G(oid, shard=shard))
 
 
 def test_devbuf_parity_tensor_on_the_card(dev):

@@ -339,6 +339,11 @@ def test_importing_the_port_loads_neither_jax_nor_the_reference():
             "assert 'ceph_tpu_torch.osd.pglog' in sys.modules\n"
             "assert 'ceph_tpu_torch.mon.messages' in sys.modules\n"
             "assert 'ceph_tpu_torch.tools.dencoder' in sys.modules\n"
+            "assert 'ceph_tpu_torch.osd.backend' in sys.modules\n"
+            "assert 'ceph_tpu_torch.osd.recovery' in sys.modules\n"
+            "from ceph_tpu_torch.gpu.queue import default_queue\n"
+            "from ceph_tpu_torch.osd.backend import ECBackend, hinfo_decode\n"
+            "from ceph_tpu_torch.osd.recovery import ECRecoveryEngine\n"
             "from ceph_tpu_torch.gpu.staging import (DeviceBuf, "
             "StagingPool, devpath_enabled)\n"
             "assert StagingPool.configure and DeviceBuf.seal\n"
@@ -356,7 +361,12 @@ def test_no_device_without_cuda_raises(monkeypatch):
     from ceph_tpu_torch.crush import mapper
     from ceph_tpu_torch.ec import instance
     from ceph_tpu_torch.ops.crc32c_device import crc32c_dev
-    from ceph_tpu_torch.osd import map_codec, map_inc, osdmap
+    from types import SimpleNamespace
+
+    from ceph_tpu_torch.gpu.queue import default_queue
+    from ceph_tpu_torch.osd import backend, map_codec, map_inc, osdmap
+    from ceph_tpu_torch.store.memstore import MemStore
+    from ceph_tpu_torch.store.objectstore import Collection
     from ceph_tpu_torch.tools import crushtool, osdmaptool
 
     m, root = cmap.build_flat_cluster(4)
@@ -364,6 +374,8 @@ def test_no_device_without_cuda_raises(monkeypatch):
     flat = m.flatten()
     steps = [(cmap.OP_TAKE, root, 0), (cmap.OP_CHOOSE_FIRSTN, 2, 0),
              (cmap.OP_EMIT, 0, 0)]
+    # a codec with no device: the backend takes the card's queue
+    no_dev = SimpleNamespace(device=None, get_sub_chunk_count=lambda: 1)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for call in (lambda: resolve_device(),
                  lambda: resolve_device("cuda"),
@@ -381,10 +393,15 @@ def test_no_device_without_cuda_raises(monkeypatch):
                  lambda: map_inc.decode_value(
                      map_inc.encode_full_value(cpu_map), None),
                  lambda: osdmaptool.main(["--createsimple", "8",
-                                          "--test-map-pgs"])):
+                                          "--test-map-pgs"]),
+                 lambda: default_queue(),
+                 lambda: backend.ECBackend((1, 0), Collection("1.0_head"),
+                                           MemStore(), 0, None, None,
+                                           no_dev)):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
     # naming the CPU is the one way to run there
     assert codec_from_profile(PROFILE, device="cpu").device.type == "cpu"
+    assert default_queue("cpu").device.type == "cpu"
     with pytest.raises(ValueError):
         resolve_device("meta")

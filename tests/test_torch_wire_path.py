@@ -2,17 +2,19 @@
 ``wire`` phase's own code) with ``device="cpu"`` at a small size, held
 against ``ceph_tpu``.
 
-Each object is staged in the queue's payload pool, encoded with the
-plain kernels and sent as ``MECSubWriteVec`` messages whose transactions
-read ``DeviceBuf`` handles; each peer's MemStore commits and seals the
-shards with the PG log entry in the same transaction, the peers serve
-``MECSubReadVec`` rows back through the seals (one shard rotten by
-``store.corrupt_chunk``, answered as -EIO, and in the four-peer case one
-peer down), and the queue decodes.  The reference is ``ceph_tpu``'s
-``codec.encode_array``, ``core.crc.crc32c``, ``codec.decode`` and
-``PGLog`` on the same objects: shards, CRCs, decoded bytes and each
-peer's log must be exact.  The card's twin is in
-``tests/test_torch_cuda.py``.
+The primary osd.0 and its peers are each the port's ``ECBackend`` over
+a MemStore behind a messenger.  Each object is staged in the queue's
+payload pool and written through ``ECBackend.submit``: the plain kernels
+encode it with its CRCs, the primary keeps its shards and sends each
+peer one ``MECSubWriteVec`` whose transaction reads ``DeviceBuf``
+handles, with the PG log rows; the peers serve ``MECSubReadVec`` rows
+back through the seals (one shard rotten by ``store.corrupt_chunk``,
+answered as ``ECRC``, and in the four-peer case one peer down), and
+``reconstruct_async`` decodes.  The reference is ``ceph_tpu``'s
+``codec.encode_array``, ``core.crc.crc32c``, ``codec.decode``,
+``osd.backend.hinfo_decode`` and ``PGLog`` on the same objects: shards,
+CRCs, every stored ``hinfo``, decoded bytes and every holder's log must
+be exact.  The card's twin is in ``tests/test_torch_cuda.py``.
 """
 
 import numpy as np
@@ -22,10 +24,12 @@ import torch
 import chip_smoke
 from ceph_tpu.core.crc import crc32c as ref_crc32c
 from ceph_tpu.ec import codec_from_profile as ref_codec_from_profile
+from ceph_tpu.osd.backend import hinfo_decode as ref_hinfo_decode
 from ceph_tpu.osd.pglog import PGLog as RefPGLog
 from ceph_tpu_torch.core import failpoint as fp
 from ceph_tpu_torch.core import lockdep
 from ceph_tpu_torch.osd.pglog import PGLog
+from ceph_tpu_torch.store.objectstore import GHObject
 
 K, M = 8, 4
 
@@ -41,8 +45,8 @@ def _restore_port_sanitizers():
 
 
 @pytest.mark.parametrize("peers,down,corrupt,lost", [
-    (2, (), (1, 6), [6]),
-    (4, (4,), (3, 6), [3, 6, 7, 11]),
+    (2, (), (1, 7), [7]),
+    (4, (4,), (1, 6), [4, 6, 9]),
 ])
 def test_wire_slice_on_the_cpu_matches_the_reference(peers, down, corrupt,
                                                      lost):
@@ -51,43 +55,51 @@ def test_wire_slice_on_the_cpu_matches_the_reference(peers, down, corrupt,
         stripe_bytes=16 << 10, peers=peers, down=down, corrupt=corrupt,
         threads=2)
     assert res["lost"] == lost
+    assert res["acting"] == [s % (peers + 1) for s in range(K + M)]
     ref = ref_codec_from_profile(chip_smoke.WIRE_PROFILE)
     for i, obj in enumerate(res["objs"]):
-        planes, coding = res["planes"][i], res["coding"][i]
+        planes, _ = res["si"].interleave(obj)
+        coding = res["coding"][i]
         assert np.array_equal(coding, ref.encode_array(planes))
         shards = list(planes) + list(coding)
         assert res["crcs"][i] == [ref_crc32c(s) for s in shards]
         chunks = {s: shards[s] for s in res["survivors"]}
         want = ref.decode(range(K), chunks)
-        assert np.array_equal(np.stack([want[s] for s in range(K)]),
-                              res["decoded"][i])
-        assert res["si"].deinterleave(res["decoded"][i], len(obj)) == \
-            obj.tobytes()
+        assert res["si"].deinterleave(
+            np.stack([want[s] for s in range(K)]), len(obj)) == \
+            obj.tobytes() == res["decoded"][i]
     # on the CPU the plain versions run: no kernel launch is counted
     assert not any(res["w_counts"].values())
     assert not any(res["r_counts"].values())
     width = res["coding"][0].shape[1]
-    assert res["wire_bytes"] == [4 * (K + M) * width,
-                                 4 * (K + M - len(lost)) * width]
+    local = [s for s in range(K + M) if s % (peers + 1) == 0]
+    remote_read = [s for s in res["survivors"] if s not in local]
+    assert res["wire_bytes"] == [4 * (K + M - len(local)) * width,
+                                 4 * len(remote_read) * width]
     assert res["seal_fails"] == 4 and res["refused"] >= 2
     assert res["sub_acks"] == 4 * peers
     assert res["verified"] == 4 * (K + M) + 4 * (K + M - len(lost))
+    assert sum(w * c for w, c in res["batch_jobs"].items()) == 4
     # lockdep was armed for the run and saw the queue's nested locks
     assert "staging.stats" in res["edge_graph"]["staging.pool"]
     assert "staging.stats" in res["edge_graph"]["staging.devbuf"]
     # the write staged each object, fetched each parity handle once (at
-    # its transaction's encode) and made no unsanctioned host copy
+    # its local apply or its transaction's encode), made no unsanctioned
+    # host copy and no host CRC in the backend, and applied the
+    # primary's shards through op_payload before each seal
     dp = res["devpath"]
-    assert dp["payload_host_touches"] == 0
+    assert dp["payload_host_touches"] == 0 and dp["write_host_crcs"] == 0
     assert dp["d2h_bytes"] == 4 * M * width
     assert dp["h2d_bytes"] == 4 * (64 << 10) and dp["staged_batches"] >= 1
     assert dp["occupancy_after"] == 0
     assert 0 < dp["pool_occupancy_hw"] <= min(2, chip_smoke.WIRE_SLOTS)
+    assert dp["seals"] == 4 and dp["local_applied"] == 4 * len(local)
     assert res["devbuf"] == {"on": "cpu", "bytes": M * width,
                              "d2h_grew": M * width, "k1_launches": 0}
-    # each peer's PG log: the reference reads the same omap to the same
-    # entries, and its own rows for them are the same bytes
-    assert sorted(res["pg_omaps"]) == list(range(1, peers + 1))
+    # every holder's PG log and stored hinfo: the reference reads the
+    # same omap to the same entries, its own rows for them are the same
+    # bytes, and its hinfo_decode reads the card's CRC of each shard
+    assert sorted(res["pg_omaps"]) == list(range(peers + 1))
     for omap in res["pg_omaps"].values():
         port_log, ref_log = PGLog.from_omap(omap), RefPGLog.from_omap(omap)
         got = [(e.op, e.oid, e.version.epoch, e.version.version,
@@ -96,9 +108,14 @@ def test_wire_slice_on_the_cpu_matches_the_reference(peers, down, corrupt,
                         e.prior_version.version, e.reqid)
                        for e in ref_log.entries]
         assert [v for _, _, _, v, _, _ in got] == [1, 2, 3, 4]
-        assert ref_log.omap_additions(ref_log.entries) == omap
+        rows = {k: v for k, v in omap.items() if k[0].isdigit()}
+        assert ref_log.omap_additions(ref_log.entries) == rows
         assert (port_log.head.version, port_log.tail.version) == (
             ref_log.head.version, ref_log.tail.version) == (4, 0)
+    for num, hinfos in res["hinfos"].items():
+        for (i, s), blob in hinfos.items():
+            assert ref_hinfo_decode(blob) == (64 << 10, res["crcs"][i][s],
+                                             True)
 
 
 def test_wire_trace_accounts_for_every_crc_byte_on_the_cpu():
@@ -111,12 +128,18 @@ def test_wire_trace_accounts_for_every_crc_byte_on_the_cpu():
 
     res = wire_trace.trace(
         torch, torch.device("cpu"), nobj=4, obj_bytes=64 << 10,
-        stripe_bytes=16 << 10, peers=2, down=(), corrupt=(1, 6), threads=2)
+        stripe_bytes=16 << 10, peers=2, down=(), corrupt=(1, 7), threads=2)
     write, read = res["windows"]
     width = res["coding"][0].shape[1]
-    assert write["crc"]["seal write"]["bytes"] == res["wire_bytes"][0]
+    # the store seals every shard once, the primary's too; reads verify
+    # every shard read, the rotten one too, and the backend checks each
+    # shard it serves against its hinfo
+    assert write["crc"]["seal write"]["bytes"] == 4 * (K + M) * width
     assert read["crc"]["seal verify"]["bytes"] == 4 * (K + M) * width
-    assert res["wire_bytes"][1] == 4 * (K + M - 1) * width
+    assert read["crc"]["hinfo verify"]["bytes"] == 4 * (K + M - 1) * width
+    assert "hinfo verify" not in write["crc"]
+    assert res["wire_bytes"][0] == 4 * 8 * width  # 8 of 12 shards remote
+    assert res["wire_bytes"][1] == 4 * 7 * width
     for w, shard_bytes in ((write, res["wire_bytes"][0]),
                            (read, res["wire_bytes"][1])):
         assert w["crc"]["frame out"]["bytes"] >= shard_bytes

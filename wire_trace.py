@@ -6,23 +6,28 @@ rate from 1 and 4 threads.
     python3 wire_trace.py
 
 It needs a CUDA card and builds the kernels as ``chip_smoke.py`` does.
-The traced run splits each of ``run_wire``'s two windows (the write in
-MECSubWriteVec messages and the degraded read in MECSubReadVec ones, one
+The traced run splits each of ``run_wire``'s two windows (the write
+through ``ECBackend.submit`` and its MECSubWriteVec fan-out, and the
+degraded read in MECSubReadVec messages and ``reconstruct_async``, one
 ``run_threads`` call each) into:
 
 - the host CRC by call site: the frame CRC on send (``_frame_of``) and
   on receive (``_read_one``), the store's seals on write
-  (``_seal_rebuild``) and on read (``_verify_extents``); calls, bytes,
-  seconds in the calls summed over threads, and the thread CPU seconds
-  of those calls (the rest of a call is time its thread did not run:
-  the interpreter lock, or no free core);
+  (``_seal_rebuild``) and on read (``_verify_extents``), the backend's
+  hinfo CRC on write (``_hinfo``: none, the card's CRC stands in) and
+  its hinfo check of each shard it reads (``read_local_chunk2``);
+  calls, bytes, seconds in the calls summed over threads, and the
+  thread CPU seconds of those calls (the rest of a call is time its
+  thread did not run: the interpreter lock, or no free core);
 - the process's CPU seconds over the wall (cores kept busy);
 - where the threads are: every 5 ms a sampler reads each thread's
   innermost frames and counts them by thread group (primary loop, peer
   loops, the peers' dispatch threads, the writer or reader threads,
-  the queue's worker) and by what the thread does (CRC, message codec
-  with the OSD messages and the PG log, staging, store, messenger,
-  waiting on a lock, on the card's queue or on replies, idle);
+  the queue's worker, the backend's one fan-out thread, the decode
+  completions) and by what the thread does (CRC, message codec with
+  the OSD messages and the PG log, staging, store, messenger, backend,
+  waiting on a lock, a staging slot, a commit, a decode or replies,
+  idle);
 - on the card: kernel and copy intervals from ``torch.profiler``, merged,
   over the wall (the card's idle share is one less that).
 
@@ -44,7 +49,8 @@ import chip_smoke
 MiB = 1 << 20
 SAMPLE_S = 0.005
 CRC_SITES = {"_frame_of": "frame out", "_read_one": "frame in",
-             "_seal_rebuild": "seal write", "_verify_extents": "seal verify"}
+             "_seal_rebuild": "seal write", "_verify_extents": "seal verify",
+             "_hinfo": "hinfo write", "read_local_chunk2": "hinfo verify"}
 CRC_TOTAL = 48 * MiB                 # bytes per thread-scaling probe
 CRC_PIECES = (64 << 10, 1536 << 10)  # an extent seal; a sub-write's frame
 CRC_THREADS = (1, 4)
@@ -61,6 +67,10 @@ def thread_group(name: str) -> str:
         return "dispatch threads"
     if name == "stripe-batch":
         return "queue worker"
+    if name.startswith("pg-fanout"):
+        return "fan-out thread"
+    if name.startswith("ec-decode-done"):
+        return "decode completions"
     if "(worker)" in name:
         return "writer/reader threads"
     return "other"
@@ -108,12 +118,16 @@ def activity(frame) -> str:
         if path.endswith("concurrent/futures/thread.py"):
             return "idle: thread pool"
         if path.endswith("chip_smoke.py"):
-            return ("wait: replies" if name == "wait"
-                    else "wait: card queue")
+            return {"wait": "wait: replies", "write": "wait: commit",
+                    "read": "wait: decode"}.get(name, "wait: phase code")
+        if path.endswith("/gpu/staging.py"):
+            return "wait: staging slot"
         if "/gpu/" in path:
             return "idle: queue worker"
         if "/store/" in path or "/msg/" in path:
             return "wait: store or messenger lock"
+        if "/osd/" in path:
+            return "wait: backend lock"
         return f"wait: {os.path.basename(path)}:{name}"
     f = frame
     while f is not None and _repo_module(_where(f)[0]) is None:
@@ -130,6 +144,8 @@ def activity(frame) -> str:
         return "staging"
     if mod.startswith("store/"):
         return "store"
+    if mod in ("osd/backend.py", "osd/recovery.py", "osd/ecutil.py"):
+        return "backend"
     if mod == "msg/messenger.py":
         return "messenger"
     if mod == "chip_smoke.py":
@@ -159,6 +175,7 @@ def trace(torch, dev, **wire) -> dict:
     with ``windows``: one dict per ``run_threads`` call."""
     from ceph_tpu_torch.core import crc as hcrc
     from ceph_tpu_torch.msg import messenger
+    from ceph_tpu_torch.osd import backend
     from ceph_tpu_torch.store import objectstore
 
     windows = []
@@ -245,7 +262,7 @@ def trace(torch, dev, **wire) -> dict:
     main_id = threading.get_ident()
     th = threading.Thread(target=sampler, name="wire-trace-sampler",
                           daemon=True)
-    messenger.crc32c = objectstore.crc32c = timed_crc
+    messenger.crc32c = objectstore.crc32c = backend.crc32c = timed_crc
     chip_smoke.run_threads = traced_run_threads
     th.start()
     try:
@@ -254,7 +271,7 @@ def trace(torch, dev, **wire) -> dict:
         stop.set()
         th.join()
         chip_smoke.run_threads = plain_run_threads
-        messenger.crc32c = objectstore.crc32c = plain_crc
+        messenger.crc32c = objectstore.crc32c = backend.crc32c = plain_crc
     for w in windows:
         w["crc_s"] = sum(r[2] for r in w["crc"].values())
         w["crc_cpu_s"] = sum(r[3] for r in w["crc"].values())
