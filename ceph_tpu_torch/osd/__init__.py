@@ -1,6 +1,7 @@
 """OSD-side host layer of the port: the stripe geometry (``ecutil``), the
 core types, placement on the host (``osdmap``, ``map_codec``,
 ``map_inc``), the OSD's wire messages (``messages``), the PG log
-(``pglog``), the EC and replicated backends (``backend``) and the
-windowed recovery engine (``recovery``).  The PG and the daemon come in
-later slices."""
+(``pglog``), the EC and replicated backends (``backend``), the windowed
+recovery engine (``recovery``), the PG (``pg``) with its hit sets
+(``hitset``) and the scrub stamp codec (``scrub``).  The scrub engine,
+cls and the daemon come in later slices."""

@@ -60,48 +60,61 @@ Phases, each of which fails the run (non-zero exit, no result line):
               then 8 writes exact; and a Context's admin socket answering
               ``device compile dump`` with those checks' launches per
               kernel and the queue's batch count;
-6c. wire     the EC backend on the wire and in the stores
-              (``ceph_tpu_torch/osd/backend.py`` with ``msg``, ``auth``,
-              ``store``, the OSD messages and PG log, ``gpu/staging``
-              DeviceBuf), under lockdep: the primary ``osd.0`` and four
-              peers ``osd.1`` .. ``osd.4``, each an ``ECBackend`` over its
-              own MemStore behind a messenger (127.0.0.1, cephx
-              authorizers bound to the dialed address, frame CRCs on),
-              shard s on osd s % 5; the primary's queue built under
+6c. wire     client ops through the PG on the wire and in the stores
+              (``ceph_tpu_torch/osd/pg.py`` over ``osd/backend.py``, with
+              ``msg``, ``auth``, ``store``, the OSD messages and PG log,
+              ``gpu/staging`` DeviceBuf), under lockdep: the primary
+              ``osd.0`` and four peers ``osd.1`` .. ``osd.4``, each a
+              ``PG`` over its own MemStore behind a ``PhaseOSD`` host and
+              a messenger (127.0.0.1, cephx authorizers bound to the
+              dialed address, frame CRCs on), shard s on osd s % 5, the
+              primary ``STATE_ACTIVE``; the primary's queue built under
               lockdep, its staging pool set to 16 slots of 4 MiB; 64
-              seeded 4 MiB objects (isa k=8 m=4, 1 MiB stripe) each
-              staged and written by ``ECBackend.submit`` with one PG log
-              entry (versions minted in submit order): the queue's
-              ``encp`` batch (K1 and the CRC kernel) codes it, each
-              shard's ``hinfo`` takes the card's CRC, the primary's three
-              shards go into its store through ``op_payload`` and each
-              peer gets one ``MECSubWriteVec`` (DeviceBuf handles: data
-              shards host views of the planes, parity device handles; the
-              log rows; a full-replace rollback row a shard), then the
-              slot is sealed; each peer applies it with
-              ``apply_sub_write_vec`` and answers
-              ``MECSubWriteVecReply``, which the primary's dispatcher
-              hands to ``handle_reply``; checked: no op in flight, an
-              ``encp`` batch wider than one write, no unsanctioned host
-              copy, each parity handle fetched once, every slot back and
-              at most 16 in use, the primary's shards applied through
+              seeded 4 MiB objects (isa k=8 m=4, 1 MiB stripe) each sent
+              by ``client.4100`` as one ``WRITEFULL`` ``MOSDOp``, which
+              osd.0's op threads hand to ``PG.do_op``: ``_do_write``
+              stages it (``DeviceBuf.stage``), mints its version under
+              the PG lock and submits it; the queue's ``encp`` batch (K1
+              and the CRC kernel) codes it, each shard's ``hinfo`` takes
+              the card's CRC, the primary's three shards go into its
+              store through ``op_payload`` and each peer's PG gets one
+              ``MECSubWriteVec`` (``handle_sub_write_vec``), then the
+              slot is sealed and the ``MOSDOpReply`` comes at the commit;
+              checked: every reply 0, every write staged and none
+              degraded by a pool timeout, no op in flight, an ``encp``
+              batch wider than one write, no unsanctioned host copy, each
+              parity handle fetched once, every slot back and at most 16
+              in use, the primary's shards applied through
               ``op_payload`` before each seal, no host CRC in the
-              backend's write, 64 ordered log entries on every holder,
+              backend's write, 64 ordered log entries on every holder and
+              every PG's ``last_update`` and log head at version 64,
               every stored shard read back through its extent seals with
               the host CRC and its ``hinfo`` CRC equal to the card's CRC,
               and the ``devbuf`` check (object 0's parity by K1 on a CUDA
               tensor, wrapped as that tensor, reads back as the queue's
               parity with one counted fetch); a messenger without an
               authorizer refused and never delivered; then osd.4 shut
-              down (shards 4, 9) and ``store.corrupt_chunk`` armed for
-              shard 6 on osd.1; the primary reads its local shards with
-              ``read_local_chunk2``, each live peer gets one
-              ``MECSubReadVec`` per object and answers the rows of
-              ``PG.handle_sub_read_vec`` (the rotten shard's as ``ECRC``
-              without data: ``ChecksumError``, ``read_verify_fail``), and
-              ``reconstruct_async`` decodes every object through the
-              queue's ``dec`` kind (K1) from the nine survivors, byte for
-              byte;
+              down and marked down (shards 4, 9), the primary
+              ``STATE_DEGRADED`` with its object-context cache emptied,
+              and ``store.corrupt_chunk`` armed for shard 6 on osd.1; one
+              ``READ`` ``MOSDOp`` an object goes ``do_op`` ->
+              ``_ec_read_object``: ``ChunkGather`` reads the primary's
+              shards and sends one ``MECSubRead`` a remote shard
+              (``handle_sub_read``; the rotten one answers ``ECRC``
+              without data, counted once an object by
+              ``_note_read_verify_fail``), and ``reconstruct_async``
+              decodes every object through the queue's ``dec`` kind (K1,
+              one job an object) from the nine survivors, byte for byte;
+6d. recovery  on the wire phase's PGs: osd.4 back on a new messenger,
+              the primary's shards 0, 5 and 10 of all 64 objects removed
+              in one transaction and marked in ``pg.missing`` at their
+              log versions, and ``PG.recovery_engine().recover`` rebuilds
+              them: one ``MECSubReadVec`` per peer per round (Ceph's
+              default window of 3 objects), shard 6 answering ``ECRC``,
+              so exactly k = 8 sources, reconstructs through the queue's
+              ``dec`` kind (K1); every rebuilt shard and its ``hinfo``
+              equal to what stood before the loss, ``missing`` and
+              ``unfound`` empty; the wall and objects per second;
 7. bitmatrix  the same 1 GiB write through ``jerasure k=8 m=4
               technique=cauchy_good``, read back degraded through
               ``codec.decode_array`` with shards 6, 7, 10, 11 lost (the
@@ -158,15 +171,18 @@ Phases, each of which fails the run (non-zero exit, no result line):
 Each path zeroes the kernel launch counts just before its writes and
 reads them just after, then likewise for its reads (the core phase
 zeroes them before its lockdep run and reads them after its failpoint
-check; the wire phase's write half is its submits and commits, its read
-half the sub-reads and reconstructs); each kernel of each
+check; the wire phase's write half is its MOSDOp writes and commits, its
+read half the MOSDOp reads with their sub-reads and reconstructs, and
+the recovery phase zeroes them just before the recovery window and reads
+them just after); each kernel of each
 half must have run (for ecbench, K2 and K1: its loops capture one launch
 per iteration in a CUDA graph and replay it, and the counts are of the
 captured launches).  Then each kernel is timed at its path's batch
 shape, beside its plain version and its bound: ``ms`` is device time per
 launch from a CUDA graph of launches, ``call_ms`` the eager wrapper call
 with CUDA events; the K1 and CRC rows carry their launches in the wire
-phase's two halves (``wire_launches``); the popcount row times both of
+phase's two halves and the recovery phase (``wire_launches``); the
+popcount row times both of
 shec's read shapes
 (``ms`` the contribution, ``solve_ms`` the solve).  The crush phase
 zeroes the counts just before its main sweep and reads them just after
@@ -1149,7 +1165,7 @@ def phase_core(torch, dev, log) -> dict:
     return {"host_crc_mbs": host_mbs, "edges": n_edges, "counts": counts}
 
 
-# -- the wire phase: the EC backend's write and degraded read on the wire ---
+# -- the wire phase: client ops through the PG on the wire -----------------
 
 WIRE_PROFILE = "plugin=isa k=8 m=4 technique=reed_sol_van"  # ``main``'s
 WIRE_OBJS = 64               # 4 MiB objects (RADOS's and RBD's default size)
@@ -1160,7 +1176,9 @@ WIRE_SLOTS = 16              # staging slots of an object each (tpu_staging_slot
 WIRE_PGID = (2, 0)           # the PG the phase writes into
 WIRE_EPOCH = 7               # its map epoch, stamped on every message and entry
 WIRE_META = "_pgmeta_"       # the PG meta object that holds the log's omap
+WIRE_CLIENT = 4100           # client.4100 sends the MOSDOps
 WIRE_WAIT_S = 120.0
+_WAITS_1I = "waits for ROADMAP queue 1 item 1i of the port (the OSD daemon)"
 
 
 def wire_acting(n: int, peers: int) -> list:
@@ -1169,66 +1187,253 @@ def wire_acting(n: int, peers: int) -> list:
     return [s % (peers + 1) for s in range(n)]
 
 
+class PhaseMap:
+    """The phases' OSD map: the osds marked down (``is_up``)."""
+
+    def __init__(self) -> None:
+        self.down: set = set()
+
+    def is_up(self, osd: int) -> bool:
+        return osd not in self.down
+
+
+class PhaseCounters:
+    """The counters a PG, its backend and the recovery engine bump."""
+
+    def __init__(self) -> None:
+        self.vals: dict = {}
+        self._lock = threading.Lock()
+
+    def inc(self, name: str, by: int = 1) -> None:
+        with self._lock:
+            self.vals[name] = self.vals.get(name, 0) + by
+
+    def set(self, name: str, v) -> None:
+        with self._lock:
+            self.vals[name] = v
+
+    def hinc(self, name: str, v) -> None:
+        self.inc(name)
+
+    def value(self, name: str, default=0):
+        return self.vals.get(name, default)
+
+
+class _RpcWaiter:
+    def __init__(self, want: int) -> None:
+        self.want = want
+        self.got: list = []
+        self.cond = threading.Condition()
+
+    def add(self, msg) -> None:
+        with self.cond:
+            self.got.append(msg)
+            self.cond.notify_all()
+
+    def wait(self, timeout: float) -> list:
+        with self.cond:
+            self.cond.wait_for(lambda: len(self.got) >= self.want, timeout)
+            return list(self.got)
+
+
+class PhaseOSD:
+    """The duck-typed host of a port ``PG`` (``ceph_tpu_torch/osd/pg.py``)
+    over the port's messenger: the part of the daemon's routing
+    (``ceph_tpu/osd/daemon.py:1169-1200,1251-1275,1638-1655``) that the
+    phases drive.  ``send_to_osd`` sends on this osd's sessions
+    (``conns``), dropping a message to an osd without one as the daemon
+    drops one without an address; ``new_tid``; ``track_reads`` and
+    ``untrack_reads``, with ``route_reply`` handing a sub-read reply to
+    its callback or an RPC waiter by tid; ``rpc``.  Every other host
+    method raises ``NotImplementedError`` naming ROADMAP item 1i."""
+
+    def __init__(self, ctx, whoami: int, store, osdmap: PhaseMap,
+                 epoch: int) -> None:
+        self.ctx = ctx
+        self.whoami = whoami
+        self.store = store
+        self.osdmap = osdmap
+        self._epoch = epoch
+        self.conns: dict = {}
+        self.addr_book: dict = {}
+        self.perf = PhaseCounters()
+        self.pg_perf = PhaseCounters()
+        self.op_perf = None
+        self.logged: list = []
+        self._tid = 0
+        self._tid_lock = threading.Lock()
+        self._read_cbs: dict = {}
+        self._waiters: dict = {}
+
+    def epoch(self) -> int:
+        return self._epoch
+
+    def _log(self, level: int, msg: str) -> None:
+        self.logged.append((level, msg))
+
+    def connect(self, osd: int, conn, addr) -> None:
+        self.conns[osd] = conn
+        self.addr_book[osd] = addr
+
+    def send_to_osd(self, osd_id: int, msg) -> None:
+        conn = self.conns.get(osd_id)
+        if conn is None:
+            self._log(0, f"no session to osd.{osd_id}, dropping {msg!r}")
+            return
+        conn.send(msg)
+
+    def new_tid(self) -> int:
+        with self._tid_lock:
+            self._tid += 1
+            return self._tid
+
+    def track_reads(self, pgid, cb, count=None) -> int:
+        tid = self.new_tid()
+        if count is None:
+            self._read_cbs[tid] = cb
+            return tid
+        remaining = [count]
+
+        def wrapped(rep) -> None:
+            remaining[0] -= 1
+            if remaining[0] <= 0:
+                self._read_cbs.pop(tid, None)
+            cb(rep)
+
+        self._read_cbs[tid] = wrapped
+        return tid
+
+    def untrack_reads(self, tid: int) -> None:
+        self._read_cbs.pop(tid, None)
+
+    def route_reply(self, msg) -> bool:
+        """A sub-read reply to its read callback, else any reply to the
+        RPC waiting on its tid (daemon.py:1266-1280)."""
+        cb = self._read_cbs.get(msg.tid)
+        if cb is not None:
+            cb(msg)
+            return True
+        w = self._waiters.get(msg.tid)
+        if w is not None:
+            w.add(msg)
+        return True
+
+    def rpc(self, peers_msgs, timeout: float = 10.0) -> list:
+        tid = self.new_tid()
+        live = [(o, msg) for o, msg in peers_msgs
+                if self.addr_book.get(o) is not None]
+        w = self._waiters[tid] = _RpcWaiter(len(live))
+        try:
+            for _, msg in peers_msgs:
+                msg.tid = tid
+            for o, msg in live:
+                self.send_to_osd(o, msg)
+            return w.wait(timeout)
+        finally:
+            self._waiters.pop(tid, None)
+
+    def _waits(self, name: str):
+        raise NotImplementedError(f"PhaseOSD.{name} {_WAITS_1I}")
+
+    def collect_pg_infos(self, *a, **kw):
+        self._waits("collect_pg_infos")
+
+    def pull_from_peer(self, *a, **kw):
+        self._waits("pull_from_peer")
+
+    def list_peer_objects(self, *a, **kw):
+        self._waits("list_peer_objects")
+
+    def fetch_remote_chunk_full(self, *a, **kw):
+        self._waits("fetch_remote_chunk_full")
+
+    def register_notify(self, *a, **kw):
+        self._waits("register_notify")
+
+    def unregister_notify(self, *a, **kw):
+        self._waits("unregister_notify")
+
+
 def run_wire(torch, dev, *, nobj: int = WIRE_OBJS,
              obj_bytes: int = 4 * MiB, stripe_bytes: int = 1 * MiB,
              peers: int = WIRE_PEERS, down=WIRE_DOWN, corrupt=WIRE_CORRUPT,
-             threads: int = 8) -> dict:
-    """The EC object write and its degraded read through the port's
-    ``ECBackend`` (``ceph_tpu_torch/osd/backend.py``), its messages, the
-    messenger and the store, under lockdep:
+             threads: int = 8, recover: bool = True) -> dict:
+    """Client ops through the port's ``PG`` (``ceph_tpu_torch/osd/pg.py``)
+    on the wire: the EC object write and its degraded read, then the
+    primary's lost shards recovered, under lockdep:
 
-    1. the primary ``osd.0`` and ``peers`` peers (``osd.1`` ..), each an
-       ``ECBackend`` over its own MemStore behind a messenger on
-       127.0.0.1; cephx on (a keyring, a CephxServer, the primary's
-       authorizer bound to the dialed address, ``verify_authorizer`` with
-       a seen-cache and the peer's own address); ``ms_crc_data`` on.
-       The acting set puts shard s on osd ``s % (peers + 1)``.  The
-       primary's dispatcher hands each ``MECSubWriteVecReply`` to
-       ``be.handle_reply``; a peer answers ``MECSubWriteVec`` with
-       ``be.apply_sub_write_vec`` and a ``MECSubWriteVecReply``, and
-       ``MECSubReadVec`` with the rows ``PG.handle_sub_read_vec`` builds
-       (``read_local_chunk_runs2``/``read_local_chunk2``, ``shard_meta``);
-    2. write, from ``threads`` threads: the primary's queue is built
-       under lockdep and its staging pool configured to ``WIRE_SLOTS``
-       slots of an object each; each seeded object is staged
-       (``DeviceBuf.stage``) and submitted, its version minted under one
-       lock as the PG lock mints it, as ``be.submit(oid,
-       ObjectState(buf), [entry], PGLog().omap_additions([entry]),
-       acting, on_commit)``: the backend interleaves it, encodes it with
-       its CRCs in the queue's ``encp`` batch (K1 and the CRC kernel on
-       the card), stamps every shard's ``hinfo`` with the card's CRC,
-       applies the primary's shards to its store through ``op_payload``
-       and sends each peer one ``MECSubWriteVec`` (its shards from
-       ``DeviceBuf`` handles, the log rows, a full-replace rollback row
-       per shard), then seals the staged slot; the write waits for its
+    1. the primary ``osd.0`` and ``peers`` peers (``osd.1`` ..), each a
+       ``PG`` of the pool's codec over its own MemStore, with a
+       ``PhaseOSD`` host behind a messenger on 127.0.0.1; cephx between
+       the osds (a keyring, a CephxServer, the primary's authorizer
+       bound to the dialed address, ``verify_authorizer`` with a
+       seen-cache and the peer's own address); ``ms_crc_data`` on.  The
+       acting set puts shard s on osd ``s % (peers + 1)``; every PG has
+       it, osd.0 as primary, and the primary is ``STATE_ACTIVE`` (set as
+       ``_stub_pg`` of ``tests/test_recovery_pipeline.py`` sets it:
+       ``activate()``'s peer infos and pulls are the daemon's).  The
+       primary's dispatcher hands each ``MECSubWriteVecReply`` to its
+       backend and each sub-read reply to its callback by tid, and each
+       ``MOSDOp`` to a pool of op threads that call ``pg.do_op`` with a
+       reply that sends the ``MOSDOpReply`` back on the session (without
+       the write's payload: a reply carries out data); a peer's
+       dispatcher calls ``handle_sub_write_vec``, ``handle_sub_read``,
+       ``handle_sub_read_vec`` and ``handle_commit_note``;
+    2. write, from ``threads`` client threads over one session of
+       ``client.4100``: one ``WRITEFULL`` ``MOSDOp`` an object.  The
+       primary's queue is built under lockdep and its staging pool
+       configured to ``WIRE_SLOTS`` slots of an object each;
+       ``PG._do_write`` stages the payload (``DeviceBuf.stage``), mints
+       its version under the PG lock and calls ``ECBackend.submit``: the
+       backend interleaves it, encodes it with its CRCs in the queue's
+       ``encp`` batch (K1 and the CRC kernel on the card), stamps every
+       shard's ``hinfo`` with the card's CRC, applies the primary's
+       shards through ``op_payload`` and sends each peer one
+       ``MECSubWriteVec``, then seals the slot; the reply comes at the
        commit on every holder;
-    3. check: no op in flight; no unsanctioned host copy
-       (``payload_host_touches`` 0); each parity handle fetched once
-       (``d2h_bytes`` = ``nobj * m`` chunks); every slot back, at most
-       ``WIRE_SLOTS`` used; at each ``seal()`` the primary's store had
-       applied the local shards of every write so far through
-       ``op_payload``; the backend took no host CRC in the write; every
-       holder's ``PGLog.from_omap`` holds the ``nobj`` entries in
-       version order; every stored shard passes its extent seals and
-       its host CRC, its ``hinfo`` CRC and the card's CRC of it (from the
-       ``encp`` batch) are one; the ``devbuf`` check (object 0's parity
-       by K1 on a tensor of ``dev``, wrapped as that tensor, reads back
-       as the queue's parity with one counted fetch); a messenger
+    3. check: every reply 0; every write staged, none degraded by a pool
+       timeout (``stage_snapshot``); no op in flight; no unsanctioned
+       host copy (``payload_host_touches`` 0); each parity handle
+       fetched once (``d2h_bytes`` = ``nobj * m`` chunks); every slot
+       back, at most ``WIRE_SLOTS`` used; at each ``seal()`` the
+       primary's store had applied the local shards of every write so
+       far through ``op_payload``; the backend took no host CRC in the
+       write; every holder's ``PGLog.from_omap`` holds the ``nobj``
+       entries in version order, and every PG's ``info.last_update`` and
+       ``log.head`` are the last write's version; every stored shard
+       passes its extent seals and its host CRC, its ``hinfo`` CRC and
+       the card's CRC of it are one; the ``devbuf`` check (object 0's
+       parity by K1 on a tensor of ``dev``, wrapped as that tensor, reads
+       back as the queue's parity with one counted fetch); a messenger
        without an authorizer dials peer 1, is refused twice, and its
        sub-write is never delivered;
-    4. degraded read: the peers in ``down`` shut down;
-       ``store.corrupt_chunk`` is armed for ``corrupt`` = (peer, shard),
-       whose read fails its seal and answers ``ECRC`` without data; each
-       object's local shards come from ``read_local_chunk2``, each live
-       peer gets one ``MECSubReadVec`` of whole-chunk rows, and
-       ``be.reconstruct_async`` decodes the survivors (K1 on the card
-       through the queue's ``dec`` kind) to what was written.
+    4. degraded read: the peers in ``down`` shut down and are marked
+       down, ``pg.note_peers_down(down)``, the primary goes
+       ``STATE_DEGRADED`` and its object-context cache is emptied (so no
+       read is served warm); ``store.corrupt_chunk`` is armed for
+       ``corrupt`` = (peer, shard), whose read fails its seal and answers
+       ``ECRC`` without data; one ``READ`` ``MOSDOp`` an object goes
+       ``do_op`` -> ``_ec_read_object``: ``ChunkGather`` reads the local
+       shards and sends one ``MECSubRead`` a remote shard, and
+       ``reconstruct_async`` decodes the survivors (K1 on the card
+       through the queue's ``dec`` kind, one job an object); the rotten
+       shard reaches ``_note_read_verify_fail`` (``scrub_errors`` one an
+       object);
+    5. with ``recover``: the peers in ``down`` come back up on new
+       messengers; the primary loses its local shards of every object in
+       one store transaction and marks them in ``pg.missing`` at their
+       log versions; ``pg.recovery_engine().recover`` rebuilds them (one
+       ``MECSubReadVec`` per peer per round, the rotten shard answering
+       ``ECRC``, the reconstructs through the queue's ``dec`` kind);
+       every recovered shard and its ``hinfo`` must equal what stood
+       before the loss, and ``missing`` and ``unfound`` end empty.
 
     The launch counts are zeroed just before the writes and read just
-    after them, then zeroed just before the reads and read just after.
-    Returns the counts, rates, what was written and read, every holder's
+    after them, and likewise around the reads and around the recovery.
+    Returns the counts, walls, what was written and read, every holder's
     PG meta omap and the counters; raises on any failed check."""
-    import errno
+    import dataclasses
+    from concurrent.futures import ThreadPoolExecutor
 
     from ceph_tpu_torch.auth import CephxClient, CephxServer, Keyring
     from ceph_tpu_torch.auth import verify_authorizer
@@ -1244,20 +1449,20 @@ def run_wire(torch, dev, *, nobj: int = WIRE_OBJS,
     from ceph_tpu_torch.ops import gf256
     from ceph_tpu_torch.osd import backend as ob
     from ceph_tpu_torch.osd import messages as om
+    from ceph_tpu_torch.osd import pg as opg
     from ceph_tpu_torch.osd.ecutil import StripeInfo
+    from ceph_tpu_torch.osd.osdmap import POOL_ERASURE, PGPool
     from ceph_tpu_torch.osd.pglog import PGLog
-    from ceph_tpu_torch.osd.types import LOG_MODIFY, EVersion, LogEntry
+    from ceph_tpu_torch.osd.types import (OP_READ, OP_WRITEFULL, EVersion,
+                                          OSDOp)
     from ceph_tpu_torch.store import objectstore as os_mod
     from ceph_tpu_torch.store.memstore import MemStore
-    from ceph_tpu_torch.store.objectstore import (Collection, GHObject,
-                                                  StoreError, Transaction)
+    from ceph_tpu_torch.store.objectstore import GHObject, Transaction
 
-    cid = Collection(f"{WIRE_PGID[0]}.{WIRE_PGID[1]:x}_head")
-    meta = GHObject(WIRE_META)
     unit = codec_from_profile(WIRE_PROFILE, device=dev).get_chunk_size(
         stripe_bytes)
-    codec = codec_from_profile(f"{WIRE_PROFILE} stripe_unit={unit}",
-                               device=dev)
+    profile = f"{WIRE_PROFILE} stripe_unit={unit}"
+    codec = codec_from_profile(profile, device=dev)
     k, m = codec.k, codec.m
     n = k + m
     si = StripeInfo(k, unit)
@@ -1282,113 +1487,123 @@ def run_wire(torch, dev, *, nobj: int = WIRE_OBJS,
     # its encp batch's coding and CRCs are noted
     key_of = {b"".join(objs[i][r * unit:r * unit + 16].tobytes()
                        for r in range(k)): i for i in range(nobj)}
+    pool = PGPool(pool_id=WIRE_PGID[0], pool_type=POOL_ERASURE, size=n,
+                  erasure_code_profile=profile)
+    osdmap = PhaseMap()
 
-    def new_store() -> MemStore:
-        st = MemStore()
-        st.mkfs()
-        st.mount()
-        t = Transaction()
-        t.create_collection(cid)
-        t.touch(cid, meta)
-        st.queue_transaction(t)
-        return st
-
-    def new_backend(whoami: int, store: MemStore, send) -> "ob.ECBackend":
-        return ob.ECBackend(WIRE_PGID, cid, store, whoami, send,
-                            lambda: WIRE_EPOCH, codec)
+    def new_pg(host: PhaseOSD):
+        p = opg.PG(WIRE_PGID, pool, host, codec)
+        p.create_onstore()
+        p.update_acting(acting, 0)
+        return p
 
     class PeerDispatcher(Dispatcher):
-        """osd.N: an ECBackend behind a thin dispatcher."""
+        """osd.N: a PG behind the daemon's replica routing
+        (daemon.py:1471-1488)."""
 
         def __init__(self, num: int) -> None:
-            self.store = new_store()
-            self.be = new_backend(num, self.store, None)
+            self.store = MemStore()
+            self.store.mkfs()
+            self.store.mount()
+            self.host = PhaseOSD(ctxs[num], num, self.store, osdmap,
+                                 WIRE_EPOCH)
+            self.pg = new_pg(self.host)
             self.srcs = []
             self.busy = []  # seconds serving, one entry per message
-
-        def sub_write(self, conn, msg) -> None:
-            def ack(result: int = 0) -> None:
-                rep = om.MECSubWriteVecReply(msg.pgid, msg.epoch, result)
-                rep.tid = msg.tid
-                conn.send(rep)
-
-            try:
-                self.be.apply_sub_write_vec(msg, on_commit=ack)
-            except StoreError:
-                ack(-errno.EIO)
-
-        def sub_read(self, msg) -> tuple:
-            """The rows ``PG.handle_sub_read_vec`` (pg.py:2401-2450)
-            builds: each (oid, shard) chunk read once through
-            ``read_local_chunk_runs2``/``read_local_chunk2`` with its
-            verdict, and its attrs and omap from ``shard_meta``."""
-            be = self.be
-            chunks, metas, rows, served = {}, {}, [], []
-            runs = (msg.runs if len(msg.runs) == len(msg.reads)
-                    else [[] for _ in msg.reads])
-            for (shard, oid, _off, _len), rr in zip(msg.reads, runs):
-                key = (oid, shard)
-                sv = 0
-                if rr:
-                    data, code, sv = be.read_local_chunk_runs2(oid, shard,
-                                                               rr)
-                if not sv:
-                    if key not in chunks:
-                        chunks[key] = be.read_local_chunk2(oid, shard)
-                    data, code = chunks[key]
-                if key not in metas:
-                    metas[key] = be.shard_meta(oid, shard)
-                attrs, omap = metas[key]
-                rows.append((shard, oid, data if data is not None else b"",
-                             0 if data is not None else code, attrs, omap))
-                served.append(sv)
-            return rows, served
 
         def ms_dispatch(self, conn, msg) -> bool:
             self.srcs.append(str(msg.src))
             t0 = time.perf_counter()
             if isinstance(msg, om.MECSubWriteVec):
-                self.sub_write(conn, msg)
+                self.pg.handle_sub_write_vec(msg, conn)
+            elif isinstance(msg, om.MECSubRead):
+                self.pg.handle_sub_read(msg, conn)
             elif isinstance(msg, om.MECSubReadVec):
-                rows, served = self.sub_read(msg)
-                rep = om.MECSubReadVecReply(msg.pgid, msg.epoch, rows,
-                                            served=served)
-                rep.tid = msg.tid
-                conn.send(rep)
+                self.pg.handle_sub_read_vec(msg, conn)
+            elif isinstance(msg, om.MECCommitNote):
+                self.pg.handle_commit_note(msg, conn)
             else:
                 return False
             self.busy.append(time.perf_counter() - t0)
             return True
 
     class PrimaryDispatcher(Dispatcher):
-        """osd.0's dispatcher: a sub-write ack goes to the backend, a
-        sub-read reply to the read waiting on its tid."""
+        """osd.0: sub-write acks to the PG's backend and sub-read
+        replies by tid, inline (daemon.py:1251-1275); client ops to the
+        op threads, which call ``pg.do_op`` (the daemon's op queue)."""
 
         def __init__(self) -> None:
-            self.be = None
-            self.cond = threading.Condition()
-            self.replies = {}
-            self.nacks = []  # sub-write replies with a nonzero result
+            self.pg = self.host = None
+            self.ops = ThreadPoolExecutor(threads,
+                                          thread_name_prefix="osd0-op")
+            self.failed = []   # do_op exceptions
+            self.reads = []    # (oid, shard, src, result, data) replies
 
         def ms_can_fast_dispatch(self, msg) -> bool:
-            return True  # an ack or an append under a short lock
+            return not isinstance(msg, om.MOSDOp)
+
+        def do_op(self, conn, msg) -> None:
+            tid = msg.tid
+            is_w = any(o.is_write() for o in msg.ops)
+
+            def reply(rep) -> None:
+                rep.tid = tid
+                # a reply carries each op's out data, not the write's
+                # payload (a staged one would come back from the card)
+                rep.ops = [dataclasses.replace(o, data=b"")
+                           if o.is_write() else o for o in rep.ops]
+                conn.send(rep)
+                if rep.result == 0:  # the PGStat feed, as the daemon's
+                    self.pg.note_client_io(is_w, sum(
+                        len(o.data) or o.length for o in msg.ops
+                        if o.is_write()) if is_w else sum(
+                        len(o.out_data) for o in rep.ops))
+
+            try:
+                self.pg.do_op(msg, reply, conn=conn)
+            except Exception as e:  # noqa: BLE001 — the phase fails on it
+                self.failed.append((msg.oid, repr(e)))
 
         def ms_dispatch(self, conn, msg) -> bool:
-            if isinstance(msg, om.MECSubWriteVecReply):
-                if msg.result:
-                    self.nacks.append((msg.tid, str(msg.src), msg.result))
-                self.be.handle_reply(msg.tid, msg.src.num)
+            if isinstance(msg, om.MOSDOp):
+                self.ops.submit(self.do_op, conn, msg)
                 return True
+            if isinstance(msg, om.MECSubWriteVecReply):
+                self.pg.backend.handle_reply(msg.tid, msg.src.num)
+                return True
+            if isinstance(msg, om.MECSubReadReply):
+                self.reads.append((msg.oid, msg.shard, msg.src.num,
+                                   msg.result, msg.data))
+            return self.host.route_reply(msg)
+
+    class ClientDispatcher(Dispatcher):
+        """client.4100: each ``MOSDOpReply`` to the op waiting on its
+        tid."""
+
+        def __init__(self) -> None:
+            self.cond = threading.Condition()
+            self.replies = {}
+
+        def ms_can_fast_dispatch(self, msg) -> bool:
+            return True
+
+        def ms_dispatch(self, conn, msg) -> bool:
+            if not isinstance(msg, om.MOSDOpReply):
+                return False
             with self.cond:
-                self.replies.setdefault(msg.tid, []).append(msg)
+                self.replies[msg.tid] = msg
                 self.cond.notify_all()
             return True
 
-        def wait(self, tid: int, count: int) -> list:
+        def call(self, conn, tid: int, oid: str, ops):
+            msg = om.MOSDOp(WIRE_PGID, WIRE_EPOCH, oid, ops)
+            msg.tid = tid
+            msg.reqid = f"client.{WIRE_CLIENT}.0:{tid}"
+            conn.send(msg)
             with self.cond:
-                require(self.cond.wait_for(
-                    lambda: len(self.replies.get(tid, ())) >= count,
-                    WIRE_WAIT_S), f"wire: {count} replies to tid {tid}")
+                require(self.cond.wait_for(lambda: tid in self.replies,
+                                           WIRE_WAIT_S),
+                        f"wire: a reply to {oid} (tid {tid})")
                 return self.replies.pop(tid)
 
     kr = Keyring()
@@ -1422,6 +1637,7 @@ def run_wire(torch, dev, *, nobj: int = WIRE_OBJS,
     msgrs = []
     fp.disarm_all()
     q = None
+    prim = None
     geometry = None
     plain_op_payload = os_mod.op_payload
     plain_be_crc = ob.crc32c
@@ -1434,21 +1650,34 @@ def run_wire(torch, dev, *, nobj: int = WIRE_OBJS,
         primary.set_auth(provider=cx.build_authorizer)
         msgrs.append(primary)
         peer_d, peer_m = {}, {}
-        for num in range(1, peers + 1):
-            pm = Messenger(ctxs[num], EntityName("osd", num))
-            peer_d[num] = PeerDispatcher(num)
+
+        def start_peer(num: int):
+            # a restarted osd's messenger gets a context of its own
+            ctx = ctxs[num] if num not in peer_m else Context(f"osd.{num}")
+            pm = Messenger(ctx, EntityName("osd", num))
             pm.add_dispatcher(peer_d[num])
             pm.start()
             pm.set_auth(verifier=verifier(num, f"{pm.addr[0]}:{pm.addr[1]}"))
             peer_m[num] = pm
             msgrs.append(pm)
+            return pm
+
+        for num in range(1, peers + 1):
+            peer_d[num] = PeerDispatcher(num)
+            start_peer(num)
         primary.start()
         require(all(pm.addr[0] == "127.0.0.1" for pm in msgrs),
                 "wire: every messenger binds 127.0.0.1")
-        conns = {num: primary.connect(peer_m[num].addr) for num in peer_m}
-        store0 = new_store()
-        be = prim.be = new_backend(0, store0,
-                                   lambda osd, msg: conns[osd].send(msg))
+        store0 = MemStore()
+        store0.mkfs()
+        store0.mount()
+        host0 = prim.host = PhaseOSD(ctxs[0], 0, store0, osdmap, WIRE_EPOCH)
+        for num, pm in peer_m.items():
+            host0.connect(num, primary.connect(pm.addr), pm.addr)
+        pg = prim.pg = new_pg(host0)
+        with pg.lock:
+            pg.state = opg.STATE_ACTIVE
+        be = pg.backend
         # the phase's own queue, built under lockdep and stopped at the
         # end, in place of the process's default queue for ``dev``
         q = be.queue = StripeBatchQueue(device=dev)
@@ -1457,6 +1686,16 @@ def run_wire(torch, dev, *, nobj: int = WIRE_OBJS,
                 "wire: the idle staging pool takes the phase's geometry")
         holders = {0: store0, **{num: pd.store
                                  for num, pd in peer_d.items()}}
+        pgs = {0: pg, **{num: pd.pg for num, pd in peer_d.items()}}
+        cid = pg.coll
+        meta = GHObject(WIRE_META)
+        client_d = ClientDispatcher()
+        client = Messenger(Context(f"client.{WIRE_CLIENT}"),
+                           EntityName("client", WIRE_CLIENT))
+        client.add_dispatcher(client_d)
+        msgrs.append(client)
+        client.start()
+        cconn = client.connect(primary.addr)
 
         # what the card computed for each object, noted off each encp
         # future before the backend's fan-out runs
@@ -1494,26 +1733,16 @@ def run_wire(torch, dev, *, nobj: int = WIRE_OBJS,
             return plain_be_crc(data, crc)
 
         versions = {}
-        submit_lock = threading.Lock()
 
         def write(i):
-            buf = DeviceBuf.stage(q.pool, objs[i], timeout=WIRE_WAIT_S)
-            require(buf is not None, f"wire: object {i} staged")
-            done, sub = threading.Event(), threading.Event()
-            with submit_lock:  # the PG lock's role: versions in order
-                v = EVersion(WIRE_EPOCH, len(versions) + 1)
-                versions[i] = v
-                entry = LogEntry(op=LOG_MODIFY, oid=oids[i], version=v,
-                                 prior_version=EVersion(),
-                                 reqid=f"client.0:{i + 1}")
-                be.submit(oids[i], ob.ObjectState(buf), [entry],
-                          PGLog().omap_additions([entry]), acting,
-                          done.set, on_submitted=sub.set)
-            require(done.wait(WIRE_WAIT_S) and sub.wait(WIRE_WAIT_S),
-                    f"wire: object {i} committed on every holder and its "
-                    "fan-out done")
+            rep = client_d.call(cconn, i + 1, oids[i], [
+                OSDOp(OP_WRITEFULL, data=memoryview(objs[i]))])
+            require(rep.result == 0,
+                    f"wire: the write of object {i} answered {rep.result}")
+            versions[i] = rep.version
 
         stats0 = q.stats.snapshot()
+        jobs0 = q.jobs
         os_mod.op_payload = op_payload
         ob.crc32c = be_crc
         fp.arm("staging.seal", lambda ctx: seals.append(applied[0]))
@@ -1521,6 +1750,14 @@ def run_wire(torch, dev, *, nobj: int = WIRE_OBJS,
             reset_counts()
             w_wall = run_threads(write, nobj, threads)
             w_counts = read_counts()
+            # a reply can come at the commit before the fan-out's tail
+            # seals the slot and releases the object's admission FIFO,
+            # and the queue counts a batch after its results are out
+            deadline = time.monotonic() + WIRE_WAIT_S
+            while ((pg._oid_pipes or len(seals) < nobj
+                    or q.jobs - jobs0 < nobj)
+                   and time.monotonic() < deadline):
+                time.sleep(0.001)
         finally:
             fp.disarm("staging.seal")
             ob.crc32c = plain_be_crc
@@ -1530,9 +1767,14 @@ def run_wire(torch, dev, *, nobj: int = WIRE_OBJS,
         batch_jobs = dict(q.batch_jobs)
         occupancy = q.pool.occupancy
         w_store_s = sum(sum(pd.busy) for pd in peer_d.values())
-        require(not be.in_flight and not prim.nacks,
-                f"wire: no write left in flight ({len(be.in_flight)}) and "
-                f"none refused ({prim.nacks})")
+        staged = pg.stage_snapshot()
+        require(not prim.failed, f"wire: do_op raised {prim.failed}")
+        require(staged == {"staged": nobj, "degraded": 0},
+                f"wire: every write staged as a DeviceBuf, none degraded "
+                f"by a pool timeout: {staged}")
+        require(not be.in_flight and not pg._oid_pipes,
+                f"wire: no write left in flight ({len(be.in_flight)}) or "
+                f"admitted ({len(pg._oid_pipes)})")
         require(sorted(card) == list(range(nobj)),
                 f"wire: the card coded every object ({len(card)})")
         coding = [card[i][0] for i in range(nobj)]
@@ -1569,14 +1811,29 @@ def run_wire(torch, dev, *, nobj: int = WIRE_OBJS,
         pg_omaps = {num: st.omap_get(cid, meta)
                     for num, st in holders.items()}
         by_version = sorted((v, oids[i]) for i, v in versions.items())
-        require([v.version for v, _ in by_version]
-                == list(range(1, nobj + 1)), "wire: versions 1 .. nobj")
+        last_v = EVersion(WIRE_EPOCH, nobj)
+        require([v for v, _ in by_version]
+                == [EVersion(WIRE_EPOCH, j + 1) for j in range(nobj)],
+                "wire: the PG minted versions 1 .. nobj")
         for num, omap in pg_omaps.items():
             log = PGLog.from_omap(omap)
             require([(en.version, en.oid) for en in log.entries]
                     == by_version,
                     f"wire: osd.{num}'s PG log holds the {nobj} entries in "
                     f"order ({len(log)} entries)")
+        # a peer acks from its store's commit, a moment before its
+        # handler notes the entries in its in-memory log and info
+        deadline = time.monotonic() + WIRE_WAIT_S
+        while True:
+            heads = {num: (p.info.last_update, p.log.head)
+                     for num, p in pgs.items()}
+            if (all(h == (last_v, last_v) for h in heads.values())
+                    or time.monotonic() > deadline):
+                break
+            time.sleep(0.001)
+        require(all(h == (last_v, last_v) for h in heads.values()),
+                f"wire: every PG's last_update and log head are the last "
+                f"write's version {last_v}: {heads}")
         t_check = time.perf_counter()
         verified = 0
         hinfos = {num: {} for num in holders}
@@ -1634,66 +1891,65 @@ def run_wire(torch, dev, *, nobj: int = WIRE_OBJS,
                 and verdicts[1].count(True) >= 1,
                 f"wire: the primary's sessions were authorized: {verdicts}")
 
-        # 4. the degraded read
+        # 4. the degraded read through do_op, every object gathered
         for num in down:
             peer_m[num].shutdown()
+            osdmap.down.add(num)
+        pg.note_peers_down(set(down))
+        with pg.lock:
+            pg.state = opg.STATE_DEGRADED
+        pg._obc_invalidate()
         fp.arm("store.corrupt_chunk", fp.CORRUPT_ACTION,
                match={"shard": str(c_shard)})
         fails0 = peer_d[c_peer].store.perf.value("read_verify_fail")
+        dec0 = sum(w * c for w, c in q.dec_batch_jobs.items())
         decoded = [None] * nobj
-        got_shards = [None] * nobj
-        got_attrs = [None] * nobj
-        asked = [num for num in peer_d if num not in down]
 
         def read(i):
-            tid = nobj + i + 1
-            for num in asked:
-                msg = om.MECSubReadVec(WIRE_PGID, WIRE_EPOCH,
-                                       [(s, oids[i], 0, 0)
-                                        for s in shards_of[num]])
-                msg.tid = tid
-                conns[num].send(msg)
-            avail, attrs_of, failed = {}, {}, []
-            for s in shards_of[0]:  # the gather's local pre-scan
-                data, code = be.read_local_chunk2(oids[i], s)
-                if data is None:
-                    failed.append((s, code, 0))
-                else:
-                    avail[s] = data
-                    attrs_of[s] = be.shard_meta(oids[i], s)
-            for rep in prim.wait(tid, len(asked)):
-                for shard, oid, data, result, attrs, omap in rep.rows:
-                    if result:
-                        failed.append((shard, result, len(data)))
-                    else:
-                        avail[shard] = data
-                        attrs_of[shard] = (attrs, omap)
-            require(failed == [(c_shard, ob.ECRC, 0)]
-                    and c_shard not in avail,
-                    f"wire: object {i}: only shard {c_shard} failed its "
-                    f"seal, as ECRC without data ({failed})")
-            got_shards[i], got_attrs[i] = avail, attrs_of
-            out, ev = [], threading.Event()
-            be.reconstruct_async(oids[i], avail, attrs_of[survivors[0]],
-                                 lambda st: (out.append(st), ev.set()))
-            require(ev.wait(WIRE_WAIT_S) and out[0] is not None,
-                    f"wire: object {i} reconstructed")
-            decoded[i] = out[0]
+            rep = client_d.call(cconn, nobj + i + 1, oids[i],
+                                [OSDOp(OP_READ)])
+            require(rep.result == 0,
+                    f"wire: the read of object {i} answered {rep.result}")
+            decoded[i] = bytes(rep.ops[0].out_data)
 
         reset_counts()
         r_wall = run_threads(read, nobj, threads)
         r_counts = read_counts()
+        # a read answers once k chunks are in: wait (bounded) for the
+        # slower sub-read replies, the rotten shard's among them, and
+        # for the queue's count of the last decode batch
+        asked = nobj * sum(1 for s in range(n)
+                           if acting[s] != 0 and acting[s] not in down)
+        deadline = time.monotonic() + WIRE_WAIT_S
+        while ((len(prim.reads) < asked or pg.scrub_errors < nobj
+                or sum(w * c for w, c in q.dec_batch_jobs.items()) - dec0
+                < nobj) and time.monotonic() < deadline):
+            time.sleep(0.001)
         r_store_s = sum(sum(pd.busy) for pd in peer_d.values()) - w_store_s
         seal_fails = (peer_d[c_peer].store.perf.value("read_verify_fail")
                       - fails0)
-        fp.disarm_all()
-        edges = lockdep.edge_graph()
+        dec_jobs = sum(w * c for w, c in q.dec_batch_jobs.items()) - dec0
+        scrub_errors = pg.scrub_errors
+        reads = list(prim.reads)
+        require(not prim.failed, f"wire: do_op raised {prim.failed}")
+
         perf = {name: c.perf.dump()[f"msgr.{name}"]
                 for name, c in zip(names, ctxs)}
+
+        # 5. the primary's shards lost and recovered over the PG
+        rec = None
+        if recover:
+            rec = _recover_primary(pg, start_peer, host0, primary, osdmap,
+                                   q, down, oids, shards_of[0], c_shard,
+                                   peers)
+        fp.disarm_all()
+        edges = lockdep.edge_graph()
     finally:
         fp.disarm_all()
         ob.crc32c = plain_be_crc
         os_mod.op_payload = plain_op_payload
+        if prim is not None:
+            prim.ops.shutdown(wait=True)
         if q is not None:
             if geometry is not None:
                 q.pool.configure(*geometry)
@@ -1705,23 +1961,38 @@ def run_wire(torch, dev, *, nobj: int = WIRE_OBJS,
     require(seal_fails == nobj,
             f"wire: osd.{c_peer} counted {seal_fails} read_verify_fail, one "
             f"per object ({nobj})")
+    require(scrub_errors == nobj,
+            f"wire: the rotten shard reached _note_read_verify_fail once an "
+            f"object: scrub_errors {scrub_errors} == {nobj}")
+    require(dec_jobs == nobj,
+            f"wire: every read decoded on the queue's dec kind, none served "
+            f"warm: {dec_jobs} jobs for {nobj} objects")
+    got_shards = {i: {} for i in range(nobj)}
+    failed = {i: [] for i in range(nobj)}
+    index = {oid: i for i, oid in enumerate(oids)}
+    for oid, shard, src, result, data in reads:
+        i = index[oid]
+        if result:
+            failed[i].append((shard, src, result, len(data)))
+        else:
+            got_shards[i][shard] = data
     for i in range(nobj):
-        require(sorted(got_shards[i]) == survivors,
-                f"wire: object {i} read from its survivors {survivors}")
+        require(failed[i] == [(c_shard, c_peer, ob.ECRC, 0)],
+                f"wire: object {i}: only shard {c_shard} failed its seal, "
+                f"as ECRC without data ({failed[i]})")
+        require(sorted(got_shards[i]) == [s for s in survivors
+                                          if acting[s] != 0],
+                f"wire: object {i} read from its remote survivors")
         for s, b in got_shards[i].items():
-            _, hcrc, _ = ob.hinfo_decode(got_attrs[i][s][0]["hinfo"])
-            require(crc32c(b) == crcs[i][s] == hcrc,
-                    f"wire: object {i} shard {s} came back as written, "
-                    "with its hinfo")
+            require(crc32c(b) == crcs[i][s],
+                    f"wire: object {i} shard {s} came back as written")
             verified += 1
-        st = decoded[i]
-        require(st.data == objs[i].tobytes() and st.xattrs == {}
-                and st.omap == {},
+        require(decoded[i] == objs[i].tobytes(),
                 f"wire: degraded read of object {i} returns what was written")
     remote = n - len(shards_of[0])
     wire_bytes = [nobj * remote * width,
                   sum(len(b) for i in range(nobj)
-                      for s, b in got_shards[i].items() if acting[s] != 0)]
+                      for b in got_shards[i].values())]
     frames = sum(int(p["frames_per_drain"]["sum"]) for p in perf.values())
     msgr_acks = sum(p["acks_dedicated"] + p["acks_piggybacked"]
                     for p in perf.values())
@@ -1732,22 +2003,96 @@ def run_wire(torch, dev, *, nobj: int = WIRE_OBJS,
             "w_store_s": w_store_s, "r_store_s": r_store_s,
             "check_s": check_s, "acting": acting,
             "survivors": survivors, "coding": coding, "crcs": crcs,
-            "decoded": [st.data for st in decoded], "objs": objs, "si": si,
+            "decoded": decoded, "objs": objs, "si": si,
             "wire_bytes": wire_bytes, "frames": frames,
             "msgr_acks": msgr_acks, "sub_acks": nobj * peers,
             "verified": verified, "seal_fails": seal_fails,
             "batch_jobs": batch_jobs, "devpath": devpath, "devbuf": devbuf,
-            "pg_omaps": pg_omaps, "hinfos": hinfos,
+            "pg_omaps": pg_omaps, "hinfos": hinfos, "staged": staged,
+            "scrub_errors": scrub_errors, "dec_jobs": dec_jobs,
+            "heads": {num: str(h[0]) for num, h in heads.items()},
             "edges": sum(len(v) for v in edges.values()), "edge_graph": edges,
-            "refused": verdicts[1].count(False)}
+            "refused": verdicts[1].count(False), "recovery": rec}
+
+
+def _recover_primary(pg, start_peer, host0, primary, osdmap, q, down, oids,
+                     local, c_shard, peers) -> dict:
+    """The ``recovery`` phase's code, on ``run_wire``'s PGs after its read:
+    the osds in ``down`` come back, the primary loses its ``local``
+    shards of every object in one transaction (marked in ``pg.missing``
+    at their log versions), and ``pg.recovery_engine().recover``
+    rebuilds them; returns its wall, rounds, messages and launches."""
+    from ceph_tpu_torch.osd.backend import hinfo_decode
+    from ceph_tpu_torch.store.objectstore import GHObject, Transaction
+
+    for num in down:
+        pm = start_peer(num)
+        host0.connect(num, primary.connect(pm.addr), pm.addr)
+        osdmap.down.discard(num)
+    store, cid = host0.store, pg.coll
+    before = {(oid, s): (bytes(store.read(cid, GHObject(oid, shard=s))),
+                         store.getattr(cid, GHObject(oid, shard=s), "hinfo"))
+              for oid in oids for s in local}
+    t = Transaction()
+    for oid in oids:
+        for s in local:
+            t.remove(cid, GHObject(oid, shard=s))
+    store.queue_transaction(t)
+    with pg.lock:
+        for oid in oids:
+            pg.missing[oid] = pg.log.latest_for(oid).version
+        work = {oid: pg.log.latest_for(oid) for oid in oids}
+    require(not any(store.exists(cid, GHObject(oid, shard=s))
+                    for oid in oids for s in local),
+            "recovery: the primary's local shards are gone")
+    perf = host0.pg_perf
+    msgs0 = perf.value("subread_msgs")
+    dec0 = sum(w * c for w, c in q.dec_batch_jobs.items())
+    window = int(host0.ctx.conf.get("osd_recovery_max_active"))
+    reset_counts()
+    t0 = time.monotonic()
+    pg.recovery_engine().recover(work)
+    wall = time.monotonic() - t0
+    deadline = time.monotonic() + WIRE_WAIT_S  # the last batch's count
+    while (sum(w * c for w, c in q.dec_batch_jobs.items()) - dec0
+           < len(oids) and time.monotonic() < deadline):
+        time.sleep(0.001)
+    counts = read_counts()
+    rounds = -(-len(oids) // window)
+    msgs = perf.value("subread_msgs") - msgs0
+    dec_jobs = sum(w * c for w, c in q.dec_batch_jobs.items()) - dec0
+    with pg.lock:
+        missing, unfound = dict(pg.missing), set(pg.unfound)
+    require(not missing and not unfound,
+            f"recovery: missing {sorted(missing)[:4]} unfound "
+            f"{sorted(unfound)[:4]} after the window")
+    for (oid, s), (data, hinfo) in before.items():
+        g = GHObject(oid, shard=s)
+        got = bytes(store.read(cid, g))
+        require(got == data and store.getattr(cid, g, "hinfo") == hinfo
+                and hinfo_decode(hinfo)[2],
+                f"recovery: {oid} shard {s} and its hinfo as before the loss")
+    require(msgs <= peers * rounds,
+            f"recovery: {msgs} sub-read messages, at most {peers} peers x "
+            f"{rounds} rounds")
+    require(dec_jobs == len(oids),
+            f"recovery: every object reconstructed on the queue's dec kind "
+            f"({dec_jobs} jobs for {len(oids)} objects)")
+    return {"wall": wall, "objs_per_s": len(oids) / wall, "rounds": rounds,
+            "window": window, "subread_msgs": msgs, "dec_jobs": dec_jobs,
+            "counts": counts, "shards": len(before),
+            "bytes": sum(len(d) for d, _ in before.values()),
+            "rotten_shard": c_shard,
+            "pushes": host0.perf.value("recovery_pushes")}
 
 
 def phase_wire(torch, dev, log) -> dict:
     """``run_wire`` at full width: isa k=8 m=4 (the ``main`` profile), a
-    1 MiB stripe, 64 x 4 MiB objects, the primary and four peers; osd.4
-    (shards 4, 9) down and shard 6 rotten on osd.1 for the degraded read.
-    The write half must launch K1 and the CRC kernel, the read half K1,
-    and at least one encp batch must carry more than one write."""
+    1 MiB stripe, 64 x 4 MiB objects written and read by ``MOSDOp``
+    through ``PG.do_op``, the primary and four peers; osd.4 (shards 4,
+    9) down and shard 6 rotten on osd.1 for the degraded read.  The
+    write half must launch K1 and the CRC kernel, the read half K1, and
+    at least one encp batch must carry more than one write."""
     res = run_wire(torch, dev)
     require(res["lost"] == [4, 6, 9], f"wire: lost {res['lost']}")
     for half, counts, need in (("write", res["w_counts"],
@@ -1760,33 +2105,65 @@ def phase_wire(torch, dev, log) -> dict:
             f"{res['batch_jobs']}")
     wb = res["wire_bytes"]
     checks = {"devpath": res["devpath"], "devbuf": res["devbuf"],
-              "encp_batch_jobs": res["batch_jobs"],
+              "encp_batch_jobs": res["batch_jobs"], "staged": res["staged"],
+              "scrub_errors": res["scrub_errors"],
+              "dec_jobs": res["dec_jobs"], "heads": res["heads"],
               "pg_log_entries": {n: sum(k[0].isdigit() for k in o)
                                  for n, o in res["pg_omaps"].items()},
               "rollback_rows": {n: sum(k.startswith("rb_") for k in o)
                                 for n, o in res["pg_omaps"].items()}}
-    log(f"wire: isa k=8 m=4, 1 MiB stripe, {WIRE_OBJS} x 4 MiB staged "
-        f"({WIRE_SLOTS} slots), through ECBackend.submit (the queue's encp "
-        f"batch, the hinfo from the card's CRC, the primary's shards into "
-        f"its store through op_payload, one MECSubWriteVec a peer) over the "
-        f"messenger (cephx, ms_crc_data) to {WIRE_PEERS} peer ECBackends: "
-        f"write {res['w_gbs']:.3f} GB/s ({res['w_wall']:.3f} s), degraded "
-        f"read through reconstruct_async (lost {res['lost']}: osd.4 down, "
-        f"shard 6 rotten) {res['r_gbs']:.3f} GB/s ({res['r_wall']:.3f} s); "
-        f"peers' serving time summed {res['w_store_s']:.3f} s in the write, "
-        f"{res['r_store_s']:.3f} s in the read; the one-thread check of "
-        f"every stored shard (two host CRC passes) {res['check_s']:.3f} s; "
-        f"shard bytes on the wire {wb[0]} written + {wb[1]} read; "
-        f"{res['frames']} frames sent, "
+    log(f"wire: isa k=8 m=4, 1 MiB stripe, {WIRE_OBJS} x 4 MiB by "
+        f"WRITEFULL MOSDOp from client.{WIRE_CLIENT} through PG.do_op "
+        f"(staged as a DeviceBuf in {WIRE_SLOTS} slots, ECBackend.submit: "
+        f"the queue's encp batch, the hinfo from the card's CRC, the "
+        f"primary's shards into its store through op_payload, one "
+        f"MECSubWriteVec a peer) over the messenger (cephx, ms_crc_data) "
+        f"to {WIRE_PEERS} peer PGs: write {res['w_gbs']:.3f} GB/s "
+        f"({res['w_wall']:.3f} s), degraded READ MOSDOp through "
+        f"_ec_read_object (ChunkGather, one MECSubRead a remote shard, "
+        f"reconstruct_async; lost {res['lost']}: osd.4 down, shard 6 "
+        f"rotten; the context cache emptied) {res['r_gbs']:.3f} GB/s "
+        f"({res['r_wall']:.3f} s); peers' serving time summed "
+        f"{res['w_store_s']:.3f} s in the write, {res['r_store_s']:.3f} s "
+        f"in the read; the one-thread check of every stored shard (two "
+        f"host CRC passes) {res['check_s']:.3f} s; shard bytes on the wire "
+        f"{wb[0]} written + {wb[1]} read; {res['frames']} frames sent, "
         f"{res['sub_acks']} sub-write replies, {res['msgr_acks']} session "
         f"acks; {res['verified']} seal-verified shard reads, "
-        f"{res['seal_fails']} seal failures (ECRC rows); unauthenticated "
+        f"{res['seal_fails']} seal failures (ECRC replies); unauthenticated "
         f"messenger refused {res['refused']} times, nothing delivered; "
         f"{res['edges']} lock-order edges {res['edge_graph']}, no "
         f"LockOrderError; launches: write {res['w_counts']}, read "
         f"{res['r_counts']}; host CRC and hinfo equal the card's CRC on "
-        f"every stored shard; every byte exact; checks {json.dumps(checks)}")
+        f"every stored shard; every reply 0 and every byte exact; checks "
+        f"{json.dumps(checks)}")
     return res
+
+
+def phase_recovery(torch, dev, log, wire: dict) -> dict:
+    """The ``recovery`` phase: ``run_wire``'s step 5 on the wire phase's
+    PGs (osd.4 back, the primary's shards 0, 5 and 10 of all 64 objects
+    lost and rebuilt by ``PG.recovery_engine().recover`` from exactly
+    k = 8 sources, the rotten shard 6 answering ``ECRC``).  K1 must
+    launch in it."""
+    rec = wire["recovery"]
+    require(rec is not None, "recovery: the wire phase ran the recovery")
+    require(rec["counts"]["gf256_matmul"] > 0,
+            f"recovery: K1 ran in the window {rec['counts']}")
+    log(f"recovery: the primary's shards 0, 5, 10 of {WIRE_OBJS} x 4 MiB "
+        f"objects ({rec['shards']} shards, {rec['bytes']} bytes) lost in "
+        f"one transaction and rebuilt through PG.recovery_engine() "
+        f"(window {rec['window']}, {rec['rounds']} rounds, "
+        f"{rec['subread_msgs']} MECSubReadVec, {rec['dec_jobs']} dec jobs, "
+        f"{rec['pushes']} recovery pushes; shard {rec['rotten_shard']} "
+        f"rotten, so exactly k sources): wall {rec['wall']:.3f} s, "
+        f"{rec['objs_per_s']:.2f} objects/s; launches {rec['counts']}; "
+        f"every shard and hinfo as before the loss; missing and unfound "
+        f"empty")
+    walls = {"wall_s": rec["wall"], "objs_per_s": rec["objs_per_s"],
+             "rounds": rec["rounds"]}
+    log(f"recovery wall: {json.dumps(walls)}")
+    return rec
 
 
 def phase_bitmatrix(torch, dev, log) -> dict:
@@ -2749,6 +3126,7 @@ def main() -> int:
     main_res = phase_main(torch, dev, log)
     phase_core(torch, dev, log)
     wire_res = phase_wire(torch, dev, log)
+    rec_res = phase_recovery(torch, dev, log, wire_res)
     bm_res = phase_bitmatrix(torch, dev, log)
     sh_res = phase_shec(torch, dev, log)
     phase_lrc(torch, dev, log)
@@ -2759,7 +3137,8 @@ def main() -> int:
     kernels[0]["sass"] = {n: sass[n] for n in ("enc_4x8", "dec_8x8")}
     for kr in kernels[:2]:  # K1 and the CRC: their launches in the wire phase
         kr["wire_launches"] = {"write": wire_res["w_counts"][kr["name"]],
-                               "read": wire_res["r_counts"][kr["name"]]}
+                               "read": wire_res["r_counts"][kr["name"]],
+                               "recovery": rec_res["counts"][kr["name"]]}
     kernels.append(time_gf2(torch, dev, log, bm_res))
     kernels.append(time_gf2_popcount(torch, dev, log, sh_res))
     kernels[-1]["sass"] = {n: sass[n] for n in (

@@ -731,18 +731,24 @@ def test_core_dispatch_failpoint_on_the_card(dev):
 
 
 def test_wire_path_on_the_card(dev):
-    """The wire phase's code at a small size: the card's shards through
-    the port's ECBackend (primary osd.0 and four peers, cephx on), one
-    peer down and one shard rotten; K1 and the CRC kernel launch in the
-    write, K1 in the degraded read, and every byte comes back.  The
-    phase's checks hold: no op in flight, the primary's shards applied
-    through op_payload before each seal, no host CRC in the backend's
-    write, each stored hinfo the card's CRC."""
+    """The wire phase's code at a small size: MOSDOps through the port's
+    PG and its ECBackend with the card's shards (primary osd.0 and four
+    peers, cephx on), one peer down and one shard rotten; K1 and the CRC
+    kernel launch in the write, K1 in the degraded read, and every byte
+    comes back.  The phase's checks hold: no op in flight, every write
+    staged and none degraded, the primary's shards applied through
+    op_payload before each seal, no host CRC in the backend's write,
+    each stored hinfo the card's CRC, every read decoded (none warm),
+    the rotten shard counted once an object, every PG's head at the
+    last write."""
     import chip_smoke
     from ceph_tpu_torch.osd.backend import hinfo_decode
 
     res = chip_smoke.run_wire(torch, dev, nobj=4, obj_bytes=1 << 20,
-                              threads=2)
+                              threads=2, recover=False)
+    assert res["staged"] == {"staged": 4, "degraded": 0}
+    assert res["dec_jobs"] == 4 and res["scrub_errors"] == 4
+    assert res["heads"] == {o: "7'4" for o in range(5)}
     assert res["lost"] == [4, 6, 9]
     assert res["w_counts"]["gf256_matmul"] > 0
     assert res["w_counts"]["crc32c_rows"] > 0
@@ -820,6 +826,44 @@ def test_recovery_engine_over_a_stub_pg_on_the_card(dev):
                 cosd.store.read(cpg.coll, G(oid, shard=shard))
             assert gosd.store.getattrs(gpg.coll, G(oid, shard=shard)) == \
                 cosd.store.getattrs(cpg.coll, G(oid, shard=shard))
+
+
+def test_recovery_phase_on_the_card(dev):
+    """The recovery phase's code at a small size, on the wire phase's
+    PGs: the primary's shards 0, 5 and 10 of four objects lost and
+    rebuilt by ``PG.recovery_engine()`` through K1, each equal to the
+    shard written (the phase's own check), in two rounds of one vec a
+    peer."""
+    import chip_smoke
+
+    res = chip_smoke.run_wire(torch, dev, nobj=4, obj_bytes=1 << 20,
+                              threads=2)
+    rec = res["recovery"]
+    assert rec["counts"]["gf256_matmul"] > 0
+    assert rec["shards"] == 12 and rec["dec_jobs"] == 4
+    assert rec["rounds"] == 2 and rec["subread_msgs"] <= 4 * 2
+
+
+@pytest.mark.parametrize("name", ["isa_2_1", "isa_8_4"])
+def test_pg_write_read_and_recovery_on_the_card(dev, name, monkeypatch):
+    """The PG cross-check's sequence (writes, a ranged RMW, a degraded
+    read, peering with a laggard push and a rollback, a recovery window)
+    on port PGs whose codec is on the card, held to the same sequence
+    with ``device="cpu"`` codecs: the same replies, messages, stores,
+    infos and logs; K1 and the CRC kernel launch."""
+    import time as _time
+
+    import test_torch_pg_xcheck as px
+
+    monkeypatch.setattr(_time, "time", lambda: px.CLOCK)
+    profile, n_osds = px.PROFILES[name]
+    want = px._sequence("ceph_tpu_torch", profile, n_osds, seed=18)
+    k1, crc = gf256.launches.value, cd.launches.value
+    got = px._sequence("ceph_tpu_torch", profile, n_osds, seed=18,
+                       device=dev)
+    assert gf256.launches.value > k1 and cd.launches.value > crc
+    for key in want:
+        assert got[key] == want[key], key
 
 
 def test_devbuf_parity_tensor_on_the_card(dev):

@@ -1,17 +1,20 @@
 """The windowed EC recovery engine (``osd/recovery.py``) of both packages,
-each over a duck-typed stub PG that wraps that package's own
-``ECBackend`` and ``MemStore``.
+each over a PG that wraps that package's own ``ECBackend`` and
+``MemStore``: a duck-typed stub, and that package's real ``PG``.
 
-The PG of either package is not used: the port's comes with slice 1g.
-The stub is built like ``_stub_pg`` of ``tests/test_recovery_pipeline.py``
-(``:44-130``), with a plain object in place of the reference's ``PG``,
-and carries exactly what the engine reads.  The cases are those of
+Both PGs are built like ``_stub_pg`` of
+``tests/test_recovery_pipeline.py`` (``:44-135``).  The stub (kind
+``stub``) is a plain object that carries exactly what the engine reads;
+the real one (kind ``pg``) is the package's ``osd.pg.PG`` with its
+acting set, primary and ``STATE_DEGRADED`` set as the reference's
+``_stub_pg`` sets them.  The cases are those of
 ``test_recovery_pipeline.py:181,218,266,317``, as their assertions go,
-run once over each package: one vec message per peer per round, the
-legacy fallback, a peer killed mid-window, and ``park_read`` served and
-timed out.  The last case holds the two packages to each other: the
-same seeded window sends the same messages (``to_bytes`` equal) and
-stores the same shard bytes and attributes.
+run over each package and each kind: one vec message per peer per
+round, the legacy fallback, a peer killed mid-window, and ``park_read``
+served and timed out.  The last case holds the two packages to each
+other: the same seeded window sends the same messages (``to_bytes``
+equal), stores the same shard bytes and attributes and accounts the
+same recovery io.
 
 Codecs of the port are built with ``device="cpu"`` here; the card's
 twin (``tests/test_torch_cuda.py``) builds the same stub on the card.
@@ -20,11 +23,13 @@ twin (``tests/test_torch_cuda.py``) builds the same stub on the card.
 import importlib
 import threading
 import time
+from types import SimpleNamespace
 
 import pytest
 
 EAGAIN = -11
 PKGS = ("ceph_tpu", "ceph_tpu_torch")
+KINDS = ("stub", "pg")
 
 
 def _mods(pkg: str):
@@ -170,11 +175,41 @@ class _StubPG:
         self.verify_fails.append((oid, list(where)))
 
 
+def _real_pg(mods, profile, acting, whoami, osd, device="cpu"):
+    """The package's own ``PG`` over ``osd``, set as the reference's
+    ``_stub_pg`` sets it (``test_recovery_pipeline.py:120-135``)."""
+    pg_mod = importlib.import_module(f"{mods['pkg']}.osd.pg")
+    kw = {"device": device} if mods["pkg"] == "ceph_tpu_torch" else {}
+    codec = mods["ec"].codec_from_profile(profile, **kw)
+    pool = SimpleNamespace(size=len(acting), hit_set_count=0)
+    pg = pg_mod.PG((3, 0), pool, osd, codec)
+    pg.mods = mods
+    t = mods["objectstore"].Transaction()
+    t.create_collection(pg.coll)
+    osd.store.queue_transaction(t)
+    with pg.lock:
+        pg.acting = list(acting)
+        pg.primary = whoami
+        pg.state = pg_mod.STATE_DEGRADED
+    return pg
+
+
 def _stub_pg(pkg, profile, acting, whoami=0, peers=(1, 2), conf=None,
-             device="cpu"):
+             device="cpu", kind="stub"):
     mods = _mods(pkg)
     osd = _StubOSD(mods, whoami, peers, conf=conf)
+    if kind == "pg":
+        return _real_pg(mods, profile, acting, whoami, osd, device), osd
     return _StubPG(mods, profile, acting, whoami, osd, device=device), osd
+
+
+def _recovery_io(pg):
+    """(objects, bytes) the window accounted to the PG."""
+    if isinstance(pg, _StubPG):
+        return (sum(o for o, _ in pg.recovery_io),
+                sum(b for _, b in pg.recovery_io))
+    st = pg.iostat_snapshot()
+    return st["rec_ops"], st["rec_bytes"]
 
 
 def _seed_missing(pg, oids, payload=b"r" * 4096):
@@ -225,12 +260,12 @@ def _vec_responder(pg, chunks, answer_peers=None, src_epoch=7):
     return respond
 
 
-def _aggregation_window(pkg, device="cpu"):
+def _aggregation_window(pkg, device="cpu", kind="stub"):
     """``test_recovery_pipeline.py:181``'s window: k=4 m=2 over three
     OSDs, five objects missing on osd.0."""
     pg, osd = _stub_pg(pkg, "plugin=isa k=4 m=2 technique=reed_sol_van",
                        acting=[0, 1, 2, 0, 1, 2], peers=(1, 2),
-                       device=device)
+                       device=device, kind=kind)
     oids = [f"agg{i}" for i in range(5)]
     chunks = _seed_missing(pg, oids)
     osd.responder = _vec_responder(pg, chunks)
@@ -239,9 +274,10 @@ def _aggregation_window(pkg, device="cpu"):
     return pg, osd, oids, chunks
 
 
+@pytest.mark.parametrize("kind", KINDS)
 @pytest.mark.parametrize("pkg", PKGS)
-def test_vec_subread_aggregation_one_msg_per_peer_per_round(pkg):
-    pg, osd, oids, chunks = _aggregation_window(pkg)
+def test_vec_subread_aggregation_one_msg_per_peer_per_round(pkg, kind):
+    pg, osd, oids, chunks = _aggregation_window(pkg, kind=kind)
     m = pg.mods["messages"]
     GHObject = pg.mods["objectstore"].GHObject
     with pg.lock:
@@ -264,11 +300,12 @@ def test_vec_subread_aggregation_one_msg_per_peer_per_round(pkg):
                 pg.mods["backend"]._av_stamp(v)
 
 
+@pytest.mark.parametrize("kind", KINDS)
 @pytest.mark.parametrize("pkg", PKGS)
-def test_mixed_version_peer_falls_back_to_legacy_subreads(pkg):
+def test_mixed_version_peer_falls_back_to_legacy_subreads(pkg, kind):
     pg, osd = _stub_pg(pkg, "plugin=isa k=4 m=2 technique=reed_sol_van",
                        acting=[0, 1, 2, 0, 1, 2], peers=(1, 2),
-                       conf={"osd_recovery_read_timeout": 0.5})
+                       conf={"osd_recovery_read_timeout": 0.5}, kind=kind)
     m = pg.mods["messages"]
     oids = ["mv0", "mv1"]
     chunks = _seed_missing(pg, oids)
@@ -304,11 +341,12 @@ def test_mixed_version_peer_falls_back_to_legacy_subreads(pkg):
     assert p2 and all(isinstance(v, m.MECSubReadVec) for v in p2)
 
 
+@pytest.mark.parametrize("kind", KINDS)
 @pytest.mark.parametrize("pkg", PKGS)
-def test_kill_peer_mid_window_degrades_to_survivors(pkg):
+def test_kill_peer_mid_window_degrades_to_survivors(pkg, kind):
     pg, osd = _stub_pg(pkg, "plugin=isa k=2 m=2 technique=reed_sol_van",
                        acting=[0, 1, 2, 3], peers=(1, 2, 3),
-                       conf={"osd_recovery_read_timeout": 5.0})
+                       conf={"osd_recovery_read_timeout": 5.0}, kind=kind)
     m = pg.mods["messages"]
     oids = [f"kp{i}" for i in range(4)]
     chunks = _seed_missing(pg, oids)
@@ -349,11 +387,12 @@ def test_kill_peer_mid_window_degrades_to_survivors(pkg):
         assert not pg.missing, f"lost window slots: {pg.missing}"
 
 
+@pytest.mark.parametrize("kind", KINDS)
 @pytest.mark.parametrize("pkg", PKGS)
-def test_park_read_serves_after_recovery_and_times_out_honestly(pkg):
+def test_park_read_serves_after_recovery_and_times_out_honestly(pkg, kind):
     pg, osd = _stub_pg(pkg, "plugin=isa k=4 m=2 technique=reed_sol_van",
                        acting=[0, 1, 2, 0, 1, 2], peers=(1, 2),
-                       conf={"osd_recovery_read_timeout": 0.4})
+                       conf={"osd_recovery_read_timeout": 0.4}, kind=kind)
     chunks = _seed_missing(pg, ["pk0"])
     osd.responder = _vec_responder(pg, chunks)
     got, ev = [], threading.Event()
@@ -375,11 +414,12 @@ def test_park_read_serves_after_recovery_and_times_out_honestly(pkg):
     assert not pg.recovery_engine().park_read("pk0", lambda ok: None)
 
 
-def test_both_packages_send_and_store_the_same_window():
+@pytest.mark.parametrize("kind", KINDS)
+def test_both_packages_send_and_store_the_same_window(kind):
     """The aggregation window of both packages: the same sub-read
     messages, byte for byte, and the same recovered shard bytes, xattrs
     and PG meta omap on osd.0."""
-    runs = {pkg: _aggregation_window(pkg) for pkg in PKGS}
+    runs = {pkg: _aggregation_window(pkg, kind=kind) for pkg in PKGS}
     (rpg, rosd, oids, rchunks), (ppg, posd, _, pchunks) = (
         runs["ceph_tpu"], runs["ceph_tpu_torch"])
     for oid in oids:
@@ -394,5 +434,8 @@ def test_both_packages_send_and_store_the_same_window():
                 posd.store.read(ppg.coll, pG(oid, shard=shard))
             assert rosd.store.getattrs(rpg.coll, rG(oid, shard=shard)) == \
                 posd.store.getattrs(ppg.coll, pG(oid, shard=shard))
-    assert rpg.recovery_io == ppg.recovery_io
+    assert _recovery_io(rpg) == _recovery_io(ppg) == (
+        5, sum(len(rchunks[oid][2]) for oid in oids))
+    if kind == "stub":
+        assert rpg.recovery_io == ppg.recovery_io
     assert rpg.unfound == ppg.unfound == set()

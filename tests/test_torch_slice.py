@@ -341,9 +341,18 @@ def test_importing_the_port_loads_neither_jax_nor_the_reference():
             "assert 'ceph_tpu_torch.tools.dencoder' in sys.modules\n"
             "assert 'ceph_tpu_torch.osd.backend' in sys.modules\n"
             "assert 'ceph_tpu_torch.osd.recovery' in sys.modules\n"
+            "assert 'ceph_tpu_torch.osd.pg' in sys.modules\n"
+            "assert 'ceph_tpu_torch.osd.hitset' in sys.modules\n"
+            "assert 'ceph_tpu_torch.osd.scrub' in sys.modules\n"
             "from ceph_tpu_torch.gpu.queue import default_queue\n"
             "from ceph_tpu_torch.osd.backend import ECBackend, hinfo_decode\n"
             "from ceph_tpu_torch.osd.recovery import ECRecoveryEngine\n"
+            "from ceph_tpu_torch.osd.pg import PG, READ_RETRY, "
+            "ROLLBACK_EVENTS\n"
+            "from ceph_tpu_torch.osd.hitset import BloomHitSet, "
+            "HitSetHistory\n"
+            "from ceph_tpu_torch.osd.scrub import decode_stamps, "
+            "encode_stamps\n"
             "from ceph_tpu_torch.gpu.staging import (DeviceBuf, "
             "StagingPool, devpath_enabled)\n"
             "assert StagingPool.configure and DeviceBuf.seal\n"
@@ -365,6 +374,7 @@ def test_no_device_without_cuda_raises(monkeypatch):
 
     from ceph_tpu_torch.gpu.queue import default_queue
     from ceph_tpu_torch.osd import backend, map_codec, map_inc, osdmap
+    from ceph_tpu_torch.osd import hitset, pg, scrub
     from ceph_tpu_torch.store.memstore import MemStore
     from ceph_tpu_torch.store.objectstore import Collection
     from ceph_tpu_torch.tools import crushtool, osdmaptool
@@ -376,6 +386,9 @@ def test_no_device_without_cuda_raises(monkeypatch):
              (cmap.OP_EMIT, 0, 0)]
     # a codec with no device: the backend takes the card's queue
     no_dev = SimpleNamespace(device=None, get_sub_chunk_count=lambda: 1)
+    # the PG's host: whoami, epoch, store, send (pg.py:177-247)
+    pg_host = SimpleNamespace(whoami=0, epoch=lambda: 1, store=MemStore(),
+                              send_to_osd=None)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for call in (lambda: resolve_device(),
                  lambda: resolve_device("cuda"),
@@ -397,11 +410,20 @@ def test_no_device_without_cuda_raises(monkeypatch):
                  lambda: default_queue(),
                  lambda: backend.ECBackend((1, 0), Collection("1.0_head"),
                                            MemStore(), 0, None, None,
-                                           no_dev)):
+                                           no_dev),
+                 lambda: pg.PG((1, 0), osdmap.PGPool(pool_id=1), pg_host,
+                               no_dev)):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
-    # naming the CPU is the one way to run there
+    # naming the CPU is the one way to run there; the host-side
+    # modules of the PG (its hit sets and scrub stamps) need no device
     assert codec_from_profile(PROFILE, device="cpu").device.type == "cpu"
+    assert pg.PG((1, 0), osdmap.PGPool(pool_id=1), pg_host,
+                 codec_from_profile(PROFILE, device="cpu")
+                 ).backend.queue.device.type == "cpu"
+    assert hitset.BloomHitSet(target_size=8).nbits >= 64
+    assert scrub.decode_stamps(scrub.encode_stamps(1.5, 2.5, 3)) == (
+        1.5, 2.5, 3)
     assert default_queue("cpu").device.type == "cpu"
     with pytest.raises(ValueError):
         resolve_device("meta")

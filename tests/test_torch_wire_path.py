@@ -1,16 +1,20 @@
 """The wire slice as a whole on the CPU: ``chip_smoke.run_wire`` (the
-``wire`` phase's own code) with ``device="cpu"`` at a small size, held
-against ``ceph_tpu``.
+``wire`` and ``recovery`` phases' own code) with ``device="cpu"`` at a
+small size, held against ``ceph_tpu``.
 
-The primary osd.0 and its peers are each the port's ``ECBackend`` over
-a MemStore behind a messenger.  Each object is staged in the queue's
-payload pool and written through ``ECBackend.submit``: the plain kernels
-encode it with its CRCs, the primary keeps its shards and sends each
-peer one ``MECSubWriteVec`` whose transaction reads ``DeviceBuf``
-handles, with the PG log rows; the peers serve ``MECSubReadVec`` rows
-back through the seals (one shard rotten by ``store.corrupt_chunk``,
-answered as ``ECRC``, and in the four-peer case one peer down), and
-``reconstruct_async`` decodes.  The reference is ``ceph_tpu``'s
+The primary osd.0 and its peers are each the port's ``PG`` over a
+MemStore behind a messenger.  Each object is a ``WRITEFULL`` ``MOSDOp``
+from a client into ``PG.do_op``, staged in the queue's payload pool and
+written through ``ECBackend.submit``: the plain kernels encode it with
+its CRCs, the primary keeps its shards and sends each peer's PG one
+``MECSubWriteVec`` whose transaction reads ``DeviceBuf`` handles, with
+the PG log rows.  Each object is read back by a ``READ`` ``MOSDOp``
+through ``_ec_read_object``: the peers' PGs serve ``MECSubRead`` through
+the seals (one shard rotten by ``store.corrupt_chunk``, answered as
+``ECRC``, and in the four-peer case one peer down), and
+``reconstruct_async`` decodes.  In the four-peer case the primary then
+loses its shards and ``PG.recovery_engine()`` rebuilds them, each equal
+to the shard written.  The reference is ``ceph_tpu``'s
 ``codec.encode_array``, ``core.crc.crc32c``, ``codec.decode``,
 ``osd.backend.hinfo_decode`` and ``PGLog`` on the same objects: shards,
 CRCs, every stored ``hinfo``, decoded bytes and every holder's log must
@@ -50,10 +54,12 @@ def _restore_port_sanitizers():
 ])
 def test_wire_slice_on_the_cpu_matches_the_reference(peers, down, corrupt,
                                                      lost):
+    # two peers: the primary's four shards and the rotten one are more
+    # than m, so only the four-peer case can recover the primary's
     res = chip_smoke.run_wire(
         torch, torch.device("cpu"), nobj=4, obj_bytes=64 << 10,
         stripe_bytes=16 << 10, peers=peers, down=down, corrupt=corrupt,
-        threads=2)
+        threads=2, recover=peers == 4)
     assert res["lost"] == lost
     assert res["acting"] == [s % (peers + 1) for s in range(K + M)]
     ref = ref_codec_from_profile(chip_smoke.WIRE_PROFILE)
@@ -78,7 +84,10 @@ def test_wire_slice_on_the_cpu_matches_the_reference(peers, down, corrupt,
                                  4 * len(remote_read) * width]
     assert res["seal_fails"] == 4 and res["refused"] >= 2
     assert res["sub_acks"] == 4 * peers
-    assert res["verified"] == 4 * (K + M) + 4 * (K + M - len(lost))
+    # every stored shard after the write, and every remote survivor a
+    # peer's PG served to the read (the primary's own are read inside
+    # the PG's gather)
+    assert res["verified"] == 4 * (K + M) + 4 * len(remote_read)
     assert sum(w * c for w, c in res["batch_jobs"].items()) == 4
     # lockdep was armed for the run and saw the queue's nested locks
     assert "staging.stats" in res["edge_graph"]["staging.pool"]
@@ -96,6 +105,22 @@ def test_wire_slice_on_the_cpu_matches_the_reference(peers, down, corrupt,
     assert dp["seals"] == 4 and dp["local_applied"] == 4 * len(local)
     assert res["devbuf"] == {"on": "cpu", "bytes": M * width,
                              "d2h_grew": M * width, "k1_launches": 0}
+    # through the PG: every write staged, none degraded; every read
+    # decoded on the queue (none served warm), the rotten shard counted
+    # once an object; every PG's head at the last write
+    assert res["staged"] == {"staged": 4, "degraded": 0}
+    assert res["dec_jobs"] == 4 and res["scrub_errors"] == 4
+    assert res["heads"] == {o: "7'4" for o in range(peers + 1)}
+    rec = res["recovery"]
+    if peers == 4:
+        # the primary's shards 0, 5, 10 of 4 objects, one round of 3 and
+        # one of 1, one vec a peer a round, every object decoded
+        assert rec["shards"] == 12 and rec["rounds"] == 2
+        assert rec["subread_msgs"] <= 4 * 2 and rec["dec_jobs"] == 4
+        assert rec["bytes"] == 12 * width
+        assert not any(rec["counts"].values())
+    else:
+        assert rec is None
     # every holder's PG log and stored hinfo: the reference reads the
     # same omap to the same entries, its own rows for them are the same
     # bytes, and its hinfo_decode reads the card's CRC of each shard

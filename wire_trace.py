@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
-"""Where the ``wire`` phase's time goes: ``chip_smoke.run_wire`` at full
-width, once plain and once traced, then the host CRC-32C's aggregate
-rate from 1 and 4 threads.
+"""Where the ``wire`` and ``recovery`` phases' time goes:
+``chip_smoke.run_wire`` at full width, once plain and once traced, then
+the host CRC-32C's aggregate rate from 1 and 4 threads.
 
     python3 wire_trace.py
 
 It needs a CUDA card and builds the kernels as ``chip_smoke.py`` does.
-The traced run splits each of ``run_wire``'s two windows (the write
-through ``ECBackend.submit`` and its MECSubWriteVec fan-out, and the
-degraded read in MECSubReadVec messages and ``reconstruct_async``, one
-``run_threads`` call each) into:
+The traced run splits each of ``run_wire``'s three windows (the
+``WRITEFULL`` MOSDOps through ``PG.do_op``, ``ECBackend.submit`` and
+its MECSubWriteVec fan-out; the degraded ``READ`` MOSDOps through
+``_ec_read_object``, its MECSubRead messages and ``reconstruct_async``,
+one ``run_threads`` call each; and the recovery step,
+``PG.recovery_engine().recover`` of the primary's lost shards) into:
 
 - the host CRC by call site: the frame CRC on send (``_frame_of``) and
   on receive (``_read_one``), the store's seals on write
@@ -23,11 +25,11 @@ degraded read in MECSubReadVec messages and ``reconstruct_async``, one
 - where the threads are: every 5 ms a sampler reads each thread's
   innermost frames and counts them by thread group (primary loop, peer
   loops, the peers' dispatch threads, the writer or reader threads,
-  the queue's worker, the backend's one fan-out thread, the decode
-  completions) and by what the thread does (CRC, message codec with
-  the OSD messages and the PG log, staging, store, messenger, backend,
-  waiting on a lock, a staging slot, a commit, a decode or replies,
-  idle);
+  the primary's op threads, the queue's worker, the backend's one
+  fan-out thread, the decode completions) and by what the thread does
+  (CRC, message codec with the OSD messages and the PG log, staging,
+  store, messenger, PG, backend, waiting on a lock, a staging slot or an
+  op's reply, idle);
 - on the card: kernel and copy intervals from ``torch.profiler``, merged,
   over the wall (the card's idle share is one less that).
 
@@ -69,6 +71,8 @@ def thread_group(name: str) -> str:
         return "queue worker"
     if name.startswith("pg-fanout"):
         return "fan-out thread"
+    if name.startswith("osd0-op"):
+        return "op threads"
     if name.startswith("ec-decode-done"):
         return "decode completions"
     if "(worker)" in name:
@@ -118,8 +122,8 @@ def activity(frame) -> str:
         if path.endswith("concurrent/futures/thread.py"):
             return "idle: thread pool"
         if path.endswith("chip_smoke.py"):
-            return {"wait": "wait: replies", "write": "wait: commit",
-                    "read": "wait: decode"}.get(name, "wait: phase code")
+            return ("wait: op reply" if name == "call"
+                    else "wait: phase code")
         if path.endswith("/gpu/staging.py"):
             return "wait: staging slot"
         if "/gpu/" in path:
@@ -127,7 +131,7 @@ def activity(frame) -> str:
         if "/store/" in path or "/msg/" in path:
             return "wait: store or messenger lock"
         if "/osd/" in path:
-            return "wait: backend lock"
+            return "wait: PG or backend lock"
         return f"wait: {os.path.basename(path)}:{name}"
     f = frame
     while f is not None and _repo_module(_where(f)[0]) is None:
@@ -144,6 +148,8 @@ def activity(frame) -> str:
         return "staging"
     if mod.startswith("store/"):
         return "store"
+    if mod == "osd/pg.py":
+        return "PG"
     if mod in ("osd/backend.py", "osd/recovery.py", "osd/ecutil.py"):
         return "backend"
     if mod == "msg/messenger.py":
@@ -172,7 +178,10 @@ def trace(torch, dev, **wire) -> dict:
     """``chip_smoke.run_wire(torch, dev, **wire)`` with the host CRC's
     call sites timed, a frame sampler running and, on a CUDA device,
     ``torch.profiler`` over each window.  Returns ``run_wire``'s result
-    with ``windows``: one dict per ``run_threads`` call."""
+    with ``windows``: one dict per ``run_threads`` call, and one for the
+    recovery step, which runs only when ``wire`` asks for it
+    (``recover=True``)."""
+    wire.setdefault("recover", False)
     from ceph_tpu_torch.core import crc as hcrc
     from ceph_tpu_torch.msg import messenger
     from ceph_tpu_torch.osd import backend
@@ -219,7 +228,8 @@ def trace(torch, dev, **wire) -> dict:
     on_card = dev.type == "cuda"
     plain_run_threads = chip_smoke.run_threads
 
-    def traced_run_threads(fn, nobj, threads):
+    def windowed(fn, *args):
+        """fn(*args) as one window; returns (fn's result, wall s)."""
         w = {"crc": {}, "samples": {}}
         prof = None
         if on_card:
@@ -230,10 +240,11 @@ def trace(torch, dev, **wire) -> dict:
             prof.start()
         windows.append(w)
         state["win"] = len(windows) - 1
-        cpu0 = time.process_time()
+        cpu0, t0 = time.process_time(), time.monotonic()
         try:
-            wall = plain_run_threads(fn, nobj, threads)
+            out = fn(*args)
         finally:
+            wall = time.monotonic() - t0
             state["win"] = None
             w["cpu_s"] = time.process_time() - cpu0
             if prof is not None:
@@ -250,7 +261,15 @@ def trace(torch, dev, **wire) -> dict:
                            "kernel_ms": merged_ms(kernels),
                            "copy_ms": merged_ms(copies),
                            "busy_ms": merged_ms(kernels + copies)}
-        return wall
+        return out, wall
+
+    def traced_run_threads(fn, nobj, threads):
+        return windowed(plain_run_threads, fn, nobj, threads)[1]
+
+    plain_recover = chip_smoke._recover_primary
+
+    def traced_recover(*args):
+        return windowed(plain_recover, *args)[0]
 
     if on_card:  # the profiler's first start is slow: not in a window
         from torch.profiler import ProfilerActivity, profile
@@ -264,6 +283,7 @@ def trace(torch, dev, **wire) -> dict:
                           daemon=True)
     messenger.crc32c = objectstore.crc32c = backend.crc32c = timed_crc
     chip_smoke.run_threads = traced_run_threads
+    chip_smoke._recover_primary = traced_recover
     th.start()
     try:
         res = chip_smoke.run_wire(torch, dev, **wire)
@@ -271,6 +291,7 @@ def trace(torch, dev, **wire) -> dict:
         stop.set()
         th.join()
         chip_smoke.run_threads = plain_run_threads
+        chip_smoke._recover_primary = plain_recover
         messenger.crc32c = objectstore.crc32c = backend.crc32c = plain_crc
     for w in windows:
         w["crc_s"] = sum(r[2] for r in w["crc"].values())
@@ -324,19 +345,24 @@ def main() -> int:
     torch.cuda.set_device(dev)
     _build.lib()
     plain = chip_smoke.run_wire(torch, dev)
-    traced = trace(torch, dev)
+    traced = trace(torch, dev, recover=True)
     rates = crc_rates()
     out = {"card": card,
-           "plain": {"w_wall": plain["w_wall"], "r_wall": plain["r_wall"]},
+           "plain": {"w_wall": plain["w_wall"], "r_wall": plain["r_wall"],
+                     "rec_wall": plain["recovery"]["wall"]},
            "traced": {"w_wall": traced["w_wall"], "r_wall": traced["r_wall"],
+                      "rec_wall": traced["recovery"]["wall"],
                       "windows": traced["windows"]},
            "crc_mbs": rates}
-    for name, w in zip(("write", "read"), traced["windows"]):
+    plain_walls = (plain["w_wall"], plain["r_wall"],
+                   plain["recovery"]["wall"])
+    for name, w, pw in zip(("write", "read", "recovery"), traced["windows"],
+                           plain_walls):
         n = sum(w["samples"].values())
         top = ", ".join(f"{k} {v / n:.3f}" for k, v in
                         list(w["samples"].items())[:12])
         print(f"[{card}] {name}: wall {w['wall_s']:.3f} s (plain "
-              f"{plain[name[0] + '_wall']:.3f} s), CPU {w['cpu_s']:.3f} s; "
+              f"{pw:.3f} s), CPU {w['cpu_s']:.3f} s; "
               f"host CRC {w['crc_s']:.3f} s in calls, {w['crc_cpu_s']:.3f} "
               f"s CPU, by site {w['crc']}; card {w.get('device')}; "
               f"samples {n}: {top}", flush=True)
