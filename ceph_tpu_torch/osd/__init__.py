@@ -3,5 +3,5 @@ core types, placement on the host (``osdmap``, ``map_codec``,
 ``map_inc``), the OSD's wire messages (``messages``), the PG log
 (``pglog``), the EC and replicated backends (``backend``), the windowed
 recovery engine (``recovery``), the PG (``pg``) with its hit sets
-(``hitset``) and the scrub stamp codec (``scrub``).  The scrub engine,
-cls and the daemon come in later slices."""
+(``hitset``), its scrub engine (``scrub``) and its object classes
+(``cls``).  The daemon comes in a later slice."""

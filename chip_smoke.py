@@ -115,6 +115,28 @@ Phases, each of which fails the run (non-zero exit, no result line):
               ``dec`` kind (K1); every rebuilt shard and its ``hinfo``
               equal to what stood before the loss, ``missing`` and
               ``unfound`` empty; the wall and objects per second;
+6e. scrub    on the wire phase's PGs after the recovery, shard 6 still
+              rotten on osd.1: ``client.4100`` sends ``OP_CALL``
+              ``MOSDOp``s on one object through ``do_op`` (``lock.lock``,
+              ``lock.get_info``, a second ``lock.lock`` by another owner
+              answered ``EBUSY``, ``version.set``, ``version.check``),
+              each reply's result and out bytes checked, the two cls
+              writes re-encoded (K1) and sent to every peer, the object
+              read back byte for byte; ``PG.scrub_engine().run``: a
+              shallow pass (one ``MScrub`` a peer, metadata only) clean;
+              a deep pass (``osd_scrub_auto_repair`` off: every shard
+              gathered, one ``MECSubRead`` a remote shard, each chunk's
+              decodes submitted together on the queue's ``dec`` kind, K1,
+              and each object re-encoded and compared) naming shard 6 on
+              all 64 objects, ``scrub_errors`` 64, the stamps row
+              written and the cursor cleared; the failpoint disarmed and
+              five shards marked with ``debug_inject_data_err`` (the
+              primary's shard 0 and shards 1, 7, 8, 11 on three peers),
+              ``run(deep=True, auto_repair=True)`` clean and
+              ``scrub_errors`` 0, each repaired shard's bytes, ``hinfo``
+              and ``_av`` as before the rot and its mark cleared (the
+              primary's through its store, the peers' by ``MPGPush``),
+              and a last deep pass clean;
 7. bitmatrix  the same 1 GiB write through ``jerasure k=8 m=4
               technique=cauchy_good``, read back degraded through
               ``codec.decode_array`` with shards 6, 7, 10, 11 lost (the
@@ -172,16 +194,18 @@ Each path zeroes the kernel launch counts just before its writes and
 reads them just after, then likewise for its reads (the core phase
 zeroes them before its lockdep run and reads them after its failpoint
 check; the wire phase's write half is its MOSDOp writes and commits, its
-read half the MOSDOp reads with their sub-reads and reconstructs, and
-the recovery phase zeroes them just before the recovery window and reads
-them just after); each kernel of each
+read half the MOSDOp reads with their sub-reads and reconstructs, the
+recovery phase zeroes them just before the recovery window and reads
+them just after, and the scrub phase around each of its steps); each
+kernel of each
 half must have run (for ecbench, K2 and K1: its loops capture one launch
 per iteration in a CUDA graph and replay it, and the counts are of the
 captured launches).  Then each kernel is timed at its path's batch
 shape, beside its plain version and its bound: ``ms`` is device time per
 launch from a CUDA graph of launches, ``call_ms`` the eager wrapper call
 with CUDA events; the K1 and CRC rows carry their launches in the wire
-phase's two halves and the recovery phase (``wire_launches``); the
+phase's two halves, the recovery phase and each step of the scrub phase
+(``wire_launches``); the
 popcount row times both of
 shec's read shapes
 (``ms`` the contribution, ``solve_ms`` the solve).  The crush phase
@@ -1236,16 +1260,44 @@ class _RpcWaiter:
             return list(self.got)
 
 
+# the daemon's scrub counters (daemon.py:240-264), osd.N.scrub
+SCRUB_COUNTERS = (
+    ("chunks", "deep-scrub chunks verified"),
+    ("objects", "objects scrub-verified"),
+    ("errors_found", "inconsistent objects found by scrub"),
+    ("errors_repaired", "inconsistent objects auto-repaired"),
+    ("preemptions", "chunk boundaries where client pressure preempted a "
+                    "running scrub"),
+    ("resumes", "deep scrubs resumed from a persisted cursor "
+                "(kill/interval-change mid-scrub)"),
+    ("deep_done", "completed deep scrub passes"),
+    ("shallow_done", "completed shallow scrub passes"),
+    ("hinfo_reseals", "partial-overwrite-invalidated hinfo crcs re-sealed "
+                      "after a clean deep-scrub decode"),
+)
+
+
+def _pg_module(pg):
+    """The module of ``pg``'s class: its package's messages (``.m``),
+    types (``.t_``) and ``SCRUB_UNREADABLE``, so one host serves a PG of
+    either package."""
+    return sys.modules[type(pg).__module__]
+
+
 class PhaseOSD:
     """The duck-typed host of a port ``PG`` (``ceph_tpu_torch/osd/pg.py``)
     over the port's messenger: the part of the daemon's routing
-    (``ceph_tpu/osd/daemon.py:1169-1200,1251-1275,1638-1655``) that the
-    phases drive.  ``send_to_osd`` sends on this osd's sessions
-    (``conns``), dropping a message to an osd without one as the daemon
-    drops one without an address; ``new_tid``; ``track_reads`` and
-    ``untrack_reads``, with ``route_reply`` handing a sub-read reply to
-    its callback or an RPC waiter by tid; ``rpc``.  Every other host
-    method raises ``NotImplementedError`` naming ROADMAP item 1i."""
+    (``ceph_tpu/osd/daemon.py:1169-1200,1251-1275,1489-1527,1638-1655,
+    1801-1861``) that the phases drive.  ``send_to_osd`` sends on this
+    osd's sessions (``conns``), dropping a message to an osd without one
+    as the daemon drops one without an address; ``new_tid``;
+    ``track_reads`` and ``untrack_reads``, with ``route_reply`` handing a
+    sub-read reply to its callback or an RPC waiter by tid; ``rpc``; the
+    scrub's ``collect_scrub_maps``, ``fetch_remote_chunk_full`` and
+    ``list_peer_objects``, the ``scrub_perf`` counters, and the replica
+    side of scrub and repair: ``serve_scrub`` (``MScrub``) and
+    ``serve_pull`` (``MPGPull``).  Every other host method raises
+    ``NotImplementedError`` naming ROADMAP item 1i."""
 
     def __init__(self, ctx, whoami: int, store, osdmap: PhaseMap,
                  epoch: int) -> None:
@@ -1259,6 +1311,10 @@ class PhaseOSD:
         self.perf = PhaseCounters()
         self.pg_perf = PhaseCounters()
         self.op_perf = None
+        self.sent = PhaseCounters()  # messages sent, by type
+        self.scrub_perf = ctx.perf.create(f"osd.{whoami}.scrub")
+        for name, desc in SCRUB_COUNTERS:
+            self.scrub_perf.add_u64_counter(name, desc)
         self.logged: list = []
         self._tid = 0
         self._tid_lock = threading.Lock()
@@ -1280,6 +1336,7 @@ class PhaseOSD:
         if conn is None:
             self._log(0, f"no session to osd.{osd_id}, dropping {msg!r}")
             return
+        self.sent.inc(type(msg).__name__)
         conn.send(msg)
 
     def new_tid(self) -> int:
@@ -1332,6 +1389,92 @@ class PhaseOSD:
         finally:
             self._waiters.pop(tid, None)
 
+    # -- scrub (daemon.py:1489-1527,1801-1861) ----------------------------
+    @staticmethod
+    def _missing_unreadable(pg, digests, unreadable) -> None:
+        """Objects this osd knows exist but has not recovered vote
+        exists-but-unservable (the daemon's missing-set rule)."""
+        t_ = _pg_module(pg).t_
+        with pg.lock:
+            for oid in pg.missing:
+                if oid not in digests and oid not in unreadable:
+                    en = pg.log.latest_for(oid)
+                    if en is None or en.op != t_.LOG_DELETE:
+                        unreadable.append(oid)
+
+    def serve_scrub(self, pg, msg, conn) -> None:
+        """``MScrub`` -> this PG's local scrub map -> ``MScrubMap``."""
+        digests, unreadable = pg.local_scrub_map(
+            deep=getattr(msg, "deep", True))
+        self._missing_unreadable(pg, digests, unreadable)
+        rep = _pg_module(pg).m.MScrubMap(msg.pgid, self.epoch(), digests,
+                                         unreadable)
+        rep.tid = msg.tid
+        conn.send(rep)
+
+    def serve_pull(self, pg, msg, conn) -> None:
+        """``MPGPull``: push each object to the puller, then the
+        ``MPGPushReply`` that completes its RPC.  ``push_object`` waits
+        on RPCs of its own, so this runs on a thread of its own, never on
+        the dispatch thread that must deliver their replies (the daemon
+        queues it on its workqueue)."""
+        def run() -> None:
+            for oid in msg.oids:
+                pg.push_object(oid, msg.src.num)
+            done = _pg_module(pg).m.MPGPushReply(pg.pgid, self.epoch(),
+                                                 "", 0)
+            done.tid = msg.tid
+            conn.send(done)
+
+        threading.Thread(target=run, daemon=True,
+                         name=f"osd{self.whoami}-pull").start()
+
+    def list_peer_objects(self, pg, osd_id: int):
+        """A peer's object listing (its scrub map's key set); None when
+        the peer did not answer."""
+        M = _pg_module(pg).m
+        reps = self.rpc([(osd_id, M.MScrub(pg.pgid, self.epoch()))])
+        if reps and isinstance(reps[0], M.MScrubMap):
+            return set(reps[0].digests) | set(reps[0].unreadable)
+        return None
+
+    def collect_scrub_maps(self, pg, deep: bool = True,
+                           rpc_timeout=None) -> dict:
+        """{osd: {oid: digest}} with store-unreadable objects merged in
+        as ``SCRUB_UNREADABLE``; ``deep=False`` asks every member for the
+        metadata-only map."""
+        mod = _pg_module(pg)
+        peers = [o for o in set(pg.acting)
+                 if o not in (self.whoami, 0x7FFFFFFF) and o >= 0]
+        digests, unreadable = pg.local_scrub_map(deep=deep)
+        self._missing_unreadable(pg, digests, unreadable)
+        digests.update({o: mod.SCRUB_UNREADABLE for o in unreadable})
+        out = {self.whoami: digests}
+        if peers:
+            reps = self.rpc([(p, mod.m.MScrub(pg.pgid, self.epoch(),
+                                              deep=deep))
+                             for p in peers],
+                            timeout=rpc_timeout if rpc_timeout else 10.0)
+            for rep in reps:
+                if isinstance(rep, mod.m.MScrubMap):
+                    dm = dict(rep.digests)
+                    dm.update({o: mod.SCRUB_UNREADABLE
+                               for o in rep.unreadable})
+                    out[rep.src.num] = dm
+        return out
+
+    def fetch_remote_chunk_full(self, pg, osd_id: int, shard: int, oid: str,
+                                timeout=None):
+        """(data, attrs, omap) of a remote shard, or None."""
+        M = _pg_module(pg).m
+        reps = self.rpc([(osd_id, M.MECSubRead(pg.pgid, self.epoch(), shard,
+                                               oid, 0, 0))],
+                        timeout=timeout if timeout else 10.0)
+        for rep in reps:
+            if isinstance(rep, M.MECSubReadReply) and rep.result == 0:
+                return rep.data, dict(rep.attrs), dict(rep.omap)
+        return None
+
     def _waits(self, name: str):
         raise NotImplementedError(f"PhaseOSD.{name} {_WAITS_1I}")
 
@@ -1340,12 +1483,6 @@ class PhaseOSD:
 
     def pull_from_peer(self, *a, **kw):
         self._waits("pull_from_peer")
-
-    def list_peer_objects(self, *a, **kw):
-        self._waits("list_peer_objects")
-
-    def fetch_remote_chunk_full(self, *a, **kw):
-        self._waits("fetch_remote_chunk_full")
 
     def register_notify(self, *a, **kw):
         self._waits("register_notify")
@@ -1357,7 +1494,8 @@ class PhaseOSD:
 def run_wire(torch, dev, *, nobj: int = WIRE_OBJS,
              obj_bytes: int = 4 * MiB, stripe_bytes: int = 1 * MiB,
              peers: int = WIRE_PEERS, down=WIRE_DOWN, corrupt=WIRE_CORRUPT,
-             threads: int = 8, recover: bool = True) -> dict:
+             threads: int = 8, recover: bool = True,
+             scrub: bool = False) -> dict:
     """Client ops through the port's ``PG`` (``ceph_tpu_torch/osd/pg.py``)
     on the wire: the EC object write and its degraded read, then the
     primary's lost shards recovered, under lockdep:
@@ -1426,10 +1564,15 @@ def run_wire(torch, dev, *, nobj: int = WIRE_OBJS,
        ``MECSubReadVec`` per peer per round, the rotten shard answering
        ``ECRC``, the reconstructs through the queue's ``dec`` kind);
        every recovered shard and its ``hinfo`` must equal what stood
-       before the loss, and ``missing`` and ``unfound`` end empty.
+       before the loss, and ``missing`` and ``unfound`` end empty;
+    6. with ``scrub`` (after ``recover``): ``_scrub_primary``, the
+       ``scrub`` phase's code, on the same PGs with the rotten shard still
+       armed: cls calls through ``do_op``, a shallow and a deep scrub, then
+       five marked shards auto-repaired (``res["scrub"]``).
 
     The launch counts are zeroed just before the writes and read just
-    after them, and likewise around the reads and around the recovery.
+    after them, and likewise around the reads, around the recovery and
+    around each scrub step.
     Returns the counts, walls, what was written and read, every holder's
     PG meta omap and the counters; raises on any failed check."""
     import dataclasses
@@ -1470,6 +1613,7 @@ def run_wire(torch, dev, *, nobj: int = WIRE_OBJS,
     shards_of = {o: [s for s in range(n) if acting[s] == o]
                  for o in range(peers + 1)}
     c_peer, c_shard = corrupt
+    require(recover or not scrub, "wire: the scrub runs after the recovery")
     require(c_peer != 0 and acting[c_shard] == c_peer
             and c_peer not in down
             and not any(str(c_shard) in str(s) for s in range(n)
@@ -1522,6 +1666,12 @@ def run_wire(torch, dev, *, nobj: int = WIRE_OBJS,
                 self.pg.handle_sub_read_vec(msg, conn)
             elif isinstance(msg, om.MECCommitNote):
                 self.pg.handle_commit_note(msg, conn)
+            elif isinstance(msg, om.MScrub):
+                self.host.serve_scrub(self.pg, msg, conn)
+            elif isinstance(msg, om.MPGPush):
+                self.pg.handle_push(msg, conn)
+            elif isinstance(msg, om.MPGPull):
+                self.host.serve_pull(self.pg, msg, conn)
             else:
                 return False
             self.busy.append(time.perf_counter() - t0)
@@ -1538,6 +1688,8 @@ def run_wire(torch, dev, *, nobj: int = WIRE_OBJS,
                                           thread_name_prefix="osd0-op")
             self.failed = []   # do_op exceptions
             self.reads = []    # (oid, shard, src, result, data) replies
+            self.record = True  # of the read's sub-read replies only
+            self.got = PhaseCounters()  # replies routed, by type
 
         def ms_can_fast_dispatch(self, msg) -> bool:
             return not isinstance(msg, om.MOSDOp)
@@ -1571,7 +1723,8 @@ def run_wire(torch, dev, *, nobj: int = WIRE_OBJS,
             if isinstance(msg, om.MECSubWriteVecReply):
                 self.pg.backend.handle_reply(msg.tid, msg.src.num)
                 return True
-            if isinstance(msg, om.MECSubReadReply):
+            self.got.inc(type(msg).__name__)
+            if isinstance(msg, om.MECSubReadReply) and self.record:
                 self.reads.append((msg.oid, msg.shard, msg.src.num,
                                    msg.result, msg.data))
             return self.host.route_reply(msg)
@@ -1931,6 +2084,10 @@ def run_wire(torch, dev, *, nobj: int = WIRE_OBJS,
         dec_jobs = sum(w * c for w, c in q.dec_batch_jobs.items()) - dec0
         scrub_errors = pg.scrub_errors
         reads = list(prim.reads)
+        # a deep pass gathers every shard: the sub-read replies of the
+        # steps after the read are not kept
+        prim.record = False
+        prim.reads = []
         require(not prim.failed, f"wire: do_op raised {prim.failed}")
 
         perf = {name: c.perf.dump()[f"msgr.{name}"]
@@ -1942,6 +2099,10 @@ def run_wire(torch, dev, *, nobj: int = WIRE_OBJS,
             rec = _recover_primary(pg, start_peer, host0, primary, osdmap,
                                    q, down, oids, shards_of[0], c_shard,
                                    peers)
+        scr = None
+        if scrub:
+            scr = _scrub_primary(pg, host0, prim, holders, client_d, cconn,
+                                 q, oids, objs, corrupt, acting)
         fp.disarm_all()
         edges = lockdep.edge_graph()
     finally:
@@ -2012,7 +2173,8 @@ def run_wire(torch, dev, *, nobj: int = WIRE_OBJS,
             "scrub_errors": scrub_errors, "dec_jobs": dec_jobs,
             "heads": {num: str(h[0]) for num, h in heads.items()},
             "edges": sum(len(v) for v in edges.values()), "edge_graph": edges,
-            "refused": verdicts[1].count(False), "recovery": rec}
+            "refused": verdicts[1].count(False), "recovery": rec,
+            "scrub": scr}
 
 
 def _recover_primary(pg, start_peer, host0, primary, osdmap, q, down, oids,
@@ -2086,6 +2248,266 @@ def _recover_primary(pg, start_peer, host0, primary, osdmap, q, down, oids,
             "pushes": host0.perf.value("recovery_pushes")}
 
 
+# the scrub phase's auto-repair: (object index, shard) of each marked
+# shard.  Five is osd_scrub_auto_repair_num_errors (Ceph's default): one
+# of the primary's own shards (shard 0) and data and parity shards on
+# three peers (shards 1 and 11 on osd.1, 7 on osd.2, 8 on osd.3)
+SCRUB_MARKS = ((1, 0), (2, 1), (3, 7), (4, 8), (5, 11))
+SCRUB_LOCK_OWNER = f"client.{WIRE_CLIENT}"
+
+
+def _scrub_primary(pg, host0, prim, holders, client_d, cconn, q, oids, objs,
+                   corrupt, acting) -> dict:
+    """The ``scrub`` phase's code, on ``run_wire``'s PGs after the
+    recovery, with the ``store.corrupt_chunk`` failpoint still armed on
+    shard ``corrupt[1]`` of osd ``corrupt[0]``:
+
+    1. cls through ``do_op``: ``client.4100`` sends ``OP_CALL``
+       ``MOSDOp``s on the first object: ``lock.lock`` (a write: the
+       object, host bytes to the method, re-encoded in an ``enc`` job),
+       ``lock.get_info``, a
+       second ``lock.lock`` by another owner (``EBUSY``),
+       ``version.set`` and ``version.check``; each reply's result and
+       out bytes are checked, then a ``READ`` of the object, byte for
+       byte;
+    0. the PG, degraded since the read, is active again;
+    2. ``scrub_engine().run(deep=False)``: metadata only, so clean;
+    3. ``run(deep=True)`` with ``osd_scrub_auto_repair`` off: every
+       object names the rotten shard, ``scrub_errors`` is recounted to
+       the objects' count, the stamps row is written and the cursor
+       cleared, one ``dec`` job an object in batches wider than one;
+    4. the failpoint disarmed, the stores' data-err marks armed on the
+       ``SCRUB_MARKS`` shards, ``run(deep=True, auto_repair=True)``
+       returns ``{}`` and ``scrub_errors`` 0; every repaired shard's
+       bytes and ``hinfo`` equal what stood before the rot, its ``_av``
+       is ``pg._av_for(oid)`` and its mark is cleared; a last
+       ``run(deep=True)`` returns ``{}``.
+
+    The launch counts are zeroed just before each step and read just
+    after it.  Returns each step's wall, launches and messages, the
+    deep passes' gathered bytes, the ``dec`` batch widths and the
+    ``scrub_perf`` dump; raises on any failed check."""
+    from ceph_tpu_torch.core import failpoint as fp
+    from ceph_tpu_torch.osd import scrub as oscrub
+    from ceph_tpu_torch.osd.backend import hinfo_decode
+    from ceph_tpu_torch.osd.pg import STATE_ACTIVE
+    from ceph_tpu_torch.osd.types import OP_CALL, OP_READ, OSDOp
+    from ceph_tpu_torch.store.objectstore import GHObject
+
+    c_peer, c_shard = corrupt
+    with pg.lock:
+        # every peer up and nothing missing after the recovery: the PG is
+        # active again, as the daemon's next peering would leave it (a
+        # degraded PG holds a write's ack below k members)
+        require(not pg.missing and not pg.unfound,
+                "scrub: the recovery left nothing missing")
+        pg.state = STATE_ACTIVE
+    be, cid = pg.backend, pg.coll
+    n = be.k + be.m
+    nobj = len(oids)
+    width = len(be.read_local_chunk(oids[0], acting.index(0)))
+    eng = pg.scrub_engine()
+    conf = host0.ctx.conf
+    require(not conf.get("osd_scrub_auto_repair")
+            and int(conf.get("osd_scrub_auto_repair_num_errors"))
+            == len(SCRUB_MARKS),
+            "scrub: auto-repair off by default, its cap at 5 errors")
+    meta = GHObject(WIRE_META)
+    tids = iter(range(2 * nobj + 1, 1 << 30))
+    steps = {}
+
+    def dec_jobs() -> dict:
+        return dict(q.dec_batch_jobs)
+
+    # where a step's wall goes, on the host's clock: the remote shards'
+    # RPCs, the local shard reads, each object's re-encode (an enc job
+    # and its chunks' bytes) and the wait for each decode with the
+    # object's assembly
+    timed = ((host0, "fetch_remote_chunk_full", "remote_gather_s"),
+             (be, "read_local_chunk", "local_read_s"),
+             (be, "_encode_object", "encode_s"),
+             (eng, "_resolve_state", "decode_wait_s"))
+
+    def run_step(name: str, fn, want_dec: int = 0):
+        sent0, got0 = dict(host0.sent.vals), dict(prim.got.vals)
+        perf0 = host0.scrub_perf.dump()
+        dec0 = dec_jobs()
+        split = {key: 0.0 for _, _, key in timed}
+
+        def timer(plain_fn, key):
+            def call(*a, **kw):
+                t = time.monotonic()
+                try:
+                    return plain_fn(*a, **kw)
+                finally:
+                    split[key] += time.monotonic() - t
+            return call
+
+        for obj, attr, key in timed:
+            setattr(obj, attr, timer(getattr(obj, attr), key))
+        reset_counts()
+        t0 = time.monotonic()
+        try:
+            out = fn()
+        finally:
+            wall = time.monotonic() - t0
+            for obj, attr, _ in timed:
+                delattr(obj, attr)
+        # the queue counts a batch after its results are out
+        deadline = time.monotonic() + WIRE_WAIT_S
+        while (sum(w * (c - dec0.get(w, 0))
+                   for w, c in q.dec_batch_jobs.items()) < want_dec
+               and time.monotonic() < deadline):
+            time.sleep(0.001)
+        counts = read_counts()
+        widths = {w: c - dec0.get(w, 0) for w, c in dec_jobs().items()
+                  if c - dec0.get(w, 0)}
+        steps[name] = {
+            "wall": wall, "split": split, "counts": counts,
+            "dec_widths": widths,
+            "dec_jobs": sum(w * c for w, c in widths.items()),
+            "sent": {k: v - sent0.get(k, 0) for k, v in host0.sent.vals.items()
+                     if v - sent0.get(k, 0)},
+            "got": {k: v - got0.get(k, 0) for k, v in prim.got.vals.items()
+                    if v - got0.get(k, 0)},
+            "scrub_perf": {k: v - perf0[k]
+                           for k, v in host0.scrub_perf.dump().items()
+                           if v - perf0[k]}}
+        return out
+
+    # 1. cls through do_op
+    oid0 = oids[0]
+    lk = {"name": "scrub", "owner": SCRUB_LOCK_OWNER}
+    jobs = {"enc": 0, "encp": 0}
+    plain = {"enc": q.encode_async, "encp": q.encode_crc_async}
+
+    def counted(kind):
+        def submit(*a, **kw):
+            jobs[kind] += 1
+            return plain[kind](*a, **kw)
+        return submit
+
+    def call(method: str, indata: bytes):
+        rep = client_d.call(cconn, next(tids), oid0,
+                            [OSDOp(OP_CALL, name=method, data=indata)])
+        return rep.result, rep.ops[0].rval, bytes(rep.ops[0].out_data)
+
+    def cls_calls():
+        return [call("lock.lock", json.dumps(lk).encode()),
+                call("lock.get_info", json.dumps({"name": "scrub"}).encode()),
+                call("lock.lock", json.dumps(
+                    {"name": "scrub", "owner": "client.4101"}).encode()),
+                call("version.set", b"19"),
+                call("version.check", b"19")]
+
+    q.encode_async, q.encode_crc_async = counted("enc"), counted("encp")
+    try:
+        got = run_step("cls", cls_calls)
+    finally:
+        del q.encode_async, q.encode_crc_async
+    info = json.dumps({"type": "exclusive", "owners": [SCRUB_LOCK_OWNER]})
+    want = [(0, 0, b""), (0, 0, info.encode()), (-16, -16, b""),
+            (0, 0, b""), (0, 0, b"")]
+    require(got == want, f"scrub: the cls replies {got} == {want}")
+    # a cls method sees the object as host bytes (the reference's
+    # pull-back in _exec_call), so its rewrite rides the queue's enc kind
+    # (K1) and each shard's hinfo takes the host CRC
+    steps["cls"]["jobs"] = dict(jobs)
+    require(jobs == {"enc": 2, "encp": 0}
+            and steps["cls"]["sent"].get("MECSubWriteVec", 0)
+            == 2 * len(set(acting) - {0}),
+            f"scrub: the two cls writes re-encoded the object in one enc "
+            f"job each ({jobs}) and sent each peer one MECSubWriteVec "
+            f"({steps['cls']['sent']})")
+    pg._obc_invalidate()
+    rep = client_d.call(cconn, next(tids), oid0, [OSDOp(OP_READ)])
+    require(rep.result == 0 and bytes(rep.ops[0].out_data)
+            == objs[0].tobytes(),
+            "scrub: a READ after the cls writes returns the object exactly")
+
+    # 2. shallow: metadata only, the rotten data is invisible to it
+    errs = run_step("shallow", lambda: eng.run(deep=False))
+    require(errs == {}, f"scrub: the shallow scrub is clean: "
+                        f"{sorted(errs)[:4]}")
+    require(steps["shallow"]["sent"].get("MScrub", 0) == len(holders) - 1
+            and steps["shallow"]["got"].get("MScrubMap", 0)
+            == len(holders) - 1,
+            f"scrub: one MScrub and MScrubMap a peer {steps['shallow']}")
+
+    # 3. deep, finding
+    errs = run_step("deep", lambda: eng.run(deep=True), want_dec=nobj)
+    bad = [f"shard {c_shard} (osd.{c_peer}): missing or crc mismatch"]
+    require(sorted(errs) == sorted(oids)
+            and all(e == bad for e in errs.values()),
+            f"scrub: every object names {bad}: {len(errs)} objects, "
+            f"{sorted({tuple(e) for e in errs.values()})}")
+    om = host0.store.omap_get(cid, meta)
+    require(pg.scrub_errors == nobj
+            and oscrub.decode_stamps(om[oscrub.STAMPS_KEY])
+            == (pg.last_scrub, pg.last_deep_scrub, nobj)
+            and eng._load_cursor() == (False, "") and eng.cursor == "",
+            f"scrub: scrub_errors {pg.scrub_errors} recounted to {nobj}, "
+            f"the stamps row written, the cursor cleared")
+    d = steps["deep"]
+    require(d["dec_jobs"] == nobj and max(d["dec_widths"]) > 1,
+            f"scrub: one dec job an object in batches wider than one "
+            f"{d['dec_widths']}")
+    require(d["sent"].get("MECSubRead", 0) == nobj * (n - len(
+        [s for s in range(n) if acting[s] == 0])),
+            f"scrub: one MECSubRead a remote shard {d['sent']}")
+
+    # 4. repair: the failpoint off, five shards marked
+    fp.disarm("store.corrupt_chunk")
+    marked = [(oids[i % nobj], s) for i, s in SCRUB_MARKS]
+    before = {}
+    for oid, s in marked:
+        st, g = holders[acting[s]], GHObject(oid, shard=s)
+        before[(oid, s)] = (bytes(st.read(cid, g)), st.getattr(cid, g, "hinfo"))
+    for oid, s in marked:
+        st = holders[acting[s]]
+        st.debug_data_err_enabled = True
+        st.debug_inject_data_err(cid, GHObject(oid, shard=s))
+    try:
+        # a deep pass, the repairs (the codec's own decode), and the
+        # repaired objects verified again
+        errs = run_step("repair", lambda: eng.run(deep=True, auto_repair=True),
+                        want_dec=nobj + len(marked))
+        require(errs == {} and pg.scrub_errors == 0,
+                f"scrub: auto-repair left {errs}, scrub_errors "
+                f"{pg.scrub_errors}")
+        for (oid, s), (data, hinfo) in before.items():
+            st, g = holders[acting[s]], GHObject(oid, shard=s)
+            require((cid.name, oid, s) not in getattr(st, "_data_err_objs",
+                                                      set())
+                    and bytes(st.read(cid, g)) == data
+                    and st.getattr(cid, g, "hinfo") == hinfo
+                    and hinfo_decode(hinfo)[2]
+                    and st.getattr(cid, g, "_av") == pg._av_for(oid),
+                    f"scrub: {oid} shard {s} on osd.{acting[s]} repaired: "
+                    f"its bytes, hinfo and _av, its mark cleared")
+        r = steps["repair"]
+        remote = sum(acting[s] != 0 for _, s in marked)
+        require(r["scrub_perf"].get("errors_repaired") == len(marked)
+                and r["sent"].get("MPGPush", 0) == remote
+                and r["got"].get("MPGPushReply", 0) == remote,
+                f"scrub: {len(marked)} objects repaired, one MPGPush a "
+                f"peer's shard ({remote}): {r}")
+        errs = run_step("final", lambda: eng.run(deep=True), want_dec=nobj)
+        require(errs == {} and pg.scrub_errors == 0,
+                f"scrub: the last deep scrub is clean: {errs}")
+    finally:
+        for st in holders.values():
+            st.debug_data_err_enabled = False
+    for name in ("deep", "repair", "final"):
+        steps[name]["gathered_bytes"] = nobj * n * width
+        steps[name]["gbs"] = nobj * n * width / steps[name]["wall"] / 1e9
+        steps[name]["objs_per_s"] = nobj / steps[name]["wall"]
+    om = host0.store.omap_get(cid, meta)
+    return {"steps": steps, "width": width, "marked": marked,
+            "scrub_perf": host0.scrub_perf.dump(),
+            "stamps": om[oscrub.STAMPS_KEY], "cursor": om[oscrub.CURSOR_KEY]}
+
+
 def phase_wire(torch, dev, log) -> dict:
     """``run_wire`` at full width: isa k=8 m=4 (the ``main`` profile), a
     1 MiB stripe, 64 x 4 MiB objects written and read by ``MOSDOp``
@@ -2093,7 +2515,7 @@ def phase_wire(torch, dev, log) -> dict:
     9) down and shard 6 rotten on osd.1 for the degraded read.  The
     write half must launch K1 and the CRC kernel, the read half K1, and
     at least one encp batch must carry more than one write."""
-    res = run_wire(torch, dev)
+    res = run_wire(torch, dev, scrub=True)
     require(res["lost"] == [4, 6, 9], f"wire: lost {res['lost']}")
     for half, counts, need in (("write", res["w_counts"],
                                 ("gf256_matmul", "crc32c_rows")),
@@ -2164,6 +2586,49 @@ def phase_recovery(torch, dev, log, wire: dict) -> dict:
              "rounds": rec["rounds"]}
     log(f"recovery wall: {json.dumps(walls)}")
     return rec
+
+
+def phase_scrub(torch, dev, log, wire: dict) -> dict:
+    """The ``scrub`` phase: ``run_wire``'s step 6 (``_scrub_primary``) on
+    the wire phase's PGs, 64 x 4 MiB isa k=8 m=4 objects with shard 6
+    still rotten on osd.1: cls through ``do_op``, a shallow scrub, a deep
+    scrub that names shard 6 on all 64 objects, then five marked shards
+    auto-repaired and a clean deep scrub.  K1 must launch in the cls
+    writes and in each deep pass."""
+    scr = wire["scrub"]
+    require(scr is not None, "scrub: the wire phase ran the scrub")
+    steps = scr["steps"]
+    for name in ("cls", "deep", "repair", "final"):
+        require(steps[name]["counts"]["gf256_matmul"] > 0,
+                f"scrub: K1 ran in the {name} step {steps[name]['counts']}")
+    walls = {name: s["wall"] for name, s in steps.items()}
+    split = {name: steps[name]["split"] for name in ("deep", "repair",
+                                                     "final")}
+    deep = {name: {"wall_s": steps[name]["wall"],
+                   "gathered_bytes": steps[name]["gathered_bytes"],
+                   "gbs": steps[name]["gbs"],
+                   "objs_per_s": steps[name]["objs_per_s"],
+                   "dec_jobs": steps[name]["dec_jobs"],
+                   "dec_widths": steps[name]["dec_widths"]}
+            for name in ("deep", "repair", "final")}
+    launches = {name: {k: v for k, v in s["counts"].items() if v}
+                for name, s in steps.items()}
+    msgs = {name: {"sent": s["sent"], "got": s["got"]}
+            for name, s in steps.items()}
+    log(f"scrub: on the wire phase's PGs ({WIRE_OBJS} x 4 MiB, isa k=8 "
+        f"m=4, shard 6 rotten on osd.1): OP_CALL MOSDOps from "
+        f"client.{WIRE_CLIENT} through do_op (lock.lock, lock.get_info, "
+        f"lock.lock by another owner EBUSY, version.set, version.check; "
+        f"{steps['cls']['jobs']} encode jobs; the READ after byte-exact), "
+        f"scrub_engine().run: shallow clean, deep naming shard 6 on "
+        f"{WIRE_OBJS} objects (scrub_errors {WIRE_OBJS}, stamps written, "
+        f"cursor cleared), shards {scr['marked']} marked and auto-repaired "
+        f"(bytes, hinfo and _av as before, marks cleared, scrub_errors 0), "
+        f"a last deep pass clean; walls {json.dumps(walls)}, split "
+        f"{json.dumps(split)}; deep passes "
+        f"{json.dumps(deep)}; launches {json.dumps(launches)}; messages "
+        f"{json.dumps(msgs)}; scrub_perf {json.dumps(scr['scrub_perf'])}")
+    return scr
 
 
 def phase_bitmatrix(torch, dev, log) -> dict:
@@ -3127,6 +3592,7 @@ def main() -> int:
     phase_core(torch, dev, log)
     wire_res = phase_wire(torch, dev, log)
     rec_res = phase_recovery(torch, dev, log, wire_res)
+    scr_res = phase_scrub(torch, dev, log, wire_res)
     bm_res = phase_bitmatrix(torch, dev, log)
     sh_res = phase_shec(torch, dev, log)
     phase_lrc(torch, dev, log)
@@ -3138,7 +3604,10 @@ def main() -> int:
     for kr in kernels[:2]:  # K1 and the CRC: their launches in the wire phase
         kr["wire_launches"] = {"write": wire_res["w_counts"][kr["name"]],
                                "read": wire_res["r_counts"][kr["name"]],
-                               "recovery": rec_res["counts"][kr["name"]]}
+                               "recovery": rec_res["counts"][kr["name"]],
+                               "scrub": {name: s["counts"][kr["name"]]
+                                         for name, s in
+                                         scr_res["steps"].items()}}
     kernels.append(time_gf2(torch, dev, log, bm_res))
     kernels.append(time_gf2_popcount(torch, dev, log, sh_res))
     kernels[-1]["sass"] = {n: sass[n] for n in (

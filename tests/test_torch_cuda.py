@@ -866,6 +866,60 @@ def test_pg_write_read_and_recovery_on_the_card(dev, name, monkeypatch):
         assert got[key] == want[key], key
 
 
+def test_scrub_phase_on_the_card(dev):
+    """The scrub phase's code at a small size on the wire phase's PGs
+    (six 1 MiB objects): the cls calls through ``do_op``, a clean shallow
+    pass, a deep pass naming the rotten shard on every object through
+    K1 with its decodes coalesced (a ``dec`` batch wider than one), five
+    marked shards auto-repaired and a clean last pass (the phase's own
+    checks)."""
+    import chip_smoke
+
+    res = chip_smoke.run_wire(torch, dev, nobj=6, obj_bytes=1 << 20,
+                              threads=2, scrub=True)
+    steps = res["scrub"]["steps"]
+    for name in ("cls", "deep", "repair", "final"):
+        assert steps[name]["counts"]["gf256_matmul"] > 0, name
+    assert steps["cls"]["jobs"] == {"enc": 2, "encp": 0}
+    assert steps["deep"]["dec_jobs"] == 6
+    assert max(steps["deep"]["dec_widths"]) > 1
+    assert steps["repair"]["scrub_perf"]["errors_repaired"] == 5
+    assert steps["repair"]["sent"]["MPGPush"] == 4
+
+
+@pytest.mark.parametrize("name", ["isa_2_1", "isa_8_4"])
+def test_pg_scrub_and_repair_on_the_card(dev, name, monkeypatch):
+    """The scrub cross-check's steps (shallow, deep, auto-repair,
+    ``repair_objects``, ``repair()``, ``scrub()`` over injected rot)
+    on port PGs whose codec is on the card, held to the same steps with
+    ``device="cpu"`` codecs: the same errors, messages, stores, stamps
+    and counters; K1 launches."""
+    import time as _time
+
+    import test_torch_pg_xcheck as px
+    import test_torch_scrub_xcheck as sx
+
+    monkeypatch.setattr(_time, "time", lambda: px.CLOCK)
+    profile, n_osds = px.PROFILES[name]
+    want = px._sequence("ceph_tpu_torch", profile, n_osds, seed=19,
+                        then=sx._scrub_steps)
+    k1 = []
+
+    def steps(net):
+        before = gf256.launches.value
+        out = sx._scrub_steps(net)
+        k1.append(gf256.launches.value - before)
+        return out
+
+    got = px._sequence("ceph_tpu_torch", profile, n_osds, seed=19,
+                       device=dev, then=steps)
+    assert k1[0] > 0
+    for step in want["then"]:
+        assert got["then"][step] == want["then"][step], step
+    for key in want:
+        assert got[key] == want[key], key
+
+
 def test_devbuf_parity_tensor_on_the_card(dev):
     """The ``devbuf`` check: an object's parity by K1 on a CUDA tensor,
     wrapped by ``wrap_device`` as that tensor, reads back (one counted

@@ -7,12 +7,14 @@
   it; each reply is also held to the reference PG's bytes.
 - The no-card rule: a PG whose codec was built without a device raises
   when there is no card, and never runs on the CPU on its own.
-- What waits for ROADMAP item 1h: ``scrub``, ``repair``,
-  ``repair_objects``, ``local_scrub_map``, ``scrub_engine()`` and a
-  message holding an ``OP_CALL`` raise ``NotImplementedError`` naming
-  1h, and leave the PG's log, info and store as they were; with
-  ``osd_scrub_auto_repair`` on, a read's checksum failure meets the
-  refusal on its repair thread, logs it and stays counted.
+- The scrub and repair half on a clean PG: ``scrub``, ``repair``,
+  ``repair_objects``, ``local_scrub_map``, ``scrub_engine().run`` and a
+  read-only ``OP_CALL`` each complete, find nothing and leave the PG's
+  log, info and store as they were but for the engine's stamps and
+  cursor; with ``osd_scrub_auto_repair`` on, a read's checksum failure
+  is served by reconstruction and its repair thread rebuilds the shard
+  and takes ``scrub_errors`` back to 0; an ``OP_CALL`` on a staged
+  object pulls its ``DeviceBuf`` back to host bytes, counted.
 
 Drive a port PG on the CPU like this: a ``device="cpu"`` codec and a
 host (``torch_pg_harness.Net``, or the stub host of
@@ -142,19 +144,36 @@ def test_pg_without_a_device_raises_without_a_card(monkeypatch):
     assert pg.backend.queue.device.type == "cpu"
 
 
-def _snapshot(net):
+SCRUB_ROWS = ("scrub_cursor", "scrub_stamps")
+
+
+def _snapshot(net, meta_info: bool = True):
+    """Every host's info, log, objects (with the PG meta's scrub cursor
+    and stamps rows left out, and its persisted ``info`` unless
+    ``meta_info``), state and missing set."""
     out = []
     for h in net.hosts:
         pg, st = h.pg, h.store
         objs = {}
         for o in st.collection_list(pg.coll):
+            meta = o.name == "_pgmeta_"
+            omap = {k: v for k, v in st.omap_get(pg.coll, o).items()
+                    if not (meta and k in SCRUB_ROWS)}
+            attrs = {k: v for k, v in st.getattrs(pg.coll, o).items()
+                     if meta_info or not (meta and k == "info")}
             objs[(o.name, o.shard, o.snap)] = (
-                bytes(st.read(pg.coll, o)), dict(st.getattrs(pg.coll, o)),
-                dict(st.omap_get(pg.coll, o)))
+                bytes(st.read(pg.coll, o)), attrs, omap)
         out.append((str(pg.info.last_update), str(pg.info.committed_to),
                     [(str(e.version), e.oid) for e in pg.log.entries],
                     objs, pg.state, dict(pg.missing)))
     return out
+
+
+def _scrub_rows(net):
+    G = net.mods.os.GHObject
+    return [{k: v for k, v in h.store.omap_get(h.pg.coll,
+                                               G("_pgmeta_")).items()
+             if k in SCRUB_ROWS} for h in net.hosts]
 
 
 @pytest.fixture
@@ -169,52 +188,125 @@ def net():
 @pytest.mark.parametrize("what", ["scrub", "repair", "repair_objects",
                                   "local_scrub_map", "scrub_engine",
                                   "op_call"])
-def test_what_waits_for_1h_raises_and_changes_nothing(net, what):
+def test_scrub_repair_and_cls_complete_on_a_clean_pg(net, what):
+    """Each entry point of the scrub and repair half, the scrub engine
+    and a read-only ``OP_CALL`` completes on a clean PG, finds nothing,
+    and changes nothing but the scrub stamps and cursor (only the
+    engine's pass writes those)."""
     from ceph_tpu_torch.osd import types as t
 
     assert net.op("o", [t.OSDOp(t.OP_WRITEFULL, data=b"x" * 5000)],
                   reqid="client.1:1").result == 0
     net.settle()
     pg = net.primary.pg
-    before = _snapshot(net)
+    # the engine's pass persists the PG meta with its stamps: the info
+    # beside them is the PG's in-memory info, unchanged (checked below)
+    meta_info = what != "scrub_engine"
+    before = _snapshot(net, meta_info)
+    rows = _scrub_rows(net)
     staged = pg.stage_snapshot()
     calls = {
         "scrub": pg.scrub,
         "repair": pg.repair,
         "repair_objects": lambda: pg.repair_objects(["o"]),
-        "local_scrub_map": pg.local_scrub_map,
-        "scrub_engine": pg.scrub_engine,
+        "local_scrub_map": lambda: pg.local_scrub_map()[1],
+        "scrub_engine": lambda: pg.scrub_engine().run(deep=True),
         "op_call": lambda: net.op(
-            "o", [t.OSDOp(t.OP_WRITE, off=0, data=b"y"),
-                  t.OSDOp(t.OP_CALL, name="lock.lock", data=b"{}")],
-            reqid="client.1:2"),
+            "o", [t.OSDOp(t.OP_CALL, name="version.get")]).result,
     }
-    with pytest.raises(NotImplementedError, match="1h"):
-        calls[what]()
+    got = calls[what]()
+    assert not got  # {} / None / no unreadable object / result 0
+    if what == "local_scrub_map":
+        assert sorted(pg.local_scrub_map()[0]) == ["o"]
     net.settle()
-    assert _snapshot(net) == before
+    assert _snapshot(net, meta_info) == before
     assert pg.stage_snapshot() == staged
     assert not pg._oid_pipes and not pg._inflight_reqids
+    assert pg.scrub_errors == 0
+    after = _scrub_rows(net)
+    if what == "scrub_engine":
+        assert after[0] != rows[0] and pg.last_deep_scrub > 0
+        assert after[1:] == rows[1:]
+        from ceph_tpu_torch.core.encoding import Encoder
+        from ceph_tpu_torch.store.objectstore import GHObject
+
+        e = Encoder()
+        pg.info.encode(e)
+        assert net.primary.store.getattr(
+            pg.coll, GHObject("_pgmeta_"), "info") == e.bytes()
+    else:
+        assert after == rows
 
 
-def test_read_verify_fail_with_auto_repair_meets_1h_and_stays_counted():
-    """``osd_scrub_auto_repair`` on: the repair thread meets
-    ``repair_objects``'s refusal in the reference's own ``except``,
-    logs it, and the object stays counted in ``scrub_errors``; a second
-    report of the same object is deduplicated."""
+def test_read_verify_fail_with_auto_repair_rebuilds_the_shard():
+    """``osd_scrub_auto_repair`` on: a READ that meets a rotten data
+    shard is served by reconstruction, counted in ``scrub_errors``, and
+    the repair thread rebuilds the shard (its bytes and ``_av`` as
+    before the rot, its mark cleared) and takes the count back to 0."""
+    from ceph_tpu_torch.osd import types as t
+    from ceph_tpu_torch.store.objectstore import GHObject
+
+    payload = bytes(range(256)) * 40
     net = H.Net("ceph_tpu_torch", PROFILE, 6,
                 conf={"osd_scrub_auto_repair": True})
     try:
+        assert net.op("o", [t.OSDOp(t.OP_WRITEFULL, data=payload)],
+                      reqid="client.1:1").result == 0
+        net.settle()
         pg = net.primary.pg
-        pg._note_read_verify_fail("o", [(1, 1)])
-        deadline = time.monotonic() + 10
-        while "o" in pg._read_repair_pending and time.monotonic() < deadline:
+        store = net.hosts[1].store
+        g = GHObject("o", shard=1)
+        good = store.read(pg.coll, g)
+        store.debug_data_err_enabled = True
+        store.debug_inject_data_err(pg.coll, g)
+        pg._obc_invalidate()
+        rep = net.op("o", [t.OSDOp(t.OP_READ)])
+        assert rep.result == 0 and bytes(rep.ops[0].out_data) == payload
+        deadline = time.monotonic() + 30
+        while ((pg.scrub_errors or "o" in pg._read_repair_pending
+                or any(th.name.endswith("-readrepair")
+                       for th in threading.enumerate()))
+               and time.monotonic() < deadline):
             time.sleep(0.01)
-        assert "o" not in pg._read_repair_pending
-        assert pg.scrub_errors == 1
-        assert any("read-repair of o failed" in msg and "1h" in msg
-                   for _, msg in net.primary.logged)
-        assert not any(th.name.endswith("-readrepair")
-                       for th in threading.enumerate())
+        net.settle()
+        assert pg.scrub_errors == 0 and "o" not in pg._read_repair_pending
+        assert store.read(pg.coll, g) == good  # the mark is cleared
+        assert store.getattr(pg.coll, g, "_av") == pg._av_for("o")
+        assert any("at-rest checksum failure" in msg
+                   for msg in net.primary.ctx.log.dump_recent())
+        assert not any("read-repair of o failed" in msg
+                       for _, msg in net.primary.logged)
+        assert pg.scrub_engine().run(deep=True) == {}
+    finally:
+        net.stop()
+
+
+def test_op_call_pulls_a_staged_object_back_counted():
+    """A cls method sees the object as host bytes: each ``OP_CALL`` on an
+    object whose cached state is a staged ``DeviceBuf`` pulls it back,
+    counted as one ``payload_host_touch`` (the reference's sanctioned
+    pull-back, on the method's copy of the state), and the cache keeps
+    the staged handle."""
+    from ceph_tpu_torch.gpu.staging import DeviceBuf
+    from ceph_tpu_torch.osd import types as t
+
+    net = H.Net("ceph_tpu_torch", PROFILE, 6)
+    try:
+        payload = bytes(range(256)) * 200
+        assert net.op("o", [t.OSDOp(t.OP_WRITEFULL, data=payload)],
+                      reqid="client.1:1").result == 0
+        net.settle()
+        pg = net.primary.pg
+        assert pg.stage_snapshot() == {"staged": 1, "degraded": 0}
+        stats = pg.backend.queue.stats
+        touches = stats.snapshot()["payload_host_touches"]
+        for n in (1, 2):
+            rep = net.op("o", [t.OSDOp(t.OP_CALL, name="version.get")])
+            assert rep.result == 0 and bytes(rep.ops[0].out_data) == b"0"
+            assert stats.snapshot()["payload_host_touches"] == touches + n
+            assert isinstance(pg._obc.get("o").data, DeviceBuf)
+        pg._obc_invalidate()
+        assert bytes(net.op("o", [t.OSDOp(t.OP_READ)]).ops[0].out_data) \
+            == payload
     finally:
         net.stop()

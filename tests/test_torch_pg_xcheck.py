@@ -98,9 +98,10 @@ def _until(cond, timeout: float = H.WAIT_S) -> bool:
 
 
 def _sequence(pkg: str, profile, n_osds: int, seed: int,
-              device: str = "cpu") -> dict:
+              device: str = "cpu", then=None) -> dict:
     """The op sequence, the peering and (EC) a recovery window on one
-    package's PGs; returns everything the comparison reads."""
+    package's PGs, then ``then(net)`` when given (its result under
+    ``"then"``); returns everything the comparison reads."""
     net = H.Net(pkg, profile, n_osds, device=device)
     M = net.mods
     t = M.t
@@ -232,7 +233,8 @@ def _sequence(pkg: str, profile, n_osds: int, seed: int,
             assert not pg0.missing and not pg0.unfound
             assert all(st0.exists(pg0.coll, G(oid, shard=sh))
                        for oid in lost for sh in mine)
-        return {"replies": replies,
+        extra = then(net) if then is not None else None
+        return {"replies": replies, "then": extra,
                 "received": [_by_source(h.received) for h in net.hosts],
                 "stores": [_dump_store(h) for h in net.hosts],
                 "pgs": _pg_state(net), "notify": conn.got,

@@ -143,6 +143,55 @@ def test_wire_slice_on_the_cpu_matches_the_reference(peers, down, corrupt,
                                              True)
 
 
+def test_scrub_phase_on_the_cpu():
+    """The ``scrub`` phase's code (``run_wire``'s step 6) at six 64 KiB
+    objects on the four-peer layout: the cls calls through ``do_op`` and
+    their two re-encodes, a clean shallow pass (one ``MScrub`` a peer),
+    a deep pass naming the rotten shard on every object (one
+    ``MECSubRead`` a remote shard, one ``dec`` job an object), five
+    marked shards auto-repaired (four by ``MPGPush``, the primary's
+    through its store) and a clean last pass.  The stamps and cursor rows
+    the engine left read the same through ``ceph_tpu``'s codec."""
+    from ceph_tpu.core.encoding import Decoder as RefDecoder
+    from ceph_tpu.osd.scrub import decode_stamps as ref_decode_stamps
+
+    res = chip_smoke.run_wire(
+        torch, torch.device("cpu"), nobj=6, obj_bytes=64 << 10,
+        stripe_bytes=16 << 10, peers=4, down=(4,), corrupt=(1, 6),
+        threads=2, scrub=True)
+    scr = res["scrub"]
+    steps = scr["steps"]
+    width = scr["width"]
+    assert width == res["coding"][0].shape[1]
+    for s in steps.values():  # the plain versions: no launch counted
+        assert not any(s["counts"].values())
+    assert steps["cls"]["jobs"] == {"enc": 2, "encp": 0}
+    assert steps["cls"]["sent"]["MECSubWriteVec"] == 2 * 4
+    assert steps["shallow"]["sent"] == {"MScrub": 4}
+    assert steps["shallow"]["got"] == {"MScrubMap": 4}
+    assert steps["shallow"]["scrub_perf"] == {"objects": 6 * 5,
+                                              "shallow_done": 1}
+    remote = K + M - 3  # the primary holds shards 0, 5 and 10
+    for name in ("deep", "final"):
+        assert steps[name]["sent"] == {"MECSubRead": 6 * remote}
+        assert steps[name]["dec_jobs"] == 6
+        assert steps[name]["gathered_bytes"] == 6 * (K + M) * width
+    assert steps["deep"]["scrub_perf"] == {"chunks": 1, "objects": 6,
+                                           "errors_found": 6,
+                                           "deep_done": 1}
+    # the pass, the five repairs' gathers and their re-verification
+    assert steps["repair"]["sent"] == {"MECSubRead": (6 + 5 + 5) * remote,
+                                       "MPGPush": 4}
+    assert steps["repair"]["scrub_perf"]["errors_repaired"] == 5
+    assert scr["marked"] == [(f"rbd_data.{i:016x}", s)
+                             for i, s in chip_smoke.SCRUB_MARKS]
+    last_scrub, last_deep, errors = ref_decode_stamps(scr["stamps"])
+    assert errors == 0 and last_deep == last_scrub > 0
+    d = RefDecoder(scr["cursor"])
+    assert (d.u8(), d.string()) == (0, "")
+    assert scr["scrub_perf"]["deep_done"] == 3
+
+
 def test_wire_trace_accounts_for_every_crc_byte_on_the_cpu():
     """``wire_trace.trace`` at the small size: each window's host CRC
     bytes by call site add up to what the phase moved (the store seals

@@ -20,9 +20,11 @@ through ``Net.op``, which encodes the ``MOSDOp``, decodes it, calls
 
 A down host (``Net.down``) is marked down in the shared map, its
 address leaves the book, and nothing is delivered to or from it.
-``pull_from_peer``, ``list_peer_objects`` and
-``fetch_remote_chunk_full`` are the daemon's (ROADMAP item 1i of the
-port); they raise, as no case here reaches them.
+Scrub and repair take ``PhaseOSD``'s ``collect_scrub_maps``,
+``fetch_remote_chunk_full`` and ``list_peer_objects``, and its replica
+side: ``MScrub`` answered from ``local_scrub_map`` and ``MPGPull`` on a
+thread of its own.  ``pull_from_peer`` is the daemon's (ROADMAP item 1i
+of the port); it raises, as no case here reaches it.
 """
 
 from __future__ import annotations
@@ -144,7 +146,7 @@ class Host(chip_smoke.PhaseOSD):
             pg.handle_commit_note_ack(msg)
         elif isinstance(msg, (m.MECSubReadReply, m.MECSubReadVecReply,
                               m.MPGInfo, m.MPGPushReply,
-                              m.MPGRecoveryProbeReply)):
+                              m.MPGRecoveryProbeReply, m.MScrubMap)):
             self.route_reply(msg)
         elif isinstance(msg, m.MOSDRepOp):
             pg.handle_rep_op(msg, conn)
@@ -166,6 +168,10 @@ class Host(chip_smoke.PhaseOSD):
             pg.handle_query(msg, conn)
         elif isinstance(msg, m.MPGPush):
             pg.handle_push(msg, conn)
+        elif isinstance(msg, m.MPGPull):
+            self.serve_pull(pg, msg, conn)
+        elif isinstance(msg, m.MScrub):
+            self.serve_scrub(pg, msg, conn)
         else:
             raise TypeError(f"loopback: no route for {type(msg).__name__}")
 
