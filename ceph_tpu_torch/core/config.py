@@ -256,11 +256,15 @@ def _opts() -> List[Option]:
           "into ceph_tpu_torch/_build/ (queue 1 item 4 brings the "
           "device observability bindings)", runtime=False),
         O("tpu_warmup_budget_s", float, 30.0,
-          "wall-clock budget for the boot-time DeviceWarmup pass; the "
-          "port has no DeviceWarmup yet (slice 1i, the daemon)"),
+          "wall-clock budget for the boot-time DeviceWarmup pass that "
+          "builds the port's kernels and launches each declared shape "
+          "bucket once before the daemon answers ops; buckets the "
+          "budget cuts off stay pending and resume via `device warmup`"),
         O("tpu_boot_warmup", bool, False,
-          "run the DeviceWarmup pass at OSD init; the port has no "
-          "DeviceWarmup yet (slice 1i, the daemon)", runtime=False),
+          "run the DeviceWarmup pass at OSD init (before the messenger "
+          "serves ops), so the first client op pays neither the "
+          "kernel build nor a first launch; off by default",
+          runtime=False),
         # -- objectstore ----------------------------------------------------
         O("objectstore", str, "memstore", "backend", enum=("memstore", "filestore")),
         O("objectstore_path", str, "", "data directory for filestore"),

@@ -22,9 +22,8 @@ daemon marks the op's ``qos_admitted`` stage and feeds the per-class
 wait histograms from it, under either scheduler (the fifo arm reports
 phase ``fifo`` so A/B p99s come from the same stage histograms).
 
-Port of ``ceph_tpu/core/workqueue.py``.  The standalone ``mclock``
-scheduler (no ``qos``) needs ``osd/mclock.py``, which comes with slice
-1i; until then it raises ``NotImplementedError`` naming that slice.
+Port of ``ceph_tpu/core/workqueue.py``; the standalone ``mclock``
+scheduler is the port's ``osd/mclock.py``.
 """
 
 from __future__ import annotations
@@ -69,10 +68,9 @@ class ShardedWorkQueue:
                     qos.make_shard_queue() for _ in range(num_shards)
                 ]
             else:
-                raise NotImplementedError(
-                    "the standalone mclock scheduler needs osd/mclock.py, "
-                    "which the port gains with slice 1i (the daemon); "
-                    "pass qos= or scheduler='fifo'")
+                from ceph_tpu_torch.osd.mclock import MClockQueue
+
+                self._mclock = [MClockQueue() for _ in range(num_shards)]
         else:
             self._mclock = None
         self._shards: List[List[Tuple[int, int, Any]]] = [

@@ -20,7 +20,10 @@ port has:
 - the queue's batches: a total, their device seconds, and a bounded
   ring of the recent ones (kind, jobs, shapes, seconds).
 
-It keeps no compile table and invents no numbers for one.
+It keeps no compile table and invents no numbers for one.  A daemon
+registers :attr:`DeviceWatch.perf` under its ``osd.N.xla`` counter set
+(``ceph_tpu/osd/daemon.py:305-310``) and points :meth:`DeviceWatch.attach_log` at its context's
+log, which then gathers a line a batch (subsys ``tpu``).
 """
 
 from __future__ import annotations
@@ -51,6 +54,14 @@ class DeviceWatch:
         self.batches = 0          # batches noted since the process began
         self.batch_seconds = 0.0  # their summed device seconds
         self._queue = None        # the queue device_state() reports
+        self._log = None          # core.log.Log that gathers batch lines
+        self.perf = _PerfView(self)
+
+    def attach_log(self, log) -> None:
+        """Gather a line a noted batch into ``log``'s ring (subsys
+        ``tpu``, level 15).  The latest attach wins: daemons of one
+        process share the watch, and a revived daemon re-attaches."""
+        self._log = log
 
     def attach_queue(self, queue) -> None:
         """The queue whose depth and staging :meth:`device_state`
@@ -67,6 +78,11 @@ class DeviceWatch:
                                   [list(s) for s in shapes], float(dur_s)))
             self.batches += 1
             self.batch_seconds += float(dur_s)
+        log = self._log
+        if log is not None:
+            log.log("tpu", 15, f"devwatch batch queue: kind={kind} "
+                               f"jobs={jobs} shapes={shapes} "
+                               f"dur_ms={dur_s * 1e3:.1f}")
 
     @staticmethod
     def compile_activity_since(t0: float) -> bool:
@@ -142,6 +158,27 @@ class DeviceWatch:
         out["launches"] = self.launches()
         with self._lock:
             out["last_batches"] = self._recent(now, _STATE_BATCHES)
+        return out
+
+
+class _PerfView:
+    """A read-only ``PerfCounters``-like view (``name``, ``dump()``) of
+    the watch, for ``ctx.perf.register("osd.N.xla", ...)``: the kernel
+    build's seconds, launches per kernel and the queue's batches."""
+
+    name = "gpu.devwatch"
+
+    def __init__(self, watch: DeviceWatch) -> None:
+        self._watch = watch
+
+    def dump(self) -> Dict[str, Any]:
+        w = self._watch
+        out: Dict[str, Any] = {
+            "build_seconds": _build.build_seconds or 0.0}
+        out.update({f"launches_{k}": v for k, v in w.launches().items()})
+        with w._lock:
+            out["batches"] = w.batches
+            out["batch_seconds"] = round(w.batch_seconds, 6)
         return out
 
 

@@ -1,7 +1,12 @@
-"""Cluster control plane: the monitor's wire messages.
+"""Cluster control plane: the monitor's wire messages, its roster and
+the client daemons find it through.
 
-Port of ``ceph_tpu/mon/``'s ``messages`` module (reference: src/mon/ and
-src/messages/).  The monitor itself (``Monitor``, ``MonMap``, Paxos,
-election) and ``MonClient`` come with the daemon and client slices
-(ROADMAP queue 1 items 1i and 1j), so this package imports neither yet.
+Port of ``ceph_tpu/mon/``: ``messages``, ``MonMap`` (``monitor.py``,
+the roster only) and ``MonClient`` (``client.py``).  The monitor itself
+(``Monitor``: election, Paxos, the OSDMonitor service) is ROADMAP queue
+1 item 6 of the port; until then the port's daemons boot through the
+reference's monitors (``tests/test_torch_monclient.py``).
 """
+
+from ceph_tpu_torch.mon.monitor import MonMap  # noqa: F401
+from ceph_tpu_torch.mon.client import MonClient  # noqa: F401

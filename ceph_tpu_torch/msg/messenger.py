@@ -23,12 +23,16 @@ each other.  Its locks come from the port's lockdep (``msgr.xq``,
 frame CRC is the host ``core.crc`` over a view of the frame buffer.
 A payload is host bytes (bytes, bytearray, memoryview or a flat uint8
 ndarray) or a ``gpu.staging.DeviceBuf``, which ``Encoder.blob`` reads
-through its counted ``wire_view`` as the frame is built.
+through its counted ``wire_view`` as the frame is built.  Its blocking
+dispatch runs on a thread pool of its own (the reference's runs on the
+loop's default executor), which ``shutdown`` releases, so a stopped
+messenger leaves no idle thread behind.
 """
 
 from __future__ import annotations
 
 import asyncio
+import concurrent.futures
 import os
 import struct
 import threading
@@ -207,6 +211,11 @@ class Messenger:
         self._dispatchers: List[Dispatcher] = []
         self._conns: Dict[Addr, Connection] = {}
         self._loop = asyncio.new_event_loop()
+        # the threads that run blocking dispatch (asyncio.to_thread) are
+        # this messenger's own, so shutdown() can let them go
+        self._dispatch_pool = concurrent.futures.ThreadPoolExecutor(
+            thread_name_prefix=f"msgr-{entity}-dispatch")
+        self._loop.set_default_executor(self._dispatch_pool)
         # event-loop deaths leave a crash report in every installed
         # CrashArchive (before this, only daemon THREAD deaths did)
         from ceph_tpu_torch.core.crash import install_loop_handler
@@ -438,6 +447,10 @@ class Messenger:
         asyncio.run_coroutine_threadsafe(_stop(), self._loop).result(timeout=10)
         self._loop.call_soon_threadsafe(self._loop.stop)
         self._thread.join(timeout=10)
+        # idle dispatch threads exit now, a busy one when its handler
+        # returns (without waiting here: a handler may be blocked on an
+        # RPC whose replies this shutdown just cut off)
+        self._dispatch_pool.shutdown(wait=False)
 
     def add_dispatcher(self, d: Dispatcher) -> None:
         self._dispatchers.append(d)

@@ -1,0 +1,1894 @@
+"""OSD daemon: dispatch shell around the PG engine.
+
+Reference: src/osd/OSD.{h,cc} — boot (OSD::init, OSD.cc:2506), fast
+dispatch (ms_fast_dispatch :6718) feeding a sharded, per-PG-ordered op
+queue (op_shardedwq, :2030/:9282), map handling (handle_osd_map
+:7643), OSD<->OSD heartbeats (:4513,:4636).  The mon dependency is a
+narrow interface: `epoch()` + `handle_osdmap(map)` + a failure-report
+callback, so tier-2 tests run OSDs against a shared static map and the
+mon service plugs in unchanged.
+
+Port of ``ceph_tpu/osd/daemon.py``, all of it: the same routing of the
+OSD messages, lockdep names, perf-counter sets and admin commands.
+What the port does its own way:
+
+- **Device.**  ``OSDService`` takes ``device=`` as every entry point of
+  the port does: None means the card (and raises without one),
+  ``"cpu"`` the plain versions.  Its codecs are built on that device
+  (``codec_factory(profile, device=...)``), its stripe-batch queue is
+  ``default_queue(device)``, and its boot warmup launches there.
+- **Device watch.**  ``osd.N.xla`` is the port's device watch
+  (``gpu/devwatch.py``: the kernel build, launches per kernel, the
+  queue's batches), which gathers a line a batch into the context's log.
+  The reference's recompile-storm observer has no counterpart yet
+  (ROADMAP item 4), and the queue keeps no batch spans, so no tracer is
+  bound to it.
+- **Boot warmup.**  ``DeviceWarmup`` (``gpu/shapebucket.py``) builds the
+  kernels and launches each declared bucket once; the XLA compile cache
+  conf is recorded and has nothing to point at.
+- **Placement.**  ``handle_osdmap`` and ``pg_stats`` call
+  ``OSDMap.pg_to_up_acting`` once a PG, as the reference does: one K6
+  launch each on the card.
+"""
+
+from __future__ import annotations
+
+import os
+import threading
+import time
+from typing import Callable, Dict, List, Optional, Tuple
+
+from ceph_tpu_torch.core.workqueue import ShardedWorkQueue
+from ceph_tpu_torch.core.lockdep import make_lock
+from ceph_tpu_torch.msg.message import EntityName, Message
+from ceph_tpu_torch.msg.messenger import Connection, Dispatcher, Messenger
+from ceph_tpu_torch.osd import messages as m
+from ceph_tpu_torch.osd import types as t_
+from ceph_tpu_torch.osd.osdmap import OSDMap, POOL_ERASURE
+from ceph_tpu_torch.osd.pg import EAGAIN as _EAGAIN
+from ceph_tpu_torch.osd.pg import PG
+from ceph_tpu_torch.osd.types import EVersion, PGId, PGInfo
+
+Addr = Tuple[str, int]
+
+
+class _Waiter:
+    """Synchronous request/reply correlation by message tid.
+
+    Tracks WHICH peers still owe a reply so the map can fail them
+    fast: a peer marked down mid-wait can never answer, and waiting
+    out the full RPC window for it serialized peering behind every
+    death (10s x PGs: a source of activation starvation)."""
+
+    def __init__(self, peers) -> None:
+        self.pending: Dict[int, int] = {}
+        for p in peers:
+            self.pending[p] = self.pending.get(p, 0) + 1
+        self.replies: List[Message] = []
+        self.cond = threading.Condition()
+
+    def add(self, msg: Message, src: int = -1) -> None:
+        with self.cond:
+            self.replies.append(msg)
+            left = self.pending.get(src, 0)
+            if left > 1:
+                self.pending[src] = left - 1
+            else:
+                self.pending.pop(src, None)
+            self.cond.notify_all()
+
+    def fail_peers(self, dead) -> None:
+        """A peer transitioned to down: its replies will never come."""
+        with self.cond:
+            for o in list(self.pending):
+                if o in dead:
+                    del self.pending[o]
+            self.cond.notify_all()
+
+    def wait(self, timeout: float) -> List[Message]:
+        with self.cond:
+            self.cond.wait_for(lambda: not self.pending, timeout)
+            return list(self.replies)
+
+
+class OSDService(Dispatcher):
+    def __init__(self, ctx, whoami: int, store, osdmap: OSDMap,
+                 codec_factory: Callable[..., object],
+                 device=None) -> None:
+        from ceph_tpu_torch.device import resolve_device
+
+        # resolved first: without a card, device=None raises here,
+        # before a messenger or a thread exists
+        self.device = resolve_device(device)
+        self.ctx = ctx
+        self.whoami = whoami
+        self.store = store
+        self.osdmap = osdmap
+        self.codec_factory = codec_factory
+        self.pgs: Dict[PGId, PG] = {}
+        # pool_id -> epoch of its most recent pg_num split (stale-op gate)
+        self._pool_split_epoch: Dict[int, int] = {}
+        # previous cumulative per-PG io counters: pg_stats() reports
+        # windowed deltas (PGStat cl_*/rec_*) against these
+        self._pg_io_prev: Dict[PGId, Dict[str, int]] = {}
+        # pg_stats() object/byte scan cache keyed on (last_update,
+        # len(missing)): the per-object store.stat walk only re-runs
+        # for PGs whose contents actually moved since the last tick
+        self._pg_stat_cache: Dict[PGId, tuple] = {}
+        self.msgr = Messenger(ctx, EntityName("osd", whoami))
+        self.msgr.add_dispatcher(self)
+        # dedicated heartbeat endpoint (reference hb_front/back
+        # messengers, OSD.cc ~7 messengers per daemon): liveness probes
+        # must never queue behind data-path dispatch
+        self.hb_msgr = Messenger(ctx, EntityName("osd", whoami))
+        self.hb_msgr.add_dispatcher(_HBDispatcher(self))
+        self.addr_book: Dict[int, Addr] = {}
+        self._tid = 0
+        self._tid_lock = make_lock("osd.tid")
+        self._waiters: Dict[int, _Waiter] = {}
+        self._read_cbs: Dict[int, Callable] = {}
+        self._notify_cbs: Dict[int, Callable] = {}
+        # QoS admission subsystem (osd/qos.py): the dmClock scheduler
+        # in command of this daemon's op path — tenant-resolved
+        # classes, cost-aware tags, recovery feedback, the osd.N.qos
+        # evidence set.  The fifo mode keeps the scheduler object (it
+        # still classifies, accounts, and drives recovery feedback);
+        # only the shard queues differ.
+        from ceph_tpu_torch.osd.qos import QosScheduler
+
+        qos_pc = ctx.perf.create(f"osd.{whoami}.qos")
+        self.qos = QosScheduler(ctx.conf, perf=qos_pc)
+        self._qos_observer = ctx.conf.add_observer(
+            ("osd_qos_profiles",),
+            lambda _n, v: self.qos.reload(str(v)))
+        sched = str(ctx.conf.get("osd_op_queue"))
+        self.wq = ShardedWorkQueue(
+            f"osd{whoami}-op", ctx.conf.get("osd_op_num_shards"),
+            process=lambda item: item(),
+            scheduler="mclock" if sched == "mclock" else "wpq",
+            qos=self.qos)
+        # edge backpressure (reference osd_client_message_cap /
+        # _size_cap Throttles): per-connection in-flight caps on
+        # client ops at the messenger, so an abusive tenant queues at
+        # its own socket; grants release on the reply path below
+        self._arm_client_gate()
+        self._gate_observer = ctx.conf.add_observer(
+            ("osd_client_message_cap", "osd_client_message_size_cap"),
+            lambda _n, _v: self._arm_client_gate())
+        # recovery slot throttle (reference AsyncReserver.h /
+        # osd_recovery_max_active): bounds concurrent object pushes
+        from ceph_tpu_torch.core.reserver import AsyncReserver
+
+        self.recovery_reserver = AsyncReserver(
+            ctx.conf.get("osd_recovery_max_active"))
+        # per-stage op-latency histograms (osd.N.op): every tracked
+        # op's stage timeline feeds these (optracker mark_event), plus
+        # the direct-fed sites (fan-out RTT, ack gate, recovery rounds,
+        # parked reads) — per-stage p50/p99 from `perf dump`, no
+        # tracing required
+        from ceph_tpu_torch.core import optracker as optk
+
+        op_pc = ctx.perf.create(f"osd.{whoami}.op")
+        optk.declare_op_hists(op_pc)
+        self.op_perf = op_pc
+        # in-flight op history + slow-op evidence (reference
+        # TrackedOp.h / OpRequest.h, `dump_ops_in_flight`)
+        self.op_tracker = optk.OpTracker(
+            slow_op_threshold=ctx.conf.get("osd_op_complaint_time"),
+            history_size=int(ctx.conf.get("osd_op_history_size")),
+            slow_history_size=int(
+                ctx.conf.get("osd_op_history_slow_size")),
+            perf=op_pc)
+        # the complaint time is runtime-updatable (operators shrink it
+        # to catch a live stall in the slow ring); keep the handle so
+        # shutdown can unhook it — the Context outlives kill/revive
+        # cycles and would otherwise pin every dead tracker
+        self._complaint_obs = ctx.conf.add_observer(
+            ("osd_op_complaint_time",),
+            lambda _n, v: setattr(self.op_tracker, "slow_op_threshold",
+                                  float(v)))
+        self.up = False
+        self._log = ctx.log.dout("osd")
+        # notified whenever a PG's activation pass finishes, so
+        # wait_pgs_settled blocks on a condition instead of polling
+        self._settle_cond = threading.Condition()
+        self.on_failure_report: Optional[Callable[[int], None]] = None
+        self.hb_stamps: Dict[int, float] = {}
+        self.hb_replied: set = set()  # peers that ever answered a ping
+        self._hb_stop = threading.Event()
+        self._hb_thread: Optional[threading.Thread] = None
+        self._scrub_thread: Optional[threading.Thread] = None
+        pc = ctx.perf.create(f"osd.{whoami}")
+        pc.add_u64_counter("op_w", "client writes")
+        pc.add_u64_counter("op_r", "client reads")
+        pc.add_time_avg("op_w_latency")
+        pc.add_u64_counter("recovery_pushes")
+        # heartbeat-starvation diagnosability (a mon marked an OSD down
+        # mid-bench on a loaded box, and only archaeology said why): misses count grace overruns observed
+        # by this sender; marked_down_while_alive counts maps that
+        # declared THIS live daemon down
+        pc.add_u64_counter("heartbeat_misses",
+                           "peer heartbeat grace overruns observed")
+        pc.add_u64_counter("marked_down_while_alive",
+                           "osdmaps that marked this live daemon down")
+        self.perf = pc
+        # pipelined-write-engine counters (registered once, like the
+        # osd.N.store set): shared by every PG of this daemon
+        pgpc = ctx.perf.create(f"osd.{whoami}.pg")
+        pgpc.add_u64_gauge("writes_inflight",
+                           "pipelined client writes in flight, "
+                           "high-water")
+        pgpc.add_u64_counter("subwrite_msgs",
+                             "EC sub-write messages sent (one "
+                             "MECSubWriteVec per peer per op)")
+        pgpc.add_u64_counter("subwrite_ops", "EC write ops fanned out")
+        pgpc.add_u64_counter("encode_batch_jobs",
+                             "async encode jobs handed to the "
+                             "StripeBatchQueue by the write path")
+        # read/recovery-engine counters (the write engine's read twin)
+        pgpc.add_u64_gauge("recovery_active",
+                           "windowed recovery objects in flight, "
+                           "high-water")
+        pgpc.add_u64_counter("subread_msgs",
+                             "EC sub-read messages sent by the "
+                             "recovery window (one MECSubReadVec per "
+                             "peer per round; legacy fallbacks count "
+                             "per shard)")
+        pgpc.add_u64_counter("subread_ops",
+                             "objects fanned out through recovery "
+                             "window sub-reads")
+        pgpc.add_u64_counter("subread_bytes",
+                             "chunk payload bytes recovery gathers "
+                             "pulled over the wire (sub-chunk run "
+                             "plans count only the layers served)")
+        pgpc.add_u64_counter("subread_full_bytes",
+                             "bytes the same recoveries would read as "
+                             "whole-chunk flat-RS rebuilds (k chunks "
+                             "per object) — repair_read_frac's "
+                             "denominator")
+        pgpc.add_u64_gauge("repair_read_frac",
+                           "running subread_bytes/subread_full_bytes "
+                           "in PERMILLE: clay sub-chunk repair plans "
+                           "land ~d*1000/(k*q), whole-chunk gathers "
+                           ">= 1000")
+        pgpc.add_u64_counter("decode_batch_jobs",
+                             "decode jobs handed to the "
+                             "StripeBatchQueue by degraded reads and "
+                             "recovery reconstructs")
+        pgpc.add_u64_counter("recover_on_read_hits",
+                             "reads of missing objects served by a "
+                             "promoted recovery instead of EAGAIN")
+        pgpc.add_u64_counter("read_verify_late",
+                             "remote-shard checksum-failure replies "
+                             "that landed AFTER their EC read gather "
+                             "resolved — rot detected late is still "
+                             "counted and fed to the scrub_errors/"
+                             "blamed-shard path)")
+        self.pg_perf = pgpc
+        # scrub-engine evidence (osd.N.scrub): chunk/object throughput,
+        # damage found vs repaired, preemption + resume counts — the
+        # dump_scrubs/bench scrub-aux feed (decode batch width comes
+        # from the shared queue's dec_batch_jobs histogram)
+        scpc = ctx.perf.create(f"osd.{whoami}.scrub")
+        scpc.add_u64_counter("chunks", "deep-scrub chunks verified")
+        scpc.add_u64_counter("objects", "objects scrub-verified")
+        scpc.add_u64_counter("errors_found",
+                             "inconsistent objects found by scrub")
+        scpc.add_u64_counter("errors_repaired",
+                             "inconsistent objects auto-repaired")
+        scpc.add_u64_counter("preemptions",
+                             "chunk boundaries where client pressure "
+                             "preempted a running scrub")
+        scpc.add_u64_counter("resumes",
+                             "deep scrubs resumed from a persisted "
+                             "cursor (kill/interval-change mid-scrub)")
+        scpc.add_u64_counter("deep_done", "completed deep scrub passes")
+        scpc.add_u64_counter("shallow_done",
+                             "completed shallow scrub passes")
+        scpc.add_u64_counter("hinfo_reseals",
+                             "partial-overwrite-invalidated hinfo crcs "
+                             "re-sealed after a clean deep-scrub decode")
+        self.scrub_perf = scpc
+        self._wr_inflight = 0
+        self._wr_inflight_hw = 0
+        self._wr_lock = make_lock("osd.wr_inflight")
+        self._rec_active_hw = 0
+        # surface the store's group-commit counters (commit-batch
+        # histogram, WAL fsyncs, commit latency) in this context's
+        # `perf dump` alongside the daemon's own
+        store_pc = getattr(store, "perf", None)
+        if store_pc is not None:
+            ctx.perf.register(f"osd.{whoami}.store", store_pc)
+        # device-resident data path counters (h2d/d2h bytes, staged
+        # batches, pool occupancy, payload host touches): a live view
+        # of the process-wide StripeBatchQueue accounting — the pool,
+        # like the queue, is shared by every in-process daemon, so the
+        # "metadata-only host crossing" invariant is measured once and
+        # dumped under each daemon's osd.N.tpu set
+        from ceph_tpu_torch.gpu.queue import default_queue
+
+        _dq = default_queue(self.device)
+        self._dq = _dq
+        ctx.perf.register(
+            f"osd.{whoami}.tpu",
+            _dq.stats.perf_view(f"osd.{whoami}.tpu"))
+        # the queue's own stage histograms (enqueue wait vs device
+        # compute vs callback dispatch) — process-wide like the queue,
+        # dumped under each daemon's context exactly like osd.N.tpu
+        ctx.perf.register(f"osd.{whoami}.tpuq", _dq.perf)
+        # (the port's queue keeps no batch spans: no tracer to bind; its
+        # batches are noted in the device watch below)
+        # apply the daemon's staging-pool geometry conf (the pool is
+        # built before any Context exists, env-sized); a busy pool
+        # refuses the resize — first idle daemon boot wins
+        _dq.pool.configure(
+            int(ctx.conf.get("tpu_staging_slot_kib")) << 10,
+            int(ctx.conf.get("tpu_staging_slots")))
+        # device-runtime watcher: the kernel build, launches per
+        # kernel and the queue's batches — process-wide like the queue,
+        # registered per daemon as osd.N.xla exactly like osd.N.tpuq;
+        # batch lines ride this context's gather ring (subsys tpu).
+        # The reference also observes the tpu_recompile_storm_* conf
+        # for its storm detector: ROADMAP item 4 of the port
+        from ceph_tpu_torch.gpu.devwatch import watch as _dw_watch
+
+        _dw = _dw_watch()
+        self._devwatch = _dw
+        ctx.perf.register(f"osd.{whoami}.xla", _dw.perf)
+        _dw.attach_log(ctx.log)
+        # the XLA compile cache conf: recorded, nothing to point at (the
+        # kernels are built once per checkout into _build/)
+        from ceph_tpu_torch.gpu import shapebucket as _sb
+
+        _sb.setup_compile_cache(
+            str(ctx.conf.get("tpu_compile_cache_dir") or ""))
+        # boot-time warmup pass (built lazily: the codec and crush
+        # items resolve against the osdmap, which arrives with boot)
+        self._warmup = None
+
+    # -- QoS plumbing -----------------------------------------------------
+    def _arm_client_gate(self) -> None:
+        """(Re)install the messenger's per-connection client-op gate
+        from the current conf caps (conf observer re-arms on retune)."""
+        def cost(msg) -> Optional[int]:
+            if not isinstance(msg, m.MOSDOp):
+                return None
+            src = msg.src
+            if src is None or src.kind != "client":
+                return None
+            nb = 0
+            for o in msg.ops:
+                if o.is_write() and o.data is not None:
+                    nb += len(o.data) or o.length
+            return nb
+
+        self.msgr.set_dispatch_gate(
+            cost, int(self.ctx.conf.get("osd_client_message_cap")),
+            int(self.ctx.conf.get("osd_client_message_size_cap")))
+
+    @staticmethod
+    def _gate_done(msg) -> None:
+        """Release a gated op's per-connection grant (idempotent; a
+        message that never took one is a no-op)."""
+        rel = getattr(msg, "_gate_release", None)
+        if rel is not None:
+            rel()
+
+    # -- lifecycle --------------------------------------------------------
+    def _apply_fault_conf(self) -> None:
+        """Arm the conf-declared fault injection: the failpoint_inject
+        DSL, and filestore_debug_inject_read_err (the reference's
+        orphaned option, now wired through the store's bad-object set
+        + the store.filestore.read failpoint)."""
+        from ceph_tpu_torch.core import failpoint as fpt
+
+        spec = str(self.ctx.conf.get("failpoint_inject") or "")
+        if spec:
+            try:
+                armed = fpt.arm_from_spec(spec)
+                self._log(0, f"failpoints armed from conf: {armed}")
+            except (KeyError, ValueError) as e:
+                self._log(0, f"failpoint_inject rejected: {e}")
+        inject = bool(self.ctx.conf.get("filestore_debug_inject_read_err"))
+        if hasattr(self.store, "debug_read_err_enabled"):
+            self.store.debug_read_err_enabled = inject
+        # silent-corruption twin of the read-err hook: reads of marked
+        # objects serve bit-flipped bytes instead of raising
+        self.store.debug_data_err_enabled = bool(
+            self.ctx.conf.get("store_debug_inject_data_err"))
+        # read-time integrity knobs (base ObjectStore verify gate)
+        self.store.verify_reads = bool(
+            self.ctx.conf.get("store_verify_read"))
+        _ext_kib = int(self.ctx.conf.get("store_csum_extent_kib"))
+        if _ext_kib > 0:
+            self.store.csum_extent_size = _ext_kib << 10
+
+        def _observe(name, val) -> None:
+            if (name == "filestore_debug_inject_read_err"
+                    and hasattr(self.store, "debug_read_err_enabled")):
+                self.store.debug_read_err_enabled = bool(val)
+            elif name == "store_debug_inject_data_err":
+                self.store.debug_data_err_enabled = bool(val)
+            elif name == "store_verify_read":
+                self.store.verify_reads = bool(val)
+
+        self.ctx.conf.add_observer(
+            ("filestore_debug_inject_read_err",
+             "store_debug_inject_data_err", "store_verify_read"),
+            _observe)
+
+    # -- boot warmup (shape-bucket ABI) ------------------------------------
+    def _warmup_codec(self):
+        """First EC pool's codec, or None until the osdmap lands —
+        DeviceWarmup keeps the codec buckets pending and resumes."""
+        om = self.osdmap
+        if om is None or self.codec_factory is None:
+            return None
+        for pool in getattr(om, "pools", {}).values():
+            prof = getattr(pool, "erasure_code_profile", None)
+            if prof:
+                try:
+                    return self.codec_factory(prof, device=self.device)
+                except Exception:
+                    continue
+        return None
+
+    def _warmup_crush(self) -> bool:
+        """Compile every pool's rule program by sweeping its real pg
+        vector — exactly the shapes peering and the balancer hit."""
+        om = self.osdmap
+        if om is None or not getattr(om, "pools", None):
+            return False
+        for pool_id in list(om.pools):
+            om.map_pgs(pool_id)
+        return True
+
+    def device_warmup(self, budget_s: Optional[float] = None) -> dict:
+        """Run (or resume) the DeviceWarmup pass: build the kernels and
+        launch each family at its declared buckets, bounded by
+        tpu_warmup_budget_s.  Called at init when tpu_boot_warmup is
+        set — BEFORE the messenger serves ops — and on demand via the
+        `ceph daemon osd.N device warmup` admin command."""
+        from ceph_tpu_torch.gpu.shapebucket import DeviceWarmup
+
+        if self._warmup is None:
+            self._warmup = DeviceWarmup(
+                codec_fn=self._warmup_codec, crush=self._warmup_crush,
+                device=self.device)
+        if budget_s is None:
+            budget_s = float(self.ctx.conf.get("tpu_warmup_budget_s"))
+        st = self._warmup.run(budget_s)
+        self._log(0, f"device warmup: {st['buckets_warmed']} buckets "
+                     f"({', '.join(st['families_warmed']) or 'none'}) "
+                     f"in {st['seconds']}s, pending={st['pending']}")
+        return st
+
+    def init(self) -> None:
+        self._apply_fault_conf()
+        self.store.mount()
+        if bool(self.ctx.conf.get("tpu_boot_warmup")):
+            # pay the kernel build NOW, before the messenger answers
+            # a single op — restart/failover/backfill keep their p99
+            self.device_warmup()
+        self.msgr.start()
+        self.hb_msgr.start()
+        self.wq.start()
+        self.up = True
+        if self.osdmap is not None:
+            self._load_pgs()
+        threading.Thread(target=self._peering_watchdog_loop,
+                         daemon=True,
+                         name=f"osd{self.whoami}-peerwd").start()
+        if self.ctx.admin is not None:
+            # `ceph daemon osd.N bench` / `ceph tell osd.N bench` role
+            # (reference OSD::bench behind the 'bench' command): raw
+            # objectstore write throughput, no PG machinery
+            self.ctx.admin.register(
+                f"osd.{self.whoami} bench", self._admin_bench,
+                "objectstore write benchmark "
+                "(count=<total bytes> bsize=<block bytes>)")
+            # op-observability surface (reference `ceph daemon <osd>
+            # dump_ops_in_flight` family over TrackedOp): per-daemon
+            # prefixed, since one Context (and one admin socket) may
+            # host several in-process daemons
+            trk = self.op_tracker
+            self.ctx.admin.register(
+                f"osd.{self.whoami} dump_ops_in_flight",
+                lambda c: trk.dump_in_flight(),
+                "in-flight tracked ops with stage timelines")
+            self.ctx.admin.register(
+                f"osd.{self.whoami} dump_historic_ops",
+                lambda c: trk.dump_historic(),
+                "recently completed ops (bounded history)")
+            self.ctx.admin.register(
+                f"osd.{self.whoami} dump_historic_slow_ops",
+                lambda c: trk.dump_slow(),
+                "ops slower than osd_op_complaint_time")
+            # QoS evidence surface: per-class admission
+            # counters/waits, dequeue phases, recovery feedback state,
+            # messenger throttle stalls — the cephtop --qos feed
+            self.ctx.admin.register(
+                f"osd.{self.whoami} qos status",
+                lambda c: self.qos.status(msgr_perf=self.msgr.perf),
+                "dmClock admission state: classes, phases, recovery "
+                "feedback, edge-throttle stalls")
+            # scrub observability: per-PG scrub state — mode,
+            # resume cursor, stamps, error counts, preemptions
+            self.ctx.admin.register(
+                f"osd.{self.whoami} dump_scrubs",
+                lambda c: self.dump_scrubs(),
+                "per-PG scrub state: running/mode/cursor, "
+                "last_scrub/last_deep_scrub stamps, scrub_errors")
+            # shape-bucket ABI: run/resume the declared-bucket warmup
+            # (budget=<seconds> overrides tpu_warmup_budget_s)
+            self.ctx.admin.register(
+                f"osd.{self.whoami} device warmup",
+                lambda c: self.device_warmup(
+                    float(c["budget"]) if "budget" in c else None),
+                "build and launch declared kernel-family shape buckets "
+                "now "
+                "(resumes a budget-cut boot warmup); "
+                "budget=<seconds> overrides tpu_warmup_budget_s")
+
+    def _admin_bench(self, cmd: dict) -> dict:
+        from ceph_tpu_torch.store.objectstore import Collection, GHObject
+        from ceph_tpu_torch.store.objectstore import Transaction as Txn
+
+        total = int(cmd.get("count", 16 << 20))
+        bsize = int(cmd.get("bsize", 1 << 20))
+        n = max(1, total // bsize)
+        coll = Collection("bench_meta")
+        payload = os.urandom(min(bsize, 1 << 20))
+        if len(payload) < bsize:
+            payload = (payload * (bsize // len(payload) + 1))[:bsize]
+        t = Txn()
+        t.create_collection(coll)
+        try:
+            self.store.queue_transaction(t)
+        except Exception as e:
+            # collection may exist from a prior bench; anything else
+            # will resurface on the first payload write below
+            self._log(2, f"bench create_collection: {e!r}")
+        # async submission against the store's group-commit pipeline:
+        # every queued transaction returns immediately and the commit
+        # thread batches the fsyncs — the same path PG writes ride
+        done = threading.Event()
+        left = [n]
+        lk = make_lock("osd.bench_count")
+
+        def committed() -> None:
+            with lk:
+                left[0] -= 1
+                if left[0] == 0:
+                    done.set()
+
+        t0 = time.perf_counter()
+        for i in range(n):
+            t = Txn()
+            g = GHObject(f"bench_{i}")
+            t.touch(coll, g)
+            t.write(coll, g, 0, payload)
+            self.store.queue_transaction(t, on_commit=committed)
+        done.wait()
+        elapsed = time.perf_counter() - t0
+        for i in range(n):  # clean up after ourselves
+            t = Txn()
+            t.try_remove(coll, GHObject(f"bench_{i}"))
+            self.store.queue_transaction(t)
+        return {"bytes_written": n * bsize, "blocksize": bsize,
+                "elapsed_sec": round(elapsed, 6),
+                "bytes_per_sec": round(n * bsize / max(elapsed, 1e-9))}
+
+    def boot(self, monmap, keyring=None) -> None:
+        """Join a mon-managed cluster: subscribe to maps, announce
+        ourselves, route failure reports to the mon (reference
+        OSD::start_boot -> MOSDBoot).  With a keyring, the daemon
+        authenticates via cephx and requires authorizers from every
+        inbound session (reference OSD's cephx wiring)."""
+        from ceph_tpu_torch.mon.client import MonClient
+
+        self.monc = MonClient(self.msgr, monmap, device=self.device)
+        if keyring is not None:
+            from ceph_tpu_torch.auth import AuthError, verify_authorizer
+
+            name = f"osd.{self.whoami}"
+            secret = keyring.get(name)
+            service = keyring.get("service")
+            if secret is not None:
+                self._cephx = self.monc.authenticate(name, secret)
+                self._cephx_cred = (name, secret)
+                # indirect through self._cephx so the boot loop can
+                # renew the ticket before it expires (the messenger
+                # provider runs on the event loop and must never block
+                # on a re-auth RPC itself)
+                provider = (  # noqa: E731
+                    lambda target="": self._cephx.build_authorizer(target))
+                self.msgr.set_auth(provider=provider)
+                self.hb_msgr.set_auth(provider=provider)
+            if service is not None:
+                def _mk_verify(msgr, _svc=service):
+                    seen = {}
+
+                    def _verify(blob):
+                        try:
+                            verify_authorizer(
+                                _svc, blob,
+                                expect_target=(
+                                    f"{msgr.addr[0]}:{msgr.addr[1]}"
+                                    if msgr.addr else ""),
+                                seen=seen)
+                            return True
+                        except (AuthError, Exception):
+                            return False
+
+                    return _verify
+
+                self.msgr.set_auth(verifier=_mk_verify(self.msgr))
+                self.hb_msgr.set_auth(verifier=_mk_verify(self.hb_msgr))
+        self.on_failure_report = (
+            lambda osd: self.monc.report_failure(osd))
+        self._map_lock = make_lock("osd.map")
+        self.monc.subscribe_osdmap(
+            self._on_new_map,
+            since=self.osdmap.epoch if self.osdmap else 0,
+            base=self.osdmap)
+
+        def _boot_loop() -> None:
+            # a boot sent before the election settles is dropped by
+            # non-leaders, and a live osd spuriously marked down must
+            # re-assert itself — so keep watching the map and re-boot
+            # whenever it shows us down (reference OSD::start_boot +
+            # the "wrongly marked me down" path of handle_osd_map)
+            last_stats = 0.0
+            while self.up:
+                m_ = self.osdmap
+                if m_ is None or not m_.is_up(self.whoami):
+                    self.monc.send_boot(self.whoami,
+                                        hb_addr=self.hb_msgr.addr)
+                self._maybe_renew_ticket()
+                now = time.time()
+                if now - last_stats >= self.ctx.conf.get(
+                        "osd_pg_stats_interval"):
+                    last_stats = now
+                    try:
+                        try:
+                            used, total = self.store.statfs()
+                        except Exception:
+                            used, total = 0, 0
+                        # refresh the device-visibility gauges on the
+                        # same cadence the mon sees (queue depth,
+                        # busy fraction, staging occupancy)
+                        self._dq.sample()
+                        self.monc.send_pg_stats(
+                            self.whoami, self.epoch(), self.pg_stats(),
+                            used, total,
+                            slow_ops=self.op_tracker.slow_depth(
+                                self.ctx.conf.get(
+                                    "osd_slow_op_report_window")),
+                            heartbeat_misses=self.perf.value(
+                                "heartbeat_misses"))
+                    except Exception as e:
+                        # mon unreachable mid-election: next tick
+                        # retries; losing one stats beat is harmless
+                        # but a persistent cause must be visible
+                        self._log(2, f"pg_stats send failed: {e!r}")
+                time.sleep(1.0)
+
+        threading.Thread(target=_boot_loop, daemon=True,
+                         name=f"osd{self.whoami}-boot").start()
+
+    def _maybe_renew_ticket(self) -> None:
+        """Re-authenticate before the cephx ticket expires: sessions
+        established after expiry would otherwise be rejected forever
+        (the reference's rotating-key refresh role)."""
+        cx = getattr(self, "_cephx", None)
+        if cx is None:
+            return
+        if cx.expires - time.time() > 600:
+            return  # plenty of validity left
+        try:
+            name, secret = self._cephx_cred
+            self._cephx = self.monc.authenticate(name, secret)
+        except Exception as e:
+            # mon unreachable: retry next tick, old ticket may live
+            self._log(1, f"cephx ticket renew failed: {e!r}")
+
+    def _on_new_map(self, osdmap: OSDMap) -> None:
+        with self._map_lock:
+            if self.osdmap is not None and osdmap.epoch <= self.osdmap.epoch:
+                return
+            self.handle_osdmap(osdmap, dict(osdmap.osd_addrs))
+        self.activate_pgs()
+
+    def start_heartbeats(self) -> None:
+        iv = self.ctx.conf.get("osd_heartbeat_interval")
+        self._hb_thread = threading.Thread(
+            target=self._hb_loop, args=(iv,), daemon=True,
+            name=f"osd{self.whoami}-hb")
+        self._hb_thread.start()
+
+    def start_scrub_scheduler(self,
+                              interval: Optional[float] = None) -> None:
+        """Always-on background scrub (reference OSD::sched_scrub +
+        osd_scrub_min/max_interval + osd_deep_scrub_interval):
+        round-robins this osd's primary PGs, scrubbing the one whose
+        last scrub is oldest once per interval.  A PG whose last DEEP
+        scrub is older than osd_deep_scrub_interval (incl. never) runs
+        the byte-verifying deep pass through the ScrubEngine — with
+        auto-repair per conf — otherwise the cheap metadata-only
+        shallow pass; inconsistencies go to the cluster log and the
+        PGStat scrub_errors feed (PG_DAMAGED)."""
+        iv = (interval if interval is not None
+              else self.ctx.conf.get("osd_scrub_interval"))
+        if self._scrub_thread is not None and self._scrub_thread.is_alive():
+            return  # one scheduler per daemon
+        self._scrub_stamps: Dict[PGId, float] = {}
+        from ceph_tpu_torch.osd.pg import STATE_ACTIVE
+
+        def _loop() -> None:
+            while not self._hb_stop.wait(iv):
+                if not self.up:
+                    return
+                due = None
+                now = time.time()
+                for pgid, pg in list(self.pgs.items()):
+                    # only clean active PGs: a degraded/recovering PG's
+                    # replicas legitimately lack objects and would
+                    # raise spurious inconsistency ERRs
+                    if not pg.is_primary() or pg.state != STATE_ACTIVE:
+                        continue
+                    last = self._scrub_stamps.get(pgid, 0.0)
+                    if now - last >= iv and (
+                            due is None
+                            or last < self._scrub_stamps.get(due, 0.0)):
+                        due = pgid
+                if due is None:
+                    continue
+                pg = self.pgs.get(due)
+                if pg is None:
+                    continue
+                self._scrub_stamps[due] = now
+                deep_iv = float(self.ctx.conf.get(
+                    "osd_deep_scrub_interval"))
+                deep = now - pg.last_deep_scrub >= deep_iv
+                if not pg.maintenance_guard.acquire(blocking=False):
+                    continue  # operator scrub/repair mid-flight
+                try:
+                    pg.scrub_engine().run(deep=deep)
+                except Exception as e:
+                    self._log(0, f"scheduled scrub {due} failed: {e}")
+                finally:
+                    pg.maintenance_guard.release()
+
+        self._scrub_thread = threading.Thread(
+            target=_loop, daemon=True, name=f"osd{self.whoami}-scrub")
+        self._scrub_thread.start()
+
+    def shutdown(self) -> None:
+        self.up = False
+        monc = getattr(self, "monc", None)
+        if monc is not None:
+            monc.close()  # wake command retries before the msgr dies
+        self.note_pg_settled()  # unblock settle waiters promptly
+        # wake any scrub pacing wait; the engine persists its cursor
+        # per chunk, so the revived daemon RESUMES instead of restarting
+        for pg in list(self.pgs.values()):
+            eng = pg._scrub_engine
+            if eng is not None:
+                eng.abort()
+        self._hb_stop.set()
+        if self._hb_thread:
+            self._hb_thread.join(timeout=5)
+        if self._scrub_thread:
+            self._scrub_thread.join(timeout=5)
+            self._scrub_thread = None
+        self.wq.stop()
+        self.msgr.shutdown()
+        self.hb_msgr.shutdown()
+        self.store.umount()
+        # every in-flight tracked op lands in history with a terminal
+        # event; concluded-but-never-unregistered ops are lifecycle
+        # leaks, reported on the optracker.LEAKS sanitizer channel
+        self.op_tracker.drain()
+        self.ctx.conf.remove_observer(self._complaint_obs)
+        self.ctx.conf.remove_observer(self._qos_observer)
+        self.ctx.conf.remove_observer(self._gate_observer)
+
+    @property
+    def addr(self) -> Addr:
+        return self.msgr.addr
+
+    def epoch(self) -> int:
+        return self.osdmap.epoch if self.osdmap is not None else 0
+
+    # -- map handling -----------------------------------------------------
+    def _load_pgs(self) -> None:
+        """Instantiate PGs whose collections exist on this store, then
+        those the current map assigns us."""
+        for coll in self.store.list_collections():
+            name = coll.name
+            if not name.endswith("_head"):
+                continue
+            try:
+                pool_s, seed_s = name[:-5].split(".")
+                pgid = (int(pool_s), int(seed_s, 16))
+            except ValueError:
+                continue
+            if pgid[0] in self.osdmap.pools:
+                pg = self._make_pg(pgid)
+                pg.load_from_store()
+                self.pgs[pgid] = pg
+        self.handle_osdmap(self.osdmap)
+
+    def _make_pg(self, pgid: PGId) -> PG:
+        pool = self.osdmap.pools[pgid[0]]
+        codec = None
+        if pool.pool_type == POOL_ERASURE:
+            codec = self.codec_factory(pool.erasure_code_profile,
+                                       device=self.device)
+        return PG(pgid, pool, self, codec)
+
+    def handle_osdmap(self, osdmap: OSDMap,
+                      addr_book: Optional[Dict[int, Addr]] = None) -> None:
+        """consume_map: adopt the epoch, re-derive PG membership."""
+        old = self.osdmap
+        if old is not None:
+            # a peer that went down and came back starts a fresh
+            # liveness clock — its pre-crash stamp would otherwise
+            # trigger an instant (and unanimous) failure re-report
+            for osd in list(self.hb_stamps):
+                if (0 <= osd < osdmap.max_osd and osdmap.is_up(osd)
+                        and not old.is_up(osd)):
+                    self.hb_stamps.pop(osd, None)
+                    self.hb_replied.discard(osd)
+        self.osdmap = osdmap
+        if addr_book:
+            self.addr_book.update(addr_book)
+        if (self.up and 0 <= self.whoami < osdmap.max_osd
+                and not osdmap.is_up(self.whoami)
+                and old is not None and old.is_up(self.whoami)):
+            # up->down transition only: the first map after a revive
+            # legitimately still says down (boot races the mon) and
+            # must not pollute the starvation diagnostic
+            # a loaded box starving heartbeats gets live daemons marked
+            # down; make it a counter + log line so
+            # the next loaded-box artifact is diagnosable from counters
+            self.perf.inc("marked_down_while_alive")
+            self._log(0, f"osd.{self.whoami} marked DOWN by map epoch "
+                         f"{osdmap.epoch} while alive (heartbeat "
+                         f"starvation?)")
+        if old is not None:
+            # fail in-flight RPC waits on peers this map marks down:
+            # their replies can never come, and burning the full RPC
+            # window per dead peer serialized every PG's activation
+            # behind one death (a thrash trace: three PGs x 10s stalls,
+            # client ops starved behind the peering gate)
+            dead = {o for o in range(osdmap.max_osd)
+                    if old.is_up(o) and not osdmap.is_up(o)}
+            if dead:
+                for w in list(self._waiters.values()):
+                    w.fail_peers(dead)
+                # in-flight recovery windows degrade to the surviving
+                # peers immediately (same rationale as the RPC waits)
+                for pg in list(self.pgs.values()):
+                    pg.note_peers_down(dead)
+            # pg_num growth splits parents IN PLACE (reference PG::split
+            # discipline): with pgp_num unchanged, children fold to the
+            # parent's pps (raw_pg_to_pps stable_mods ps by pgp_num), so
+            # they place on the SAME osds and the split is purely local;
+            # a later pgp_num bump migrates whole child PGs through
+            # ordinary peering/backfill
+            for pool_id, newp in osdmap.pools.items():
+                oldp = old.pools.get(pool_id)
+                if oldp is not None and newp.pg_num > oldp.pg_num:
+                    self._split_pool_pgs(pool_id, oldp, newp)
+                    self._pool_split_epoch[pool_id] = osdmap.epoch
+        from ceph_tpu_torch.osd.osdmap import stable_mod
+
+        def _prior_acting(pgid):
+            """This pgid's holders under the OLD map (past_intervals
+            role); a child pgid that didn't exist yet falls back to its
+            split parent's placement (the data was split locally on
+            the parent's members)."""
+            if old is None:
+                return None
+            pool_id, ps = pgid
+            oldp = old.pools.get(pool_id)
+            if oldp is None:
+                return None
+            if ps >= oldp.pg_num:
+                ps = stable_mod(ps, oldp.pg_num, oldp.pg_num_mask_)
+            try:
+                _u, _up, pa, _pap = old.pg_to_up_acting((pool_id, ps))
+                return pa
+            except Exception:
+                return None
+
+        for pool_id, pool in osdmap.pools.items():
+            for seed in range(pool.pg_num):
+                pgid = (pool_id, seed)
+                up, up_p, acting, acting_p = osdmap.pg_to_up_acting(pgid)
+                member = self.whoami in acting
+                pg = self.pgs.get(pgid)
+                if member and pg is None:
+                    pg = self._make_pg(pgid)
+                    pg.update_acting(acting, acting_p,
+                                     prior=_prior_acting(pgid))
+                    pg.create_onstore()
+                    pg.load_from_store()
+                    self.pgs[pgid] = pg
+                elif pg is not None:
+                    pg.update_acting(acting, acting_p,
+                                     prior=_prior_acting(pgid))
+
+    def _split_pool_pgs(self, pool_id: int, oldp, newp) -> None:
+        """Move this osd's parent-PG objects into their child PGs.
+
+        Deterministic on every member (same hash, same mod), so all
+        replicas/shard-holders split identically with no messages.
+        Children inherit the parent's version horizon; their pg log
+        starts empty at the split boundary (the reference splits the
+        log too — resend dedup for moved objects restarts here).
+        """
+        from ceph_tpu_torch.osd.osdmap import stable_mod
+        from ceph_tpu_torch.store.objectstore import Transaction
+
+        for (pid, ps), pg in list(self.pgs.items()):
+            if pid != pool_id or ps >= oldp.pg_num:
+                continue
+            moves: Dict[int, list] = {}
+            try:
+                objs = self.store.collection_list(pg.coll)
+            except Exception:
+                continue
+            for g in objs:
+                if g.name == "_pgmeta_":
+                    continue
+                new_ps = stable_mod(newp.hash_key(g.name), newp.pg_num,
+                                    newp.pg_num_mask_)
+                if new_ps != ps:
+                    moves.setdefault(new_ps, []).append(g)
+            # SnapMapper rows follow their objects to the children
+            try:
+                from ceph_tpu_torch.store.objectstore import GHObject as _G
+
+                meta_omap = self.store.omap_get(pg.coll, _G("_pgmeta_"))
+            except Exception:
+                meta_omap = {}
+            snap_rows = {k for k in meta_omap if k.startswith("snap_")}
+            for child_ps, gs in sorted(moves.items()):
+                child_pgid = (pool_id, child_ps)
+                child = self.pgs.get(child_pgid)
+                if child is None:
+                    child = self._make_pg(child_pgid)
+                    child.create_onstore()
+                    child.load_from_store()
+                    self.pgs[child_pgid] = child
+                t = Transaction()
+                for g in gs:
+                    t.coll_move_rename(pg.coll, g, child.coll, g)
+                moved_names = {g.name for g in gs}
+                rows = [k for k in snap_rows
+                        if k.split("/", 1)[1] in moved_names]
+                if rows:
+                    from ceph_tpu_torch.store.objectstore import GHObject as _G
+
+                    t.touch(child.coll, _G("_pgmeta_"))
+                    t.omap_setkeys(child.coll, _G("_pgmeta_"),
+                                   {k: meta_omap[k] for k in rows})
+                    t.omap_rmkeys(pg.coll, _G("_pgmeta_"), rows)
+                self.store.queue_transaction(t)
+                child.info.last_update = pg.info.last_update
+                child.info.last_complete = pg.info.last_complete
+                child._persist_meta()
+                self._log(1, f"split pg {pid}.{ps}: {len(gs)} objects "
+                             f"-> {pid}.{child_ps}")
+            if moves:
+                pg._obc_invalidate()
+
+    def pg_stats(self) -> list:
+        """This osd's per-PG PGStat rows (the MPGStats payload): the
+        PGMap digest's raw material.  Degraded/misplaced/unfound are
+        derived from pg.missing + acting-set holes against the current
+        map; the cl_*/rec_* fields are windowed deltas of the per-PG
+        cumulative io counters since this daemon's previous report."""
+        from ceph_tpu_torch.osd.osdmap import CRUSH_ITEM_NONE
+
+        out = []
+        omap = self.osdmap
+        for pgid, pg in list(self.pgs.items()):
+            # the O(objects) store walk is version-gated: last_update
+            # moves on every client write and len(missing) on every
+            # recovered object, so an unchanged key means unchanged
+            # contents (a replica's push-landed bytes lag one report at
+            # worst) and the boot-loop thread pays nothing per tick on
+            # a populated-but-idle store
+            scan_key = (pg.info.last_update.epoch,
+                        pg.info.last_update.version, len(pg.missing))
+            cached = self._pg_stat_cache.get(pgid)
+            if cached is not None and cached[0] == scan_key:
+                _key, n, nbytes = cached
+            else:
+                try:
+                    n = len(pg.backend.object_names())
+                except Exception:
+                    n = 0
+                nbytes = 0
+                try:
+                    for g in self.store.collection_list(pg.coll):
+                        if g.name != "_pgmeta_":
+                            nbytes += self.store.stat(pg.coll, g)
+                except Exception:
+                    nbytes = 0
+                self._pg_stat_cache[pgid] = (scan_key, n, nbytes)
+            want = getattr(pg.pool, "size", len(pg.acting)) or 0
+            live, up_set = [], set()
+            if omap is not None:
+                live = [o for o in pg.acting
+                        if o != CRUSH_ITEM_NONE and 0 <= o < omap.max_osd
+                        and omap.is_up(o)]
+                try:
+                    up, _up_p, _a, _ap = omap.pg_to_up_acting(pgid)
+                    up_set = {o for o in up if o != CRUSH_ITEM_NONE}
+                except Exception:
+                    up_set = set()
+            holes = max(0, want - len(live))
+            # degraded counts missing COPIES, and the rows are kept
+            # DISJOINT so the mon can sum them across every reporter:
+            # only the primary counts acting-set holes (one copy of
+            # every object per dead member), while every row counts its
+            # OWN not-yet-recovered objects — after a revive the debt
+            # lives in the recovering replica's pg.missing, where the
+            # primary's row reads holes=0 and would go blind
+            degraded = len(pg.missing)
+            if pg.is_primary():
+                degraded += n * holes
+            misplaced = n * len([o for o in live
+                                 if up_set and o not in up_set])
+            io = pg.iostat_snapshot()
+            prev = self._pg_io_prev.get(pgid, {})
+            delta = {k: io[k] - prev.get(k, 0) for k in io}
+            self._pg_io_prev[pgid] = io
+            out.append(t_.PGStat(
+                pgid=pgid, state=pg.state, primary=pg.is_primary(),
+                num_objects=n, num_bytes=nbytes,
+                log_size=len(pg.log.entries),
+                degraded=degraded, misplaced=misplaced,
+                unfound=len(pg.unfound),
+                last_update=pg.info.last_update,
+                cl_wr_ops=delta["cl_wr_ops"],
+                cl_wr_bytes=delta["cl_wr_bytes"],
+                cl_rd_ops=delta["cl_rd_ops"],
+                cl_rd_bytes=delta["cl_rd_bytes"],
+                rec_ops=delta["rec_ops"],
+                rec_bytes=delta["rec_bytes"],
+                last_scrub=pg.last_scrub,
+                last_deep_scrub=pg.last_deep_scrub,
+                scrub_errors=pg.scrub_errors))
+        return out
+
+    def dump_scrubs(self) -> dict:
+        """Per-PG scrub state (`ceph daemon osd.N dump_scrubs`): every
+        PG reports its stamps/errors; PGs whose engine was never
+        instantiated report an idle row."""
+        rows = []
+        for pgid, pg in sorted(self.pgs.items()):
+            eng = pg._scrub_engine
+            if eng is not None:
+                rows.append(eng.dump())
+            else:
+                rows.append({"pgid": t_.pgid_str(pgid),
+                             "running": False, "deep": False,
+                             "cursor": "",
+                             "last_scrub": pg.last_scrub,
+                             "last_deep_scrub": pg.last_deep_scrub,
+                             "scrub_errors": pg.scrub_errors,
+                             "preemptions": 0, "last_run_errors": 0})
+        return {"scrubs": rows}
+
+    def activate_pgs(self, wait_s: float = 0.0) -> None:
+        # async per-PG: one blocked peer RPC must not serialize every
+        # other PG's convergence behind it (a liveness fix)
+        for pg in list(self.pgs.values()):
+            pg.activate_async()
+        if wait_s > 0:
+            self.wait_pgs_settled(wait_s)
+
+    def wait_pgs_settled(self, timeout_s: float) -> bool:
+        """Block (bounded) until every PG's current activation PASS has
+        finished — peer infos converged, authoritative log pulled, and
+        the pass's recovery attempts done.  Client ops are NOT gated on
+        this (the peering gate opens mid-pass); it exists for cluster
+        drivers (boot, thrash harnesses, vstart) whose next destructive
+        step must not race the recovery a revive just made possible —
+        a thrash trace: async activation let the thrash kill land
+        before the revived shard-holder was caught up, leaving an acked
+        stripe below k live holders.  Dead peers can't stall this wait:
+        map-down transitions fail their RPCs immediately.
+
+        Event-driven: activation passes notify `_settle_cond` as they
+        finish (note_pg_settled), so this waits on the condition
+        instead of a 20 ms poll loop."""
+        from ceph_tpu_torch.osd.pg import STATE_PEERING
+
+        def settled() -> bool:
+            return (not self.up
+                    or not any(pg._activating or pg.state == STATE_PEERING
+                               for pg in list(self.pgs.values())))
+
+        with self._settle_cond:
+            ok = self._settle_cond.wait_for(settled, timeout_s)
+        return ok and self.up
+
+    def note_pg_settled(self) -> None:
+        """A PG activation pass finished (or the daemon is going
+        down): wake wait_pgs_settled sleepers to re-check."""
+        with self._settle_cond:
+            self._settle_cond.notify_all()
+
+    def note_write_inflight(self, delta: int) -> None:
+        """Track the pipelined write engine's concurrency: PGs bump
+        this at submit/commit; the perf gauge records the high-water
+        (direct evidence that writes actually overlapped in flight)."""
+        with self._wr_lock:
+            self._wr_inflight += delta
+            if self._wr_inflight > self._wr_inflight_hw:
+                self._wr_inflight_hw = self._wr_inflight
+                self.pg_perf.set("writes_inflight", self._wr_inflight_hw)
+
+    def reset_write_inflight_hw(self) -> None:
+        """Re-arm the high-water at the current level so a bench phase
+        measures ITS OWN overlap, not an earlier phase's (lifetime
+        high-waters make per-phase evidence unfalsifiable)."""
+        with self._wr_lock:
+            self._wr_inflight_hw = self._wr_inflight
+            self.pg_perf.set("writes_inflight", self._wr_inflight_hw)
+
+    def note_recovery_active(self, window: int) -> None:
+        """Record a recovery round's width; the gauge keeps the
+        high-water (direct evidence the pull actually ran windowed)."""
+        with self._wr_lock:
+            if window > self._rec_active_hw:
+                self._rec_active_hw = window
+                self.pg_perf.set("recovery_active", window)
+
+    def _peering_watchdog_loop(self) -> None:
+        """Re-kick activation for PGs wedged in PEERING (a peer reply
+        lost in a kill window, or a stale activation discarded by the
+        interval token, left the gate closed with nothing scheduled to
+        reopen it — an op-timeout class of 0.7% of loaded runs, whose
+        forensics read 'state=peering, all OSDs up, 35 EAGAIN
+        attempts')."""
+        while self.up:
+            time.sleep(1.0)
+            try:
+                for pg in list(self.pgs.values()):
+                    if pg.peering_stuck():
+                        pg.activate_async()
+                    # pipelined writes don't block on commit: this
+                    # sweep turns a never-acked write into a prompt
+                    # retryable EAGAIN instead of silence
+                    pg.sweep_write_timeouts()
+                    # absorbed healthy-path watermark notes flush here
+                    # (degraded commits still broadcast eagerly)
+                    pg.flush_commit_note()
+            except Exception as e:  # noqa: BLE001 — watchdog never dies
+                self._log(1, f"peering watchdog pass failed: {e!r}")
+
+    # -- messaging --------------------------------------------------------
+    def send_to_osd(self, osd_id: int, msg: Message) -> None:
+        addr = self.addr_book.get(osd_id)
+        if addr is None:
+            self._log(0, f"no address for osd.{osd_id}, dropping {msg!r}")
+            return
+        self.msgr.send_message(msg, addr)
+
+    # -- watch/notify plumbing --------------------------------------------
+    def register_notify(self, notify_id: int, cb) -> None:
+        self._notify_cbs[notify_id] = cb
+
+    def unregister_notify(self, notify_id: int) -> None:
+        self._notify_cbs.pop(notify_id, None)
+
+    def ms_handle_reset(self, conn) -> None:
+        # a watcher's session died: its watches die with it
+        for pg in list(self.pgs.values()):
+            pg.prune_watchers(conn)
+
+    def new_tid(self) -> int:
+        with self._tid_lock:
+            self._tid += 1
+            return self._tid
+
+    def track_reads(self, pgid: PGId, cb: Callable,
+                    count: Optional[int] = None) -> int:
+        """Register a read-reply callback under a fresh tid.  With
+        `count` the registration self-expires after that many replies;
+        without it the caller owns the lifetime (the recovery window
+        may add legacy-fallback sends mid-flight) and must call
+        untrack_reads."""
+        tid = self.new_tid()
+        if count is None:
+            self._read_cbs[tid] = cb
+            return tid
+        remaining = [count]
+
+        def wrapped(rep) -> None:
+            remaining[0] -= 1
+            if remaining[0] <= 0:
+                self._read_cbs.pop(tid, None)
+            cb(rep)
+
+        self._read_cbs[tid] = wrapped
+        return tid
+
+    def untrack_reads(self, tid: int) -> None:
+        self._read_cbs.pop(tid, None)
+
+    # -- dispatch ---------------------------------------------------------
+    def ms_can_fast_dispatch(self, msg: Message) -> bool:
+        # these run inline on the messenger loop (the reference's
+        # ms_fast_dispatch) because their handlers never block:
+        # - write-ack replies flip in-flight bookkeeping and fire
+        #   commit callbacks (client reply sends, event sets)
+        # - MOSDOp only creates a tracker entry and queues to the
+        #   sharded wq (the op itself runs on a worker)
+        # - waiter replies append to a condition-protected list
+        # Inline-apply messages (MOSDRepOp/MECSubWrite: store work +
+        # pg lock) and EC read replies (possible numpy decode in the
+        # completion) stay on the thread pool: a handler that can wait
+        # on a lock held across peer RPCs would wedge the loop that
+        # must read those peers' replies.
+        return isinstance(msg, (m.MOSDRepOpReply, m.MECSubWriteReply,
+                                m.MECSubWriteVecReply,
+                                m.MECCommitNoteAck,
+                                m.MOSDOp, m.MPGInfo, m.MScrubMap,
+                                m.MPGPushReply, m.MPGRecoveryProbeReply,
+                                m.MWatchNotifyAck))
+
+    def ms_dispatch(self, conn: Connection, msg: Message) -> bool:
+        if not self.up:
+            # a DOWN daemon must not touch anything: its store may
+            # already be mounted by a successor incarnation, and a
+            # late recovery push / sub-op applied here races the
+            # successor's reads (thrash-hunt divergence find — real
+            # OSDs get this for free from process death).  Refusing
+            # (dispatch error) drops the session; the peer replays to
+            # the live incarnation.
+            raise RuntimeError(f"osd.{self.whoami} is down")
+        if isinstance(msg, m.MOSDPing):
+            return self._handle_ping(conn, msg)  # legacy single-msgr path
+        if isinstance(msg, (m.MOSDRepOpReply, m.MECSubWriteReply,
+                            m.MECSubWriteVecReply)):
+            pg = self.pgs.get(msg.pgid)
+            if pg is not None:
+                # vec replies (and replicated acks) key by peer osd;
+                # legacy per-shard MECSubWriteReply keys by (shard,
+                # osd) — only an old-style primary waits on those
+                who = ((msg.shard, self._osd_of(msg))
+                       if isinstance(msg, m.MECSubWriteReply)
+                       else self._osd_of(msg))
+                pg.backend.handle_reply(msg.tid, who)
+            return True
+        if isinstance(msg, m.MECCommitNoteAck):
+            # durable-ack gate leg: flips gate bookkeeping and may fire
+            # a held client reply (a send) — safe inline on the loop
+            pg = self.pgs.get(msg.pgid)
+            if pg is not None:
+                pg.handle_commit_note_ack(msg)
+            return True
+        if isinstance(msg, (m.MECSubReadReply, m.MECSubReadVecReply)):
+            cb = self._read_cbs.get(msg.tid)
+            if cb is not None:
+                cb(msg)
+            else:
+                w = self._waiters.get(msg.tid)
+                if w:
+                    w.add(msg, self._osd_of(msg))
+            return True
+        if isinstance(msg, (m.MPGInfo, m.MScrubMap, m.MPGPushReply,
+                            m.MPGRecoveryProbeReply)):
+            w = self._waiters.get(msg.tid)
+            if w:
+                w.add(msg, self._osd_of(msg))
+            return True
+        if isinstance(msg, m.MPGCommand):
+            # operator maintenance (`ceph pg scrub|repair` relayed by
+            # the mon — reference MOSDScrub): runs on its own thread;
+            # scrub/repair issue blocking peer RPCs and must not hold
+            # the dispatch loop
+            pg = self.pgs.get(msg.pgid)
+            # one maintenance op per PG at a time (the reference gates
+            # via the scrub reservation): a re-issued `pg repair` while
+            # one is mid-flight is dropped, not stacked.  Every drop is
+            # logged — the mon already told the operator "instructed",
+            # so a silent drop here would vanish without a trace.
+            if pg is None or not pg.is_primary():
+                self._log(1, f"pg {msg.pgid} {msg.action}: not primary "
+                             "here (stale mon map?) — dropped")
+                return True
+            if not pg.maintenance_guard.acquire(blocking=False):
+                self._log(1, f"pg {msg.pgid} {msg.action}: already "
+                             "running — dropped")
+                return True
+
+            def run(pg=pg, action=msg.action) -> None:
+                try:
+                    if action == "repair":
+                        pg.repair()
+                    elif action == "deep-scrub":
+                        # the DISTINCT deep action (the mon used to
+                        # collapse `pg deep-scrub` to a shallow scrub):
+                        # byte-reading chunked verification
+                        pg.scrub_engine().run(deep=True)
+                    else:
+                        pg.scrub_engine().run(deep=False)
+                except Exception as e:
+                    self._log(1, f"pg {pg.pgid} {action} failed: {e!r}")
+                finally:
+                    pg.maintenance_guard.release()
+
+            threading.Thread(target=run, name=f"pg-{msg.action}",
+                             daemon=True).start()
+            return True
+        if isinstance(msg, m.MOSDOp):
+            split_e = self._pool_split_epoch.get(msg.pgid[0], 0)
+            if split_e and getattr(msg, "epoch", 0) < split_e:
+                # the pool split at split_e: a pgid computed from an
+                # older map may target the PARENT of the object's new
+                # PG — refuse retryably; the client retargets with its
+                # refreshed map (reference require_same_or_newer_map +
+                # force-op-resend on split)
+                rep = m.MOSDOpReply(msg.pgid, self.epoch(), msg.oid,
+                                    msg.ops, result=-116)  # ESTALE
+                rep.tid = msg.tid
+                conn.send(rep)
+                self._gate_done(msg)
+                return True
+            pg = self.pgs.get(msg.pgid)
+            if pg is None:
+                # we don't hold this pg (yet): the client's map may be
+                # ahead of ours (pool just created) or behind (remap).
+                # Either way the answer is RETRYABLE — the reference
+                # waits for the map / forces a client resend; a hard
+                # ENOENT here loses a race the client can win by simply
+                # resending after the next map push
+                rep = m.MOSDOpReply(msg.pgid, self.epoch(), msg.oid,
+                                    msg.ops, result=-116)  # ESTALE
+                rep.tid = msg.tid
+                conn.send(rep)
+                self._gate_done(msg)
+                return True
+            tid = msg.tid
+            # op start = the messenger's receive stamp, so the first
+            # stage delta attributes frame decode + dispatch (absent
+            # for locally-forged messages in tests)
+            top = self.op_tracker.create_op(
+                f"osd_op({msg.src} tid={tid} {msg.oid} "
+                f"{'+'.join(str(o.op) for o in msg.ops)} pg={msg.pgid})",
+                start=getattr(msg, "_recv_stamp", None))
+            top.mark_event("queued_for_pg")
+            # the tracked op rides the message through the PG pipeline
+            # (local attribute, never encoded): every stage marks it
+            msg.trop = top
+
+            def run(pg=pg, msg=msg, conn=conn, tid=tid, top=top) -> None:
+                t0 = time.perf_counter()
+                is_w = any(o.is_write() for o in msg.ops)
+                top.mark_event("reached_pg")
+
+                def reply(rep: m.MOSDOpReply) -> None:
+                    rep.tid = tid
+                    conn.send(rep)
+                    # the reply releases this op's per-connection gate
+                    # grant: in-flight = receive -> reply, exactly the
+                    # reference Throttle window
+                    self._gate_done(msg)
+                    # terminal stage rides finish() so concluding and
+                    # leaving the in-flight table are ONE step: EAGAIN'd
+                    # ops (peering gate, write-deadline sweep) land in
+                    # history like commits — never leak in the table
+                    if rep.result == 0:
+                        # reads get their own terminal stage: the
+                        # commit_sent histogram (lat_reply_us) times
+                        # reply-send for writes, and feeding whole
+                        # read service times into it would corrupt
+                        # the per-stage attribution
+                        top.finish(stage="commit_sent" if is_w
+                                   else "read_sent")
+                    elif rep.result == _EAGAIN:
+                        top.finish(stage="eagain")
+                    else:
+                        top.finish(stage="aborted", detail=f"r={rep.result}")
+                    if is_w:
+                        self.perf.inc("op_w")
+                        self.perf.tinc("op_w_latency",
+                                       time.perf_counter() - t0)
+                    else:
+                        self.perf.inc("op_r")
+                    if rep.result == 0:
+                        # per-PG io accounting (the PGStat feed):
+                        # len() on a DeviceBuf/frame-view payload is
+                        # metadata, not a host materialization
+                        if is_w:
+                            nb = sum(len(o.data) or o.length
+                                     for o in msg.ops if o.is_write())
+                        else:
+                            nb = sum(len(o.out_data) for o in rep.ops)
+                        pg.note_client_io(is_w, nb)
+
+                try:
+                    pg.do_op(msg, reply, conn=conn)
+                except Exception as e:
+                    # the op died before any reply path owned it: a
+                    # terminal event + history entry, not an in-flight
+                    # leak (the client's resend retries; finish() is
+                    # idempotent if a reply DID go out first)
+                    self._log(0, f"do_op {msg.oid} failed: {e!r}")
+                    top.finish(stage="aborted", detail=repr(e))
+                    self._gate_done(msg)  # no reply will release it
+                    # the wrapped reply() owns finishing the do_op
+                    # span; a raise before any reply would leave it
+                    # unarchived — the primary node of the causal tree
+                    # silently missing (the peer-handler leak class)
+                    sp = getattr(msg, "span", None)
+                    if sp is not None and not sp.end:
+                        sp.annotate(f"exception: {e!r}")
+                        sp.finish()
+
+            # scheduled admission: op class AND tenant decide the
+            # dmClock class, payload bytes the tag cost — QoS orders
+            # admission ACROSS objects; the _OidPipe per-object FIFO
+            # downstream keeps same-object order untouched
+            qcls, qcost = self.qos.classify_op(msg)
+            self.qos.note_admit(qcls, qcost)
+
+            def on_admit(cls_, phase, wait_s, top=top) -> None:
+                top.mark_event("qos_admitted", f"{cls_}/{phase}")
+                self.qos.note_dequeue(cls_, phase, wait_s)
+
+            self.wq.queue(msg.pgid, run,
+                          priority=self.ctx.conf.get("osd_client_op_priority"),
+                          qos_class=qcls, qos_cost=qcost,
+                          on_admit=on_admit)
+            return True
+        if isinstance(msg, m.MWatchNotifyAck):
+            cb = self._notify_cbs.get(msg.notify_id)
+            if cb is not None:
+                cb(msg.src, msg.nonce, msg.cookie, msg.reply)
+            return True
+        # replica-side applies and reads run INLINE on the dispatch
+        # thread (ordered per session, fast local store work): the
+        # per-session FIFO is also what keeps a primary's pipelined
+        # sub-writes applying — and their log entries appending — in
+        # version order on every peer
+        if isinstance(msg, (m.MOSDRepOp, m.MECSubWrite,
+                            m.MECSubWriteVec, m.MECSubRead,
+                            m.MECSubReadVec,
+                            m.MPGQuery, m.MScrub, m.MPGRecoveryProbe,
+                            m.MPGRollback, m.MECCommitNote)):
+            pg = self.pgs.get(msg.pgid)
+            if pg is None:
+                # answer "I have nothing" instead of silently dropping:
+                # the sender's waiter otherwise burns its FULL timeout
+                # per query (10s x PGs during churn was a prime
+                # peering-starvation source — an osd mid-boot or with a
+                # lagging map stalls every activation that asks it).
+                # Messages whose reply would claim state we don't have
+                # (pushes) still drop.
+                self._nack_unknown_pg(msg, conn)
+                return True
+            if isinstance(msg, m.MOSDRepOp):
+                pg.handle_rep_op(msg, conn)
+            elif isinstance(msg, m.MECSubWrite):
+                pg.handle_sub_write(msg, conn)
+            elif isinstance(msg, m.MECSubWriteVec):
+                pg.handle_sub_write_vec(msg, conn)
+            elif isinstance(msg, m.MECSubRead):
+                pg.handle_sub_read(msg, conn)
+            elif isinstance(msg, m.MECSubReadVec):
+                pg.handle_sub_read_vec(msg, conn)
+            elif isinstance(msg, m.MPGRecoveryProbe):
+                pg.handle_recovery_probe(msg, conn)
+            elif isinstance(msg, m.MPGRollback):
+                pg.handle_rollback(msg, conn)
+            elif isinstance(msg, m.MECCommitNote):
+                pg.handle_commit_note(msg, conn)
+            elif isinstance(msg, m.MPGQuery):
+                pg.handle_query(msg, conn)
+            elif isinstance(msg, m.MScrub):
+                digests, unreadable = pg.local_scrub_map(
+                    deep=getattr(msg, "deep", True))
+                # objects this osd KNOWS exist but has not recovered
+                # (pg.missing) are exists-but-unservable: advertising
+                # them keeps a backfill consumer from treating our
+                # incomplete store listing as the authoritative object
+                # set and deleting live objects (EC thrash-hunt find)
+                # MScrub is not fast-dispatched (see
+                # ms_can_fast_dispatch): this branch always runs on
+                # the thread pool, never the messenger loop
+                with pg.lock:
+                    for oid in pg.missing:
+                        if oid not in digests and oid not in unreadable:
+                            en = pg.log.latest_for(oid)
+                            if en is None or en.op != t_.LOG_DELETE:
+                                unreadable.append(oid)
+                rep = m.MScrubMap(msg.pgid, self.epoch(),
+                                  digests, unreadable)
+                rep.tid = msg.tid
+                conn.send(rep)
+            return True
+        # recovery traffic may itself block on RPCs: keep it on the
+        # ordered queue at recovery priority
+        if isinstance(msg, (m.MPGPush, m.MPGPull)):
+            pg = self.pgs.get(msg.pgid)
+            if pg is None:
+                return True
+
+            def run(pg=pg, msg=msg, conn=conn) -> None:
+                if isinstance(msg, m.MPGPush):
+                    pg.handle_push(msg, conn)
+                else:
+                    for oid in msg.oids:
+                        pg.push_object(oid, self._osd_of(msg))
+                    done = m.MPGPushReply(pg.pgid, self.epoch(), "", 0)
+                    done.tid = msg.tid
+                    conn.send(done)  # completion marker for the puller
+
+            # recovery traffic is a first-class tenant of the same
+            # scheduler: it queues under the recovery class triple
+            self.qos.note_admit("recovery")
+            self.wq.queue(msg.pgid, run,
+                          priority=self.ctx.conf.get(
+                              "osd_recovery_op_priority"),
+                          qos_class="recovery",
+                          on_admit=self.qos.note_dequeue)
+            return True
+        return False
+
+    def _osd_of(self, msg: Message) -> int:
+        return msg.src.num if msg.src and msg.src.kind == "osd" else -1
+
+    def _nack_unknown_pg(self, msg: Message, conn: Connection) -> None:
+        """Definitive empty answers for peering/scrub RPCs targeting a
+        PG this osd doesn't hold (yet): collections are instantiated at
+        mount, so "unknown" really means "nothing stored here" — and a
+        prompt empty reply keeps the asker's activation from waiting
+        out its whole RPC window."""
+        omap = self.osdmap
+        if omap is None or msg.epoch > omap.epoch:
+            # the sender's map is NEWER than ours: "unknown pg" may
+            # just mean we haven't consumed the split/creation that
+            # minted it, while our store (e.g. a pre-split parent)
+            # holds its data — a definitive "empty" here would feed
+            # the asker false testimony.  Stay silent; the asker
+            # retries after we catch up.
+            return
+        rep: Optional[Message] = None
+        if isinstance(msg, (m.MPGQuery, m.MPGRollback)):
+            rep = m.MPGInfo(msg.pgid, self.epoch(),
+                            PGInfo(pgid=msg.pgid), [])
+        elif isinstance(msg, m.MScrub):
+            rep = m.MScrubMap(msg.pgid, self.epoch(), {}, [])
+        elif isinstance(msg, m.MPGRecoveryProbe):
+            rep = m.MPGRecoveryProbeReply(msg.pgid, self.epoch(),
+                                          msg.oid, 0)
+        elif isinstance(msg, m.MECSubRead):
+            rep = m.MECSubReadReply(msg.pgid, self.epoch(), msg.shard,
+                                    msg.oid, b"", -5, {}, {})  # EIO
+        elif isinstance(msg, m.MECSubReadVec):
+            # every row answers EIO: the sender's per-object gather
+            # bookkeeping needs each (shard, oid) accounted, and a
+            # prompt "nothing here" beats a burned read window
+            rep = m.MECSubReadVecReply(
+                msg.pgid, self.epoch(),
+                [(s, o, b"", -5, {}, {})
+                 for s, o, _off, _len in msg.reads])
+        if rep is not None:
+            rep.tid = msg.tid
+            conn.send(rep)
+
+    # -- heartbeats -------------------------------------------------------
+    def _load_stretch(self) -> float:
+        """Heartbeat-grace stretch factor under CPU saturation: a
+        loaded box delays ping HANDLING, not just sending — stretching
+        the fuse by loadavg-per-cpu (capped 3x) keeps live-but-starved
+        peers from being reported down (a loaded-bench down-mark).
+        1.0 when disabled or unmeasurable."""
+        try:
+            if not self.ctx.conf.get("osd_heartbeat_grace_load_stretch"):
+                return 1.0
+            load = os.getloadavg()[0] / max(1, os.cpu_count() or 1)
+        except (OSError, AttributeError, KeyError):
+            return 1.0
+        return min(3.0, max(1.0, load))
+
+    def _hb_loop(self, interval: float) -> None:
+        grace = self.ctx.conf.get("osd_heartbeat_grace")
+        while not self._hb_stop.wait(interval):
+            now = time.time()
+            hb_addrs = (dict(self.osdmap.osd_hb_addrs)
+                        if self.osdmap is not None else {})
+            stretch = self._load_stretch()
+            for osd_id, addr in hb_addrs.items():
+                if osd_id == self.whoami or self.osdmap is None or (
+                        not self.osdmap.is_up(osd_id)):
+                    continue
+                ping = m.MOSDPing(m.MOSDPing.PING, now, self.epoch())
+                self.hb_msgr.send_message(ping, tuple(addr))
+                # grace runs from FIRST CONTACT, not first reply, so a
+                # peer that never answers still gets reported — but with
+                # a longer fuse (3x) before the first reply so startup
+                # churn doesn't trigger spurious reports
+                last = self.hb_stamps.setdefault(osd_id, now)
+                fuse = (grace if osd_id in self.hb_replied
+                        else 3 * grace) * stretch
+                if now - last > fuse:
+                    self.perf.inc("heartbeat_misses")
+                    if self.on_failure_report:
+                        self._log(1, f"heartbeat: osd.{osd_id} silent "
+                                     f"{now - last:.1f}s > fuse "
+                                     f"{fuse:.1f}s (stretch "
+                                     f"{stretch:.2f}); reporting")
+                        self.on_failure_report(osd_id)
+
+    def _handle_ping(self, conn: Connection, msg: m.MOSDPing) -> bool:
+        if msg.op == m.MOSDPing.PING:
+            rep = m.MOSDPing(m.MOSDPing.PING_REPLY, msg.stamp, self.epoch())
+            conn.send(rep)
+        else:
+            osd_id = self._osd_of(msg)
+            if osd_id >= 0:
+                self.hb_stamps[osd_id] = time.time()
+                self.hb_replied.add(osd_id)
+        return True
+
+    # -- synchronous peer RPCs (peering/recovery/scrub helpers) -----------
+    def rpc(self, peers_msgs: List[Tuple[int, Message]],
+            timeout: float = 10.0) -> List[Message]:
+        return self._rpc(peers_msgs, timeout)
+
+    def _rpc(self, peers_msgs: List[Tuple[int, Message]],
+             timeout: float = 10.0) -> List[Message]:
+        tid = self.new_tid()
+        w = _Waiter([osd_id for osd_id, _ in peers_msgs])
+        self._waiters[tid] = w
+        try:
+            unsendable = set()
+            for osd_id, msg in peers_msgs:
+                msg.tid = tid
+                if self.addr_book.get(osd_id) is None:
+                    unsendable.add(osd_id)  # nowhere to send: no reply
+                    continue
+                self.send_to_osd(osd_id, msg)
+            if unsendable:
+                w.fail_peers(unsendable)
+            return w.wait(timeout)
+        finally:
+            self._waiters.pop(tid, None)
+
+    def collect_pg_infos(self, pg: PG, peers: List[int],
+                         timeout: float = 10.0) -> Dict[int, PGInfo]:
+        if not peers:
+            return {}
+        reps = self._rpc([
+            (p, m.MPGQuery(pg.pgid, self.epoch(), EVersion()))
+            for p in peers
+        ], timeout=timeout)
+        out: Dict[int, PGInfo] = {}
+        for rep in reps:
+            if isinstance(rep, m.MPGInfo):
+                out[self._osd_of(rep)] = rep.info
+        return out
+
+    def pull_from_peer(self, pg: PG, best_osd: int, since: EVersion,
+                       defer_recovery: bool = False):
+        """Catch this (primary) osd up from a peer with a newer log.
+
+        With defer_recovery (EC activation), the authoritative log is
+        adopted and the missing set fenced, but the recovery window
+        itself is left to the CALLER — activate() opens the peering
+        gate first and then drains the window, so reads of missing
+        objects park on a promoted recovery (recover-on-read) instead
+        of EAGAINing behind the whole pull.  Returns the {oid: entry}
+        work list in that mode (the caller also owns the
+        persist-after-recovery step); None otherwise."""
+        reps = self._rpc([(best_osd,
+                           m.MPGQuery(pg.pgid, self.epoch(), since))])
+        if not reps or not isinstance(reps[0], m.MPGInfo):
+            return
+        info_msg = reps[0]
+        latest: Dict[str, t_.LogEntry] = {}
+        for en in info_msg.entries:
+            latest[en.oid] = en
+        if not info_msg.entries and info_msg.info.last_update > since:
+            # fell behind the peer's log tail: backfill every object
+            # (the peer's scrub map doubles as its object listing)
+            latest = {}
+            reps2 = self._rpc([(best_osd, m.MScrub(pg.pgid, self.epoch()))])
+            if not reps2 or not isinstance(reps2[0], m.MScrubMap):
+                return  # can't list the authoritative set; retry later
+            # unreadable includes the peer's own missing set: objects
+            # it knows exist but can't serve yet must neither be
+            # deleted here nor dropped from the backfill worklist
+            names = set(reps2[0].digests) | set(reps2[0].unreadable)
+            for oid in names:
+                latest[oid] = t_.LogEntry(
+                    t_.LOG_MODIFY, oid, info_msg.info.last_update,
+                    EVersion())
+            # backfill deletions: anything we hold that the authoritative
+            # peer does not was deleted beyond the log window — keeping
+            # it resurrects deleted data (and leaves stale EC shards that
+            # can poison reconstruction)
+            doomed = set(pg.backend.object_names()) - names
+            if doomed:
+                from ceph_tpu_torch.store.objectstore import Transaction
+
+                t = Transaction()
+                for g in self.store.collection_list(pg.coll):
+                    if g.name in doomed:
+                        t.try_remove(pg.coll, g)
+                self.store.queue_transaction(t)
+                # deleted objects must not survive in the context cache
+                pg._obc_invalidate()
+        with pg.lock:
+            # adopt the authoritative log BEFORE recovery runs: the
+            # recovery read's _av discipline and the rebuilt shard's
+            # stamp both come from log.latest_for(oid) — recovering
+            # first stamped the fresh bytes with the PRE-pull head
+            # (or accepted unchecked chunks when the object predated
+            # our log), so the shard read as stale forever after and
+            # one more holder death made the object unreconstructable
+            # (sweep-seed find: fresh data, wrong generation stamp)
+            for en in sorted(info_msg.entries, key=lambda e: e.version):
+                if en.version > pg.log.head:
+                    pg.log.append(en)
+            if info_msg.info.last_update > pg.info.last_update:
+                pg.info.last_update = info_msg.info.last_update
+                pg.info.last_complete = info_msg.info.last_update
+            # NOT persisted yet: the missing fence is memory-only, so
+            # a crash between "claim the authoritative head" and "hold
+            # the data" would restart this osd asserting a log it
+            # cannot serve (and replicated pools have no _av stamp to
+            # catch it).  The persist lands after recovery below; a
+            # crash mid-recovery re-peers from the OLD durable state.
+            for oid, en in latest.items():
+                if en.op != t_.LOG_DELETE:
+                    # our local copy/shards are STALE for these objects
+                    # until recovery completes (the reference's missing
+                    # set); reads must not trust them
+                    pg.missing[oid] = en.version
+        if pg.is_ec():
+            # reconstruct my shard(s) from surviving peers — windowed:
+            # W objects in flight, ONE vec sub-read per peer per
+            # round, decode coalesced, and each completed object
+            # leaves pg.missing individually (osd/recovery.py)
+            if latest and defer_recovery:
+                # activate() opens the gate, drains the window, and
+                # persists after recovery (the persist discipline, moved
+                # with the recovery it fences)
+                return latest
+            if latest:
+                pg.recovery_engine().recover(latest)
+        elif latest:
+            pulls = [oid for oid, en in latest.items()
+                     if en.op != t_.LOG_DELETE]
+            dels = [oid for oid, en in latest.items()
+                    if en.op == t_.LOG_DELETE]
+            from ceph_tpu_torch.store.objectstore import GHObject, Transaction
+
+            for oid in dels:
+                pg._obc_invalidate(oid)
+                t = Transaction()
+                t.try_remove(pg.coll, GHObject(oid))
+                self.store.queue_transaction(t)
+                # a stale missing entry from an EARLIER interval (the
+                # pull never finished) must clear when the delete is
+                # applied, or reads of this name EAGAIN forever
+                with pg.lock:
+                    pg.missing.pop(oid, None)
+            if pulls:
+                self._rpc([(best_osd,
+                            m.MPGPull(pg.pgid, self.epoch(), pulls))],
+                          timeout=30.0)
+        with pg.lock:
+            # recovery ran (or left its failures in pg.missing): NOW
+            # the adopted log + head are safe to make durable
+            pg._persist_meta(pg.log.omap_additions(pg.log.entries))
+
+    def _ec_self_recover(self, pg: PG, oid: str, en) -> None:
+        """Rebuild this osd's shard(s) of one object — the
+        single-object entry into the windowed recovery engine
+        (osd/recovery.py), kept for tools and tests.  The oid is in
+        pg.missing while this runs, so the gather excludes OUR stale
+        local shards from the reconstruction; success clears the
+        missing entry, failure leaves it for the next interval's retry
+        (a peer holding fresh shards may return)."""
+        pg.recovery_engine().recover({oid: en})
+
+    def list_peer_objects(self, pg: PG, osd_id: int) -> Optional[set]:
+        """A peer's object listing (its scrub map's key set); None when
+        the peer didn't answer — callers must NOT treat that as empty
+        (skipping backfill deletions on a lost reply resurrects data)."""
+        reps = self._rpc([(osd_id, m.MScrub(pg.pgid, self.epoch()))])
+        if reps and isinstance(reps[0], m.MScrubMap):
+            return set(reps[0].digests) | set(reps[0].unreadable)
+        return None
+
+    def collect_scrub_maps(self, pg: PG, deep: bool = True,
+                           rpc_timeout: Optional[float] = None
+                           ) -> Dict[int, Dict[str, int]]:
+        """{osd: {oid: digest}} with store-unreadable objects merged in
+        as SCRUB_UNREADABLE sentinels (exists, but never authoritative).
+        deep=False asks every member for the METADATA-ONLY map (no
+        data bytes read anywhere — the shallow scrub compare);
+        `rpc_timeout` bounds the one parallel map-fetch round (the
+        scrub engine shrinks it — it may hold the pg lock)."""
+        from ceph_tpu_torch.osd.pg import SCRUB_UNREADABLE
+
+        peers = [o for o in set(pg.acting)
+                 if o not in (self.whoami, 0x7FFFFFFF) and o >= 0]
+        digests, unreadable = pg.local_scrub_map(deep=deep)
+        # symmetric with the MScrub handler: our own known-but-
+        # unrecovered objects vote exists-but-unservable exactly like a
+        # peer's would
+        with pg.lock:
+            for oid in pg.missing:
+                if oid not in digests and oid not in unreadable:
+                    en = pg.log.latest_for(oid)
+                    if en is None or en.op != t_.LOG_DELETE:
+                        unreadable.append(oid)
+        digests.update({o: SCRUB_UNREADABLE for o in unreadable})
+        out = {self.whoami: digests}
+        if peers:
+            reps = self._rpc([(p, m.MScrub(pg.pgid, self.epoch(),
+                                           deep=deep))
+                              for p in peers],
+                             timeout=rpc_timeout if rpc_timeout
+                             else 10.0)
+            for rep in reps:
+                if isinstance(rep, m.MScrubMap):
+                    dm = dict(rep.digests)
+                    dm.update({o: SCRUB_UNREADABLE
+                               for o in rep.unreadable})
+                    out[self._osd_of(rep)] = dm
+        return out
+
+    def fetch_remote_chunk_full(self, pg: PG, osd_id: int, shard: int,
+                                oid: str,
+                                timeout: Optional[float] = None):
+        """(data, attrs, omap) of a remote shard, or None — the shard's
+        metadata rides the read reply so scrub/repair never depend on
+        the primary holding a local shard (reference handle_sub_read
+        returns attrs, ECBackend.cc:955)."""
+        reps = self._rpc([(osd_id, m.MECSubRead(pg.pgid, self.epoch(),
+                                                shard, oid, 0, 0))],
+                         timeout=timeout if timeout else 10.0)
+        for rep in reps:
+            if isinstance(rep, m.MECSubReadReply) and rep.result == 0:
+                return rep.data, dict(rep.attrs), dict(rep.omap)
+        return None
+
+
+class _HBDispatcher(Dispatcher):
+    """Heartbeat-only dispatcher for the dedicated hb messenger."""
+
+    def __init__(self, osd: OSDService) -> None:
+        self.osd = osd
+
+    def ms_can_fast_dispatch(self, msg: Message) -> bool:
+        # liveness probes answer from the loop: a busy thread pool must
+        # never delay a ping reply into the failure-report window
+        return isinstance(msg, m.MOSDPing)
+
+    def ms_dispatch(self, conn: Connection, msg: Message) -> bool:
+        if not self.osd.up:
+            # a down daemon must not answer pings either: a lingering
+            # hb listener that keeps replying would stop peers from
+            # ever reporting us to the mon — no new map, no
+            # re-peering, writes to our PGs wedge (review find on the
+            # down-dispatch gate)
+            raise RuntimeError(f"osd.{self.osd.whoami} is down")
+        if isinstance(msg, m.MOSDPing):
+            return self.osd._handle_ping(conn, msg)
+        return False

@@ -43,8 +43,8 @@ The host (``self.osd``) is duck-typed: ``epoch``, ``store``, ``whoami``,
 ``list_peer_objects``, ``fetch_remote_chunk_full``,
 ``collect_scrub_maps``, ``register_notify``/``unregister_notify``, and
 ``pg_perf``, ``op_perf`` and the scrub engine's ``scrub_perf``, ``qos``
-and ``wq`` through ``getattr``.  The daemon that supplies it is ROADMAP
-item 1i.
+and ``wq`` through ``getattr``.  The port's daemon
+(``osd/daemon.py``, ``OSDService``) supplies all of it.
 """
 
 from __future__ import annotations

@@ -45,7 +45,7 @@ of the mClock scheduler.  The shape kept here:
   ``pg.scrub_errors`` (the PG_DAMAGED feed).
 
 Port of ``ceph_tpu/osd/scrub.py``: the same walk, messages, omap rows,
-log lines and counters, with four differences, each named where it
+log lines and counters, with three differences, each named where it
 sits:
 
 (a) a chunk's decode rides the queue's ``dec`` kind when the codec has
@@ -54,12 +54,12 @@ sits:
     ``recovery_matrix``: shec has one but no MDS recovery;
 (b) a codec with sub-chunks (clay) raises ``NotImplementedError`` with
     the backend's ``_CLAY_WAITS``;
-(c) ``COST_UNIT_BYTES`` is this module's own copy of ``osd/qos.py``'s,
-    until the port's daemon (ROADMAP queue 1 item 1i) brings ``qos``;
-(d) ``_admit_chunk`` and ``_yield_between_chunks`` keep their
-    ``getattr(osd, "wq"/"qos", None)`` seams: with no daemon behind the
-    PG the chunk runs inline, the reference's own path without a
-    ``qos``.
+(c) ``_admit_chunk`` and ``_yield_between_chunks`` keep their
+    ``getattr(osd, "wq"/"qos", None)`` seams: under the port's daemon
+    (``osd/daemon.py``) each chunk is admitted through its workqueue
+    under the ``scrub`` class and paced by its ``qos``; with no daemon
+    behind the PG the chunk runs inline, the reference's own path
+    without a ``qos``.
 """
 
 from __future__ import annotations
@@ -90,11 +90,6 @@ STAMPS_KEY = "scrub_stamps"
 # client delete past its deadline)
 GATHER_RPC_S = 3.0
 CHUNK_BUDGET_S = 5.0
-
-# (c) the qos cost unit (``ceph_tpu/osd/qos.py:76``): one cost unit per
-# 4 KiB of payload.  ``osd/qos.py`` comes with the daemon (ROADMAP
-# queue 1 item 1i), which takes this copy over.
-COST_UNIT_BYTES = 4096
 
 
 class _ChunkBudgetExceeded(Exception):
@@ -184,7 +179,7 @@ class ScrubEngine:
     def _yield_between_chunks(self, cost_units: float) -> None:
         """The scrub tenant's pacing: charge the chunk to the scrub
         class token bucket (class limit) and preempt — bounded wait —
-        while client IOPS read busy.  (d): no ``qos`` on the host, no
+        while client IOPS read busy.  (c): no ``qos`` on the host, no
         pacing."""
         qos = getattr(self.osd, "qos", None)
         if qos is None:
@@ -209,7 +204,7 @@ class ScrubEngine:
         """Run one chunk's verification THROUGH the daemon workqueue
         under the mclock scrub class (cost-tagged admission): dmClock
         decides when scrub reads go, clients never queue behind a
-        whole scrub — only behind one bounded chunk.  (d): without a
+        whole scrub — only behind one bounded chunk.  (c): without a
         daemon's ``wq`` and ``qos`` the chunk runs inline."""
         qos = getattr(self.osd, "qos", None)
         wq = getattr(self.osd, "wq", None)
@@ -397,6 +392,7 @@ class ScrubEngine:
     def _chunk_cost(self, oids: List[str]) -> float:
         """Scheduler cost units for one chunk: local stored bytes over
         the qos cost unit (cheap — store.stat reads no data)."""
+        from ceph_tpu_torch.osd.qos import COST_UNIT_BYTES
         from ceph_tpu_torch.store.objectstore import GHObject, StoreError
 
         pg = self.pg

@@ -137,6 +137,36 @@ Phases, each of which fails the run (non-zero exit, no result line):
               and ``_av`` as before the rot and its mark cleared (the
               primary's through its store, the peers' by ``MPGPush``),
               and a last deep pass clean;
+6f. daemon   twelve port OSD daemons (``ceph_tpu_torch/osd/daemon.py``,
+              one ``OSDService`` a shard, each over its own MemStore)
+              on one ``OSDMap`` (``build_flat_cluster(12, hosts=12)``, an
+              indep and a firstn rule; isa k=8 m=4 with a 1 MiB stripe,
+              size 12, min_size 9, and a replicated pool of size 3, 8 PGs
+              each), under lockdep: ``tpu_boot_warmup`` on, so each
+              ``init`` runs ``DeviceWarmup`` (K1, the CRC kernel, K6 at
+              every declared bucket) before its messengers serve; the map
+              and address book to every daemon (``handle_osdmap``: one
+              K6 launch a PG a call, timed), ``activate_pgs``,
+              ``wait_pgs_settled``, heartbeats; ``client.4100`` sends 64
+              x 4 MiB ``WRITEFULL`` ``MOSDOp``s to pool A and 16 x 64 KiB
+              to pool B, each to its acting primary, whose ``ms_dispatch``
+              queues it on the mclock workqueue into ``PG.do_op``
+              (``encp``: K1 and the CRC); every stored shard equal to the
+              plain encode with its ``hinfo`` the host CRC of it, every
+              PG's ``last_update`` agreed by its holders, the client ops
+              counted by each primary's ``osd.N.qos`` and kept in its op
+              history; the primary of pool B's first PG shut down and
+              marked down, every daemon re-peered, every object read
+              back byte for byte (``_ec_read_object`` ->
+              ``reconstruct_async``, K1); 8 + 4 objects rewritten while
+              it is down, then it revives on its old store and catches up
+              (the recovery engine on pool A, ``pull_from_peer`` on pool
+              B), every shard on it equal to the plain encode and
+              ``missing`` empty; one shard of object 0 marked with
+              ``debug_inject_data_err`` and the primary's
+              ``start_scrub_scheduler`` until the cluster log's
+              ``deep-scrub`` ERR names it (``admitted_scrub`` counted);
+              every daemon shut down and no thread it started left;
 7. bitmatrix  the same 1 GiB write through ``jerasure k=8 m=4
               technique=cauchy_good``, read back degraded through
               ``codec.decode_array`` with shards 6, 7, 10, 11 lost (the
@@ -196,7 +226,10 @@ zeroes them before its lockdep run and reads them after its failpoint
 check; the wire phase's write half is its MOSDOp writes and commits, its
 read half the MOSDOp reads with their sub-reads and reconstructs, the
 recovery phase zeroes them just before the recovery window and reads
-them just after, and the scrub phase around each of its steps); each
+them just after, the scrub phase around each of its steps, and the
+daemon phase around each of its steps: warmup, write, kill, read,
+write_down, recover, scrub; a map refresh's K6 launches are read before
+and after it); each
 kernel of each
 half must have run (for ecbench, K2 and K1: its loops capture one launch
 per iteration in a CUDA graph and replay it, and the counts are of the
@@ -205,7 +238,8 @@ shape, beside its plain version and its bound: ``ms`` is device time per
 launch from a CUDA graph of launches, ``call_ms`` the eager wrapper call
 with CUDA events; the K1 and CRC rows carry their launches in the wire
 phase's two halves, the recovery phase and each step of the scrub phase
-(``wire_launches``); the
+(``wire_launches``), and, with the ``crush_rule`` row, each step of the
+daemon phase and each of its map refreshes (``daemon_launches``); the
 popcount row times both of
 shec's read shapes
 (``ms`` the contribution, ``solve_ms`` the solve).  The crush phase
@@ -1202,7 +1236,8 @@ WIRE_EPOCH = 7               # its map epoch, stamped on every message and entry
 WIRE_META = "_pgmeta_"       # the PG meta object that holds the log's omap
 WIRE_CLIENT = 4100           # client.4100 sends the MOSDOps
 WIRE_WAIT_S = 120.0
-_WAITS_1I = "waits for ROADMAP queue 1 item 1i of the port (the OSD daemon)"
+_DAEMON_HAS = ("is the OSD daemon's (ceph_tpu_torch/osd/daemon.py, the "
+               "daemon phase); PhaseOSD hosts one PG without it")
 
 
 def wire_acting(n: int, peers: int) -> list:
@@ -1297,7 +1332,8 @@ class PhaseOSD:
     ``list_peer_objects``, the ``scrub_perf`` counters, and the replica
     side of scrub and repair: ``serve_scrub`` (``MScrub``) and
     ``serve_pull`` (``MPGPull``).  Every other host method raises
-    ``NotImplementedError`` naming ROADMAP item 1i."""
+    ``NotImplementedError`` pointing to the port's daemon
+    (``ceph_tpu_torch/osd/daemon.py``), which has them all."""
 
     def __init__(self, ctx, whoami: int, store, osdmap: PhaseMap,
                  epoch: int) -> None:
@@ -1476,7 +1512,7 @@ class PhaseOSD:
         return None
 
     def _waits(self, name: str):
-        raise NotImplementedError(f"PhaseOSD.{name} {_WAITS_1I}")
+        raise NotImplementedError(f"PhaseOSD.{name} {_DAEMON_HAS}")
 
     def collect_pg_infos(self, *a, **kw):
         self._waits("collect_pg_infos")
@@ -2631,6 +2667,593 @@ def phase_scrub(torch, dev, log, wire: dict) -> dict:
     return scr
 
 
+DAEMON_OSDS = 12             # one port OSDService a shard of isa k=8 m=4
+DAEMON_EC_POOL = 2           # pool A: the wire profile, size k+m
+DAEMON_REP_POOL = 1          # pool B: replicated, size 3
+DAEMON_PG_NUM = 8
+DAEMON_REP_OBJS = 16         # small writes to pool B
+DAEMON_REP_BYTES = 64 << 10
+DAEMON_OVERWRITE = (8, 4)    # pool A, pool B objects rewritten while down
+DAEMON_SCRUB_IV = 0.5        # the scheduled scrub's interval (seconds)
+# threads that outlive the daemons by design: the process's stripe-batch
+# queue worker and the EC fan-out executor, stopped at interpreter exit
+DAEMON_SHARED_THREADS = ("stripe-batch", "pg-fanout")
+
+
+def daemon_map(dev, n_osds: int, profile: str, k: int, pg_num: int):
+    """``build_flat_cluster(n_osds, hosts=n_osds)`` with a firstn and an
+    indep rule (host failure domain), pool B replicated (size 3,
+    min_size 2) on the first and pool A (the EC ``profile``, size
+    ``n_osds``, min_size k + 1) on the second, ``pg_num`` PGs each."""
+    from ceph_tpu_torch.crush import map as cmap
+    from ceph_tpu_torch.osd.osdmap import (POOL_ERASURE, POOL_REPLICATED,
+                                           OSDMap, PGPool)
+
+    cm, root = cmap.build_flat_cluster(n_osds, hosts=n_osds)
+    cm.add_simple_rule("replicated", root, 1, mode="firstn")
+    cm.add_simple_rule("ec", root, 1, mode="indep")
+    om = OSDMap(cm, max_osd=n_osds, device=dev)
+    om.add_pool(PGPool(DAEMON_REP_POOL, POOL_REPLICATED, size=3,
+                       min_size=2, pg_num=pg_num, pgp_num=pg_num,
+                       crush_rule=0))
+    om.add_pool(PGPool(DAEMON_EC_POOL, POOL_ERASURE, size=n_osds,
+                       min_size=k + 1, pg_num=pg_num, pgp_num=pg_num,
+                       crush_rule=1, erasure_code_profile=profile))
+    return om
+
+
+def run_daemon(torch, dev, *, n_osds: int = DAEMON_OSDS,
+               profile: str = WIRE_PROFILE, nobj: int = WIRE_OBJS,
+               obj_bytes: int = 4 * MiB, stripe_bytes: int = 1 * MiB,
+               rep_objs: int = DAEMON_REP_OBJS,
+               rep_bytes: int = DAEMON_REP_BYTES,
+               overwrite=DAEMON_OVERWRITE, threads: int = 8,
+               pg_num: int = DAEMON_PG_NUM,
+               scrub_iv: float = DAEMON_SCRUB_IV) -> dict:
+    """``n_osds`` port OSD daemons (``ceph_tpu_torch/osd/daemon.py``) on
+    one map, under lockdep, driven as a cluster is:
+
+    1. boot: one Context (``tpu_boot_warmup`` on, the staging pool at
+       ``WIRE_SLOTS`` slots of an object, ``osd_op_history_size`` 256),
+       one ``OSDService`` a shard, each over its own MemStore, all on
+       one ``OSDMap`` of ``daemon_map``; each ``init()`` runs
+       ``DeviceWarmup`` (K1 through ``encode_planes`` and the recovery
+       product, the CRC kernel, K6 through ``map_pgs``) before its
+       messengers serve; then ``handle_osdmap`` with the address book
+       on every daemon (one K6 launch a PG a call), ``activate_pgs``,
+       ``wait_pgs_settled`` and ``start_heartbeats``;
+    2. write: ``client.4100``, a raw messenger, sends each of ``nobj``
+       seeded objects of ``obj_bytes`` to pool A as one ``WRITEFULL``
+       ``MOSDOp`` to its acting primary (``object_to_pg`` ->
+       ``pg_to_up_acting``), from ``threads`` threads, and ``rep_objs``
+       small ones to pool B; the primary's ``ms_dispatch`` classifies the
+       op (``qos.classify_op``) and queues it on the mclock workqueue,
+       whose worker calls ``PG.do_op``: the ``encp`` batch (K1 + CRC)
+       and one ``MECSubWriteVec`` a holder.  Checked: every reply 0;
+       every stored shard, read through its extent seals, equals the
+       plain encode (the codec on the CPU) and its ``hinfo`` CRC the
+       host CRC of it; every PG's ``last_update`` equal on all its
+       holders; each primary's ``osd.N.qos`` ``admitted_client`` moved
+       by the ops sent to it; every op in some ``dump_historic_ops``;
+    3. degraded read: the primary of pool B's first object's PG shuts
+       down, is marked down in the map, and every daemon takes the map
+       (``handle_osdmap``, ``activate_pgs``: peering through
+       ``collect_pg_infos``); every object read back by ``READ``
+       ``MOSDOp``, byte for byte, pool A through ``_ec_read_object`` ->
+       ``reconstruct_async`` (K1 ``dec``) where a data shard is lost;
+    4. recover: while it is down, ``overwrite`` objects of pools A and B
+       are rewritten (pool B's first the ones of PGs it leads); then a
+       new ``OSDService`` on its old store, ``set_osd_up``, the map and
+       activation everywhere: its PGs catch up through peering, the
+       recovery engine on pool A (K1) and ``pull_from_peer`` on pool B
+       (counted); every shard and ``hinfo`` on it equal to the plain
+       encode, pool B's copies to the data, ``missing`` empty everywhere;
+    5. scrub: one shard of object 0 marked with ``debug_inject_data_err``
+       on a holder that is not its primary; ``start_scrub_scheduler`` on
+       the primary until the cluster log's ``deep-scrub`` ERR names the
+       object; ``osd.N.qos`` ``admitted_scrub`` moved;
+    6. every daemon and the client shut down, and no thread they started
+       is left (the process's queue worker and fan-out executor aside).
+
+    Launch counts are zeroed before and read after each step and each
+    map refresh.  Returns the counts, walls, warmup stats and checks;
+    raises on any failed check."""
+    from ceph_tpu_torch.core import lockdep
+    from ceph_tpu_torch.core.context import Context
+    from ceph_tpu_torch.core.crc import crc32c
+    from ceph_tpu_torch.ec import codec_from_profile
+    from ceph_tpu_torch.gpu.queue import default_queue
+    from ceph_tpu_torch.msg.message import EntityName
+    from ceph_tpu_torch.msg.messenger import Dispatcher, Messenger
+    from ceph_tpu_torch.osd import backend as ob
+    from ceph_tpu_torch.osd import messages as om
+    from ceph_tpu_torch.osd.daemon import OSDService
+    from ceph_tpu_torch.osd.ecutil import StripeInfo
+    from ceph_tpu_torch.osd.types import OP_READ, OP_WRITEFULL, OSDOp
+    from ceph_tpu_torch.osd.types import pgid_str
+    from ceph_tpu_torch.store.memstore import MemStore
+    from ceph_tpu_torch.store.objectstore import Collection, GHObject
+
+    unit = codec_from_profile(profile, device=dev).get_chunk_size(
+        stripe_bytes)
+    ec_profile = f"{profile} stripe_unit={unit}"
+    plain = codec_from_profile(ec_profile, device="cpu")
+    k, m = plain.k, plain.m
+    n = k + m
+    require(n == n_osds, f"daemon: one daemon a shard ({n} != {n_osds})")
+    si = StripeInfo(k, unit)
+    A, B = DAEMON_EC_POOL, DAEMON_REP_POOL
+    g = torch.Generator(device=dev).manual_seed(SEED + 20)
+    objs = torch.randint(0, 256, (nobj + overwrite[0], obj_bytes),
+                         dtype=torch.uint8, device=dev,
+                         generator=g).cpu().numpy()
+    rng = np.random.default_rng(SEED + 21)
+    reps = [rng.integers(0, 256, rep_bytes, dtype=np.uint8).tobytes()
+            for _ in range(rep_objs + overwrite[1])]
+    oids = [f"rbd_data.{i:016x}" for i in range(nobj)]
+    roids = [f"rep.{i:04d}" for i in range(rep_objs)]
+    want = {(A, oids[i]): objs[i] for i in range(nobj)}
+    want.update({(B, roids[i]): reps[i] for i in range(rep_objs)})
+
+    osdmap = daemon_map(dev, n_osds, ec_profile, k, pg_num)
+    before_threads = {t.ident for t in threading.enumerate()}
+    was = lockdep.enabled()
+    lockdep.reset()
+    lockdep.enable(True)
+    ctx = Context("osd.cluster", {
+        "tpu_boot_warmup": True,
+        "tpu_staging_slot_kib": max(1, obj_bytes >> 10),
+        "tpu_staging_slots": WIRE_SLOTS,
+        "osd_op_history_size": 256})
+    osds: dict = {}
+    client = None
+    res: dict = {"steps": {}, "refresh": []}
+    cond = threading.Condition()
+    replies: dict = {}
+    tids = iter(range(1, 1 << 30))
+    sent: dict = {}     # MOSDOps sent to each primary, resends included
+    acked: dict = {}    # answered 0 by each
+    retries = [0]
+    dq = default_queue(dev)
+
+    class ClientD(Dispatcher):
+        def ms_can_fast_dispatch(self, msg) -> bool:
+            return True
+
+        def ms_dispatch(self, conn, msg) -> bool:
+            if not isinstance(msg, om.MOSDOpReply):
+                return False
+            with cond:
+                replies[msg.tid] = msg
+                cond.notify_all()
+            return True
+
+    def op(pool: int, oid: str, ops):
+        """One MOSDOp to the acting primary, resent (same tid and reqid)
+        while the answer is EAGAIN or ESTALE, as the objecter does."""
+        with cond:
+            tid = next(tids)
+        deadline = time.monotonic() + WIRE_WAIT_S
+        while True:
+            pgid = osdmap.object_to_pg(pool, oid)
+            primary = osdmap.pg_to_up_acting(pgid)[3]
+            msg = om.MOSDOp(pgid, osdmap.epoch, oid, ops)
+            msg.tid = tid
+            msg.reqid = f"client.{WIRE_CLIENT}.0:{tid}"
+            with cond:
+                sent[primary] = sent.get(primary, 0) + 1
+            client.send_message(msg, osds[primary].addr)
+            with cond:
+                require(cond.wait_for(
+                    lambda: tid in replies,
+                    max(0.0, deadline - time.monotonic())),
+                    f"daemon: a reply to {oid} (tid {tid})")
+                rep = replies.pop(tid)
+            if rep.result not in (-11, -116):
+                if rep.result == 0:
+                    with cond:
+                        acked[primary] = acked.get(primary, 0) + 1
+                return rep
+            require(time.monotonic() < deadline,
+                    f"daemon: {oid} still answered {rep.result}")
+            with cond:
+                retries[0] += 1
+            time.sleep(0.05)
+
+    def write(pool: int, oid: str, data) -> None:
+        rep = op(pool, oid, [OSDOp(OP_WRITEFULL, data=memoryview(data))])
+        require(rep.result == 0,
+                f"daemon: the write of {oid} answered {rep.result}")
+        want[(pool, oid)] = data
+
+    def read(pool: int, oid: str) -> None:
+        rep = op(pool, oid, [OSDOp(OP_READ)])
+        data = want[(pool, oid)]
+        require(rep.result == 0 and rep.ops[0].out_data == bytes(data),
+                f"daemon: the read of {oid} answered {rep.result} with "
+                f"{len(rep.ops[0].out_data) if rep.ops else 0} bytes")
+
+    def up() -> list:
+        return [o for o in osds.values() if o.up]
+
+    def refresh(name: str) -> None:
+        """The map and address book to every live daemon (timed, its K6
+        launches counted), then their activation, settled."""
+        book = {i: o.addr for i, o in osds.items() if o.up}
+        k6 = read_counts()["crush_rule"]
+        t0 = time.perf_counter()
+        for o in up():
+            o.handle_osdmap(osdmap, book)
+        wall = time.perf_counter() - t0
+        res["refresh"].append({
+            "step": name, "epoch": osdmap.epoch, "daemons": len(book),
+            "pgs": sum(len(o.pgs) for o in up()),
+            "k6": read_counts()["crush_rule"] - k6, "wall_s": wall})
+        for o in up():
+            o.activate_pgs()
+        for o in up():
+            require(o.wait_pgs_settled(WIRE_WAIT_S),
+                    f"daemon: osd.{o.whoami}'s PGs settled after {name}")
+
+    def step(name: str, fn) -> dict:
+        reset_counts()
+        t0 = time.perf_counter()
+        out = fn() or {}
+        wall = time.perf_counter() - t0
+        out.update(wall_s=wall, counts=read_counts())
+        res["steps"][name] = out
+        return out
+
+    def holders_agree() -> dict:
+        """Every PG's last_update on each of its live holders, once they
+        agree (a holder notes an entry a moment after its ack)."""
+        deadline = time.monotonic() + WIRE_WAIT_S
+        while True:
+            seen = {}
+            for o in up():
+                for pgid, pg in list(o.pgs.items()):
+                    if o.whoami in pg.acting:
+                        seen.setdefault(pgid, set()).add(
+                            (pg.info.last_update.epoch,
+                             pg.info.last_update.version))
+            bad = {p: v for p, v in seen.items() if len(v) > 1}
+            if not bad or time.monotonic() > deadline:
+                break
+            time.sleep(0.01)
+        require(not bad, f"daemon: every PG's last_update agrees on its "
+                         f"holders: {bad}")
+        return {pgid_str(p): sorted(v)[0] for p, v in sorted(seen.items())}
+
+    def expected_shards(data) -> list:
+        planes = si.interleave(np.asarray(data))[0]
+        coding = plain.encode_array(planes)
+        return [planes[s] if s < k else coding[s - k] for s in range(n)]
+
+    def check_ec(i: int, only=None) -> int:
+        """Object i of pool A on its holders (``only``: that daemon)."""
+        oid = oids[i]
+        pgid = osdmap.object_to_pg(A, oid)
+        acting = osdmap.pg_to_up_acting(pgid)[2]
+        coll = Collection(pgid_str(pgid) + "_head")
+        shards = expected_shards(want[(A, oid)])
+        done = 0
+        for s, osd in enumerate(acting):
+            if osd == ob.CRUSH_ITEM_NONE or (only is not None
+                                             and osd != only):
+                continue  # a hole: CRUSH found no host for the shard
+            st = osds[osd].store
+            go = GHObject(oid, shard=s)
+            got = st.read(coll, go)
+            size, hcrc, valid = ob.hinfo_decode(st.getattr(coll, go,
+                                                           "hinfo"))
+            require(got == shards[s].tobytes(),
+                    f"daemon: osd.{osd} {oid} shard {s} equals the plain "
+                    "encode")
+            require(valid and size == obj_bytes and hcrc == crc32c(got),
+                    f"daemon: osd.{osd} {oid} shard {s}: its hinfo CRC "
+                    "is the host CRC of the stored bytes")
+            done += 1
+        return done
+
+    try:
+        # 1. boot
+        stores = {i: MemStore() for i in range(n_osds)}
+
+        def boot():
+            for i in range(n_osds):
+                svc = OSDService(ctx, i, stores[i], osdmap,
+                                 codec_from_profile, device=dev)
+                svc.store.mkfs()
+                svc.init()
+                osds[i] = svc
+            return {"warmup": osds[0]._warmup.stats(),
+                    "warmup_s": [round(o._warmup.stats()["seconds"], 3)
+                                 for o in osds.values()]}
+
+        wu = step("warmup", boot)
+        for o in osds.values():
+            st = o._warmup.stats()
+            require(st["done"] and not st["skipped"]
+                    and st["families_warmed"] == ["crc32c_rows",
+                                                  "crush_rule", "dec",
+                                                  "enc"],
+                    f"daemon: osd.{o.whoami}'s boot warmup launched every "
+                    f"declared bucket {st}")
+        res["warmup"] = wu["warmup"]
+        refresh("boot")
+        holes = {}
+        for p, pool in osdmap.pools.items():
+            for seed in range(pool.pg_num):
+                acting = osdmap.pg_to_up_acting((p, seed))[2]
+                holes[pgid_str((p, seed))] = acting.count(
+                    ob.CRUSH_ITEM_NONE)
+                for o in osds.values():
+                    require(((p, seed) in o.pgs) == (o.whoami in acting),
+                            f"daemon: osd.{o.whoami} holds pg {p}.{seed} "
+                            f"exactly when the map puts it in {acting}")
+        # with k + m hosts for k + m shards, an indep walk may find no
+        # host for a shard within its tries: that PG starts degraded
+        res["holes"] = {p: h for p, h in holes.items() if h}
+        for o in osds.values():
+            o.start_heartbeats()
+        client = Messenger(Context(f"client.{WIRE_CLIENT}"),
+                           EntityName("client", WIRE_CLIENT))
+        client.add_dispatcher(ClientD())
+        client.start()
+
+        # 2. write
+        qos0 = {i: o.qos.perf.dump().get("admitted_client", 0)
+                for i, o in osds.items()}
+        with cond:
+            sent.clear()
+            acked.clear()
+
+        def writes():
+            wall_a = run_threads(lambda i: write(A, oids[i], objs[i]),
+                                 nobj, threads)
+            wall_b = run_threads(lambda i: write(B, roids[i], reps[i]),
+                                 rep_objs, threads)
+            return {"wall_a_s": wall_a, "wall_b_s": wall_b}
+
+        w = step("write", writes)
+        w["gbs"] = nobj * obj_bytes / w["wall_a_s"] / 1e9
+        w["heads"] = holders_agree()
+        w["ec_shards_checked"] = sum(check_ec(i) for i in range(nobj))
+        for i in range(rep_objs):
+            pgid = osdmap.object_to_pg(B, roids[i])
+            coll = Collection(pgid_str(pgid) + "_head")
+            for osd in osdmap.pg_to_up_acting(pgid)[2]:
+                require(osds[osd].store.read(coll, GHObject(roids[i]))
+                        == reps[i], f"daemon: osd.{osd} holds {roids[i]}")
+        admitted = {i: o.qos.perf.dump().get("admitted_client", 0) - qos0[i]
+                    for i, o in osds.items()}
+        require(all(acked.get(i, 0) <= admitted[i] <= sent.get(i, 0)
+                    for i in osds) and sum(acked.values()) == nobj + rep_objs,
+                f"daemon: each primary's osd.N.qos admitted the client ops "
+                f"it served: {admitted}, sent {sent}, acked {acked}")
+        w["admitted_client"] = admitted
+        hist = set()
+        for o in osds.values():
+            for h in o.op_tracker.dump_historic()["ops"]:
+                hist.add(h["description"].split(" ")[2])
+        missing_hist = [x for x in oids + roids if x not in hist]
+        require(not missing_hist,
+                f"daemon: every op in some dump_historic_ops "
+                f"({len(missing_hist)} missing)")
+
+        # 3. degraded read: the daemon leading pool B's first object's
+        # PG goes down (so its revival pulls that PG from a peer)
+        down = osdmap.pg_to_up_acting(osdmap.object_to_pg(B, roids[0]))[3]
+        res["down"] = down
+        led = [x for x in roids
+               if osdmap.pg_to_up_acting(osdmap.object_to_pg(B, x))[3]
+               == down]
+        rew_b = (led + [x for x in roids if x not in led])[:overwrite[1]]
+
+        def kill():
+            osds[down].shutdown()
+            osdmap.set_osd_down(down)
+            refresh("kill")
+
+        step("kill", kill)
+        lost_data = 0
+        for i in range(nobj):
+            acting = osdmap.pg_to_up_acting(
+                osdmap.object_to_pg(A, oids[i]))[2]
+            lost_data += any(acting[s] == ob.CRUSH_ITEM_NONE
+                             for s in range(k))
+        dec0 = sum(w_ * c for w_, c in dq.dec_batch_jobs.items())
+
+        def reads():
+            wall_a = run_threads(lambda i: read(A, oids[i]), nobj, threads)
+            wall_b = run_threads(lambda i: read(B, roids[i]), rep_objs,
+                                 threads)
+            return {"wall_a_s": wall_a, "wall_b_s": wall_b}
+
+        r = step("read", reads)
+        r["gbs"] = nobj * obj_bytes / r["wall_a_s"] / 1e9
+        r["lost_data_objects"] = lost_data
+        r["dec_jobs"] = sum(w_ * c for w_, c in dq.dec_batch_jobs.items()) \
+            - dec0
+        require(lost_data > 0 and r["dec_jobs"] >= lost_data,
+                f"daemon: the read decoded every object that lost a data "
+                f"shard ({r['dec_jobs']} dec jobs, {lost_data} objects)")
+
+        # 4. writes while down, then the revival and the catch-up
+        def writes_down():
+            for j in range(overwrite[0]):
+                write(A, oids[j], objs[nobj + j])
+            for j, x in enumerate(rew_b):
+                write(B, x, reps[rep_objs + j])
+            return {"objects": overwrite[0] + len(rew_b)}
+
+        step("write_down", writes_down)
+        pulls = []
+
+        def revive():
+            svc = OSDService(ctx, down, stores[down], osdmap,
+                             codec_from_profile, device=dev)
+            real_pull = svc.pull_from_peer
+
+            def pull_from_peer(pg, best, since, defer_recovery=False):
+                pulls.append((pgid_str(pg.pgid), best))
+                return real_pull(pg, best, since,
+                                 defer_recovery=defer_recovery)
+
+            svc.pull_from_peer = pull_from_peer
+            svc.init()
+            svc.start_heartbeats()
+            osds[down] = svc
+            # its new address reaches every daemon before the map that
+            # marks it up (as its boot message precedes that map): a
+            # peer answering its pull from the old address book would
+            # push to the dead messenger
+            refresh("revive_addr")
+            osdmap.set_osd_up(down)
+            refresh("revive")
+            deadline = time.monotonic() + WIRE_WAIT_S
+            while (any(pg.missing for o in up() for pg in o.pgs.values())
+                   and time.monotonic() < deadline):
+                time.sleep(0.01)
+            return {}
+
+        rv = step("recover", revive)
+        left = {f"osd.{o.whoami} {pgid_str(p)} {pg.state}": sorted(pg.missing)
+                for o in up() for p, pg in o.pgs.items() if pg.missing}
+        require(not left, f"daemon: missing is empty on every PG after the "
+                          f"revival: {left}")
+        rv["pulls"] = pulls
+        require(any(p.startswith(f"{B}.") for p, _ in pulls),
+                f"daemon: the revived daemon pulled pool B from a peer "
+                f"{pulls}")
+        rv["heads"] = holders_agree()
+        rv["ec_shards_checked"] = sum(check_ec(i, only=down)
+                                      for i in range(nobj))
+        for x in roids:
+            pgid = osdmap.object_to_pg(B, x)
+            if down in osdmap.pg_to_up_acting(pgid)[2]:
+                coll = Collection(pgid_str(pgid) + "_head")
+                require(osds[down].store.read(coll, GHObject(x))
+                        == want[(B, x)],
+                        f"daemon: the revived osd.{down} holds {x}")
+        rv["objs_per_s"] = (overwrite[0] + len(rew_b)) / rv["wall_s"]
+
+        # 5. the scheduled deep scrub finds a marked shard
+        oid = oids[0]
+        pgid = osdmap.object_to_pg(A, oid)
+        acting = osdmap.pg_to_up_acting(pgid)[2]
+        prim = osdmap.pg_to_up_acting(pgid)[3]
+        shard = next(s for s, o in enumerate(acting)
+                     if o not in (prim, ob.CRUSH_ITEM_NONE))
+        ctx.conf.set_val("store_debug_inject_data_err", True)
+        osds[acting[shard]].store.debug_inject_data_err(
+            Collection(pgid_str(pgid) + "_head"), GHObject(oid, shard=shard))
+        hits = []
+        found = threading.Event()
+
+        def cluster_cb(lvl, msg):
+            hits.append((lvl, msg))
+            if lvl == "ERR" and "deep-scrub" in msg and oid in msg:
+                found.set()
+
+        ctx.log.cluster_cb = cluster_cb
+        psvc = osds[prim]
+        sq0 = psvc.qos.perf.dump().get("admitted_scrub", 0)
+
+        def scrub():
+            psvc.start_scrub_scheduler(interval=scrub_iv)
+            require(found.wait(WIRE_WAIT_S),
+                    f"daemon: the scheduled deep scrub named {oid}: {hits}")
+            return {}
+
+        sc = step("scrub", scrub)
+        sc["admitted_scrub"] = (psvc.qos.perf.dump().get("admitted_scrub", 0)
+                                - sq0)
+        require(sc["admitted_scrub"] > 0,
+                "daemon: osd.N.qos admitted the scheduled scrub's chunks")
+        sc.update(primary=prim, shard=shard, holder=acting[shard],
+                  errors=[msg for lvl, msg in hits if lvl == "ERR"],
+                  scrubs=[r_ for r_ in psvc.dump_scrubs()["scrubs"]
+                          if r_["last_deep_scrub"]])
+        res["edges"] = sum(len(v) for v in lockdep.edge_graph().values())
+    finally:
+        ctx.conf.set_val("store_debug_inject_data_err", False)
+        for o in osds.values():
+            if o.up:
+                o.shutdown()
+        if client is not None:
+            client.shutdown()
+        lockdep.enable(was)
+
+    # 6. nothing the daemons started is left
+    deadline = time.monotonic() + WIRE_WAIT_S
+    while True:
+        left = [t.name for t in threading.enumerate()
+                if t.ident not in before_threads
+                and not t.name.startswith(DAEMON_SHARED_THREADS)]
+        if not left or time.monotonic() > deadline:
+            break
+        time.sleep(0.05)
+    require(not left, f"daemon: threads left after shutdown: {left}")
+    res.update(retries=retries[0], sent=dict(sent))
+    return res
+
+
+def phase_daemon(torch, dev, log) -> dict:
+    """The ``daemon`` phase: ``run_daemon`` at full width, twelve port
+    OSD daemons (isa k=8 m=4 over all twelve, a replicated pool of size
+    3) on one map.  The warmup must launch K1, the CRC kernel and K6; a
+    map refresh K6; the write K1 and the CRC kernel; the read and the
+    recovery K1; the scrub K1."""
+    res = run_daemon(torch, dev)
+    st = res["steps"]
+    for name, need in (("warmup", ("gf256_matmul", "crc32c_rows",
+                                   "crush_rule")),
+                       ("write", ("gf256_matmul", "crc32c_rows")),
+                       ("read", ("gf256_matmul",)),
+                       ("recover", ("gf256_matmul",)),
+                       ("scrub", ("gf256_matmul",))):
+        require(all(st[name]["counts"][x] > 0 for x in need),
+                f"daemon: the {name} step ran {list(need)}: "
+                f"{st[name]['counts']}")
+    require(all(r["k6"] > 0 for r in res["refresh"]),
+            f"daemon: every map refresh walked K6 {res['refresh']}")
+    wu = res["warmup"]
+    log(f"daemon warmup: {wu['buckets_warmed']} buckets "
+        f"({', '.join(wu['families_warmed'])}) in {wu['seconds']} s on "
+        f"osd.0; per daemon {json.dumps(st['warmup']['warmup_s'])} s; "
+        f"launches {json.dumps(st['warmup']['counts'])}")
+    log(f"daemon refreshes (handle_osdmap on every daemon, one K6 launch "
+        f"a PG a call): {json.dumps(res['refresh'])}; PGs the map left a "
+        f"shard short (no host found within the rule's tries): "
+        f"{json.dumps(res['holes'])}")
+    w, r, rv, sc = st["write"], st["read"], st["recover"], st["scrub"]
+    launches = {name: {x: v for x, v in s["counts"].items() if v}
+                for name, s in st.items()}
+    log(f"daemon: {DAEMON_OSDS} OSDService (isa k=8 m=4 pool, size 12, "
+        f"{DAEMON_PG_NUM} PGs; replicated pool, size 3, {DAEMON_PG_NUM} "
+        f"PGs) on one map under lockdep: {WIRE_OBJS} x 4 MiB WRITEFULL "
+        f"MOSDOp from client.{WIRE_CLIENT} to each acting primary "
+        f"(ms_dispatch -> the mclock wq -> PG.do_op -> encp) "
+        f"{w['gbs']:.3f} GB/s ({w['wall_a_s']:.3f} s), "
+        f"{DAEMON_REP_OBJS} x 64 KiB to the replicated pool "
+        f"{w['wall_b_s']:.3f} s; every shard equal to the plain encode and "
+        f"its hinfo to the host CRC ({w['ec_shards_checked']} shards); "
+        f"osd.{res['down']} down: degraded READ {r['gbs']:.3f} GB/s "
+        f"({r['wall_a_s']:.3f} s, {r['dec_jobs']} dec jobs, "
+        f"{r['lost_data_objects']} objects lost a data shard); "
+        f"{sum(DAEMON_OVERWRITE)} objects rewritten while down, revived "
+        f"and caught up in {rv['wall_s']:.3f} s "
+        f"({rv['objs_per_s']:.2f} objects/s; pulls {rv['pulls']}; "
+        f"{rv['ec_shards_checked']} shards on it equal to the plain "
+        f"encode); the scheduled deep scrub named the marked shard "
+        f"{sc['shard']} on osd.{sc['holder']} in {sc['wall_s']:.3f} s "
+        f"(admitted_scrub {sc['admitted_scrub']}); launches "
+        f"{json.dumps(launches)}; {res['edges']} lock-order edges; "
+        f"retries {res['retries']}; no thread left")
+    return res
+
+
 def phase_bitmatrix(torch, dev, log) -> dict:
     return drive_path(torch, dev, log, "bitmatrix",
                       "plugin=jerasure k=8 m=4 technique=cauchy_good "
@@ -3593,6 +4216,7 @@ def main() -> int:
     wire_res = phase_wire(torch, dev, log)
     rec_res = phase_recovery(torch, dev, log, wire_res)
     scr_res = phase_scrub(torch, dev, log, wire_res)
+    dmn_res = phase_daemon(torch, dev, log)
     bm_res = phase_bitmatrix(torch, dev, log)
     sh_res = phase_shec(torch, dev, log)
     phase_lrc(torch, dev, log)
@@ -3608,6 +4232,8 @@ def main() -> int:
                                "scrub": {name: s["counts"][kr["name"]]
                                          for name, s in
                                          scr_res["steps"].items()}}
+        kr["daemon_launches"] = {name: s["counts"][kr["name"]]
+                                 for name, s in dmn_res["steps"].items()}
     kernels.append(time_gf2(torch, dev, log, bm_res))
     kernels.append(time_gf2_popcount(torch, dev, log, sh_res))
     kernels[-1]["sass"] = {n: sass[n] for n in (
@@ -3617,6 +4243,10 @@ def main() -> int:
     kernels.append(time_crush(torch, dev, log, cr_res, sass))
     kernels[-1]["placement_launches"] = pl_res["launches"]
     kernels[-1]["placement_sweep_ms"] = pl_res["sweep_ms"]
+    kernels[-1]["daemon_launches"] = {
+        **{name: s["counts"]["crush_rule"]
+           for name, s in dmn_res["steps"].items()},
+        "refresh": {r["step"]: r["k6"] for r in dmn_res["refresh"]}}
     for kr in kernels:
         log(f"{kr['name']}: {kr['ms']:.4f} ms, plain {kr['plain_ms']:.3f} "
             f"ms, bound {kr['bound_ms']:.4f} ms ({kr['bound_by']}), "

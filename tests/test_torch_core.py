@@ -3,7 +3,8 @@ against ``tests/test_core.py``: encoding, crc, config, perf, throttle,
 work queue, heartbeat, context + admin socket, log, lru.
 
 ``test_core.py``'s last case, ``test_osd_bench_admin_command``, needs
-the OSD daemon and waits for slice 1i.  The bit-for-bit cross-checks
+the OSD daemon: it is mirrored in ``test_torch_daemon.py``.  The
+bit-for-bit cross-checks
 against ``ceph_tpu.core`` are in ``test_torch_core_xcheck.py``.
 """
 

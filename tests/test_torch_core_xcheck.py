@@ -186,11 +186,14 @@ def test_xla_only_options_say_what_the_port_lacks():
                        ("tpu_recompile_storm_window", "item 4"),
                        ("tpu_recompile_storm_min_sigs", "item 4"),
                        ("tpu_recompile_storm_min_rogue_sigs", "item 4"),
-                       ("tpu_warmup_budget_s", "slice 1i"),
-                       ("tpu_boot_warmup", "slice 1i"),
                        ("erasure_code_tile_n", "item 4")):
         desc = config.SCHEMA[name].desc
         assert "port" in desc and item in desc, (name, desc)
+    # the warmup options the port's daemon honours (osd/daemon.py over
+    # gpu/shapebucket.DeviceWarmup) say what they do, not what waits
+    for name in ("tpu_warmup_budget_s", "tpu_boot_warmup"):
+        desc = config.SCHEMA[name].desc
+        assert "DeviceWarmup" in desc and "1i" not in desc, (name, desc)
 
 
 def test_config_parses_a_conf_like_the_reference():
@@ -208,18 +211,32 @@ def test_config_parses_a_conf_like_the_reference():
             ref_config.Config().set_val(*bad)
 
 
-# -- routes that wait for later slices ----------------------------------------
+# -- routes that waited for later slices --------------------------------------
 
 
 def test_mclock_scheduler_waits_for_the_daemon_slice():
-    """The standalone mclock scheduler reaches osd.mclock: the reference
-    builds one, the port names slice 1i; fifo and a caller's qos work."""
-    ref = ref_wq.ShardedWorkQueue("r", 1, process=lambda i: None,
+    """The standalone mclock scheduler (no ``qos``) reaches
+    ``osd.mclock``, which the port's daemon slice brought: both
+    packages' workqueues complete the same items in the same order under
+    one pinned clock; a caller's qos still supplies the shard queues."""
+    def run(mod):
+        done = []
+        wq = mod.ShardedWorkQueue("x", 1, process=done.append,
                                   scheduler="mclock")
-    assert ref._mclock is not None
-    with pytest.raises(NotImplementedError, match="slice 1i"):
-        workqueue.ShardedWorkQueue("p", 1, process=lambda i: None,
-                                   scheduler="mclock")
+        wq._mclock[0].clock = lambda: 0.0
+        for i in range(20):
+            wq.queue("pg1", ("client", i), priority=63, qos_class="client")
+            wq.queue("pg1", ("rec", i), priority=3, qos_class="recovery",
+                     qos_cost=2.0)
+            wq.queue("pg1", ("scrub", i), priority=1)
+        wq.start()
+        assert wq.drain(10.0)
+        wq.stop()
+        return done
+
+    got, want = run(workqueue), run(ref_wq)
+    assert len(got) == 60 and got == want
+    assert got[0][0] == "client"
 
     class _Qos:
         def make_shard_queue(self):

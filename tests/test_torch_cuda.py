@@ -1071,3 +1071,79 @@ def test_placement_phase_on_the_card(dev):
                                    tool_pg_num=64, reps=1, **PLACE_SMALL)
     assert res["launches"] > 0 and res["max_abs_err"] == 0
     assert res["balance"]["upmap_1"]["moves"] > 0
+
+
+# -- the daemon on the card's path --------------------------------------------
+
+
+def test_device_warmup_launches_every_declared_bucket_on_the_card(dev):
+    """DeviceWarmup on the card: one K1 launch a width for the encode and
+    one for the recovery product, one CRC launch a width, one K6 launch a
+    pool (map_pgs), every item warmed."""
+    import chip_smoke
+    from ceph_tpu_torch.gpu import shapebucket as sb
+
+    prof = "plugin=isa k=8 m=4 technique=reed_sol_van"
+    codec = codec_from_profile(prof, device=dev)
+    om = chip_smoke.daemon_map(dev, 12, prof, 8, 8)
+    k1, crc, k6 = (gf256.launches.value, cd.launches.value,
+                   crush_rule.launches.value)
+    w = sb.DeviceWarmup(codec, crush=lambda: [om.map_pgs(p)
+                                              for p in om.pools],
+                        device=dev)
+    st = w.run(-1)
+    assert st["done"] and not st["skipped"]
+    assert st["families_warmed"] == ["crc32c_rows", "crush_rule", "dec",
+                                     "enc"]
+    n = len(sb.WARM_COLS)
+    assert gf256.launches.value - k1 == 2 * n
+    assert cd.launches.value - crc == n
+    assert crush_rule.launches.value - k6 == len(om.pools)
+
+
+def test_daemon_phase_on_the_card(dev):
+    """The daemon phase's code at a small size on the card: six daemons
+    (isa k=4 m=2 over all six, a replicated pool), 1 MiB objects; each
+    step's launches as the phase requires them, and every check of the
+    phase."""
+    import chip_smoke
+
+    res = chip_smoke.run_daemon(
+        torch, dev, n_osds=6, profile="plugin=isa k=4 m=2 "
+        "technique=reed_sol_van", nobj=8, obj_bytes=1 << 20,
+        stripe_bytes=256 << 10, rep_objs=4, rep_bytes=4096,
+        overwrite=(2, 2), threads=4, pg_num=4)
+    st = res["steps"]
+    for name, need in (("warmup", ("gf256_matmul", "crc32c_rows",
+                                   "crush_rule")),
+                       ("write", ("gf256_matmul", "crc32c_rows")),
+                       ("read", ("gf256_matmul",)),
+                       ("recover", ("gf256_matmul",)),
+                       ("scrub", ("gf256_matmul",))):
+        for x in need:
+            assert st[name]["counts"][x] > 0, (name, x, st[name]["counts"])
+    assert all(r["k6"] > 0 for r in res["refresh"])
+    assert any(p.startswith("1.") for p, _ in st["recover"]["pulls"])
+
+
+def test_daemon_cluster_on_the_card_equals_the_cpu(dev, monkeypatch):
+    """The daemon cross-check's sequence on port daemons whose codecs,
+    queue and map walk are on the card, held to the same sequence with
+    ``device="cpu"``: the same replies, stores, logs, pg_stats and
+    dump_scrubs after every step; K1, the CRC kernel and K6 launch."""
+    import time as _time
+
+    import test_torch_daemon_xcheck as dx
+
+    monkeypatch.setattr(_time, "time", lambda: dx.CLOCK)
+    want = dx._sequence("ceph_tpu_torch")
+    k1, crc, k6 = (gf256.launches.value, cd.launches.value,
+                   crush_rule.launches.value)
+    got = dx._sequence("ceph_tpu_torch", device=dev)
+    assert gf256.launches.value > k1 and cd.launches.value > crc
+    assert crush_rule.launches.value > k6
+    assert [n for n, _ in got] == [n for n, _ in want]
+    for (name, g), (_, w) in zip(got, want):
+        for key in w:
+            assert g[key] == w[key], (name, key)
+

@@ -13,11 +13,12 @@ batch (``:210``); an interrupted deep scrub resumes from its cursor
 (``:240``).  Their ``MiniCluster`` rows (``dump_scrubs``, ``pg_stats``)
 are the daemon's: the engine's own ``dump()`` stands for them here.
 
-The cases of ``test_scrub_engine.py`` that need the daemon or the
-cluster wait for them: ``:297`` (the scrub as a qos tenant of the
-daemon's workqueue) for ROADMAP queue 1 item 1i, ``:309`` (the scrub
-scheduler) and ``:337``, ``:432`` (the mon's PG_DAMAGED and
-PG_NOT_DEEP_SCRUBBED checks) for 1i and 1j.
+The cases of ``test_scrub_engine.py`` that need the daemon run over
+the port's daemon in ``test_torch_daemon.py``: ``:297`` (the scrub as a
+qos tenant of the daemon's workqueue) and ``:309`` (the scrub
+scheduler).  ``:337`` and ``:432`` (the mon's PG_DAMAGED and
+PG_NOT_DEEP_SCRUBBED checks) wait for the client and the cluster,
+ROADMAP queue 1 item 1j.
 
 Beyond the reference's cases, the port's own differences: a shec pool
 (no MDS recovery) verifies through the codec's decode, never the

@@ -344,6 +344,14 @@ def test_importing_the_port_loads_neither_jax_nor_the_reference():
             "assert 'ceph_tpu_torch.osd.pg' in sys.modules\n"
             "assert 'ceph_tpu_torch.osd.hitset' in sys.modules\n"
             "assert 'ceph_tpu_torch.osd.scrub' in sys.modules\n"
+            "assert 'ceph_tpu_torch.osd.daemon' in sys.modules\n"
+            "assert 'ceph_tpu_torch.osd.qos' in sys.modules\n"
+            "assert 'ceph_tpu_torch.osd.mclock' in sys.modules\n"
+            "assert 'ceph_tpu_torch.mon.client' in sys.modules\n"
+            "assert 'ceph_tpu_torch.mon.monitor' in sys.modules\n"
+            "from ceph_tpu_torch.osd.daemon import OSDService\n"
+            "from ceph_tpu_torch.mon import MonClient, MonMap\n"
+            "from ceph_tpu_torch.gpu.shapebucket import DeviceWarmup\n"
             "from ceph_tpu_torch.gpu.queue import default_queue\n"
             "from ceph_tpu_torch.osd.backend import ECBackend, hinfo_decode\n"
             "from ceph_tpu_torch.osd.recovery import ECRecoveryEngine\n"
@@ -364,6 +372,20 @@ def test_importing_the_port_loads_neither_jax_nor_the_reference():
     assert out.returncode == 0 and "clean" in out.stdout, out.stderr
 
 
+def _monclient_takes_a_map(MonClient, MonMap, m):
+    """A subscribed ``MonClient`` given no device decodes a mon's push of
+    the whole map ``m`` (on the card: it raises without one)."""
+    from ceph_tpu_torch.mon import messages as mm
+    from ceph_tpu_torch.msg.message import EntityName
+    from ceph_tpu_torch.msg.messenger import Messenger
+    from ceph_tpu_torch.osd import map_codec
+
+    monc = MonClient(Messenger(None, EntityName("client", 1)), MonMap([]))
+    monc.on_osdmap = lambda newmap: None
+    monc.ms_dispatch(None, mm.MOSDMapMsg(m.epoch + 1,
+                                         map_codec.encode_osdmap(m)))
+
+
 def test_no_device_without_cuda_raises(monkeypatch):
     from ceph_tpu_torch import resolve_device
     from ceph_tpu_torch.crush import map as cmap
@@ -375,6 +397,10 @@ def test_no_device_without_cuda_raises(monkeypatch):
     from ceph_tpu_torch.gpu.queue import default_queue
     from ceph_tpu_torch.osd import backend, map_codec, map_inc, osdmap
     from ceph_tpu_torch.osd import hitset, pg, scrub
+    from ceph_tpu_torch.core.context import Context
+    from ceph_tpu_torch.gpu.shapebucket import DeviceWarmup
+    from ceph_tpu_torch.mon import MonClient, MonMap
+    from ceph_tpu_torch.osd.daemon import OSDService
     from ceph_tpu_torch.store.memstore import MemStore
     from ceph_tpu_torch.store.objectstore import Collection
     from ceph_tpu_torch.tools import crushtool, osdmaptool
@@ -412,7 +438,11 @@ def test_no_device_without_cuda_raises(monkeypatch):
                                            MemStore(), 0, None, None,
                                            no_dev),
                  lambda: pg.PG((1, 0), osdmap.PGPool(pool_id=1), pg_host,
-                               no_dev)):
+                               no_dev),
+                 lambda: OSDService(Context("osd.0"), 0, MemStore(),
+                                    cpu_map, codec_from_profile),
+                 lambda: DeviceWarmup(),
+                 lambda: _monclient_takes_a_map(MonClient, MonMap, cpu_map)):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
     # naming the CPU is the one way to run there; the host-side

@@ -23,8 +23,9 @@ address leaves the book, and nothing is delivered to or from it.
 Scrub and repair take ``PhaseOSD``'s ``collect_scrub_maps``,
 ``fetch_remote_chunk_full`` and ``list_peer_objects``, and its replica
 side: ``MScrub`` answered from ``local_scrub_map`` and ``MPGPull`` on a
-thread of its own.  ``pull_from_peer`` is the daemon's (ROADMAP item 1i
-of the port); it raises, as no case here reaches it.
+thread of its own.  ``pull_from_peer`` is the daemon's
+(``ceph_tpu_torch/osd/daemon.py``, driven in ``torch_daemon_harness``);
+here it raises, as no case reaches it.
 """
 
 from __future__ import annotations
