@@ -34,6 +34,8 @@ Two implementations of the same function:
 - :func:`rule_plain` is the same walk written as PyTorch ops vectorised
   over ids, with masks and index sets for the retry state.  It runs on
   any device: it is the CPU path and the kernel's reference on the card.
+  For a few ids on the CPU (a ``pg_to_up_acting``) :func:`launch` takes
+  :func:`rule_scalar` instead, the kernel's walk on Python integers.
 
 Hashes are computed in int64 masked to 32 bits (``crush.hashes``), the
 straw2 draw with int64 ln values and a truncating divide
@@ -43,6 +45,7 @@ straw2 draw with int64 ln values and a truncating divide
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
 from typing import Optional, Sequence, Tuple
 
@@ -169,6 +172,7 @@ class RuleMap:
                             else int(np.asarray(flat.tree_weights).shape[1]))
         self._tables = None
         self._plain = None
+        self._scalar = None
         self._lock = threading.Lock()
 
     def tables(self) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -195,6 +199,15 @@ class RuleMap:
                                    else self.tree_nodes.to(torch.int64))
                 self._plain = p
             return self._plain
+
+    def scalar(self) -> dict:
+        """The plain planes as Python lists, for :func:`rule_scalar`."""
+        p = self.plain()
+        with self._lock:
+            if self._scalar is None:
+                self._scalar = {k: None if v is None else v.tolist()
+                                for k, v in p.items()}
+            return self._scalar
 
 
 class RuleSpec:
@@ -704,6 +717,426 @@ def rule_plain(rm: RuleMap, rule: RuleSpec, dev_weights: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# the plain version's scalar route: a few ids on the CPU
+# ---------------------------------------------------------------------------
+
+# At or below this many ids on the CPU, :func:`launch` walks each id on
+# Python integers (:func:`rule_scalar`) instead of :func:`rule_plain`'s
+# tensor ops, whose per-op cost dominates a walk of one id (a
+# ``pg_to_up_acting``).
+SCALAR_MAX = 32
+
+
+def _mix(a, b, c):
+    """One crush_hashmix round on Python ints holding u32 values."""
+    a = ((a - b - c) & _M32) ^ (c >> 13)
+    b = ((b - c - a) & _M32) ^ ((a << 8) & _M32)
+    c = ((c - a - b) & _M32) ^ (b >> 13)
+    a = ((a - b - c) & _M32) ^ (c >> 12)
+    b = ((b - c - a) & _M32) ^ ((a << 16) & _M32)
+    c = ((c - a - b) & _M32) ^ (b >> 5)
+    a = ((a - b - c) & _M32) ^ (c >> 3)
+    b = ((b - c - a) & _M32) ^ ((a << 10) & _M32)
+    c = ((c - a - b) & _M32) ^ (b >> 15)
+    return a, b, c
+
+
+def _hash2(a, b):
+    a, b = a & _M32, b & _M32
+    h = hashes.CRUSH_HASH_SEED ^ a ^ b
+    x, y = 231232, 1232
+    a, b, h = _mix(a, b, h)
+    x, a, h = _mix(x, a, h)
+    b, y, h = _mix(b, y, h)
+    return h
+
+
+def _hash3(a, b, c):
+    """crush_hash32_3, its five mix rounds written out: the scalar
+    walk's hot spot (straw2 hashes every item of a bucket)."""
+    a, b, c = a & _M32, b & _M32, c & _M32
+    h = hashes.CRUSH_HASH_SEED ^ a ^ b ^ c
+    x, y = 231232, 1232
+    a = ((a - b - h) & 0xFFFFFFFF) ^ (h >> 13)
+    b = ((b - h - a) & 0xFFFFFFFF) ^ ((a << 8) & 0xFFFFFFFF)
+    h = ((h - a - b) & 0xFFFFFFFF) ^ (b >> 13)
+    a = ((a - b - h) & 0xFFFFFFFF) ^ (h >> 12)
+    b = ((b - h - a) & 0xFFFFFFFF) ^ ((a << 16) & 0xFFFFFFFF)
+    h = ((h - a - b) & 0xFFFFFFFF) ^ (b >> 5)
+    a = ((a - b - h) & 0xFFFFFFFF) ^ (h >> 3)
+    b = ((b - h - a) & 0xFFFFFFFF) ^ ((a << 10) & 0xFFFFFFFF)
+    h = ((h - a - b) & 0xFFFFFFFF) ^ (b >> 15)
+    c = ((c - x - h) & 0xFFFFFFFF) ^ (h >> 13)
+    x = ((x - h - c) & 0xFFFFFFFF) ^ ((c << 8) & 0xFFFFFFFF)
+    h = ((h - c - x) & 0xFFFFFFFF) ^ (x >> 13)
+    c = ((c - x - h) & 0xFFFFFFFF) ^ (h >> 12)
+    x = ((x - h - c) & 0xFFFFFFFF) ^ ((c << 16) & 0xFFFFFFFF)
+    h = ((h - c - x) & 0xFFFFFFFF) ^ (x >> 5)
+    c = ((c - x - h) & 0xFFFFFFFF) ^ (h >> 3)
+    x = ((x - h - c) & 0xFFFFFFFF) ^ ((c << 10) & 0xFFFFFFFF)
+    h = ((h - c - x) & 0xFFFFFFFF) ^ (x >> 15)
+    y = ((y - a - h) & 0xFFFFFFFF) ^ (h >> 13)
+    a = ((a - h - y) & 0xFFFFFFFF) ^ ((y << 8) & 0xFFFFFFFF)
+    h = ((h - y - a) & 0xFFFFFFFF) ^ (a >> 13)
+    y = ((y - a - h) & 0xFFFFFFFF) ^ (h >> 12)
+    a = ((a - h - y) & 0xFFFFFFFF) ^ ((y << 16) & 0xFFFFFFFF)
+    h = ((h - y - a) & 0xFFFFFFFF) ^ (a >> 5)
+    y = ((y - a - h) & 0xFFFFFFFF) ^ (h >> 3)
+    a = ((a - h - y) & 0xFFFFFFFF) ^ ((y << 10) & 0xFFFFFFFF)
+    h = ((h - y - a) & 0xFFFFFFFF) ^ (a >> 15)
+    b = ((b - x - h) & 0xFFFFFFFF) ^ (h >> 13)
+    x = ((x - h - b) & 0xFFFFFFFF) ^ ((b << 8) & 0xFFFFFFFF)
+    h = ((h - b - x) & 0xFFFFFFFF) ^ (x >> 13)
+    b = ((b - x - h) & 0xFFFFFFFF) ^ (h >> 12)
+    x = ((x - h - b) & 0xFFFFFFFF) ^ ((b << 16) & 0xFFFFFFFF)
+    h = ((h - b - x) & 0xFFFFFFFF) ^ (x >> 5)
+    b = ((b - x - h) & 0xFFFFFFFF) ^ (h >> 3)
+    x = ((x - h - b) & 0xFFFFFFFF) ^ ((b << 10) & 0xFFFFFFFF)
+    h = ((h - b - x) & 0xFFFFFFFF) ^ (x >> 15)
+    y = ((y - c - h) & 0xFFFFFFFF) ^ (h >> 13)
+    c = ((c - h - y) & 0xFFFFFFFF) ^ ((y << 8) & 0xFFFFFFFF)
+    h = ((h - y - c) & 0xFFFFFFFF) ^ (c >> 13)
+    y = ((y - c - h) & 0xFFFFFFFF) ^ (h >> 12)
+    c = ((c - h - y) & 0xFFFFFFFF) ^ ((y << 16) & 0xFFFFFFFF)
+    h = ((h - y - c) & 0xFFFFFFFF) ^ (c >> 5)
+    y = ((y - c - h) & 0xFFFFFFFF) ^ (h >> 3)
+    c = ((c - h - y) & 0xFFFFFFFF) ^ ((y << 10) & 0xFFFFFFFF)
+    h = ((h - y - c) & 0xFFFFFFFF) ^ (c >> 15)
+    return h
+
+
+def _hash4(a, b, c, d):
+    a, b, c, d = a & _M32, b & _M32, c & _M32, d & _M32
+    h = hashes.CRUSH_HASH_SEED ^ a ^ b ^ c ^ d
+    x, y = 231232, 1232
+    a, b, h = _mix(a, b, h)
+    c, d, h = _mix(c, d, h)
+    a, x, h = _mix(a, x, h)
+    y, b, h = _mix(y, b, h)
+    c, x, h = _mix(c, x, h)
+    y, d, h = _mix(y, d, h)
+    return h
+
+
+@functools.lru_cache(maxsize=None)
+def _ln16() -> list:
+    """:func:`ln.ln16_table` as a list of Python ints."""
+    return ln.ln16_table().tolist()
+
+
+class _ScalarWalk:
+    """crush_do_rule for one id at a time on Python integers: the
+    kernel's walk (``csrc/crush.cu`` ``do_rule``) line for line, with the
+    same budget and clean flag."""
+
+    def __init__(self, rm: RuleMap, dev_weights: list, budget: int) -> None:
+        p = rm.scalar()
+        self.items, self.weights = p["items"], p["weights"]
+        self.sizes, self.algs, self.types = p["sizes"], p["algs"], p["types"]
+        self.straws, self.sum_weights = p["straws"], p["sum_weights"]
+        self.tree_weights, self.tree_nodes = p["tree_weights"], \
+            p["tree_nodes"]
+        self.nb, self.max_devices = rm.n_buckets, rm.max_devices
+        self.dw = dev_weights
+        self.budget = budget
+        self.ln16 = _ln16()
+        self.x = 0
+        self.clean = True
+
+    # -- bucket choices ----------------------------------------------------
+    def _straw2(self, bno, size, r):
+        """The first index of the strictly greatest exact draw."""
+        items, wts, x = self.items[bno], self.weights[bno], self.x
+        high, hdraw = 0, ln.S64_MIN
+        for i in range(size):
+            wt = wts[i]
+            if wt == 0:
+                draw = ln.S64_MIN
+            else:
+                draw = -(-self.ln16[_hash3(x, items[i], r) & 0xFFFF] // wt)
+            if i == 0 or draw > hdraw:
+                high, hdraw = i, draw
+        return items[high]
+
+    def _perm(self, bno, size, r):
+        bid = -1 - bno
+        pr = (r & _M32) % size
+        t = pr
+        if pr < size - 1:
+            t = pr + _hash3(self.x, bid, pr) % (size - pr)
+        for p in range(pr - 1, -1, -1):
+            if t == p + _hash3(self.x, bid, p) % (size - p):
+                t = p
+        return self.items[bno][t]
+
+    def _straw(self, bno, size, r):
+        items, straws = self.items[bno], self.straws[bno]
+        high, high_draw = 0, 0
+        for i in range(size):
+            draw = (_hash3(self.x, items[i], r) & 0xFFFF) * straws[i]
+            if i == 0 or draw > high_draw:
+                high, high_draw = i, draw
+        return items[high]
+
+    def _list(self, bno, size, r):
+        items, sw, wts = self.items[bno], self.sum_weights[bno], \
+            self.weights[bno]
+        bid = -1 - bno
+        for i in range(size - 1, -1, -1):
+            t = ((_hash4(self.x, items[i], r, bid) & 0xFFFF) * sw[i]) >> 16
+            if t < wts[i]:
+                return items[i]
+        return items[0]
+
+    def _tree(self, bno, r):
+        nw = self.tree_weights[bno]
+        bid = -1 - bno
+        n = self.tree_nodes[bno] >> 1
+        while n > 0 and not n & 1:
+            t = (_hash4(self.x, n, r, bid) * nw[n]) >> 32
+            half = (n & -n) >> 1
+            n = n - half if t < nw[n - half] else n + half
+        return self.items[bno][n >> 1]
+
+    def choose(self, bno, r, perm=False):
+        size = self.sizes[bno]
+        alg = self.algs[bno]
+        if perm or alg == ALG_UNIFORM:
+            return self._perm(bno, size, r)
+        if alg == ALG_STRAW2:
+            return self._straw2(bno, size, r)
+        if alg == ALG_LIST:
+            return self._list(bno, size, r)
+        if alg == ALG_TREE:
+            return self._tree(bno, r)
+        if alg == ALG_STRAW:
+            return self._straw(bno, size, r)
+        return self.items[bno][0]
+
+    def is_out(self, item):
+        if item >= len(self.dw):
+            return True
+        wt = self.dw[max(item, 0)]
+        if wt >= 0x10000:
+            return False
+        if wt == 0:
+            return True
+        return (_hash2(self.x, item) & 0xFFFF) >= wt
+
+    def item_type(self, item):
+        if item < 0 and -1 - item < self.nb:
+            return self.types[-1 - item], True
+        return 0, False
+
+    # -- crush_choose_firstn ---------------------------------------------
+    def firstn(self, bucket, numrep, type_, out, outpos, out_size, tries,
+               recurse_tries, local_retries, local_fallback, recurse,
+               vary_r, stable, out2, parent_r, outer):
+        count = out_size
+        rep = 0 if stable else outpos
+        while rep < numrep and count > 0:
+            ftotal = 0
+            skip = False
+            item = 0
+            retry_descent = True
+            while retry_descent:
+                retry_descent = False
+                in_bno, flocal = bucket, 0
+                retry_bucket = True
+                while retry_bucket:
+                    retry_bucket = False
+                    r = rep + parent_r + ftotal
+                    size = self.sizes[in_bno]
+                    collide = reject = False
+                    if size == 0:
+                        reject = True
+                    else:
+                        perm = (local_fallback > 0 and flocal >= size >> 1
+                                and flocal > local_fallback)
+                        item = self.choose(in_bno, r, perm)
+                        if item >= self.max_devices:
+                            skip = True
+                            break
+                        itype, valid = self.item_type(item)
+                        if itype != type_:
+                            if not valid:
+                                skip = True
+                                break
+                            in_bno = -1 - item
+                            retry_bucket = True
+                            continue
+                        collide = item in out[:outpos]
+                        if outer and not collide and recurse:
+                            if item < 0:
+                                sub_r = (r >> (vary_r - 1)) if vary_r else 0
+                                if self.firstn(
+                                        -1 - item, 1 if stable else outpos + 1,
+                                        0, out2, outpos, count, recurse_tries,
+                                        0, local_retries, local_fallback,
+                                        False, vary_r, stable, None, sub_r,
+                                        False) <= outpos:
+                                    reject = True
+                            else:
+                                out2[outpos] = item
+                        if not reject and not collide and itype == 0:
+                            reject = self.is_out(item)
+                    if reject or collide:
+                        ftotal += 1
+                        flocal += 1
+                        if collide and flocal <= local_retries:
+                            retry_bucket = True
+                        elif local_fallback > 0 and \
+                                flocal <= size + local_fallback:
+                            retry_bucket = True
+                        elif ftotal < tries:
+                            retry_descent = True
+                        else:
+                            skip = True
+                        if (retry_bucket or retry_descent) and \
+                                self.budget > 0 and ftotal >= self.budget:
+                            self.clean = False
+                            retry_bucket = retry_descent = False
+                            skip = True
+            rep += 1
+            if skip:
+                continue
+            out[outpos] = item
+            outpos += 1
+            count -= 1
+        return outpos
+
+    # -- crush_choose_indep ----------------------------------------------
+    def indep(self, bucket, left, numrep, type_, out, outpos, tries,
+              recurse_tries, recurse, out2, parent_r, outer):
+        endpos = outpos + left
+        for rep in range(outpos, endpos):
+            out[rep] = ITEM_UNDEF
+            if outer:
+                out2[rep] = ITEM_UNDEF
+        limit = self.budget if 0 < self.budget < tries else tries
+        ftotal = 0
+        while left > 0 and ftotal < limit:
+            for rep in range(outpos, endpos):
+                if out[rep] != ITEM_UNDEF:
+                    continue
+                in_bno = bucket
+                while True:
+                    size = self.sizes[in_bno]
+                    step = numrep + 1 if (self.algs[in_bno] == ALG_UNIFORM
+                                          and size % numrep == 0) else numrep
+                    r = rep + parent_r + step * ftotal
+                    if size == 0:
+                        break
+                    item = self.choose(in_bno, r)
+                    itype, valid = self.item_type(item)
+                    if item >= self.max_devices or \
+                            (itype != type_ and not valid):
+                        out[rep] = ITEM_NONE
+                        if outer:
+                            out2[rep] = ITEM_NONE
+                        left -= 1
+                        break
+                    if itype != type_:
+                        in_bno = -1 - item
+                        continue
+                    if item in out[outpos:endpos]:
+                        break
+                    if outer and recurse:
+                        if item < 0:
+                            self.indep(-1 - item, 1, numrep, 0, out2, rep,
+                                       recurse_tries, 0, False, None, r,
+                                       False)
+                            if out2[rep] == ITEM_NONE:
+                                break
+                        else:
+                            out2[rep] = item
+                    if itype == 0 and self.is_out(item):
+                        break
+                    out[rep] = item
+                    left -= 1
+                    break
+            ftotal += 1
+        if left > 0 and limit < tries:
+            self.clean = False  # the budget ran out
+        for rep in range(outpos, endpos):
+            if out[rep] == ITEM_UNDEF:
+                out[rep] = ITEM_NONE
+            if outer and out2[rep] == ITEM_UNDEF:
+                out2[rep] = ITEM_NONE
+
+    # -- crush_do_rule -------------------------------------------------------
+    def run(self, rule: RuleSpec, tunables, x: int):
+        self.x, self.clean = x & _M32, True
+        R = rule.result_max
+        wv: list = []
+        result: list = []
+        total, local_retries, local_fallback, descend_once, vary_r, stable = \
+            tunables
+        choose_tries, leaf_tries = total + 1, 0
+        for op, a1, a2 in rule.steps:
+            if op == OP_TAKE:
+                if 0 <= a1 < self.max_devices or 0 <= -1 - a1 < self.nb:
+                    wv = [a1]
+            elif op == OP_SET_CHOOSE_TRIES:
+                choose_tries = a1 if a1 > 0 else choose_tries
+            elif op == OP_SET_CHOOSELEAF_TRIES:
+                leaf_tries = a1 if a1 > 0 else leaf_tries
+            elif op == OP_SET_CHOOSE_LOCAL_TRIES:
+                local_retries = a1 if a1 >= 0 else local_retries
+            elif op == OP_SET_CHOOSE_LOCAL_FALLBACK_TRIES:
+                local_fallback = a1 if a1 >= 0 else local_fallback
+            elif op == OP_SET_CHOOSELEAF_VARY_R:
+                vary_r = a1 if a1 >= 0 else vary_r
+            elif op == OP_SET_CHOOSELEAF_STABLE:
+                stable = a1 if a1 >= 0 else stable
+            elif op in _CHOOSES and wv:
+                firstn = op in (OP_CHOOSE_FIRSTN, OP_CHOOSELEAF_FIRSTN)
+                recurse = op in (OP_CHOOSELEAF_FIRSTN, OP_CHOOSELEAF_INDEP)
+                numrep = a1 if a1 > 0 else a1 + R
+                ov: list = []
+                cv: list = []
+                for item in wv:
+                    bno = -1 - item
+                    if numrep <= 0 or not 0 <= bno < self.nb:
+                        continue
+                    ob, cb = [ITEM_NONE] * R, [ITEM_NONE] * R
+                    if firstn:
+                        recurse_tries = leaf_tries or (
+                            1 if descend_once else choose_tries)
+                        n = self.firstn(bno, numrep, a2, ob, 0, R - len(ov),
+                                        choose_tries, recurse_tries,
+                                        local_retries, local_fallback,
+                                        recurse, vary_r, stable, cb, 0, True)
+                    else:
+                        n = min(numrep, R - len(ov))
+                        self.indep(bno, n, numrep, a2, ob, 0, choose_tries,
+                                   leaf_tries or 1, recurse, cb, 0, True)
+                    ov += ob[:n]
+                    cv += cb[:n]
+                wv = cv if recurse else ov
+            elif op == OP_EMIT:
+                result += wv[:R - len(result)]
+                wv = []
+        return result + [ITEM_NONE] * (R - len(result)), self.clean
+
+
+def rule_scalar(rm: RuleMap, rule: RuleSpec, dev_weights: torch.Tensor,
+                xs: torch.Tensor, budget: int = 0):
+    """:func:`rule_plain`'s function, each id walked on Python integers:
+    (int32 [N, result_max], bool clean [N]) on the CPU.  It is the CPU
+    route for a few ids (:data:`SCALAR_MAX`)."""
+    walk = _ScalarWalk(rm, _u32_values(dev_weights.cpu()).tolist(),
+                       int(budget))
+    rows, clean = [], []
+    for x in xs.reshape(-1).tolist():
+        row, ok = walk.run(rule, rm.tunables, x)
+        rows.append(row)
+        clean.append(ok)
+    return (torch.tensor(rows, dtype=torch.int32).reshape(
+        len(rows), rule.result_max), torch.tensor(clean, dtype=torch.bool))
+
+
+# ---------------------------------------------------------------------------
 # the kernel's launch
 # ---------------------------------------------------------------------------
 
@@ -823,14 +1256,16 @@ def launch(rm: RuleMap, rule: RuleSpec, dev_weights: torch.Tensor,
 
 def _launch_plain(rm, rule, dev_weights, xs, out, budget, clean, lanes,
                   lane_count, bad, bad_count, idx_base) -> None:
-    """:func:`launch`'s contract on the CPU, through :func:`rule_plain`:
-    unclean ids are appended in index order."""
+    """:func:`launch`'s contract on the CPU, through :func:`rule_plain`
+    (:func:`rule_scalar` for at most :data:`SCALAR_MAX` ids): unclean
+    ids are appended in index order."""
     if lanes is not None:
         n = max(0, min(int(lane_count[0]), lanes.numel()))
         sel = lanes[:n].to(torch.int64)
     else:
         sel = torch.arange(xs.numel())
-    res, ok = rule_plain(rm, rule, dev_weights, xs[sel], budget)
+    walk = rule_scalar if sel.numel() <= SCALAR_MAX else rule_plain
+    res, ok = walk(rm, rule, dev_weights, xs[sel], budget)
     out[sel] = res
     if clean is not None:
         clean[sel] = ok.to(torch.uint8)

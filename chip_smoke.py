@@ -167,6 +167,24 @@ Phases, each of which fails the run (non-zero exit, no result line):
               ``start_scrub_scheduler`` until the cluster log's
               ``deep-scrub`` ERR names it (``admitted_scrub`` counted);
               every daemon shut down and no thread it started left;
+6g. cluster  the client over the daemons (``ceph_tpu_torch/client/``):
+              twelve daemons booted as the daemon phase boots them, on a
+              map of the same shape, under lockdep; one port
+              ``RadosClient`` (``client.4200``, on the card)
+              ``inject_osdmap``ed and handed every map refresh, whose
+              objecter places each op (``_calc_target``: one K6 launch a
+              send and a resend) and resends it on a map change and on
+              its 1 s timer; 64 x 4 MiB ``IoCtx.aio_operate``
+              ``WRITEFULL`` to pool A from 8 threads and 16 x 64 KiB to
+              pool B, every stored shard equal to the plain encode with
+              its ``hinfo`` the host CRC; 8 new pool-A objects in flight
+              to the PGs one daemon leads when it shuts down and is
+              marked down: every op answered 0 and one log entry a
+              reqid; every object read back by ``IoCtx.read`` byte for
+              byte (K1 ``dec``); one 64 MiB object through
+              ``RadosStriper`` (1 MiB units, 4 wide, 4 MiB objects) read
+              back whole and at an unaligned offset; the client and every
+              daemon shut down and no thread left;
 7. bitmatrix  the same 1 GiB write through ``jerasure k=8 m=4
               technique=cauchy_good``, read back degraded through
               ``codec.decode_array`` with shards 6, 7, 10, 11 lost (the
@@ -228,8 +246,9 @@ read half the MOSDOp reads with their sub-reads and reconstructs, the
 recovery phase zeroes them just before the recovery window and reads
 them just after, the scrub phase around each of its steps, and the
 daemon phase around each of its steps: warmup, write, kill, read,
-write_down, recover, scrub; a map refresh's K6 launches are read before
-and after it); each
+write_down, recover, scrub, and the cluster phase around each of its
+steps: boot, write, failover, read, stripe; a map refresh's K6 launches
+are read before and after it); each
 kernel of each
 half must have run (for ecbench, K2 and K1: its loops capture one launch
 per iteration in a CUDA graph and replay it, and the counts are of the
@@ -239,7 +258,10 @@ launch from a CUDA graph of launches, ``call_ms`` the eager wrapper call
 with CUDA events; the K1 and CRC rows carry their launches in the wire
 phase's two halves, the recovery phase and each step of the scrub phase
 (``wire_launches``), and, with the ``crush_rule`` row, each step of the
-daemon phase and each of its map refreshes (``daemon_launches``); the
+daemon phase and each of its map refreshes (``daemon_launches``) and
+each step of the cluster phase (``cluster_launches``; the
+``crush_rule`` row adds the objecter's ``_calc_target`` calls a step
+and the refreshes' launches); the
 popcount row times both of
 shec's read shapes
 (``ms`` the contribution, ``solve_ms`` the solve).  The crush phase
@@ -265,6 +287,7 @@ exits non-zero before doing anything.
 
 from __future__ import annotations
 
+import itertools
 import json
 import re
 import subprocess
@@ -2702,6 +2725,177 @@ def daemon_map(dev, n_osds: int, profile: str, k: int, pg_num: int):
     return om
 
 
+class DaemonSet:
+    """Port OSD daemons on one map, booted, refreshed, killed, revived and
+    stopped as ``run_daemon`` and ``run_cluster`` drive them: one
+    ``OSDService`` a store of ``stores`` (MemStores), all on ``osdmap``,
+    sharing ``ctx``.  ``refresh`` hands every live daemon the map and the
+    address book (timed, its K6 launches counted into ``refreshes``),
+    then each function of ``watchers`` the book (a client's objecter),
+    then activates every daemon and waits for its PGs to settle."""
+
+    def __init__(self, dev, ctx, osdmap, n_osds: int, what: str) -> None:
+        from ceph_tpu_torch.store.memstore import MemStore
+
+        self.dev, self.ctx, self.osdmap, self.what = dev, ctx, osdmap, what
+        self.stores = {i: MemStore() for i in range(n_osds)}
+        self.osds: dict = {}
+        self.refreshes: list = []
+        self.watchers: list = []
+
+    def service(self, i: int):
+        from ceph_tpu_torch.ec import codec_from_profile
+        from ceph_tpu_torch.osd.daemon import OSDService
+
+        return OSDService(self.ctx, i, self.stores[i], self.osdmap,
+                          codec_from_profile, device=self.dev)
+
+    def up(self) -> list:
+        return [o for o in self.osds.values() if o.up]
+
+    def book(self) -> dict:
+        return {i: o.addr for i, o in self.osds.items() if o.up}
+
+    def boot(self) -> None:
+        """mkfs and ``init`` every daemon (its boot warmup, when the
+        context asks for one, before its messengers serve)."""
+        for i in sorted(self.stores):
+            svc = self.service(i)
+            svc.store.mkfs()
+            svc.init()
+            self.osds[i] = svc
+
+    def refresh(self, name: str) -> None:
+        book = self.book()
+        k6 = read_counts()["crush_rule"]
+        t0 = time.perf_counter()
+        for o in self.up():
+            o.handle_osdmap(self.osdmap, book)
+        wall = time.perf_counter() - t0
+        self.refreshes.append({
+            "step": name, "epoch": self.osdmap.epoch, "daemons": len(book),
+            "pgs": sum(len(o.pgs) for o in self.up()),
+            "k6": read_counts()["crush_rule"] - k6, "wall_s": wall})
+        for w in self.watchers:
+            w(book)
+        for o in self.up():
+            o.activate_pgs()
+        for o in self.up():
+            require(o.wait_pgs_settled(WIRE_WAIT_S),
+                    f"{self.what}: osd.{o.whoami}'s PGs settled after "
+                    f"{name}")
+
+    def placement_holes(self) -> dict:
+        """Check that each daemon holds exactly the PGs the map gives it;
+        the PGs the map left a shard short (with k + m hosts for k + m
+        shards an indep walk may find no host for a shard within its
+        tries: that PG starts degraded) and by how many."""
+        from ceph_tpu_torch.osd.backend import CRUSH_ITEM_NONE
+        from ceph_tpu_torch.osd.types import pgid_str
+
+        holes = {}
+        for p, pool in self.osdmap.pools.items():
+            for seed in range(pool.pg_num):
+                acting = self.osdmap.pg_to_up_acting((p, seed))[2]
+                if CRUSH_ITEM_NONE in acting:
+                    holes[pgid_str((p, seed))] = acting.count(
+                        CRUSH_ITEM_NONE)
+                for o in self.osds.values():
+                    require(((p, seed) in o.pgs) == (o.whoami in acting),
+                            f"{self.what}: osd.{o.whoami} holds pg "
+                            f"{p}.{seed} exactly when the map puts it in "
+                            f"{acting}")
+        return holes
+
+    def kill(self, i: int) -> None:
+        self.osds[i].shutdown()
+        self.osdmap.set_osd_down(i)
+        self.refresh("kill")
+
+    def revive(self, i: int, wrap=None) -> None:
+        """A new daemon on the old store; its new address reaches every
+        daemon before the map that marks it up (as its boot message
+        precedes that map): a peer answering its pull from the old
+        address book would push to the dead messenger.  ``wrap(svc)``
+        runs before its ``init``."""
+        svc = self.service(i)
+        if wrap is not None:
+            wrap(svc)
+        svc.init()
+        svc.start_heartbeats()
+        self.osds[i] = svc
+        self.refresh("revive_addr")
+        self.osdmap.set_osd_up(i)
+        self.refresh("revive")
+
+    def shutdown(self) -> None:
+        for o in self.osds.values():
+            if o.up:
+                o.shutdown()
+
+
+def run_step(res: dict, name: str, fn) -> dict:
+    """fn() as step ``name`` of ``res["steps"]``: launch counts zeroed
+    before and read after, its wall beside them."""
+    reset_counts()
+    t0 = time.perf_counter()
+    out = fn() or {}
+    wall = time.perf_counter() - t0
+    out.update(wall_s=wall, counts=read_counts())
+    res["steps"][name] = out
+    return out
+
+
+def no_threads_left(before: set, what: str) -> None:
+    """Wait until no thread started since ``before`` is left (the
+    process's queue worker and fan-out executor aside)."""
+    deadline = time.monotonic() + WIRE_WAIT_S
+    while True:
+        left = [t.name for t in threading.enumerate()
+                if t.ident not in before
+                and not t.name.startswith(DAEMON_SHARED_THREADS)]
+        if not left or time.monotonic() > deadline:
+            break
+        time.sleep(0.05)
+    require(not left, f"{what}: threads left after shutdown: {left}")
+
+
+def ec_shards_checked(ds: DaemonSet, pool: int, oid: str, data, plain, si,
+                      only=None) -> int:
+    """Each stored shard of ``oid`` (on daemon ``only``, else on every
+    holder the map names) equals the plain encode of ``data`` (the codec
+    on the CPU), and its ``hinfo`` CRC is the host CRC of it; the number
+    of shards checked."""
+    from ceph_tpu_torch.core.crc import crc32c
+    from ceph_tpu_torch.osd import backend as ob
+    from ceph_tpu_torch.osd.types import pgid_str
+    from ceph_tpu_torch.store.objectstore import Collection, GHObject
+
+    k, n = plain.k, plain.k + plain.m
+    planes = si.interleave(np.asarray(data))[0]
+    coding = plain.encode_array(planes)
+    shards = [planes[s] if s < k else coding[s - k] for s in range(n)]
+    pgid = ds.osdmap.object_to_pg(pool, oid)
+    acting = ds.osdmap.pg_to_up_acting(pgid)[2]
+    coll = Collection(pgid_str(pgid) + "_head")
+    done = 0
+    for s, osd in enumerate(acting):
+        if osd == ob.CRUSH_ITEM_NONE or (only is not None and osd != only):
+            continue  # a hole: CRUSH found no host for the shard
+        st = ds.osds[osd].store
+        go = GHObject(oid, shard=s)
+        got = st.read(coll, go)
+        size, hcrc, valid = ob.hinfo_decode(st.getattr(coll, go, "hinfo"))
+        require(got == shards[s].tobytes(),
+                f"{ds.what}: osd.{osd} {oid} shard {s} equals the plain "
+                "encode")
+        require(valid and size == len(data) and hcrc == crc32c(got),
+                f"{ds.what}: osd.{osd} {oid} shard {s}: its hinfo CRC is "
+                "the host CRC of the stored bytes")
+        done += 1
+    return done
+
+
 def run_daemon(torch, dev, *, n_osds: int = DAEMON_OSDS,
                profile: str = WIRE_PROFILE, nobj: int = WIRE_OBJS,
                obj_bytes: int = 4 * MiB, stripe_bytes: int = 1 * MiB,
@@ -2760,18 +2954,15 @@ def run_daemon(torch, dev, *, n_osds: int = DAEMON_OSDS,
     raises on any failed check."""
     from ceph_tpu_torch.core import lockdep
     from ceph_tpu_torch.core.context import Context
-    from ceph_tpu_torch.core.crc import crc32c
     from ceph_tpu_torch.ec import codec_from_profile
     from ceph_tpu_torch.gpu.queue import default_queue
     from ceph_tpu_torch.msg.message import EntityName
     from ceph_tpu_torch.msg.messenger import Dispatcher, Messenger
     from ceph_tpu_torch.osd import backend as ob
     from ceph_tpu_torch.osd import messages as om
-    from ceph_tpu_torch.osd.daemon import OSDService
     from ceph_tpu_torch.osd.ecutil import StripeInfo
     from ceph_tpu_torch.osd.types import OP_READ, OP_WRITEFULL, OSDOp
     from ceph_tpu_torch.osd.types import pgid_str
-    from ceph_tpu_torch.store.memstore import MemStore
     from ceph_tpu_torch.store.objectstore import Collection, GHObject
 
     unit = codec_from_profile(profile, device=dev).get_chunk_size(
@@ -2805,9 +2996,10 @@ def run_daemon(torch, dev, *, n_osds: int = DAEMON_OSDS,
         "tpu_staging_slot_kib": max(1, obj_bytes >> 10),
         "tpu_staging_slots": WIRE_SLOTS,
         "osd_op_history_size": 256})
-    osds: dict = {}
+    ds = DaemonSet(dev, ctx, osdmap, n_osds, "daemon")
+    osds = ds.osds
     client = None
-    res: dict = {"steps": {}, "refresh": []}
+    res: dict = {"steps": {}, "refresh": ds.refreshes}
     cond = threading.Condition()
     replies: dict = {}
     tids = iter(range(1, 1 << 30))
@@ -2873,36 +3065,8 @@ def run_daemon(torch, dev, *, n_osds: int = DAEMON_OSDS,
                 f"daemon: the read of {oid} answered {rep.result} with "
                 f"{len(rep.ops[0].out_data) if rep.ops else 0} bytes")
 
-    def up() -> list:
-        return [o for o in osds.values() if o.up]
-
-    def refresh(name: str) -> None:
-        """The map and address book to every live daemon (timed, its K6
-        launches counted), then their activation, settled."""
-        book = {i: o.addr for i, o in osds.items() if o.up}
-        k6 = read_counts()["crush_rule"]
-        t0 = time.perf_counter()
-        for o in up():
-            o.handle_osdmap(osdmap, book)
-        wall = time.perf_counter() - t0
-        res["refresh"].append({
-            "step": name, "epoch": osdmap.epoch, "daemons": len(book),
-            "pgs": sum(len(o.pgs) for o in up()),
-            "k6": read_counts()["crush_rule"] - k6, "wall_s": wall})
-        for o in up():
-            o.activate_pgs()
-        for o in up():
-            require(o.wait_pgs_settled(WIRE_WAIT_S),
-                    f"daemon: osd.{o.whoami}'s PGs settled after {name}")
-
     def step(name: str, fn) -> dict:
-        reset_counts()
-        t0 = time.perf_counter()
-        out = fn() or {}
-        wall = time.perf_counter() - t0
-        out.update(wall_s=wall, counts=read_counts())
-        res["steps"][name] = out
-        return out
+        return run_step(res, name, fn)
 
     def holders_agree() -> dict:
         """Every PG's last_update on each of its live holders, once they
@@ -2910,7 +3074,7 @@ def run_daemon(torch, dev, *, n_osds: int = DAEMON_OSDS,
         deadline = time.monotonic() + WIRE_WAIT_S
         while True:
             seen = {}
-            for o in up():
+            for o in ds.up():
                 for pgid, pg in list(o.pgs.items()):
                     if o.whoami in pg.acting:
                         seen.setdefault(pgid, set()).add(
@@ -2924,48 +3088,15 @@ def run_daemon(torch, dev, *, n_osds: int = DAEMON_OSDS,
                          f"holders: {bad}")
         return {pgid_str(p): sorted(v)[0] for p, v in sorted(seen.items())}
 
-    def expected_shards(data) -> list:
-        planes = si.interleave(np.asarray(data))[0]
-        coding = plain.encode_array(planes)
-        return [planes[s] if s < k else coding[s - k] for s in range(n)]
-
     def check_ec(i: int, only=None) -> int:
         """Object i of pool A on its holders (``only``: that daemon)."""
-        oid = oids[i]
-        pgid = osdmap.object_to_pg(A, oid)
-        acting = osdmap.pg_to_up_acting(pgid)[2]
-        coll = Collection(pgid_str(pgid) + "_head")
-        shards = expected_shards(want[(A, oid)])
-        done = 0
-        for s, osd in enumerate(acting):
-            if osd == ob.CRUSH_ITEM_NONE or (only is not None
-                                             and osd != only):
-                continue  # a hole: CRUSH found no host for the shard
-            st = osds[osd].store
-            go = GHObject(oid, shard=s)
-            got = st.read(coll, go)
-            size, hcrc, valid = ob.hinfo_decode(st.getattr(coll, go,
-                                                           "hinfo"))
-            require(got == shards[s].tobytes(),
-                    f"daemon: osd.{osd} {oid} shard {s} equals the plain "
-                    "encode")
-            require(valid and size == obj_bytes and hcrc == crc32c(got),
-                    f"daemon: osd.{osd} {oid} shard {s}: its hinfo CRC "
-                    "is the host CRC of the stored bytes")
-            done += 1
-        return done
+        return ec_shards_checked(ds, A, oids[i], want[(A, oids[i])], plain,
+                                 si, only)
 
     try:
         # 1. boot
-        stores = {i: MemStore() for i in range(n_osds)}
-
         def boot():
-            for i in range(n_osds):
-                svc = OSDService(ctx, i, stores[i], osdmap,
-                                 codec_from_profile, device=dev)
-                svc.store.mkfs()
-                svc.init()
-                osds[i] = svc
+            ds.boot()
             return {"warmup": osds[0]._warmup.stats(),
                     "warmup_s": [round(o._warmup.stats()["seconds"], 3)
                                  for o in osds.values()]}
@@ -2980,20 +3111,8 @@ def run_daemon(torch, dev, *, n_osds: int = DAEMON_OSDS,
                     f"daemon: osd.{o.whoami}'s boot warmup launched every "
                     f"declared bucket {st}")
         res["warmup"] = wu["warmup"]
-        refresh("boot")
-        holes = {}
-        for p, pool in osdmap.pools.items():
-            for seed in range(pool.pg_num):
-                acting = osdmap.pg_to_up_acting((p, seed))[2]
-                holes[pgid_str((p, seed))] = acting.count(
-                    ob.CRUSH_ITEM_NONE)
-                for o in osds.values():
-                    require(((p, seed) in o.pgs) == (o.whoami in acting),
-                            f"daemon: osd.{o.whoami} holds pg {p}.{seed} "
-                            f"exactly when the map puts it in {acting}")
-        # with k + m hosts for k + m shards, an indep walk may find no
-        # host for a shard within its tries: that PG starts degraded
-        res["holes"] = {p: h for p, h in holes.items() if h}
+        ds.refresh("boot")
+        res["holes"] = ds.placement_holes()
         for o in osds.values():
             o.start_heartbeats()
         client = Messenger(Context(f"client.{WIRE_CLIENT}"),
@@ -3049,13 +3168,7 @@ def run_daemon(torch, dev, *, n_osds: int = DAEMON_OSDS,
                if osdmap.pg_to_up_acting(osdmap.object_to_pg(B, x))[3]
                == down]
         rew_b = (led + [x for x in roids if x not in led])[:overwrite[1]]
-
-        def kill():
-            osds[down].shutdown()
-            osdmap.set_osd_down(down)
-            refresh("kill")
-
-        step("kill", kill)
+        step("kill", lambda: ds.kill(down))
         lost_data = 0
         for i in range(nobj):
             acting = osdmap.pg_to_up_acting(
@@ -3090,9 +3203,7 @@ def run_daemon(torch, dev, *, n_osds: int = DAEMON_OSDS,
         step("write_down", writes_down)
         pulls = []
 
-        def revive():
-            svc = OSDService(ctx, down, stores[down], osdmap,
-                             codec_from_profile, device=dev)
+        def count_pulls(svc):
             real_pull = svc.pull_from_peer
 
             def pull_from_peer(pg, best, since, defer_recovery=False):
@@ -3101,25 +3212,18 @@ def run_daemon(torch, dev, *, n_osds: int = DAEMON_OSDS,
                                  defer_recovery=defer_recovery)
 
             svc.pull_from_peer = pull_from_peer
-            svc.init()
-            svc.start_heartbeats()
-            osds[down] = svc
-            # its new address reaches every daemon before the map that
-            # marks it up (as its boot message precedes that map): a
-            # peer answering its pull from the old address book would
-            # push to the dead messenger
-            refresh("revive_addr")
-            osdmap.set_osd_up(down)
-            refresh("revive")
+
+        def revive():
+            ds.revive(down, count_pulls)
             deadline = time.monotonic() + WIRE_WAIT_S
-            while (any(pg.missing for o in up() for pg in o.pgs.values())
+            while (any(pg.missing for o in ds.up() for pg in o.pgs.values())
                    and time.monotonic() < deadline):
                 time.sleep(0.01)
             return {}
 
         rv = step("recover", revive)
         left = {f"osd.{o.whoami} {pgid_str(p)} {pg.state}": sorted(pg.missing)
-                for o in up() for p, pg in o.pgs.items() if pg.missing}
+                for o in ds.up() for p, pg in o.pgs.items() if pg.missing}
         require(not left, f"daemon: missing is empty on every PG after the "
                           f"revival: {left}")
         rv["pulls"] = pulls
@@ -3178,23 +3282,13 @@ def run_daemon(torch, dev, *, n_osds: int = DAEMON_OSDS,
         res["edges"] = sum(len(v) for v in lockdep.edge_graph().values())
     finally:
         ctx.conf.set_val("store_debug_inject_data_err", False)
-        for o in osds.values():
-            if o.up:
-                o.shutdown()
+        ds.shutdown()
         if client is not None:
             client.shutdown()
         lockdep.enable(was)
 
     # 6. nothing the daemons started is left
-    deadline = time.monotonic() + WIRE_WAIT_S
-    while True:
-        left = [t.name for t in threading.enumerate()
-                if t.ident not in before_threads
-                and not t.name.startswith(DAEMON_SHARED_THREADS)]
-        if not left or time.monotonic() > deadline:
-            break
-        time.sleep(0.05)
-    require(not left, f"daemon: threads left after shutdown: {left}")
+    no_threads_left(before_threads, "daemon")
     res.update(retries=retries[0], sent=dict(sent))
     return res
 
@@ -3251,6 +3345,389 @@ def phase_daemon(torch, dev, log) -> dict:
         f"(admitted_scrub {sc['admitted_scrub']}); launches "
         f"{json.dumps(launches)}; {res['edges']} lock-order edges; "
         f"retries {res['retries']}; no thread left")
+    return res
+
+
+CLUSTER_CLIENT = 4200         # the RadosClient's entity: client.4200
+CLUSTER_INFLIGHT = 8          # pool A writes in flight when their primary dies
+# Reads go one at a time: the objecter re-sends an op unanswered for 1 s
+# (its resend_interval, the reference's), and the PG runs every copy of a
+# read, so concurrent 4 MiB degraded reads (about 0.4 s of host work each)
+# feed on their own resends until they time out
+CLUSTER_READ_THREADS = 1
+# the striped object: 64 MiB over 1 MiB units, 4 objects wide, 4 MiB objects
+CLUSTER_STRIPED = (64 * MiB, 1 * MiB, 4, 4 * MiB)
+
+
+def run_cluster(torch, dev, *, n_osds: int = DAEMON_OSDS,
+                profile: str = WIRE_PROFILE, nobj: int = WIRE_OBJS,
+                obj_bytes: int = 4 * MiB, stripe_bytes: int = 1 * MiB,
+                rep_objs: int = DAEMON_REP_OBJS,
+                rep_bytes: int = DAEMON_REP_BYTES, threads: int = 8,
+                pg_num: int = DAEMON_PG_NUM,
+                inflight: int = CLUSTER_INFLIGHT,
+                striped=CLUSTER_STRIPED) -> dict:
+    """The client over ``n_osds`` port OSD daemons on ``daemon_map``
+    (booted, refreshed and stopped by ``DaemonSet``, as ``run_daemon``
+    does), under lockdep: one port ``RadosClient`` on ``dev``,
+    ``inject_osdmap``ed and handed every map refresh, whose objecter
+    places each op (``_calc_target``: one ``pg_to_up_acting``, one K6
+    launch on the card, a send and each resend) and resends it on a map
+    change, on ``EAGAIN``/``ESTALE`` and on its 1 s timer:
+
+    1. write: ``nobj`` seeded objects of ``obj_bytes`` to pool A by
+       ``IoCtx.aio_operate`` ``WRITEFULL`` from ``threads`` threads (the
+       ``encp`` batch: K1 + CRC), ``rep_objs`` of ``rep_bytes`` to pool
+       B; every reply 0, every stored shard equal to the plain encode and
+       its ``hinfo`` to the host CRC, pool B's copies on every holder;
+    2. failover: ``inflight`` new pool-A objects whose PGs one daemon
+       leads are submitted, that daemon shuts down, is marked down and
+       the map refreshed: every op completes with 0 through the
+       objecter's resend, and each object's PG log holds exactly one
+       entry for its reqid;
+    3. read: every object read back by ``IoCtx.read``, one at a time
+       (``CLUSTER_READ_THREADS``), byte for byte, pool A through
+       ``reconstruct_async`` (K1 ``dec``) where a data shard is lost;
+    4. stripe: one object of ``striped[0]`` bytes through
+       ``RadosStriper(stripe_unit=striped[1], stripe_count=striped[2],
+       object_size=striped[3])`` on pool A (its writes all at once),
+       read back whole, one stripe of units a call (one read an object
+       at a time in flight on each of ``stripe_count`` objects), and at
+       an unaligned offset, each component object's shards equal to
+       the plain encode;
+    5. the client and every daemon shut down, no thread left.
+
+    Launch counts are zeroed before and read after each step; the
+    objecter's ``_calc_target`` calls, resends and the queue's ``encp``
+    and ``dec`` batch widths are counted per step.  Raises on any failed
+    check."""
+    from ceph_tpu_torch.client import RadosClient
+    from ceph_tpu_torch.client.striper import RadosStriper
+    from ceph_tpu_torch.core import lockdep
+    from ceph_tpu_torch.core.context import Context
+    from ceph_tpu_torch.ec import codec_from_profile
+    from ceph_tpu_torch.gpu.queue import default_queue
+    from ceph_tpu_torch.msg.message import EntityName
+    from ceph_tpu_torch.osd import backend as ob
+    from ceph_tpu_torch.osd.ecutil import StripeInfo
+    from ceph_tpu_torch.osd.types import OP_WRITEFULL, OSDOp, pgid_str
+    from ceph_tpu_torch.store.objectstore import Collection, GHObject
+
+    unit = codec_from_profile(profile, device=dev).get_chunk_size(
+        stripe_bytes)
+    ec_profile = f"{profile} stripe_unit={unit}"
+    plain = codec_from_profile(ec_profile, device="cpu")
+    k = plain.k
+    require(k + plain.m == n_osds,
+            f"cluster: one daemon a shard ({k + plain.m} != {n_osds})")
+    si = StripeInfo(k, unit)
+    A, B = DAEMON_EC_POOL, DAEMON_REP_POOL
+    s_bytes, s_unit, s_count, s_obj = striped
+    g = torch.Generator(device=dev).manual_seed(SEED + 30)
+    objs = torch.randint(0, 256, (nobj + inflight, obj_bytes),
+                         dtype=torch.uint8, device=dev,
+                         generator=g).cpu().numpy()
+    rng = np.random.default_rng(SEED + 31)
+    reps = [rng.integers(0, 256, rep_bytes, dtype=np.uint8).tobytes()
+            for _ in range(rep_objs)]
+    big = rng.integers(0, 256, s_bytes, dtype=np.uint8).tobytes()
+    want = {(A, f"obj.{i:04d}"): objs[i] for i in range(nobj)}
+    want.update({(B, f"rep.{i:04d}"): reps[i] for i in range(rep_objs)})
+
+    osdmap = daemon_map(dev, n_osds, ec_profile, k, pg_num)
+    before_threads = {t.ident for t in threading.enumerate()}
+    was = lockdep.enabled()
+    lockdep.reset()
+    lockdep.enable(True)
+    ctx = Context("osd.cluster", {
+        "tpu_boot_warmup": True,
+        "tpu_staging_slot_kib": max(1, obj_bytes >> 10),
+        "tpu_staging_slots": WIRE_SLOTS})
+    ds = DaemonSet(dev, ctx, osdmap, n_osds, "cluster")
+    osds = ds.osds
+    rc = None
+    res: dict = {"steps": {}, "refresh": ds.refreshes}
+    dq = default_queue(dev)
+    lock = threading.Lock()
+    targets = [0]       # the objecter's _calc_target calls
+    ops: list = []      # the step's ObjecterOps
+    lat: list = []      # the step's op latencies (seconds, host clock)
+
+    def widths(d: dict, d0: dict) -> dict:
+        return {w: c - d0.get(w, 0) for w, c in sorted(d.items())
+                if c - d0.get(w, 0)}
+
+    def step(name: str, fn) -> dict:
+        with lock:
+            targets[0] = 0
+            ops.clear()
+            lat.clear()
+        enc0, dec0 = dict(dq.batch_jobs), dict(dq.dec_batch_jobs)
+        out = run_step(res, name, fn)
+        with lock:
+            out.update(
+                objecter_k6=targets[0],
+                resends=sum(op.attempts - 1 for op in ops),
+                resent_ops=sum(op.attempts > 1 for op in ops),
+                op_s=({"n": len(lat), "mean": sum(lat) / len(lat),
+                       "max": max(lat)} if lat else {}))
+        out["encp_widths"] = widths(dq.batch_jobs, enc0)
+        out["dec_widths"] = widths(dq.dec_batch_jobs, dec0)
+        return out
+
+    def put(io, oid: str, data):
+        return io.aio_operate(oid, [OSDOp(OP_WRITEFULL,
+                                          data=memoryview(data))],
+                              timeout=WIRE_WAIT_S)
+
+    def done(op) -> None:
+        rep = op.result(WIRE_WAIT_S)
+        require(rep.result == 0,
+                f"cluster: the write of {op.oid} answered {rep.result}")
+
+    def get(io, pool: int, oid: str) -> None:
+        got = io.read(oid)
+        require(got == bytes(want[(pool, oid)]),
+                f"cluster: {oid} read back byte for byte ({len(got)} "
+                "bytes)")
+
+    def replicas_held() -> None:
+        for (pool, oid), data in want.items():
+            if pool != B:
+                continue
+            pgid = osdmap.object_to_pg(B, oid)
+            coll = Collection(pgid_str(pgid) + "_head")
+            for osd in osdmap.pg_to_up_acting(pgid)[2]:
+                require(osds[osd].store.read(coll, GHObject(oid)) == data,
+                        f"cluster: osd.{osd} holds {oid}")
+
+    try:
+        # boot: the daemons, then the client on the map they share
+        def boot():
+            ds.boot()
+            ds.refresh("boot")
+            return {"holes": ds.placement_holes()}
+
+        res["holes"] = step("boot", boot)["holes"]
+        for o in osds.values():
+            o.start_heartbeats()
+        rc = RadosClient(Context(f"client.{CLUSTER_CLIENT}"),
+                         EntityName("client", CLUSTER_CLIENT), device=dev)
+        rc.inject_osdmap(osdmap, ds.book())
+        ds.watchers.append(
+            lambda book: rc.objecter.handle_osdmap(osdmap, book))
+        real_target = rc.objecter._calc_target
+
+        def calc_target(pool, oid):
+            with lock:
+                targets[0] += 1
+            return real_target(pool, oid)
+
+        rc.objecter._calc_target = calc_target
+        real_submit = rc.objecter.op_submit
+
+        def op_submit(*args, on_complete=None, **kw):
+            """Every op of the step (the striper's too) and its latency
+            from submission to its final reply."""
+            t0 = time.perf_counter()
+
+            def completed(op):
+                with lock:
+                    lat.append(time.perf_counter() - t0)
+                if on_complete is not None:
+                    on_complete(op)
+
+            op = real_submit(*args, on_complete=completed, **kw)
+            with lock:
+                ops.append(op)
+            return op
+
+        rc.objecter.op_submit = op_submit
+        reset_counts()
+        real_target(A, "probe")
+        res["k6_per_target"] = read_counts()["crush_rule"]
+        io_a, io_b = rc.ioctx(A), rc.ioctx(B)
+
+        # 1. write
+        def writes():
+            wall_a = run_threads(lambda i: done(put(
+                io_a, f"obj.{i:04d}", objs[i])), nobj, threads)
+            wall_b = run_threads(lambda i: done(put(
+                io_b, f"rep.{i:04d}", reps[i])), rep_objs, threads)
+            return {"wall_a_s": wall_a, "wall_b_s": wall_b}
+
+        w = step("write", writes)
+        w["gbs"] = nobj * obj_bytes / w["wall_a_s"] / 1e9
+        w["ec_shards_checked"] = sum(
+            ec_shards_checked(ds, A, f"obj.{i:04d}", objs[i], plain, si)
+            for i in range(nobj))
+        replicas_held()
+
+        # 2. failover: writes in flight to the PGs one daemon leads
+        down = osdmap.pg_to_up_acting(osdmap.object_to_pg(A, "obj.0000"))[3]
+        res["down"] = down
+        fos = list(itertools.islice(
+            (x for x in (f"failover.{j:04d}" for j in range(1 << 16))
+             if osdmap.pg_to_up_acting(osdmap.object_to_pg(A, x))[3]
+             == down), inflight))
+
+        def failover():
+            sent = [put(io_a, x, objs[nobj + j]) for j, x in enumerate(fos)]
+            early = sum(op.event.is_set() for op in sent)
+            ds.kill(down)
+            for op in sent:
+                done(op)
+            return {"objects": len(sent), "answered_before_kill": early}
+
+        fo = step("failover", failover)
+        for j, x in enumerate(fos):
+            want[(A, x)] = objs[nobj + j]
+        once = {}
+        for op in ops:
+            pgid = osdmap.object_to_pg(A, op.oid)
+            prim = osdmap.pg_to_up_acting(pgid)[3]
+            require(prim != down, f"cluster: {op.oid} has a new primary")
+            once[op.oid] = sum(e.reqid == op.reqid
+                               for e in osds[prim].pgs[pgid].log.entries)
+        require(len(once) == len(fos) and set(once.values()) == {1},
+                f"cluster: each failover object's PG log holds one entry "
+                f"for its reqid {once}")
+        fo["ec_shards_checked"] = sum(
+            ec_shards_checked(ds, A, x, objs[nobj + j], plain, si)
+            for j, x in enumerate(fos))
+
+        # 3. degraded read of every object.  The objects written before
+        # the kill must decode where a data shard is lost (the map
+        # change emptied the PGs' object context caches); the failover
+        # objects may come from the new primary's cache
+        lost = sum(any(a == ob.CRUSH_ITEM_NONE for a in osdmap.pg_to_up_acting(
+            osdmap.object_to_pg(A, f"obj.{i:04d}"))[2][:k])
+            for i in range(nobj))
+        keys_a = sorted(oid for pool, oid in want if pool == A)
+
+        def reads():
+            wall_a = run_threads(lambda i: get(io_a, A, keys_a[i]),
+                                 len(keys_a), CLUSTER_READ_THREADS)
+            wall_b = run_threads(lambda i: get(io_b, B, f"rep.{i:04d}"),
+                                 rep_objs, CLUSTER_READ_THREADS)
+            return {"wall_a_s": wall_a, "wall_b_s": wall_b}
+
+        r = step("read", reads)
+        r["gbs"] = len(keys_a) * obj_bytes / r["wall_a_s"] / 1e9
+        r["lost_data_objects"] = lost
+        r["dec_jobs"] = sum(w_ * c for w_, c in r["dec_widths"].items())
+        require(lost > 0 and r["dec_jobs"] >= lost,
+                f"cluster: the read decoded every object that lost a data "
+                f"shard ({r['dec_jobs']} dec jobs, {lost} objects)")
+
+        # 4. one striped object
+        striper = RadosStriper(io_a, stripe_unit=s_unit,
+                               stripe_count=s_count, object_size=s_obj)
+        row = s_unit * s_count
+        off = 3 * s_unit + 12345 % s_unit
+        length = row + 7
+
+        def stripe():
+            t0 = time.perf_counter()
+            striper.write("striped", big)
+            wall_w = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            whole = b"".join(striper.read("striped", row, at)
+                             for at in range(0, s_bytes, row))
+            wall_r = time.perf_counter() - t0
+            part = striper.read("striped", length, off)
+            require(whole == big, "cluster: the striped object read back "
+                                  "whole")
+            require(part == big[off:off + length],
+                    f"cluster: the striped object read back at offset "
+                    f"{off}, {length} bytes")
+            return {"write_s": wall_w, "read_s": wall_r,
+                    "objects": len(striper.component_oids("striped",
+                                                          s_bytes))}
+
+        sp = step("stripe", stripe)
+        sp["write_gbs"] = s_bytes / sp["write_s"] / 1e9
+        sp["read_gbs"] = s_bytes / sp["read_s"] / 1e9
+        comps = {}
+        for objno, o, units in striper._extents(0, s_bytes):
+            comps.setdefault(objno, bytearray(s_obj))[
+                o:o + sum(u[2] for u in units)] = b"".join(
+                big[lpos:lpos + n] for _, lpos, n in units)
+        sp["ec_shards_checked"] = sum(
+            ec_shards_checked(ds, A, striper._obj_name("striped", objno),
+                              np.frombuffer(bytes(data), np.uint8), plain,
+                              si)
+            for objno, data in sorted(comps.items()))
+        res["edges"] = sum(len(v) for v in lockdep.edge_graph().values())
+    finally:
+        if rc is not None:
+            rc.shutdown()
+        ds.shutdown()
+        lockdep.enable(was)
+
+    # 5. nothing the client or the daemons started is left
+    no_threads_left(before_threads, "cluster")
+    return res
+
+
+def phase_cluster(torch, dev, log) -> dict:
+    """The ``cluster`` phase: ``run_cluster`` at full width, the port's
+    ``RadosClient`` over twelve port OSD daemons (isa k=8 m=4 over all
+    twelve, a replicated pool of size 3) on one map.  A ``_calc_target``
+    must be one K6 launch; the write must launch K1, the CRC kernel and
+    K6 (the objecter's placement); the failover K6; the degraded read K1
+    and K6; the striped object K1 and K6 (a ``WRITE`` is encoded by the
+    queue's ``enc`` kind with ``hinfo`` from the host CRC; only an
+    all-``WRITEFULL`` op rides the ``encp`` batch and the CRC kernel)."""
+    res = run_cluster(torch, dev)
+    st = res["steps"]
+    require(res["k6_per_target"] == 1,
+            f"cluster: one _calc_target is one K6 launch "
+            f"({res['k6_per_target']})")
+    for name, need in (("write", ("gf256_matmul", "crc32c_rows",
+                                  "crush_rule")),
+                       ("failover", ("gf256_matmul", "crc32c_rows",
+                                     "crush_rule")),
+                       ("read", ("gf256_matmul", "crush_rule")),
+                       ("stripe", ("gf256_matmul", "crush_rule"))):
+        require(all(st[name]["counts"][x] > 0 for x in need)
+                and st[name]["objecter_k6"] > 0,
+                f"cluster: the {name} step ran {list(need)} and the "
+                f"objecter's placement: {st[name]['counts']}, "
+                f"{st[name]['objecter_k6']} targets")
+    lines = {}
+    for name, s in st.items():
+        lines[name] = {
+            "wall_s": round(s["wall_s"], 3),
+            **({"gbs": round(s["gbs"], 4)} if "gbs" in s else {}),
+            "resends": s["resends"], "resent_ops": s["resent_ops"],
+            "op_s": s["op_s"],
+            "objecter_k6": s["objecter_k6"],
+            "encp_widths": s["encp_widths"], "dec_widths": s["dec_widths"],
+            "launches": {x: v for x, v in s["counts"].items() if v}}
+    w, fo, r, sp = st["write"], st["failover"], st["read"], st["stripe"]
+    log(f"cluster: RadosClient(client.{CLUSTER_CLIENT}) over "
+        f"{DAEMON_OSDS} OSDService (isa k=8 m=4 pool, size 12, "
+        f"{DAEMON_PG_NUM} PGs; replicated pool, size 3, {DAEMON_PG_NUM} "
+        f"PGs) under lockdep: {WIRE_OBJS} x 4 MiB IoCtx.aio_operate "
+        f"WRITEFULL from 8 threads {w['gbs']:.3f} GB/s "
+        f"({w['wall_a_s']:.3f} s, {w['ec_shards_checked']} shards equal "
+        f"to the plain encode, hinfo the host CRC), {DAEMON_REP_OBJS} x "
+        f"64 KiB {w['wall_b_s']:.3f} s; failover: {fo['objects']} writes "
+        f"in flight to osd.{res['down']}'s PGs, it shut down and the map "
+        f"refreshed, all answered 0 in {fo['wall_s']:.3f} s "
+        f"({fo['resent_ops']} resent, one log entry a reqid); degraded "
+        f"IoCtx.read, {CLUSTER_READ_THREADS} at a time, {r['gbs']:.3f} "
+        f"GB/s ({r['wall_a_s']:.3f} s, "
+        f"{r['dec_jobs']} dec jobs, {r['lost_data_objects']} objects lost "
+        f"a data shard); RadosStriper {CLUSTER_STRIPED[0] >> 20} MiB "
+        f"(su {CLUSTER_STRIPED[1] >> 20} MiB x {CLUSTER_STRIPED[2]}, "
+        f"{CLUSTER_STRIPED[3] >> 20} MiB objects, {sp['objects']} objects) "
+        f"write {sp['write_gbs']:.3f} GB/s, read {sp['read_gbs']:.3f} "
+        f"GB/s (a stripe of units a call), whole and at an unaligned "
+        f"offset; per step "
+        f"{json.dumps(lines)}; refreshes {json.dumps(res['refresh'])}; "
+        f"{res['edges']} lock-order edges; no thread left")
     return res
 
 
@@ -4217,6 +4694,7 @@ def main() -> int:
     rec_res = phase_recovery(torch, dev, log, wire_res)
     scr_res = phase_scrub(torch, dev, log, wire_res)
     dmn_res = phase_daemon(torch, dev, log)
+    cls_res = phase_cluster(torch, dev, log)
     bm_res = phase_bitmatrix(torch, dev, log)
     sh_res = phase_shec(torch, dev, log)
     phase_lrc(torch, dev, log)
@@ -4234,6 +4712,8 @@ def main() -> int:
                                          scr_res["steps"].items()}}
         kr["daemon_launches"] = {name: s["counts"][kr["name"]]
                                  for name, s in dmn_res["steps"].items()}
+        kr["cluster_launches"] = {name: s["counts"][kr["name"]]
+                                  for name, s in cls_res["steps"].items()}
     kernels.append(time_gf2(torch, dev, log, bm_res))
     kernels.append(time_gf2_popcount(torch, dev, log, sh_res))
     kernels[-1]["sass"] = {n: sass[n] for n in (
@@ -4247,6 +4727,12 @@ def main() -> int:
         **{name: s["counts"]["crush_rule"]
            for name, s in dmn_res["steps"].items()},
         "refresh": {r["step"]: r["k6"] for r in dmn_res["refresh"]}}
+    kernels[-1]["cluster_launches"] = {
+        **{name: s["counts"]["crush_rule"]
+           for name, s in cls_res["steps"].items()},
+        "objecter": {name: s["objecter_k6"]
+                     for name, s in cls_res["steps"].items()},
+        "refresh": {r["step"]: r["k6"] for r in cls_res["refresh"]}}
     for kr in kernels:
         log(f"{kr['name']}: {kr['ms']:.4f} ms, plain {kr['plain_ms']:.3f} "
             f"ms, bound {kr['bound_ms']:.4f} ms ({kr['bound_by']}), "

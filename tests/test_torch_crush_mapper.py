@@ -334,3 +334,105 @@ def test_budget_clean_sets_against_reference(name, budget):
     np.testing.assert_array_equal(res[rclean], rres[rclean])
     np.testing.assert_array_equal(res[clean], full[clean])
     assert 0 < clean.sum() < len(xs)
+
+
+# -- the plain version's scalar route (a few ids on the CPU) -----------------
+
+def _routes(case, xs, budget):
+    flat = case.map.flatten()
+    rm = mapper.device_map(flat, case.choose_args, device="cpu")
+    spec = crush_rule.RuleSpec(case.steps, case.result_max)
+    w = torch.from_numpy(np.asarray(case.dev_weights,
+                                    dtype=np.uint32).view(np.int32))
+    x = torch.from_numpy(xs)
+    return (crush_rule.rule_scalar(rm, spec, w, x, budget),
+            crush_rule.rule_plain(rm, spec, w, x, budget))
+
+
+@pytest.mark.parametrize("name", [c.name for c in samples.cases()])
+def test_scalar_route_matches_vector_plain_and_native(name):
+    """Every sample (legacy buckets and choose_args too) at every budget:
+    the scalar walk's rows and clean flags are the vector walk's; the
+    native samples' full walk is ``_native.do_rule``'s."""
+    case = samples.case(name)
+    xs = samples.ids(17, 96)
+    for budget in (0, 1, 3):
+        (srow, sclean), (vrow, vclean) = _routes(case, xs, budget)
+        assert srow.dtype == torch.int32 and sclean.dtype == torch.bool
+        assert torch.equal(srow, vrow) and torch.equal(sclean, vclean)
+        if budget == 0 and case.oracle == "native":
+            np.testing.assert_array_equal(srow.numpy(), _oracle(
+                case.map.flatten(), case.steps, xs, case.result_max,
+                case.dev_weights))
+
+
+def _daemon_map_case(n_osds, mode, numrep, dev_w):
+    m, root = cmap.build_flat_cluster(n_osds, hosts=n_osds)
+    op = (cmap.OP_CHOOSELEAF_INDEP if mode == "indep"
+          else cmap.OP_CHOOSELEAF_FIRSTN)
+    steps = [(cmap.OP_TAKE, root, 0), (op, numrep, 1), (cmap.OP_EMIT, 0, 0)]
+    return samples.Case(f"{mode}{numrep}", m, steps, numrep, dev_w, None,
+                        "native")
+
+
+@pytest.mark.parametrize("n_osds,mode,numrep,out", [
+    (12, "indep", 12, ()),         # the daemon phase's pool A: holes
+    (6, "indep", 4, (2,)),          # the cluster map's k=2 m=2, osd.2 out
+    (6, "firstn", 3, (1, 4)),       # its replicated pool, two out
+])
+def test_scalar_route_on_the_cluster_maps(n_osds, mode, numrep, out):
+    """The maps the daemons walk a PG at a time, every PG seed of a pool of
+    64, with reweighted and out OSDs: scalar, vector and native agree, and
+    an indep row keeps its holes (the daemon phase's PG 2.5 is one)."""
+    dev_w = np.full(n_osds, 0x10000, dtype=np.uint32)
+    dev_w[list(out)] = 0
+    dev_w[0] = 0x9000
+    case = _daemon_map_case(n_osds, mode, numrep, dev_w)
+    xs = np.arange(64, dtype=np.int32)
+    (srow, _), (vrow, _) = _routes(case, xs, 0)
+    assert torch.equal(srow, vrow)
+    np.testing.assert_array_equal(srow.numpy(), _oracle(
+        case.map.flatten(), case.steps, xs, numrep, dev_w))
+    if numrep == n_osds:  # as many shards as hosts: some seeds miss one
+        assert (srow == cmap.ITEM_NONE).any()
+    assert not np.isin(srow.numpy(), list(out)).any()
+
+
+def test_launch_takes_the_scalar_route_for_a_few_ids(monkeypatch):
+    """On the CPU ``launch`` walks at most ``SCALAR_MAX`` ids on the
+    scalar route and more on the vector one; both fill ``out``, ``clean``
+    and the append buffer alike."""
+    case = samples.case("chooseleaf_firstn_3")
+    flat = case.map.flatten()
+    rm = mapper.device_map(flat, device="cpu")
+    spec = crush_rule.RuleSpec(case.steps, case.result_max)
+    w = torch.full((32,), 0x10000, dtype=torch.int32)
+    w[[3, 7, 20]] = 0
+    taken = []
+    for fn in ("rule_scalar", "rule_plain"):
+        real = getattr(crush_rule, fn)
+        monkeypatch.setattr(crush_rule, fn, lambda *a, _f=real, _n=fn: (
+            taken.append(_n), _f(*a))[1])
+    for n in (1, crush_rule.SCALAR_MAX, crush_rule.SCALAR_MAX + 1):
+        xs = torch.from_numpy(samples.ids(5, n))
+        outs = []
+        for walk in ("scalar", "vector"):
+            out = torch.full((n, 3), -5, dtype=torch.int32)
+            clean = torch.zeros(n, dtype=torch.uint8)
+            bad = torch.full((8,), -1, dtype=torch.int32)
+            count = torch.zeros(1, dtype=torch.int32)
+            if walk == "scalar":
+                crush_rule.launch(rm, spec, w, xs, out, budget=1,
+                                  clean=clean, bad=bad, bad_count=count)
+            else:
+                res, ok = crush_rule.rule_plain(rm, spec, w, xs, 1)
+                out.copy_(res)
+                clean.copy_(ok.to(torch.uint8))
+                unclean = torch.nonzero(~ok).squeeze(1).to(torch.int32)
+                count[0] = unclean.numel()
+                bad[:min(8, unclean.numel())] = unclean[:8]
+            outs.append((out, clean, bad, count))
+        for a, b in zip(*outs):
+            assert torch.equal(a, b)
+    want = ["rule_scalar", "rule_plain"] * 2 + ["rule_plain"] * 2
+    assert taken == want

@@ -1126,6 +1126,52 @@ def test_daemon_phase_on_the_card(dev):
     assert any(p.startswith("1.") for p, _ in st["recover"]["pulls"])
 
 
+def test_cluster_phase_on_the_card(dev):
+    """The cluster phase's code at a small size on the card: the port's
+    RadosClient over six daemons (isa k=4 m=2 over all six, a replicated
+    pool), 1 MiB objects; one ``_calc_target`` is one K6 launch, each
+    step's launches as the phase requires them, and every check of the
+    phase."""
+    import chip_smoke
+
+    res = chip_smoke.run_cluster(
+        torch, dev, n_osds=6, profile="plugin=isa k=4 m=2 "
+        "technique=reed_sol_van", nobj=8, obj_bytes=1 << 20,
+        stripe_bytes=256 << 10, rep_objs=4, rep_bytes=4096, threads=4,
+        pg_num=8, inflight=4, striped=(8 << 20, 256 << 10, 4, 1 << 20))
+    st = res["steps"]
+    assert res["k6_per_target"] == 1
+    for name, need in (("write", ("gf256_matmul", "crc32c_rows",
+                                  "crush_rule")),
+                       ("failover", ("gf256_matmul", "crush_rule")),
+                       ("read", ("gf256_matmul", "crush_rule")),
+                       ("stripe", ("gf256_matmul", "crush_rule"))):
+        for x in need:
+            assert st[name]["counts"][x] > 0, (name, x, st[name]["counts"])
+        assert st[name]["objecter_k6"] > 0
+    assert st["failover"]["resent_ops"] >= 1
+
+
+def test_objecter_cross_check_on_the_card_equals_the_cpu(dev, monkeypatch):
+    """The objecter cross-check's sequence on port daemons and a client
+    whose codecs, queue and map walk are on the card, held to the same
+    sequence with ``device="cpu"``: the same replies, stores, logs,
+    pg_stats and dump_scrubs after every step."""
+    import time as _time
+
+    import test_torch_daemon_xcheck as dx
+
+    monkeypatch.setattr(_time, "time", lambda: dx.CLOCK)
+    want = dx._client_sequence("ceph_tpu_torch")
+    k6 = crush_rule.launches.value
+    got = dx._client_sequence("ceph_tpu_torch", device=dev)
+    assert crush_rule.launches.value > k6
+    assert [n for n, _ in got] == [n for n, _ in want]
+    for (name, g), (_, w) in zip(got, want):
+        for key in w:
+            assert g[key] == w[key], (name, key)
+
+
 def test_daemon_cluster_on_the_card_equals_the_cpu(dev, monkeypatch):
     """The daemon cross-check's sequence on port daemons whose codecs,
     queue and map walk are on the card, held to the same sequence with

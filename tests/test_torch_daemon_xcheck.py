@@ -20,8 +20,18 @@ and the pushes).  After each step both clusters must agree on:
 
 Both packages read ``time.time`` from one pinned clock (log entries'
 ``mtime`` carries it).
+
+A second sequence drives each cluster through its own package's
+``RadosClient`` (``torch_daemon_harness.LibClient``, reqids pinned to
+``client.4200.0:<tid>``): puts to the three pools, a forged duplicate of
+a committed ``APPEND`` (``test_osd_cluster.py:492``), a write in flight
+to a primary that dies (``:467``; the primary swallows the op, so the
+objecter's resend to the new primary is what executes it), degraded
+gets, the revival and gets again, with the same agreement after each
+step.  No object the dying daemon holds is rewritten while it is down.
 """
 
+import threading
 import time
 
 import numpy as np
@@ -110,3 +120,130 @@ def test_daemon_clusters_of_both_packages_agree(monkeypatch):
     assert held, "the revived daemon holds none of the late writes"
     assert all(not miss for rows in last["logs"].values()
                for _ents, miss, _st in rows.values())
+
+
+LIB_CLIENT = 4200
+
+
+def _swallow_ops(svc, oid: str) -> threading.Event:
+    """Make ``svc`` drop every ``MOSDOp`` on ``oid`` unanswered, as a
+    daemon that dies before acting on it; the event is set when one
+    arrives."""
+    seen = threading.Event()
+    real = svc.ms_dispatch
+
+    def dispatch(conn, msg):
+        if type(msg).__name__ == "MOSDOp" and msg.oid == oid:
+            seen.set()
+            return True
+        return real(conn, msg)
+
+    svc.ms_dispatch = dispatch
+    return seen
+
+
+def _watch_replies(objecter) -> dict:
+    """Record every ``MOSDOpReply`` the objecter is handed, by tid, the
+    ones for ops already complete too."""
+    got, cond = {}, threading.Condition()
+    real = objecter.ms_dispatch
+
+    def dispatch(conn, msg):
+        if type(msg).__name__ == "MOSDOpReply":
+            with cond:
+                got.setdefault(msg.tid, []).append(msg.result)
+                cond.notify_all()
+        return real(conn, msg)
+
+    objecter.ms_dispatch = dispatch
+    return {"got": got, "cond": cond}
+
+
+def _client_sequence(pkg: str, device: str = "cpu") -> list:
+    """The objecter's steps on ``pkg``'s cluster; a snapshot after each."""
+    rng = np.random.default_rng(SEED + 1)
+    c = H.DaemonCluster(pkg, device=device)
+    cl = H.LibClient(c, name=LIB_CLIENT, pinned=True)
+    seen = _watch_replies(cl.rc.objecter)
+    t = c.M.t
+    snaps, replies, want = [], [], {}
+
+    def blob() -> bytes:
+        return rng.integers(0, 256, int(rng.integers(1000, 9000)),
+                            dtype=np.uint8).tobytes()
+
+    def done(rep, pool, oid):
+        assert rep.result == 0, (pkg, pool, oid, rep.result)
+        replies.append(_reply_bytes(rep))
+
+    def get_all():
+        for (pool, oid), data in sorted(want.items()):
+            rep = cl.op(pool, oid, [t.OSDOp(t.OP_READ)])
+            assert bytes(rep.ops[0].out_data) == data, (pkg, pool, oid)
+            done(rep, pool, oid)
+
+    try:
+        for pool in POOLS:
+            for i in range(4):
+                want[(pool, f"cobj{i}")] = data = blob()
+                done(cl.put(pool, f"cobj{i}", data), pool, f"cobj{i}")
+        snaps.append(("put", _snapshot(c, replies)))
+
+        done(cl.put(H.REP_POOL, "dedup", b"base-"), H.REP_POOL, "dedup")
+        io = cl.rc.ioctx(H.REP_POOL)
+        op = io.aio_operate("dedup", [t.OSDOp(t.OP_APPEND, data=b"tail")])
+        done(op.result(15.0), H.REP_POOL, "dedup")
+        pgid, _acting, primary = c.primary_of(H.REP_POOL, "dedup")
+        dup = c.M.m.MOSDOp(pgid, c.osdmap.epoch, "dedup",
+                           [t.OSDOp(t.OP_APPEND, data=b"tail")])
+        dup.tid, dup.reqid = op.tid, op.reqid
+        cl.rc.msgr.send_message(dup, c.osds[primary].addr)
+        with seen["cond"]:  # the replayed answer of the duplicate
+            assert seen["cond"].wait_for(
+                lambda: len(seen["got"].get(op.tid, ())) == 2, H.WAIT_S)
+        assert seen["got"][op.tid] == [0, 0]
+        # replayed, not executed again: one log entry for its reqid
+        log = c.osds[primary].pgs[pgid].log.entries
+        assert sum(e.reqid == op.reqid for e in log) == 1
+        want[(H.REP_POOL, "dedup")] = b"base-tail"
+        snaps.append(("duplicate append", _snapshot(c, replies)))
+
+        oid = "failover"
+        victim = c.primary_of(H.REP_POOL, oid)[2]
+        arrived = _swallow_ops(c.osds[victim], oid)
+        want[(H.REP_POOL, oid)] = data = blob()
+        op = io.aio_operate(oid, [t.OSDOp(t.OP_WRITEFULL, data=data)],
+                            timeout=30.0)
+        assert arrived.wait(H.WAIT_S)
+        c.kill(victim)
+        done(op.result(25.0), H.REP_POOL, oid)
+        assert op.attempts >= 2  # sent to the dead primary, then resent
+        pgid, _acting, primary = c.primary_of(H.REP_POOL, oid)
+        assert primary != victim
+        log = c.osds[primary].pgs[pgid].log.entries
+        assert sum(e.reqid == op.reqid for e in log) == 1
+        snaps.append(("failover", _snapshot(c, replies)))
+        get_all()
+        snaps.append(("degraded get", _snapshot(c, replies)))
+        c.revive(victim)
+        snaps.append(("revive", _snapshot(c, replies)))
+        get_all()
+        snaps.append(("get after", _snapshot(c, replies)))
+        return snaps
+    finally:
+        cl.shutdown()
+        c.shutdown()
+
+
+def test_objecters_of_both_packages_agree(monkeypatch):
+    monkeypatch.setattr(time, "time", lambda: CLOCK)
+    ref = _client_sequence("ceph_tpu")
+    port = _client_sequence("ceph_tpu_torch")
+    assert [name for name, _ in port] == [name for name, _ in ref]
+    for (name, p), (_, r) in zip(port, ref):
+        for key in r:
+            assert p[key] == r[key], (name, key)
+    # the pinned reqids reached the logs both packages agree on
+    logs = dict(port)["get after"]["logs"]
+    assert any(b"client.4200.0:" in ent for rows in logs.values()
+               for ents, _miss, _st in rows.values() for ent in ents)

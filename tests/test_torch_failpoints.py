@@ -4,8 +4,13 @@ case for case against the registry unit cases of
 the reference's, and ``error(EIO)`` raising each package's own store
 error.
 
-The reference's other cases need the filestore (queue 1 item 5) and the
-MiniCluster (slice 1j).
+The reference's committed 0xd403 schedules (``:245``, ``:359``: a
+degraded EC commit, its ack gated on a durable witness, and the acked
+state surviving a primary's death and a superseding write) run on the
+port's cluster, ``torch_daemon_harness.DaemonCluster("ceph_tpu_torch")``
+(six port daemons, the reference's map without the clay pool,
+``device="cpu"``), through the port's client, with the port's
+failpoints.  The filestore cases wait for queue 1 item 5.
 """
 
 import threading
@@ -15,6 +20,8 @@ import pytest
 
 import ceph_tpu.core.failpoint as ref_fp
 import ceph_tpu_torch.core.failpoint as fp
+import torch_daemon_harness as H
+from ceph_tpu_torch.osd import types as t_
 
 
 @pytest.fixture(autouse=True)
@@ -158,3 +165,223 @@ def test_eio_waits_for_the_store_slice():
     assert not isinstance(got.value, StoreError)
     assert fp.fired("store.filestore.read") == 1
     assert fp.failpoint("store.filestore.read") is None  # once: disarmed
+
+
+EC_POOL, N_OSDS = H.EC_POOL, H.N_OSDS
+LibClient = H.LibClient
+
+
+def MiniCluster():
+    return H.DaemonCluster("ceph_tpu_torch", device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# the committed 0xd403 schedule (tentpole regression)
+# ---------------------------------------------------------------------------
+
+
+def _ec_target(c):
+    """An oid whose EC pg has three live distinct acting members, with
+    the VICTIM chosen as the member that inherits the primaryship when
+    the primary dies (so the doomed-write's non-holder later serves
+    the superseding write — the 0xd403 geometry)."""
+    for i in range(64):
+        oid = f"fp{i}"
+        pgid, acting, primary = c.primary_of(EC_POOL, oid)
+        members = [int(o) for o in acting if 0 <= o < N_OSDS]
+        if len(members) != 3 or len(set(members)) != 3:
+            continue
+        # probe (map-only, restored): who inherits when primary dies?
+        c.osdmap.set_osd_down(primary)
+        _pg2, _a2, next_primary = c.primary_of(EC_POOL, oid)
+        c.osdmap.set_osd_up(primary)
+        next_primary = int(next_primary)
+        if next_primary == int(primary) or next_primary not in members:
+            continue
+        victim = next_primary
+        witness = [o for o in members
+                   if o not in (int(primary), victim)][0]
+        return oid, pgid, int(primary), victim, witness
+    raise AssertionError("no suitable EC pg geometry found")
+
+
+def _setxattr_async(cl, oid, name, value, timeout, box):
+    def run():
+        try:
+            rep = cl.op(EC_POOL, oid,
+                        [t_.OSDOp(t_.OP_SETXATTR, name=name,
+                                  data=value)],
+                        timeout=timeout)
+            box.append(rep.result == 0)
+        except Exception:
+            box.append(False)
+
+    th = threading.Thread(target=run, daemon=True)
+    th.start()
+    return th
+
+
+def test_0xd403_acked_xattr_survives_supersede_after_failover():
+    """THE regression schedule (fails at pre-fix HEAD, passes with the
+    fix).  The 0xd403 interleaving, barrier/drop-scheduled:
+
+    1. setxattr x1 fans out; the sub-write to the VICTIM is dropped
+       (kill-boundary loss) and the victim dies -> the op completes
+       DEGRADED on k members and acks the client; every in-flight
+       commit note dies too (the 2x-load window).
+    2. The victim revives (stale: recovery pushes are held, as when
+       the next kill beats the push), the primary dies, and the victim
+       — the one member that never saw x1 — inherits the primaryship.
+    3. The client writes the object FULL.  The new primary cannot
+       reconstruct the current generation (1 of k current chunks
+       reachable) so the WRITEFULL supersedes — and pre-fix it carried
+       the freshest LOCAL shard's meta forward: the victim's stale,
+       pre-x1 image.  The ACKED x1 is gone; the model sees
+       `m2: xattr x1`, always right after the failover's
+       `rolled back 1 divergent entries` housekeeping.
+
+    Post-fix, both doors are closed: the degraded commit's ack is
+    gated on a durable watermark witness (here the notes die, so the
+    ack is honestly withheld), and a superseding WRITEFULL ranks
+    REMOTE acting shards' meta testimony too, so the freshest stamp —
+    the witness's x1-bearing image — is what carries forward."""
+    c = MiniCluster()
+    cl = LibClient(c)
+    c.ctx.conf.set_val("osd_client_write_timeout", 1.0)
+    c.ctx.conf.set_val("osd_recovery_push_timeout", 2.0)
+    try:
+        oid, pgid, primary, victim, witness = _ec_target(c)
+
+        io = cl.rc.ioctx(EC_POOL)
+        io.write_full(oid, b"base-payload" * 10)
+        io.setxattr(oid, "x0", b"acked-before")  # acked, full width
+
+        # recovery pushes held: the thrash race wins because the next
+        # kill beats the push; here we pin that ordering
+        fp.arm("msg.frame.deliver", fp.DROP_ACTION,
+               match={"mtype": "MPGPush"})
+        # the kill-boundary sub-write loss: victim never sees x1
+        fp.arm("backend.subwrite.fanout", fp.DROP_ACTION,
+               match={"peer": str(victim)})
+        # every in-flight commit note dies with its window
+        fp.arm("pg.commit_note.persist", fp.DROP_ACTION)
+
+        box = []
+        th = _setxattr_async(cl, oid, "x1", b"acked-lost?", 4.0, box)
+        deadline = time.monotonic() + 5.0
+        while (fp.fired("backend.subwrite.fanout") < 1
+               and time.monotonic() < deadline):
+            time.sleep(0.01)
+        assert fp.fired("backend.subwrite.fanout") >= 1
+        # the kill boundary: victim dies while the op waits on it ->
+        # drop_missing completes the op DEGRADED on k members
+        c.kill(victim)
+        th.join(6.0)
+        x1_acked = bool(box and box[0])
+
+        # victim revives stale, then the primary dies: the non-holder
+        # inherits the primaryship
+        c.revive(victim)
+        c.kill(primary)
+        _pg2, _a2, new_primary = c.primary_of(EC_POOL, oid)
+        assert int(new_primary) == victim
+        fp.disarm("pg.commit_note.persist")  # the window is over
+
+        # the superseding WRITEFULL through the stale new primary
+        new_data = b"superseding-payload" * 8
+        rep = io.operate(
+            oid, [t_.OSDOp(t_.OP_WRITEFULL, data=new_data)],
+            timeout=15.0)
+        assert rep.result == 0
+
+        # THE ORACLE, read while the old primary is still dead — the
+        # superseding generation IS the object now.  Pre-fix x1_acked
+        # is True and the supersede wiped x1 from the live shards.
+        if x1_acked:
+            got = io.operate(
+                oid, [t_.OSDOp(t_.OP_GETXATTR, name="x1")],
+                timeout=15.0)
+            assert got.result == 0 and \
+                got.ops[0].out_data == b"acked-lost?", (
+                    "acked xattr lost to a superseding full-state "
+                    "write: the 0xd403 acked-loss class")
+        # state acked BEFORE the schedule must survive it regardless
+        assert io.getxattr(oid, "x0") == b"acked-before"
+        assert io.read(oid).rstrip(b"\0") == new_data
+
+        fp.disarm_all()
+        c.revive(primary)
+        c.activate()
+        # post-heal the rebuilt shard must match its peers: recovery
+        # landing with MERGE semantics resurrected the stale
+        # generation's attrs onto one shard (ghost x1 on the revived
+        # primary while its peers lacked it), serving rewound state as
+        # live depending on who answered the read
+        metas = []
+        for osd in (primary, victim, witness):
+            pg = c.osds[osd].pgs.get(pgid)
+            if pg is None:
+                continue
+            for s in range(3):
+                attrs, _om = pg.backend.shard_meta(oid, s)
+                if attrs:
+                    metas.append({k: v for k, v in attrs.items()
+                                  if k not in ("hinfo", "_av")})
+        assert metas and all(mm == metas[0] for mm in metas), (
+            f"shard user-attrs diverged after recovery: {metas}")
+    finally:
+        fp.disarm_all()
+        cl.shutdown()
+        c.shutdown()
+
+
+def test_degraded_commit_acks_only_after_witness_persists():
+    """The fix's liveness + mechanism: same degraded commit, notes NOT
+    dropped — the client ack arrives (gated, bounded) and the acked
+    state then survives the primary's death because the witness
+    persisted the watermark before the ack fired."""
+    c = MiniCluster()
+    cl = LibClient(c)
+    c.ctx.conf.set_val("osd_client_write_timeout", 2.0)
+    c.ctx.conf.set_val("osd_recovery_push_timeout", 2.0)
+    try:
+        oid, pgid, primary, victim, witness = _ec_target(c)
+
+        io = cl.rc.ioctx(EC_POOL)
+        io.write_full(oid, b"payload-b" * 9)
+
+        fp.arm("msg.frame.deliver", fp.DROP_ACTION,
+               match={"mtype": "MPGPush"})
+        fp.arm("backend.subwrite.fanout", fp.DROP_ACTION,
+               match={"peer": str(victim)})
+
+        box = []
+        th = _setxattr_async(cl, oid, "x1", b"gated-ack", 10.0, box)
+        deadline = time.monotonic() + 5.0
+        while (fp.fired("backend.subwrite.fanout") < 1
+               and time.monotonic() < deadline):
+            time.sleep(0.01)
+        c.kill(victim)
+        th.join(8.0)
+        assert box and box[0], (
+            "degraded commit never acked: durable-ack gate wedged")
+
+        # witness persisted the watermark before that ack — verify
+        wpg = c.osds[witness].pgs[pgid]
+        from ceph_tpu_torch.osd.types import EVersion
+        assert wpg.info.committed_to > EVersion(), (
+            "ack fired without a durable witness")
+
+        c.revive(victim)
+        c.kill(primary)
+        c.activate()
+        fp.disarm_all()
+        c.revive(primary)
+        c.activate()
+        # the acked xattr survived the primary's death
+        assert io.getxattr(oid, "x1") == b"gated-ack"
+        assert io.read(oid).rstrip(b"\0") == b"payload-b" * 9
+    finally:
+        fp.disarm_all()
+        cl.shutdown()
+        c.shutdown()

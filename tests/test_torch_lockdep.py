@@ -1,10 +1,12 @@
 """The port's lockdep (``ceph_tpu_torch/core/lockdep.py``), case for case
 against ``tests/test_lockdep.py``.
 
-Two reference cases wait: ``test_cluster_runs_clean_under_lockdep``
-needs the MiniCluster (slice 1j), and
-``test_runtime_edges_subset_of_static_graph`` needs a static lock model
-of the port (queue 1 item 7).  The port's lockdep is its own module,
+``test_cluster_runs_clean_under_lockdep`` runs on the port's cluster,
+``torch_daemon_harness.DaemonCluster("ceph_tpu_torch")`` (six port
+daemons, ``device="cpu"``), through the port's client, with the port's
+lockdep on before any lock is made.
+``test_runtime_edges_subset_of_static_graph`` waits: it needs a static
+lock model of the port (queue 1 item 7).  The port's lockdep is its own module,
 so arming it leaves the reference's untouched, and the reverse.
 """
 
@@ -13,6 +15,7 @@ import threading
 
 import pytest
 
+import torch_daemon_harness as H
 from ceph_tpu_torch.core import lockdep
 from ceph_tpu_torch.core.lockdep import DMutex, LockOrderError, make_lock
 
@@ -147,3 +150,26 @@ def test_condition_over_a_checked_lock_keeps_the_held_stack():
         with stats:
             with pool:
                 pass
+
+
+def test_cluster_runs_clean_under_lockdep():
+    """``test_lockdep.py:97``: the write, read and failover paths of the
+    port's cluster and client take their locks in one order, lockdep
+    on from end to end."""
+    REP_POOL, EC_POOL = H.REP_POOL, H.EC_POOL
+    c = H.DaemonCluster("ceph_tpu_torch", device="cpu")
+    cl = H.LibClient(c)
+    try:
+        cl.put(REP_POOL, "ld1", b"x" * 2000)
+        assert cl.get(REP_POOL, "ld1") == b"x" * 2000
+        cl.put(EC_POOL, "ld2", b"y" * 4096)
+        assert cl.get(EC_POOL, "ld2") == b"y" * 4096
+        _, acting, primary = c.primary_of(REP_POOL, "ld1")
+        victim = next(o for o in acting if o != primary)
+        c.kill(victim)
+        cl.put(REP_POOL, "ld1", b"z" * 100)
+        c.revive(victim)
+        assert cl.get(REP_POOL, "ld1") == b"z" * 100
+    finally:
+        cl.shutdown()
+        c.shutdown()

@@ -35,7 +35,7 @@ from ceph_tpu_torch.store.memstore import MemStore
 
 N_MONS = 3
 N_OSDS = 5
-PG_NUM = 4  # the reference's 8 halved: each daemon walks each PG's rule
+PG_NUM = 8  # the reference's pools (test_mon_cluster.py)
 
 
 def free_ports(n):

@@ -3,8 +3,11 @@ histogram math of ``core/perf.py``, case for case against the unit
 cases of ``tests/test_optracker.py``, and the histogram functions
 bit-equal to the reference's on seeded histograms.
 
-Three reference cases wait: the slow-op ring on the MiniCluster (slice
-1j), the mgr ops merge (queue 1 item 6) and cephtop (item 6).
+The slow-op ring and the dump commands over the admin socket run on the
+port's cluster, ``torch_daemon_harness.DaemonCluster("ceph_tpu_torch")``
+(six port daemons, ``device="cpu"``), through the port's client.  Two
+reference cases wait: the mgr ops merge (queue 1 item 6) and cephtop
+(item 6).
 """
 
 import threading
@@ -13,6 +16,7 @@ import time
 import numpy as np
 import pytest
 
+import torch_daemon_harness as H
 from ceph_tpu.core import perf as ref_perf
 from ceph_tpu_torch.core import perf
 from ceph_tpu_torch.core.optracker import LEAKS, OpTracker, declare_op_hists
@@ -262,3 +266,76 @@ def test_perf_collection_and_snapshot_ring_equal_the_reference():
         out.append((coll.dump(), ring.rate("n", 3.0), ring.delta("n", 3.0),
                     ring.latest("n"), ring.rate("n", 3.0, now=10.0)))
     assert out[0] == out[1]
+
+
+# -- cluster integration ------------------------------------------------------
+
+def test_slow_ring_and_dump_commands_on_minicluster(tmp_path):
+    """The acceptance shape: a write artificially slowed through an
+    existing failpoint lands in dump_historic_slow_ops with its full
+    stage timeline, retrieved over the REAL admin socket; the
+    complaint time is conf-driven at runtime."""
+    from ceph_tpu_torch.core import failpoint as fp
+    from ceph_tpu_torch.core.admin_socket import admin_command
+
+    sock = str(tmp_path / "admin.sock")
+    c = H.DaemonCluster("ceph_tpu_torch", overrides={"admin_socket": sock},
+                        device="cpu")
+    cl = H.LibClient(c)
+    try:
+        io = cl.rc.ioctx(H.EC_POOL)
+        io.write_full("warm", b"w" * 1024)  # pools active, obc warm
+        # runtime conf drives the ring: every op now counts as slow
+        c.ctx.conf.set_val("osd_op_complaint_time", 0.01)
+        for o in c.osds.values():
+            assert o.op_tracker.slow_op_threshold == 0.01
+        # artificially slow the sub-write fan-out (existing failpoint,
+        # fires on the fan-out executor — never the messenger loop);
+        # sleep returns None, so nothing is dropped, just delayed
+        fp.arm("backend.subwrite.fanout", fp.sleep_ms(25))
+        try:
+            io.write_full("slowme", b"s" * 2048)
+        finally:
+            fp.disarm("backend.subwrite.fanout")
+        pgid, _acting, primary = c.primary_of(H.EC_POOL, "slowme")
+        # over the admin socket, per-daemon prefixed like `ceph daemon`
+        d = admin_command(sock, f"osd.{primary} dump_historic_slow_ops")
+        ops = [o for o in d["ops"] if "slowme" in o["description"]]
+        assert ops, d
+        events = [e["event"] for e in ops[-1]["events"]]
+        for stage in ("initiated", "queued_for_pg", "reached_pg",
+                      "admitted", "submitted", "commit", "commit_sent"):
+            assert any(ev.split(" ")[0] == stage for ev in events), (
+                stage, events)
+        # ordering follows the pipeline
+        idx = {ev.split(" ")[0]: i for i, ev in enumerate(events)}
+        assert (idx["initiated"] < idx["queued_for_pg"]
+                < idx["reached_pg"] < idx["admitted"]
+                < idx["submitted"] < idx["commit"] < idx["commit_sent"])
+        # in-flight dump answers too (likely empty now, shape check)
+        infl = admin_command(sock, f"osd.{primary} dump_ops_in_flight")
+        assert "num_ops" in infl and "ops" in infl
+        # per-stage histograms appear in perf dump
+        perf = admin_command(sock, "perf dump")
+        opset = perf[f"osd.{primary}.op"]
+        assert opset["lat_commit_wait_us"]["count"] >= 1
+        assert opset["lat_reply_us"]["count"] >= 1
+        # the injected per-peer sleeps (2 peers x 25ms, sequential in
+        # the fan-out loop) land in the encode/fan-out stage
+        assert hist_quantile(opset["lat_encode_fanout_us"],
+                             0.99) >= 40_000
+        # reads conclude with their OWN terminal stage: read_sent ->
+        # lat_read_us; whole read service times must never inflate
+        # lat_reply_us (which for writes is reply-send only)
+        assert io.read("slowme") == b"s" * 2048
+        hist = admin_command(sock, f"osd.{primary} dump_historic_ops")
+        reads = [o for o in hist["ops"]
+                 if "slowme" in o["description"]
+                 and any(e["event"].split(" ")[0] == "read_sent"
+                         for e in o["events"])]
+        assert reads, hist
+        perf2 = admin_command(sock, "perf dump")
+        assert perf2[f"osd.{primary}.op"]["lat_read_us"]["count"] >= 1
+    finally:
+        cl.shutdown()
+        c.shutdown()

@@ -349,6 +349,14 @@ def test_importing_the_port_loads_neither_jax_nor_the_reference():
             "assert 'ceph_tpu_torch.osd.mclock' in sys.modules\n"
             "assert 'ceph_tpu_torch.mon.client' in sys.modules\n"
             "assert 'ceph_tpu_torch.mon.monitor' in sys.modules\n"
+            "for m in ('__init__', 'objecter', 'rados', 'striper', "
+            "'cache_tier'):\n"
+            "    assert ('ceph_tpu_torch.client.' + m).removesuffix("
+            "'.__init__') in sys.modules, m\n"
+            "from ceph_tpu_torch.client import (IoCtx, Objecter, "
+            "RadosClient, RadosError)\n"
+            "from ceph_tpu_torch.client.striper import RadosStriper\n"
+            "from ceph_tpu_torch.client.cache_tier import CacheTier\n"
             "from ceph_tpu_torch.osd.daemon import OSDService\n"
             "from ceph_tpu_torch.mon import MonClient, MonMap\n"
             "from ceph_tpu_torch.gpu.shapebucket import DeviceWarmup\n"
@@ -401,6 +409,7 @@ def test_no_device_without_cuda_raises(monkeypatch):
     from ceph_tpu_torch.gpu.shapebucket import DeviceWarmup
     from ceph_tpu_torch.mon import MonClient, MonMap
     from ceph_tpu_torch.osd.daemon import OSDService
+    from ceph_tpu_torch.client import RadosClient
     from ceph_tpu_torch.store.memstore import MemStore
     from ceph_tpu_torch.store.objectstore import Collection
     from ceph_tpu_torch.tools import crushtool, osdmaptool
@@ -442,9 +451,16 @@ def test_no_device_without_cuda_raises(monkeypatch):
                  lambda: OSDService(Context("osd.0"), 0, MemStore(),
                                     cpu_map, codec_from_profile),
                  lambda: DeviceWarmup(),
-                 lambda: _monclient_takes_a_map(MonClient, MonMap, cpu_map)):
+                 lambda: _monclient_takes_a_map(MonClient, MonMap, cpu_map),
+                 lambda: RadosClient(),
+                 lambda: RadosClient(Context("client.9"))):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
+    # the client raised before its messenger or its objecter's ticker
+    # started a thread
+    names = {t.name for t in threading.enumerate()}
+    assert not any(n.startswith(("msgr-client", "objecter"))
+                   for n in names), names
     # naming the CPU is the one way to run there; the host-side
     # modules of the PG (its hit sets and scrub stamps) need no device
     assert codec_from_profile(PROFILE, device="cpu").device.type == "cpu"

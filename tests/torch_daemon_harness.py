@@ -8,8 +8,17 @@ clay is not ported).  The port's daemons take ``device``.  The client is
 a raw messenger, ``client.4100``: ``op`` sends one ``MOSDOp`` to the
 object's acting primary and waits for its reply, and resends it (same
 tid and reqid) to the primary of the map of the moment while the answer
-is retryable (``EAGAIN``, ``ESTALE``), as the objecter does.  The
-objecter itself comes with the client slice of the port.
+is retryable (``EAGAIN``, ``ESTALE``), as the objecter does.
+
+``LibClient(cluster)`` is ``test_osd_cluster.py``'s ``LibClient``
+(``:123-155``) over the cluster's package: that package's
+``RadosClient`` (the port's on the cluster's device), ``inject_osdmap``ed
+and notified on every ``refresh`` through ``cluster.watchers``, as the
+reference's ``MiniCluster`` notifies its clients.  With ``pinned`` its
+objecter names its reqids ``client.<name>.0:<tid>`` instead of after the
+messenger's random nonce, and its objecter resends on a map change and
+on ``EAGAIN``/``ESTALE`` but not on its timer, so that two packages'
+runs log the same reqids and count the same ops.
 
 ``kill`` and ``revive`` are ``MiniCluster``'s: shut the daemon down and
 mark it down in the shared map, then a new ``OSDService`` on the old
@@ -78,6 +87,7 @@ class DaemonCluster:
         self.ctx = M.context.Context("osd.cluster", overrides)
         self.osdmap = map_fn(M, self.dev, n_osds)
         self.osds: Dict[int, object] = {}
+        self.watchers: List = []  # clients notified on every map refresh
         self._tid = 0
         self._replies: Dict[int, object] = {}
         self._cond = threading.Condition()
@@ -129,6 +139,8 @@ class DaemonCluster:
         for o in self.osds.values():
             if o.up:
                 o.handle_osdmap(self.osdmap, book)
+        for w in list(self.watchers):
+            w(book)
 
     def activate(self) -> None:
         for o in self.osds.values():
@@ -299,3 +311,50 @@ class DaemonCluster:
                      if k not in ("last_scrub", "last_deep_scrub")}
                     for row in o.dump_scrubs()["scrubs"]]
                 for i, o in sorted(self.osds.items()) if o.up}
+
+
+class LibClient:
+    """``test_osd_cluster.py``'s ``LibClient`` over ``cluster``'s package:
+    its ``RadosClient``, placed and resent by its objecter."""
+
+    def __init__(self, cluster: DaemonCluster, name: Optional[int] = None,
+                 pinned: bool = False) -> None:
+        M = cluster.M
+        rados = importlib.import_module(f"{cluster.pkg}.client.rados")
+        kw = dict(cluster.dev)
+        if name is not None:
+            kw["name"] = M.message.EntityName("client", name)
+        self.cluster = cluster
+        self.rc = rados.RadosClient(cluster.ctx, **kw)
+        if pinned:
+            self.rc.objecter._name = f"client.{name}.0"
+            # no timer resend: a read a loaded host slows past 1 s would
+            # run twice in one package's cluster and once in the other's
+            self.rc.objecter.resend_interval = WAIT_S
+        self.rc.inject_osdmap(cluster.osdmap, cluster.book())
+        cluster.watchers.append(self._notify)
+
+    def _notify(self, book: dict) -> None:
+        self.rc.objecter.handle_osdmap(self.cluster.osdmap, book)
+
+    def op(self, pool: int, oid: str, ops: List, timeout: float = 15.0):
+        return self.rc.ioctx(pool).operate(oid, ops, timeout=timeout)
+
+    def put(self, pool: int, oid: str, data: bytes):
+        t = self.cluster.M.t
+        return self.op(pool, oid, [t.OSDOp(t.OP_WRITEFULL, data=data)])
+
+    def get(self, pool: int, oid: str) -> bytes:
+        t = self.cluster.M.t
+        rep = self.op(pool, oid, [t.OSDOp(t.OP_READ)])
+        assert rep.result == 0, f"read failed: {rep.result}"
+        return rep.ops[0].out_data
+
+    def delete(self, pool: int, oid: str):
+        t = self.cluster.M.t
+        return self.op(pool, oid, [t.OSDOp(t.OP_DELETE)])
+
+    def shutdown(self) -> None:
+        if self._notify in self.cluster.watchers:
+            self.cluster.watchers.remove(self._notify)
+        self.rc.shutdown()
