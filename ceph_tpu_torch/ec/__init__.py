@@ -1,6 +1,6 @@
 """Erasure-code surface of the port: plugin registry, the RS, bit-matrix,
-shec and lrc codecs, and the constructors the rest of the system builds
-codecs with."""
+shec, lrc and clay codecs, and the constructors the rest of the system
+builds codecs with."""
 
 from __future__ import annotations
 

@@ -77,11 +77,18 @@ class ErasureCode:
     def get_sub_chunk_count(self) -> int:
         return 1
 
+    @property
+    def is_array(self) -> bool:
+        """Whether a chunk is an array of sub-chunks (clay): the one test
+        the queue, the backend, scrub and the warmup route an array
+        codec on (``crep``, ``cdec`` and the sub-chunk byte axis)."""
+        return self.get_sub_chunk_count() > 1
+
     def supports_partial_writes(self) -> bool:
         """Whether a parity byte depends only on the same byte offset of
         each data chunk, so a chunk extent can be re-encoded alone (the
         partial-stripe RMW precondition, interface.py:85)."""
-        return self.get_sub_chunk_count() == 1
+        return not self.is_array
 
     def get_alignment(self) -> int:
         return SIMD_ALIGN

@@ -1,9 +1,10 @@
 """StripeBatchQueue — coalesce concurrent EC encodes and decodes into
 one device batch.
 
-Port of ``ceph_tpu/tpu/queue.py`` for the flat codecs (RS and the GF(2)
-bit-matrix techniques), kinds ``enc`` (coding planes), ``encp`` (coding
-planes + per-shard CRC-32C) and ``dec`` (data planes rebuilt from k
+Port of ``ceph_tpu/tpu/queue.py`` (all but the mesh path).  For the
+flat codecs (RS and the GF(2) bit-matrix techniques), kinds ``enc``
+(coding planes), ``encp`` (coding planes + per-shard CRC-32C) and
+``dec`` (data planes rebuilt from k
 survivors, for codecs whose recovery is one MDS matrix product: the RS
 codecs; a bit-matrix code or shec decodes through ``codec.decode``).
 Submit refuses what a batch cannot run, with a ``TypeError``: ``dec``
@@ -53,10 +54,26 @@ overlapped that build gets the ``compile_wait`` annotation and the
 ``lat_compile_wait_us`` sample of its tracker.  With no build in the
 window this costs one comparison per batch.
 
+An array codec (clay: ``codec.is_array``, sub-chunks) takes the clay
+kinds: ``crep`` (``clay_repair_async``: a single lost shard from its
+d helpers' repair layers, [d*L, s] rows of sub-chunks) and ``cdec``
+(``clay_decode_async``: the k data chunks from every survivor, [A*Z, s]
+rows), and ``enc``/``encp`` as the flat codecs.  Their jobs lie side by
+side along the INTRA-sub-chunk byte axis s, not the raw columns
+(queue.py:332-343): the coupled-layer steps are elementwise over s, and
+a raw concatenation would let the layer axis take a neighbour's bytes.
+The batch's s is covering-padded (``shapebucket.covering``), laid out
+on the device as [rows, Z or 1, s_pad], and the codec runs once over it
+(``encode_planes``, ``repair_planes``, ``decode_planes``).  For
+``encp`` each job's chunk rows are then gathered on the device into one
+[k+m, sum of widths] batch in their own layout, and one CRC launch
+reads them there (the reference rebuilds that layout on the host,
+queue.py:392-409).
+
 ``default_queue(device)`` is the process's queue for one resolved
 device (queue.py:581): the CPU's and the card's never mix, and every
-one is stopped at interpreter exit.  (The clay kinds ``cdec`` and
-``crep`` and the mesh path come with later slices.)
+one is stopped at interpreter exit.  (The mesh path comes with a later
+slice.)
 """
 
 from __future__ import annotations
@@ -97,8 +114,9 @@ class _Job:
         self.planes = planes        # rows x width host uint8 (2-D or list)
         self.rows = len(planes)
         self.width = int(len(planes[0])) if self.rows else 0
-        self.kind = kind            # "enc" | "encp" | "dec"
-        self.sig = sig              # dec: survivor ids
+        self.kind = kind            # "enc" | "encp" | "dec" | "crep" | "cdec"
+        self.sig = sig              # dec/cdec: survivor ids;
+        #                             crep: (lost, *helpers)
         self.size = size or self.rows * self.width  # real payload bytes
         self.t_enq = time.monotonic()
         self.trop = trop            # the client op (TrackedOp), for blame
@@ -240,6 +258,44 @@ class StripeBatchQueue:
     def decode_data(self, codec, available) -> np.ndarray:
         return self.decode_data_async(codec, available).result()
 
+    @staticmethod
+    def _check_array(codec) -> int:
+        if not codec.is_array:
+            raise TypeError(f"{type(codec).__name__} is not an array "
+                            "codec (no sub-chunks)")
+        return int(codec.get_sub_chunk_count())
+
+    def clay_repair_async(self, codec, lost: int, helpers,
+                          planes: np.ndarray, trop=None) -> Future:
+        """Layers-only helper planes [d, L, s] -> Future of the rebuilt
+        chunk bytes [Z*s] (row order = helpers, layer order =
+        ``codec.repair_layers(lost)``).  Repairs of the same lost shard
+        from the same helpers coalesce along s into one repair."""
+        self._check_array(codec)
+        planes = np.ascontiguousarray(planes, dtype=np.uint8)
+        d, L, s = planes.shape
+        return self._submit(_Job(
+            codec, planes.reshape(d * L, s), "crep",
+            sig=(int(lost),) + tuple(int(h) for h in helpers), trop=trop))
+
+    def clay_repair(self, codec, lost: int, helpers,
+                    planes: np.ndarray) -> np.ndarray:
+        return self.clay_repair_async(codec, lost, helpers,
+                                      planes).result()
+
+    def clay_decode_async(self, codec, available: Dict[int, np.ndarray],
+                          trop=None) -> Future:
+        """Survivor chunks {shard: [n]} -> Future of data planes [k, n]
+        for an array codec.  Every survivor is kept (with d of them the
+        codec repairs a single lost chunk from its repair layers), and
+        jobs sharing the survivor signature coalesce along s."""
+        Z = self._check_array(codec)
+        sig = tuple(sorted(available))
+        rows = [np.ascontiguousarray(available[i], dtype=np.uint8)
+                .reshape(Z, -1) for i in sig]
+        return self._submit(_Job(codec, np.concatenate(rows), "cdec",
+                                 sig=sig, trop=trop))
+
     # -- worker -----------------------------------------------------------
     def _worker(self) -> None:
         stream = None
@@ -316,7 +372,7 @@ class StripeBatchQueue:
         self.batches += 1
         self.jobs += len(batch)
         self.batch_jobs[len(batch)] = self.batch_jobs.get(len(batch), 0) + 1
-        if kind == "dec":
+        if kind in ("dec", "cdec", "crep"):
             self.dec_batch_jobs[len(batch)] = (
                 self.dec_batch_jobs.get(len(batch), 0) + 1)
         self.bytes_in += sum(j.rows * j.width for j in batch)
@@ -380,6 +436,8 @@ class StripeBatchQueue:
     def _device_batch(self, batch: List[_Job]) -> list:
         kind = batch[0].kind
         codec = batch[0].codec
+        if codec.is_array:
+            return self._array_batch(batch)
         rows = batch[0].rows
         widths = [j.width for j in batch]
         total = sum(widths)
@@ -408,6 +466,73 @@ class StripeBatchQueue:
             outs = [coding[:, o:o + w] for o, w in zip(offs, widths)]
             if crcs is None:
                 return outs
+            return [(c, crcs[i]) for i, c in enumerate(outs)]
+        finally:
+            if self.device.type == "cuda":
+                torch.cuda.current_stream(self.device).synchronize()
+            self._upload_pool.release(slot)
+
+
+    def _array_batch(self, batch: List[_Job]) -> list:
+        """An array codec's batch (queue.py:332-410): the jobs' planes
+        side by side along the sub-chunk byte axis of one [rows, per_row,
+        s_pad] device tensor (per_row = Z for enc/encp, whose planes are
+        [k, Z*s]; 1 for crep/cdec, whose rows already are sub-chunks),
+        s_pad the covering bucket of the summed s; one codec call; each
+        job's bytes taken back out of the one download."""
+        kind = batch[0].kind
+        codec = batch[0].codec
+        Z = int(codec.get_sub_chunk_count())
+        rows = batch[0].rows
+        per_row = Z if kind in ("enc", "encp") else 1
+        svec = [j.width // per_row for j in batch]
+        offs = np.cumsum([0] + svec[:-1]).astype(np.int64)
+        s_pad = shapebucket.covering(sum(svec), 1)
+        slot = self._upload_pool.acquire(sum(j.rows * j.width
+                                             for j in batch))
+        try:
+            flat = self._upload(batch, slot)
+            extra = codec.m if kind in ("enc", "encp") else 0
+            full = torch.empty((rows + extra, per_row, s_pad),
+                               dtype=torch.uint8, device=self.device)
+            x = full[:rows]
+            fo = 0
+            for o, s in zip(offs, svec):
+                n = rows * per_row * s
+                x[:, :, o:o + s] = flat[fo:fo + n].view(rows, per_row, s)
+                fo += n
+            if sum(svec) < s_pad:
+                x[:, :, sum(svec):].zero_()
+            if kind == "crep":
+                lost, helpers = batch[0].sig[0], list(batch[0].sig[1:])
+                out = codec.repair_planes(
+                    lost, helpers, x.view(len(helpers), -1, s_pad))
+                host = out.cpu().numpy()
+                return [np.ascontiguousarray(host[:, o:o + s]).reshape(-1)
+                        for o, s in zip(offs, svec)]
+            if kind == "cdec":
+                data = codec.decode_planes(list(batch[0].sig),
+                                           x.view(-1, Z * s_pad))
+                host = data.cpu().numpy().reshape(codec.k, Z, s_pad)
+                return [np.ascontiguousarray(host[:, :, o:o + s]).reshape(
+                    codec.k, -1) for o, s in zip(offs, svec)]
+            codec.encode_planes(x.view(rows, Z * s_pad),
+                                out=full[rows:].view(extra, Z * s_pad))
+            host = full[rows:].cpu().numpy()
+            outs = [np.ascontiguousarray(host[:, :, o:o + s]).reshape(
+                extra, -1) for o, s in zip(offs, svec)]
+            if kind == "enc":
+                return outs
+            # each job's k+m chunks in their own layout, side by side
+            widths = [j.width for j in batch]
+            lay = torch.empty((rows + extra, sum(widths)),
+                              dtype=torch.uint8, device=self.device)
+            bo = 0
+            for o, s, w in zip(offs, svec, widths):
+                lay[:, bo:bo + w].view(rows + extra, Z, s).copy_(
+                    full[:, :, o:o + s])
+                bo += w
+            crcs = crc32c_rows(lay, np.cumsum([0] + widths[:-1]), widths)
             return [(c, crcs[i]) for i, c in enumerate(outs)]
         finally:
             if self.device.type == "cuda":

@@ -15,12 +15,14 @@ and launched at any shape without a recompile.  What carries over:
   the card sees stay few;
 - the declarations (:class:`BucketSpec`, :func:`declare`,
   :func:`sig_declared`) for the port's families: the queue's kinds
-  ``enc``, ``encp`` and ``dec``, the row CRC ``crc32c_rows`` and the
-  CRUSH rule walk ``crush_rule``;
+  ``enc``, ``encp``, ``dec``, ``crep`` and ``cdec``, K1 inside clay
+  ``gf256_clay``, the row CRC ``crc32c_rows`` and the CRUSH rule walk
+  ``crush_rule``;
 - :class:`DeviceWarmup`: on the card, "warm" means the one kernel build
   plus a first launch of each declared bucket, so the first client op
   pays neither.  Each plan item is one launch: K1 through the codec's
-  ``encode_planes`` (``enc``) and the recovery product (``dec``), the
+  ``encode_planes`` (``enc``) and the recovery product (``dec``), or
+  for clay its ``repair_planes`` and ``decode_planes``, the
   CRC kernel through ``crc32c_rows``, and K6 through ``OSDMap.map_pgs``
   (one launch a pool).
 
@@ -154,6 +156,18 @@ declare("encp",
 declare("dec",
         note="queue kind dec: K1 with the signature's k x k recovery "
              "matrix over survivor planes u8[k, P], P covering-padded")
+declare("crep",
+        note="queue kind crep (clay): the codec's repair_planes over "
+             "helper planes u8[d, L, s], the jobs side by side along s, "
+             "s covering-padded; d, L are code geometry")
+declare("cdec",
+        note="queue kind cdec (clay): the codec's decode_planes over "
+             "survivor chunks u8[A, Z*s], s covering-padded")
+declare("gf256_clay",
+        note="K1 inside clay: 1x2 pair transforms, the m x kk coding "
+             "product and q x kk solves over u8[2 or kk, P*s] or "
+             "[kk, L*s]; P and L are grid constants, s the queue's "
+             "covering-padded per-sub-chunk width")
 declare("crc32c_rows",
         note="(J, S) rows at column offsets of a u8[S, P] batch, P the "
              "queue's covering bucket; S = k+m shards")
@@ -291,7 +305,7 @@ class DeviceWarmup:
         codec = self._codec_now()
         if codec is None:
             return False
-        w = covering(cols)
+        w = covering(cols, codec.get_sub_chunk_count())
         if not hasattr(codec, "encode_planes"):
             # lrc encodes through encode_array (its chunk mapping)
             codec.encode_array(torch.zeros((codec.k, w),
@@ -306,6 +320,20 @@ class DeviceWarmup:
         codec = self._codec_now()
         if codec is None:
             return False
+        if codec.is_array:
+            # array codec (clay): the queue's crep and cdec at its
+            # covering width, one lost shard and the first m lost
+            gran = codec.get_sub_chunk_count()
+            n = codec.k + codec.m
+            s = covering(cols, gran) // gran
+            L = len(codec.repair_layers(0))
+            codec.repair_planes(0, list(range(1, codec.d + 1)), torch.zeros(
+                (codec.d, L, s), dtype=torch.uint8, device=codec.device))
+            avail = list(range(codec.m, n))
+            codec.decode_planes(avail, torch.zeros(
+                (len(avail), gran * s), dtype=torch.uint8,
+                device=codec.device))
+            return True
         if not getattr(codec, "mds_recovery", False):
             return True  # no recovery product on the queue to warm
         from ceph_tpu_torch.ops import gf256

@@ -17,8 +17,12 @@ reference's.  What the port does its own way:
   (the reference sends every codec to the queue, and the port's queue
   refuses lrc: ROADMAP R4), and its shards follow its chunk mapping
   (``data_ids``);
-- clay, the one codec with sub-chunks, waits for ROADMAP item 2: its
-  routes raise ``NotImplementedError``.
+- clay, the one codec with sub-chunks (an array codec), pads its planes
+  to whole sub-chunks, writes through the queue's ``encp`` kind laid
+  along the sub-chunk byte axis, degraded-reads through ``cdec`` and
+  repairs one lost shard from its helpers' repair layers through
+  ``crep`` (``repair_chunk_async``); ``assemble_range`` refuses its
+  extents (a chunk extent has no sub-chunk structure).
 
 On the device write path the queue's ``encp`` batch computes the coding
 planes and every shard's CRC-32C together, each shard's ``hinfo`` takes
@@ -78,9 +82,6 @@ from ceph_tpu_torch.gpu.queue import default_queue
 from ceph_tpu_torch.gpu.staging import DeviceBuf
 
 CRUSH_ITEM_NONE = 0x7FFFFFFF
-
-_CLAY_WAITS = ("codecs with sub-chunks (clay) wait for ROADMAP item 2 of "
-               "the port")
 
 # Local-read verdicts (read_local_chunk2 / read_local_chunk_extent2).
 # ECRC (EILSEQ) distinguishes "the bytes are HERE but failed at-rest
@@ -607,8 +608,6 @@ class ECBackend(PGBackend):
 
     def __init__(self, pgid, coll, store, whoami, osd_send, epoch_fn,
                  codec) -> None:
-        if codec.get_sub_chunk_count() != 1:
-            raise NotImplementedError(_CLAY_WAITS)
         super().__init__(pgid, coll, store, whoami, osd_send, epoch_fn)
         self.codec = codec
         # the codec's device picks the queue: "cpu" runs the plain
@@ -656,7 +655,14 @@ class ECBackend(PGBackend):
         single sanctioned upload, not a crossing)."""
         if isinstance(data, DeviceBuf):
             data = data.np1d()
-        planes, _ = self._interleave(data)
+        planes, S = self._interleave(data)
+        cols = S * self.unit
+        # array codecs (clay) need columns divisible by sub_chunk_count
+        D = self.codec.get_sub_chunk_count()
+        if cols % D:
+            planes = np.concatenate(
+                [planes,
+                 np.zeros((self.k, D - cols % D), dtype=np.uint8)], axis=1)
         return planes
 
     @property
@@ -1285,15 +1291,17 @@ class ECBackend(PGBackend):
             spawn(assemble)
             return
         self._note_decode_job()
-        if hasattr(self.codec, "decode_planes"):
-            # array codec (clay): the reference's clay_decode_async
-            raise NotImplementedError(_CLAY_WAITS)
-        if not getattr(self.codec, "mds_recovery", False):
+        if self.codec.is_array:
+            # array codec (clay): the batched coupled-layer decode kind,
+            # coalesced by survivor signature like dec
+            fut = self.queue.clay_decode_async(self.codec, arrs)
+        elif getattr(self.codec, "mds_recovery", False):
+            fut = self.queue.decode_data_async(self.codec, arrs)
+        else:
             # no single recovery matrix (a bit-matrix code, shec): the
             # codec's own decode, off the caller's thread
             spawn(lambda: done(self.reconstruct(oid, avail, meta)))
             return
-        fut = self.queue.decode_data_async(self.codec, arrs)
 
         def finish(f) -> None:
             def complete() -> None:
@@ -1315,9 +1323,46 @@ class ECBackend(PGBackend):
     def repair_chunk_async(self, oid: str, lost: int,
                            layers: Dict[int, bytes],
                            done: Callable[[Optional[bytes]], None]) -> None:
-        """Clay single-shard repair from layers-only helper bytes (the
-        reference's ``crep`` queue kind)."""
-        raise NotImplementedError(_CLAY_WAITS)
+        """Clay single-shard repair from layers-only helper bytes: each
+        ``layers[h]`` holds helper h's repair-layer sub-chunks
+        concatenated in layer order (the sub-chunk read plan's wire
+        payload, d/(k*q) of a whole-chunk gather).  Rides the queue's
+        ``crep`` kind, so concurrent repairs sharing a (lost, helpers)
+        signature coalesce into one batched repair; `done(chunk_bytes)`
+        runs on a fresh thread like reconstruct_async's completions."""
+        def spawn(fn) -> None:
+            threading.Thread(target=fn, daemon=True,
+                             name="ec-repair-done").start()
+
+        codec = self.codec
+        helpers = sorted(layers)
+        L = len(codec.repair_layers(lost))
+        width = len(layers[helpers[0]]) if helpers else 0
+        if (L == 0 or width == 0 or width % L
+                or any(len(layers[h]) != width for h in helpers)):
+            spawn(lambda: done(None))
+            return
+        s = width // L
+        planes = np.stack([
+            np.frombuffer(layers[h], dtype=np.uint8).reshape(L, s)
+            for h in helpers])
+        self._note_decode_job()
+        fut = self.queue.clay_repair_async(codec, lost, helpers, planes)
+
+        def finish(f) -> None:
+            def complete() -> None:
+                try:
+                    out = np.asarray(f.result())
+                except Exception as e:  # noqa: BLE001 — device/codec
+                    self.log(0, f"pg {self.pgid}: clay repair of {oid} "
+                                f"shard {lost} failed: {e!r}")
+                    done(None)
+                    return
+                done(out.tobytes())
+
+            spawn(complete)
+
+        fut.add_done_callback(finish)
 
     def object_names(self) -> List[str]:
         return sorted({o.name for o in self.store.collection_list(self.coll)
@@ -1334,6 +1379,13 @@ class ECBackend(PGBackend):
         data_ids = self.data_ids
         if not all(i in arrs for i in data_ids):
             if len(arrs) < self.k:
+                return None
+            if self.codec.is_array:
+                # array codecs (clay): a chunk EXTENT has no standalone
+                # sub-chunk structure, so survivors' extents cannot be
+                # decoded; the caller falls back to the whole-chunk
+                # reconstruct (unreachable while clay answers
+                # supports_partial_writes() False)
                 return None
             if getattr(self.codec, "mds_recovery", False):
                 # batched recovery matmul: concurrent degraded reads

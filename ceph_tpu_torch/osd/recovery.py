@@ -3,16 +3,17 @@
 Port of ``ceph_tpu/osd/recovery.py``: the same gather, the same rounds
 and the same messages, over the port's backend, whose
 ``reconstruct_async`` rides the queue's ``dec`` kind (K1 on the card)
-for the RS codecs.  The engine runs over any PG that has the
+for the RS codecs and ``cdec`` for clay.  The engine runs over any PG that has the
 attributes it reads (``lock``, ``pgid``, ``coll``, ``acting``,
 ``prior_acting``, ``missing``, ``unfound``, ``log``, ``backend``,
 ``osd``, ``stale_peers``, ``_obc_invalidate``, ``_av_for``,
 ``note_recovery_io``, ``_note_read_verify_fail``), and of ``pg.osd``:
 ``send_to_osd``, ``track_reads``/``untrack_reads``, ``epoch``,
 ``osdmap``, ``addr_book``, ``store``, ``ctx``, ``perf`` and ``_log``.
-The sub-chunk repair plan is the reference's, and stays unused until
-clay is ported (ROADMAP item 2): the port's backend refuses a codec
-with sub-chunks.
+The sub-chunk repair plan is the reference's: a clay PG missing one
+shard of an object reads only the repair layers of d helpers and
+rebuilds it through the backend's ``repair_chunk_async`` (the queue's
+``crep`` kind).
 
 Reference seams: the async-recovery window of PrimaryLogPG
 (osd_recovery_max_active over AsyncReserver slots), recover-on-read

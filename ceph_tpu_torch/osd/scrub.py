@@ -45,16 +45,15 @@ of the mClock scheduler.  The shape kept here:
   ``pg.scrub_errors`` (the PG_DAMAGED feed).
 
 Port of ``ceph_tpu/osd/scrub.py``: the same walk, messages, omap rows,
-log lines and counters, with three differences, each named where it
+log lines and counters, with two differences, each named where it
 sits:
 
 (a) a chunk's decode rides the queue's ``dec`` kind when the codec has
     ``mds_recovery`` (the port's routing rule, as in
     ``ECBackend.reconstruct_async``), not when it merely has a
-    ``recovery_matrix``: shec has one but no MDS recovery;
-(b) a codec with sub-chunks (clay) raises ``NotImplementedError`` with
-    the backend's ``_CLAY_WAITS``;
-(c) ``_admit_chunk`` and ``_yield_between_chunks`` keep their
+    ``recovery_matrix``: shec has one but no MDS recovery (an array
+    codec, clay, rides the queue's ``cdec`` kind, as in the reference);
+(b) ``_admit_chunk`` and ``_yield_between_chunks`` keep their
     ``getattr(osd, "wq"/"qos", None)`` seams: under the port's daemon
     (``osd/daemon.py``) each chunk is admitted through its workqueue
     under the ``scrub`` class and paced by its ``qos``; with no daemon
@@ -179,7 +178,7 @@ class ScrubEngine:
     def _yield_between_chunks(self, cost_units: float) -> None:
         """The scrub tenant's pacing: charge the chunk to the scrub
         class token bucket (class limit) and preempt — bounded wait —
-        while client IOPS read busy.  (c): no ``qos`` on the host, no
+        while client IOPS read busy.  (b): no ``qos`` on the host, no
         pacing."""
         qos = getattr(self.osd, "qos", None)
         if qos is None:
@@ -204,7 +203,7 @@ class ScrubEngine:
         """Run one chunk's verification THROUGH the daemon workqueue
         under the mclock scrub class (cost-tagged admission): dmClock
         decides when scrub reads go, clients never queue behind a
-        whole scrub — only behind one bounded chunk.  (c): without a
+        whole scrub — only behind one bounded chunk.  (b): without a
         daemon's ``wq`` and ``qos`` the chunk runs inline."""
         qos = getattr(self.osd, "qos", None)
         wq = getattr(self.osd, "wq", None)
@@ -508,20 +507,21 @@ class ScrubEngine:
                 widths = {len(avail[i]) for i in sig}
                 # (a) the queue's dec kind takes MDS codecs only
                 flat = bool(getattr(be.codec, "mds_recovery", False))
-                clay = hasattr(be.codec, "decode_planes")
+                clay = be.codec.is_array
                 if (queue is not None and len(widths) == 1
                         and (flat or clay)
                         and sig != tuple(range(k))):
                     arrs = {i: np.frombuffer(avail[i], dtype=np.uint8)
                             for i in sig}
                     be._note_decode_job()
-                    if not flat:
-                        # (b) the array codec's (clay's) batched
-                        # coupled-layer decode kind is not ported
-                        from ceph_tpu_torch.osd.backend import _CLAY_WAITS
-
-                        raise NotImplementedError(_CLAY_WAITS)
-                    fut = queue.decode_data_async(be.codec, arrs)
+                    if flat:
+                        fut = queue.decode_data_async(be.codec, arrs)
+                    else:
+                        # array codec (clay): the batched coupled-layer
+                        # decode kind; the parity-preferring k-survivor
+                        # signature makes it a true decode, and objects
+                        # sharing a signature coalesce into one pass
+                        fut = queue.clay_decode_async(be.codec, arrs)
             jobs.append((oid, avail, metas, errs, sig, fut))
         for oid, avail, metas, errs, sig, fut in jobs:
             bad = list(errs)

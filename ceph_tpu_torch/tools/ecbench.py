@@ -280,6 +280,7 @@ class _NullCodec:
     queue's machinery (staging, upload, assembly, download, futures)."""
 
     k, m = K, M
+    is_array = False
 
     def __init__(self) -> None:
         self.cols: list = []

@@ -287,6 +287,7 @@ exits non-zero before doing anything.
 
 from __future__ import annotations
 
+import dataclasses
 import itertools
 import json
 import re
@@ -1550,6 +1551,293 @@ class PhaseOSD:
         self._waits("unregister_notify")
 
 
+class PhaseDispatcher:
+    """The messenger's ``Dispatcher`` (``ceph_tpu_torch/msg/messenger.py``)
+    by duck type, so the script imports the port only once it runs: no
+    fast dispatch, nothing to do on a session reset."""
+
+    def ms_can_fast_dispatch(self, msg) -> bool:
+        return False
+
+    def ms_handle_reset(self, conn) -> None:
+        pass
+
+
+class PhasePeer(PhaseDispatcher):
+    """osd.N: a PG behind the daemon's replica routing
+    (daemon.py:1471-1488)."""
+
+    def __init__(self, rig: "PGRig", num: int) -> None:
+        from ceph_tpu_torch.store.memstore import MemStore
+
+        self.om = rig.om
+        self.store = MemStore()
+        self.store.mkfs()
+        self.store.mount()
+        self.host = PhaseOSD(rig.ctxs[num], num, self.store, rig.osdmap,
+                             WIRE_EPOCH)
+        self.pg = rig.new_pg(self.host)
+        self.srcs = []
+        self.busy = []  # seconds serving, one entry per message
+
+    def ms_dispatch(self, conn, msg) -> bool:
+        om = self.om
+        self.srcs.append(str(msg.src))
+        t0 = time.perf_counter()
+        if isinstance(msg, om.MECSubWriteVec):
+            self.pg.handle_sub_write_vec(msg, conn)
+        elif isinstance(msg, om.MECSubRead):
+            self.pg.handle_sub_read(msg, conn)
+        elif isinstance(msg, om.MECSubReadVec):
+            self.pg.handle_sub_read_vec(msg, conn)
+        elif isinstance(msg, om.MECCommitNote):
+            self.pg.handle_commit_note(msg, conn)
+        elif isinstance(msg, om.MScrub):
+            self.host.serve_scrub(self.pg, msg, conn)
+        elif isinstance(msg, om.MPGPush):
+            self.pg.handle_push(msg, conn)
+        elif isinstance(msg, om.MPGPull):
+            self.host.serve_pull(self.pg, msg, conn)
+        else:
+            return False
+        self.busy.append(time.perf_counter() - t0)
+        return True
+
+
+class PhasePrimary(PhaseDispatcher):
+    """osd.0: sub-write acks to the PG's backend and sub-read replies by
+    tid, inline (daemon.py:1251-1275); client ops to ``threads`` op
+    threads, which call ``pg.do_op`` (the daemon's op queue).  While
+    ``record`` is set it keeps every ``MECSubReadReply`` in ``reads``."""
+
+    def __init__(self, threads: int, om) -> None:
+        from concurrent.futures import ThreadPoolExecutor
+
+        self.om = om
+        self.pg = self.host = None
+        self.ops = ThreadPoolExecutor(threads, thread_name_prefix="osd0-op")
+        self.failed = []   # do_op exceptions
+        self.reads = []    # (oid, shard, src, result, data) replies
+        self.record = True
+        self.got = PhaseCounters()  # replies routed, by type
+
+    def ms_can_fast_dispatch(self, msg) -> bool:
+        return not isinstance(msg, self.om.MOSDOp)
+
+    def do_op(self, conn, msg) -> None:
+        tid = msg.tid
+        is_w = any(o.is_write() for o in msg.ops)
+
+        def reply(rep) -> None:
+            rep.tid = tid
+            # a reply carries each op's out data, not the write's
+            # payload (a staged one would come back from the card)
+            rep.ops = [dataclasses.replace(o, data=b"")
+                       if o.is_write() else o for o in rep.ops]
+            conn.send(rep)
+            if rep.result == 0:  # the PGStat feed, as the daemon's
+                self.pg.note_client_io(is_w, sum(
+                    len(o.data) or o.length for o in msg.ops
+                    if o.is_write()) if is_w else sum(
+                    len(o.out_data) for o in rep.ops))
+
+        try:
+            self.pg.do_op(msg, reply, conn=conn)
+        except Exception as e:  # noqa: BLE001 — the phase fails on it
+            self.failed.append((msg.oid, repr(e)))
+
+    def ms_dispatch(self, conn, msg) -> bool:
+        om = self.om
+        if isinstance(msg, om.MOSDOp):
+            self.ops.submit(self.do_op, conn, msg)
+            return True
+        if isinstance(msg, om.MECSubWriteVecReply):
+            self.pg.backend.handle_reply(msg.tid, msg.src.num)
+            return True
+        self.got.inc(type(msg).__name__)
+        if isinstance(msg, om.MECSubReadReply) and self.record:
+            self.reads.append((msg.oid, msg.shard, msg.src.num,
+                               msg.result, msg.data))
+        return self.host.route_reply(msg)
+
+
+class PhaseClient(PhaseDispatcher):
+    """client.4100: each ``MOSDOpReply`` to the op waiting on its tid."""
+
+    def __init__(self, om, pgid, tag: str) -> None:
+        self.om = om
+        self.pgid = pgid
+        self.tag = tag
+        self.cond = threading.Condition()
+        self.replies = {}
+
+    def ms_can_fast_dispatch(self, msg) -> bool:
+        return True
+
+    def ms_dispatch(self, conn, msg) -> bool:
+        if not isinstance(msg, self.om.MOSDOpReply):
+            return False
+        with self.cond:
+            self.replies[msg.tid] = msg
+            self.cond.notify_all()
+        return True
+
+    def call(self, conn, tid: int, oid: str, ops):
+        msg = self.om.MOSDOp(self.pgid, WIRE_EPOCH, oid, ops)
+        msg.tid = tid
+        msg.reqid = f"client.{WIRE_CLIENT}.0:{tid}"
+        conn.send(msg)
+        with self.cond:
+            require(self.cond.wait_for(lambda: tid in self.replies,
+                                       WIRE_WAIT_S),
+                    f"{self.tag}: a reply to {oid} (tid {tid})")
+            return self.replies.pop(tid)
+
+
+class PGRig:
+    """One PG over messengers on 127.0.0.1, the set-up ``run_wire`` and
+    ``run_clay`` share: the primary ``osd.0`` (``prim``, ``host0``,
+    ``pg``) and ``peers`` peers (``osd.1`` .., ``peer_d`` and
+    ``peer_m``), each a ``PG`` of ``pool`` and ``codec`` with the acting
+    set ``acting`` over its own MemStore and a ``PhaseOSD`` host behind a
+    messenger; cephx between the osds (a keyring, a CephxServer, the
+    primary's authorizer bound to the dialed address,
+    ``verify_authorizer`` with a seen-cache and the peer's own address,
+    each verdict in ``verdicts``); the primary ``STATE_ACTIVE`` (set as
+    ``_stub_pg`` of ``tests/test_recovery_pipeline.py`` sets it:
+    ``activate()``'s peer infos and pulls are the daemon's) on a queue of
+    its own for ``dev`` (``q``, in place of the process's default queue),
+    its staging pool configured to ``WIRE_SLOTS`` slots of ``obj_bytes``;
+    and ``client.4100``'s session to the primary (``client_d``,
+    ``cconn``).  ``close`` stops what it started; a set-up that fails
+    closes itself."""
+
+    def __init__(self, dev, *, pgid, pool, codec, acting, peers: int,
+                 threads: int, obj_bytes: int, tag: str) -> None:
+        from ceph_tpu_torch.auth import CephxClient, CephxServer, Keyring
+        from ceph_tpu_torch.core.context import Context
+        from ceph_tpu_torch.gpu.queue import StripeBatchQueue
+        from ceph_tpu_torch.msg.message import EntityName
+        from ceph_tpu_torch.msg.messenger import Messenger
+        from ceph_tpu_torch.osd import messages as om
+        from ceph_tpu_torch.osd import pg as opg
+        from ceph_tpu_torch.store.memstore import MemStore
+
+        self.pgid, self.pool, self.codec = pgid, pool, codec
+        self.acting = acting
+        self.om = om
+        self.osdmap = PhaseMap()
+        self.msgrs = []
+        self.prim = self.q = self.geometry = None
+        self.peer_d, self.peer_m = {}, {}
+        self.verdicts = {num: [] for num in range(1, peers + 1)}
+        kr = Keyring()
+        kr.add("service")
+        secret = kr.add("osd.0")
+        self.auth_server = CephxServer(kr)
+        cx = CephxClient("osd.0", secret)
+        ch = self.auth_server.get_challenge("osd.0")
+        cc = SEED.to_bytes(16, "little")
+        cx.accept_reply(*self.auth_server.handle_request(
+            "osd.0", cc, cx.make_proof(ch, cc)))
+        try:
+            self.names = [f"osd.{num}" for num in range(peers + 1)]
+            self.ctxs = [Context(name) for name in self.names]
+            self.primary = Messenger(self.ctxs[0], EntityName("osd", 0))
+            self.prim = PhasePrimary(threads, om)
+            self.primary.add_dispatcher(self.prim)
+            self.primary.set_auth(provider=cx.build_authorizer)
+            self.msgrs.append(self.primary)
+            for num in range(1, peers + 1):
+                self.peer_d[num] = PhasePeer(self, num)
+                self.start_peer(num)
+            self.primary.start()
+            require(all(mm.addr[0] == "127.0.0.1" for mm in self.msgrs),
+                    f"{tag}: every messenger binds 127.0.0.1")
+            store0 = MemStore()
+            store0.mkfs()
+            store0.mount()
+            self.host0 = self.prim.host = PhaseOSD(
+                self.ctxs[0], 0, store0, self.osdmap, WIRE_EPOCH)
+            for num, pm in self.peer_m.items():
+                self.host0.connect(num, self.primary.connect(pm.addr),
+                                   pm.addr)
+            self.pg = self.prim.pg = self.new_pg(self.host0)
+            with self.pg.lock:
+                self.pg.state = opg.STATE_ACTIVE
+            self.q = self.pg.backend.queue = StripeBatchQueue(device=dev)
+            self.geometry = (self.q.pool.slot_bytes, self.q.pool.nslots)
+            require(self.q.pool.configure(obj_bytes, WIRE_SLOTS),
+                    f"{tag}: the idle staging pool takes the phase's "
+                    "geometry")
+            self.holders = {0: store0, **{num: pd.store
+                                          for num, pd in self.peer_d.items()}}
+            self.pgs = {0: self.pg, **{num: pd.pg
+                                       for num, pd in self.peer_d.items()}}
+            self.client_d = PhaseClient(om, pgid, tag)
+            client = Messenger(Context(f"client.{WIRE_CLIENT}"),
+                               EntityName("client", WIRE_CLIENT))
+            client.add_dispatcher(self.client_d)
+            self.msgrs.append(client)
+            client.start()
+            self.cconn = client.connect(self.primary.addr)
+        except BaseException:
+            self.close()
+            raise
+
+    def new_pg(self, host: PhaseOSD):
+        from ceph_tpu_torch.osd import pg as opg
+
+        p = opg.PG(self.pgid, self.pool, host, self.codec)
+        p.create_onstore()
+        p.update_acting(self.acting, 0)
+        return p
+
+    def _verifier(self, num: int, target: str):
+        from ceph_tpu_torch.auth import verify_authorizer
+
+        seen = {}
+
+        def check(blob) -> bool:
+            try:
+                verify_authorizer(self.auth_server.service_secret, blob,
+                                  expect_target=target, seen=seen)
+                ok = True
+            except Exception:  # noqa: BLE001 — any refusal is a "no"
+                ok = False
+            self.verdicts[num].append(ok)
+            return ok
+        return check
+
+    def start_peer(self, num: int):
+        """Start osd.num's messenger (a restarted osd's on a context of
+        its own) and return it."""
+        from ceph_tpu_torch.core.context import Context
+        from ceph_tpu_torch.msg.message import EntityName
+        from ceph_tpu_torch.msg.messenger import Messenger
+
+        ctx = (self.ctxs[num] if num not in self.peer_m
+               else Context(f"osd.{num}"))
+        pm = Messenger(ctx, EntityName("osd", num))
+        pm.add_dispatcher(self.peer_d[num])
+        pm.start()
+        pm.set_auth(verifier=self._verifier(num,
+                                            f"{pm.addr[0]}:{pm.addr[1]}"))
+        self.peer_m[num] = pm
+        self.msgrs.append(pm)
+        return pm
+
+    def close(self) -> None:
+        if self.prim is not None:
+            self.prim.ops.shutdown(wait=True)
+        if self.q is not None:
+            if self.geometry is not None:
+                self.q.pool.configure(*self.geometry)
+            self.q.stop()
+        for mm in self.msgrs:
+            mm.shutdown()
+
+
 def run_wire(torch, dev, *, nobj: int = WIRE_OBJS,
              obj_bytes: int = 4 * MiB, stripe_bytes: int = 1 * MiB,
              peers: int = WIRE_PEERS, down=WIRE_DOWN, corrupt=WIRE_CORRUPT,
@@ -1559,27 +1847,19 @@ def run_wire(torch, dev, *, nobj: int = WIRE_OBJS,
     on the wire: the EC object write and its degraded read, then the
     primary's lost shards recovered, under lockdep:
 
-    1. the primary ``osd.0`` and ``peers`` peers (``osd.1`` ..), each a
-       ``PG`` of the pool's codec over its own MemStore, with a
-       ``PhaseOSD`` host behind a messenger on 127.0.0.1; cephx between
-       the osds (a keyring, a CephxServer, the primary's authorizer
-       bound to the dialed address, ``verify_authorizer`` with a
-       seen-cache and the peer's own address); ``ms_crc_data`` on.  The
-       acting set puts shard s on osd ``s % (peers + 1)``; every PG has
-       it, osd.0 as primary, and the primary is ``STATE_ACTIVE`` (set as
-       ``_stub_pg`` of ``tests/test_recovery_pipeline.py`` sets it:
-       ``activate()``'s peer infos and pulls are the daemon's).  The
-       primary's dispatcher hands each ``MECSubWriteVecReply`` to its
-       backend and each sub-read reply to its callback by tid, and each
-       ``MOSDOp`` to a pool of op threads that call ``pg.do_op`` with a
-       reply that sends the ``MOSDOpReply`` back on the session (without
-       the write's payload: a reply carries out data); a peer's
-       dispatcher calls ``handle_sub_write_vec``, ``handle_sub_read``,
+    1. a ``PGRig`` of the primary ``osd.0`` and ``peers`` peers
+       (``osd.1`` ..) over cephx, ``ms_crc_data`` on, built under
+       lockdep.  The acting set puts shard s on osd ``s % (peers + 1)``.
+       The primary's dispatcher (``PhasePrimary``) hands each
+       ``MECSubWriteVecReply`` to its backend and each sub-read reply to
+       its callback by tid, and each ``MOSDOp`` to a pool of op threads
+       that call ``pg.do_op`` with a reply that sends the
+       ``MOSDOpReply`` back on the session (without the write's payload:
+       a reply carries out data); a peer's (``PhasePeer``) calls
+       ``handle_sub_write_vec``, ``handle_sub_read``,
        ``handle_sub_read_vec`` and ``handle_commit_note``;
     2. write, from ``threads`` client threads over one session of
-       ``client.4100``: one ``WRITEFULL`` ``MOSDOp`` an object.  The
-       primary's queue is built under lockdep and its staging pool
-       configured to ``WIRE_SLOTS`` slots of an object each;
+       ``client.4100``: one ``WRITEFULL`` ``MOSDOp`` an object;
        ``PG._do_write`` stages the payload (``DeviceBuf.stage``), mints
        its version under the PG lock and calls ``ECBackend.submit``: the
        backend interleaves it, encodes it with its CRCs in the queue's
@@ -1634,20 +1914,13 @@ def run_wire(torch, dev, *, nobj: int = WIRE_OBJS,
     around each scrub step.
     Returns the counts, walls, what was written and read, every holder's
     PG meta omap and the counters; raises on any failed check."""
-    import dataclasses
-    from concurrent.futures import ThreadPoolExecutor
-
-    from ceph_tpu_torch.auth import CephxClient, CephxServer, Keyring
-    from ceph_tpu_torch.auth import verify_authorizer
     from ceph_tpu_torch.core import failpoint as fp
     from ceph_tpu_torch.core import lockdep
-    from ceph_tpu_torch.core.context import Context
     from ceph_tpu_torch.core.crc import crc32c
     from ceph_tpu_torch.ec import codec_from_profile
-    from ceph_tpu_torch.gpu.queue import StripeBatchQueue
     from ceph_tpu_torch.gpu.staging import DeviceBuf
     from ceph_tpu_torch.msg.message import EntityName
-    from ceph_tpu_torch.msg.messenger import Dispatcher, Messenger
+    from ceph_tpu_torch.msg.messenger import Messenger
     from ceph_tpu_torch.ops import gf256
     from ceph_tpu_torch.osd import backend as ob
     from ceph_tpu_torch.osd import messages as om
@@ -1658,7 +1931,6 @@ def run_wire(torch, dev, *, nobj: int = WIRE_OBJS,
     from ceph_tpu_torch.osd.types import (OP_READ, OP_WRITEFULL, EVersion,
                                           OSDOp)
     from ceph_tpu_torch.store import objectstore as os_mod
-    from ceph_tpu_torch.store.memstore import MemStore
     from ceph_tpu_torch.store.objectstore import GHObject, Transaction
 
     unit = codec_from_profile(WIRE_PROFILE, device=dev).get_chunk_size(
@@ -1692,223 +1964,24 @@ def run_wire(torch, dev, *, nobj: int = WIRE_OBJS,
                        for r in range(k)): i for i in range(nobj)}
     pool = PGPool(pool_id=WIRE_PGID[0], pool_type=POOL_ERASURE, size=n,
                   erasure_code_profile=profile)
-    osdmap = PhaseMap()
-
-    def new_pg(host: PhaseOSD):
-        p = opg.PG(WIRE_PGID, pool, host, codec)
-        p.create_onstore()
-        p.update_acting(acting, 0)
-        return p
-
-    class PeerDispatcher(Dispatcher):
-        """osd.N: a PG behind the daemon's replica routing
-        (daemon.py:1471-1488)."""
-
-        def __init__(self, num: int) -> None:
-            self.store = MemStore()
-            self.store.mkfs()
-            self.store.mount()
-            self.host = PhaseOSD(ctxs[num], num, self.store, osdmap,
-                                 WIRE_EPOCH)
-            self.pg = new_pg(self.host)
-            self.srcs = []
-            self.busy = []  # seconds serving, one entry per message
-
-        def ms_dispatch(self, conn, msg) -> bool:
-            self.srcs.append(str(msg.src))
-            t0 = time.perf_counter()
-            if isinstance(msg, om.MECSubWriteVec):
-                self.pg.handle_sub_write_vec(msg, conn)
-            elif isinstance(msg, om.MECSubRead):
-                self.pg.handle_sub_read(msg, conn)
-            elif isinstance(msg, om.MECSubReadVec):
-                self.pg.handle_sub_read_vec(msg, conn)
-            elif isinstance(msg, om.MECCommitNote):
-                self.pg.handle_commit_note(msg, conn)
-            elif isinstance(msg, om.MScrub):
-                self.host.serve_scrub(self.pg, msg, conn)
-            elif isinstance(msg, om.MPGPush):
-                self.pg.handle_push(msg, conn)
-            elif isinstance(msg, om.MPGPull):
-                self.host.serve_pull(self.pg, msg, conn)
-            else:
-                return False
-            self.busy.append(time.perf_counter() - t0)
-            return True
-
-    class PrimaryDispatcher(Dispatcher):
-        """osd.0: sub-write acks to the PG's backend and sub-read
-        replies by tid, inline (daemon.py:1251-1275); client ops to the
-        op threads, which call ``pg.do_op`` (the daemon's op queue)."""
-
-        def __init__(self) -> None:
-            self.pg = self.host = None
-            self.ops = ThreadPoolExecutor(threads,
-                                          thread_name_prefix="osd0-op")
-            self.failed = []   # do_op exceptions
-            self.reads = []    # (oid, shard, src, result, data) replies
-            self.record = True  # of the read's sub-read replies only
-            self.got = PhaseCounters()  # replies routed, by type
-
-        def ms_can_fast_dispatch(self, msg) -> bool:
-            return not isinstance(msg, om.MOSDOp)
-
-        def do_op(self, conn, msg) -> None:
-            tid = msg.tid
-            is_w = any(o.is_write() for o in msg.ops)
-
-            def reply(rep) -> None:
-                rep.tid = tid
-                # a reply carries each op's out data, not the write's
-                # payload (a staged one would come back from the card)
-                rep.ops = [dataclasses.replace(o, data=b"")
-                           if o.is_write() else o for o in rep.ops]
-                conn.send(rep)
-                if rep.result == 0:  # the PGStat feed, as the daemon's
-                    self.pg.note_client_io(is_w, sum(
-                        len(o.data) or o.length for o in msg.ops
-                        if o.is_write()) if is_w else sum(
-                        len(o.out_data) for o in rep.ops))
-
-            try:
-                self.pg.do_op(msg, reply, conn=conn)
-            except Exception as e:  # noqa: BLE001 — the phase fails on it
-                self.failed.append((msg.oid, repr(e)))
-
-        def ms_dispatch(self, conn, msg) -> bool:
-            if isinstance(msg, om.MOSDOp):
-                self.ops.submit(self.do_op, conn, msg)
-                return True
-            if isinstance(msg, om.MECSubWriteVecReply):
-                self.pg.backend.handle_reply(msg.tid, msg.src.num)
-                return True
-            self.got.inc(type(msg).__name__)
-            if isinstance(msg, om.MECSubReadReply) and self.record:
-                self.reads.append((msg.oid, msg.shard, msg.src.num,
-                                   msg.result, msg.data))
-            return self.host.route_reply(msg)
-
-    class ClientDispatcher(Dispatcher):
-        """client.4100: each ``MOSDOpReply`` to the op waiting on its
-        tid."""
-
-        def __init__(self) -> None:
-            self.cond = threading.Condition()
-            self.replies = {}
-
-        def ms_can_fast_dispatch(self, msg) -> bool:
-            return True
-
-        def ms_dispatch(self, conn, msg) -> bool:
-            if not isinstance(msg, om.MOSDOpReply):
-                return False
-            with self.cond:
-                self.replies[msg.tid] = msg
-                self.cond.notify_all()
-            return True
-
-        def call(self, conn, tid: int, oid: str, ops):
-            msg = om.MOSDOp(WIRE_PGID, WIRE_EPOCH, oid, ops)
-            msg.tid = tid
-            msg.reqid = f"client.{WIRE_CLIENT}.0:{tid}"
-            conn.send(msg)
-            with self.cond:
-                require(self.cond.wait_for(lambda: tid in self.replies,
-                                           WIRE_WAIT_S),
-                        f"wire: a reply to {oid} (tid {tid})")
-                return self.replies.pop(tid)
-
-    kr = Keyring()
-    kr.add("service")
-    secret = kr.add("osd.0")
-    auth_server = CephxServer(kr)
-    cx = CephxClient("osd.0", secret)
-    ch = auth_server.get_challenge("osd.0")
-    cc = SEED.to_bytes(16, "little")
-    cx.accept_reply(*auth_server.handle_request(
-        "osd.0", cc, cx.make_proof(ch, cc)))
-    verdicts = {num: [] for num in range(1, peers + 1)}
-
-    def verifier(num: int, target: str):
-        seen = {}
-
-        def check(blob) -> bool:
-            try:
-                verify_authorizer(auth_server.service_secret, blob,
-                                  expect_target=target, seen=seen)
-                ok = True
-            except Exception:  # noqa: BLE001 — any refusal is a "no"
-                ok = False
-            verdicts[num].append(ok)
-            return ok
-        return check
-
     was = lockdep.enabled()
     lockdep.reset()
     lockdep.enable(True)
-    msgrs = []
     fp.disarm_all()
-    q = None
-    prim = None
-    geometry = None
+    rig = None
     plain_op_payload = os_mod.op_payload
     plain_be_crc = ob.crc32c
     try:
-        names = [f"osd.{num}" for num in range(peers + 1)]
-        ctxs = [Context(name) for name in names]
-        primary = Messenger(ctxs[0], EntityName("osd", 0))
-        prim = PrimaryDispatcher()
-        primary.add_dispatcher(prim)
-        primary.set_auth(provider=cx.build_authorizer)
-        msgrs.append(primary)
-        peer_d, peer_m = {}, {}
-
-        def start_peer(num: int):
-            # a restarted osd's messenger gets a context of its own
-            ctx = ctxs[num] if num not in peer_m else Context(f"osd.{num}")
-            pm = Messenger(ctx, EntityName("osd", num))
-            pm.add_dispatcher(peer_d[num])
-            pm.start()
-            pm.set_auth(verifier=verifier(num, f"{pm.addr[0]}:{pm.addr[1]}"))
-            peer_m[num] = pm
-            msgrs.append(pm)
-            return pm
-
-        for num in range(1, peers + 1):
-            peer_d[num] = PeerDispatcher(num)
-            start_peer(num)
-        primary.start()
-        require(all(pm.addr[0] == "127.0.0.1" for pm in msgrs),
-                "wire: every messenger binds 127.0.0.1")
-        store0 = MemStore()
-        store0.mkfs()
-        store0.mount()
-        host0 = prim.host = PhaseOSD(ctxs[0], 0, store0, osdmap, WIRE_EPOCH)
-        for num, pm in peer_m.items():
-            host0.connect(num, primary.connect(pm.addr), pm.addr)
-        pg = prim.pg = new_pg(host0)
-        with pg.lock:
-            pg.state = opg.STATE_ACTIVE
+        rig = PGRig(dev, pgid=WIRE_PGID, pool=pool, codec=codec,
+                    acting=acting, peers=peers, threads=threads,
+                    obj_bytes=obj_bytes, tag="wire")
+        prim, peer_d, peer_m = rig.prim, rig.peer_d, rig.peer_m
+        host0, pg, q = rig.host0, rig.pg, rig.q
         be = pg.backend
-        # the phase's own queue, built under lockdep and stopped at the
-        # end, in place of the process's default queue for ``dev``
-        q = be.queue = StripeBatchQueue(device=dev)
-        geometry = (q.pool.slot_bytes, q.pool.nslots)
-        require(q.pool.configure(obj_bytes, WIRE_SLOTS),
-                "wire: the idle staging pool takes the phase's geometry")
-        holders = {0: store0, **{num: pd.store
-                                 for num, pd in peer_d.items()}}
-        pgs = {0: pg, **{num: pd.pg for num, pd in peer_d.items()}}
+        holders, pgs = rig.holders, rig.pgs
         cid = pg.coll
         meta = GHObject(WIRE_META)
-        client_d = ClientDispatcher()
-        client = Messenger(Context(f"client.{WIRE_CLIENT}"),
-                           EntityName("client", WIRE_CLIENT))
-        client.add_dispatcher(client_d)
-        msgrs.append(client)
-        client.start()
-        cconn = client.connect(primary.addr)
-
+        client_d, cconn = rig.client_d, rig.cconn
         # what the card computed for each object, noted off each encp
         # future before the backend's fan-out runs
         card = {}
@@ -2081,7 +2154,7 @@ def run_wire(torch, dev, *, nobj: int = WIRE_OBJS,
                 f"as the queue's parity with one fetch of its size {devbuf}")
 
         intruder = Messenger(None, EntityName("client", 666))
-        msgrs.append(intruder)
+        rig.msgrs.append(intruder)
         intruder.start()
         t = Transaction()
         t.write(cid, GHObject("intruder", shard=0), 0, b"x" * 64)
@@ -2089,24 +2162,25 @@ def run_wire(torch, dev, *, nobj: int = WIRE_OBJS,
             om.MECSubWriteVec(WIRE_PGID, WIRE_EPOCH, "intruder",
                               t.to_bytes()), peer_m[1].addr)
         deadline = time.monotonic() + 30
-        while (verdicts[1].count(False) < 2
+        while (rig.verdicts[1].count(False) < 2
                and time.monotonic() < deadline):
             time.sleep(0.01)
         intruder.shutdown()
-        require(verdicts[1].count(False) >= 2
+        require(rig.verdicts[1].count(False) >= 2
                 and "client.666" not in peer_d[1].srcs
                 and not peer_d[1].store.exists(
                     cid, GHObject("intruder", shard=0)),
                 f"wire: the unauthenticated messenger was refused "
-                f"{verdicts[1].count(False)} times and never delivered")
-        require(all(v and all(v) for num, v in verdicts.items() if num != 1)
-                and verdicts[1].count(True) >= 1,
-                f"wire: the primary's sessions were authorized: {verdicts}")
+                f"{rig.verdicts[1].count(False)} times and never delivered")
+        require(all(v and all(v) for num, v in rig.verdicts.items()
+                    if num != 1) and rig.verdicts[1].count(True) >= 1,
+                f"wire: the primary's sessions were authorized: "
+                f"{rig.verdicts}")
 
         # 4. the degraded read through do_op, every object gathered
         for num in down:
             peer_m[num].shutdown()
-            osdmap.down.add(num)
+            rig.osdmap.down.add(num)
         pg.note_peers_down(set(down))
         with pg.lock:
             pg.state = opg.STATE_DEGRADED
@@ -2150,14 +2224,14 @@ def run_wire(torch, dev, *, nobj: int = WIRE_OBJS,
         require(not prim.failed, f"wire: do_op raised {prim.failed}")
 
         perf = {name: c.perf.dump()[f"msgr.{name}"]
-                for name, c in zip(names, ctxs)}
+                for name, c in zip(rig.names, rig.ctxs)}
 
         # 5. the primary's shards lost and recovered over the PG
         rec = None
         if recover:
-            rec = _recover_primary(pg, start_peer, host0, primary, osdmap,
-                                   q, down, oids, shards_of[0], c_shard,
-                                   peers)
+            rec = _recover_primary(pg, rig.start_peer, host0, rig.primary,
+                                   rig.osdmap, q, down, oids, shards_of[0],
+                                   c_shard, peers)
         scr = None
         if scrub:
             scr = _scrub_primary(pg, host0, prim, holders, client_d, cconn,
@@ -2168,14 +2242,8 @@ def run_wire(torch, dev, *, nobj: int = WIRE_OBJS,
         fp.disarm_all()
         ob.crc32c = plain_be_crc
         os_mod.op_payload = plain_op_payload
-        if prim is not None:
-            prim.ops.shutdown(wait=True)
-        if q is not None:
-            if geometry is not None:
-                q.pool.configure(*geometry)
-            q.stop()
-        for mm in msgrs:
-            mm.shutdown()
+        if rig is not None:
+            rig.close()
         lockdep.enable(was)
         lockdep.reset()
     require(seal_fails == nobj,
@@ -2232,7 +2300,7 @@ def run_wire(torch, dev, *, nobj: int = WIRE_OBJS,
             "scrub_errors": scrub_errors, "dec_jobs": dec_jobs,
             "heads": {num: str(h[0]) for num, h in heads.items()},
             "edges": sum(len(v) for v in edges.values()), "edge_graph": edges,
-            "refused": verdicts[1].count(False), "recovery": rec,
+            "refused": rig.verdicts[1].count(False), "recovery": rec,
             "scrub": scr}
 
 
@@ -3731,6 +3799,373 @@ def phase_cluster(torch, dev, log) -> dict:
     return res
 
 
+CLAY_PROFILE = "plugin=clay k=8 m=4 d=11"  # BASELINE.json's repair decode
+CLAY_OBJS = 32               # 4 MiB objects
+CLAY_PEERS = 10              # osd.1 .. osd.10; osd.1 also holds shard 11
+CLAY_DOWN = 1                # the peer down for the degraded read
+CLAY_PGID = (4, 0)
+CLAY_FRAC_MAX = 400          # repair_read_frac, permille (d/(k*q) = 344)
+
+
+def clay_acting(n: int) -> list:
+    """Shard s on osd s up to ``CLAY_PEERS``, the rest from osd.1 on: the
+    primary osd.0 holds shard 0 alone, osd.1 holds shards 1 and 11."""
+    return [s if s <= CLAY_PEERS else 1 + (s - CLAY_PEERS - 1) % CLAY_PEERS
+            for s in range(n)]
+
+
+def run_clay(torch, dev, *, nobj: int = CLAY_OBJS,
+             obj_bytes: int = 4 * MiB, stripe_bytes: int = 1 * MiB,
+             threads: int = 8) -> dict:
+    """Clay through the port's ``PG`` on the card: one PG of
+    ``CLAY_PROFILE`` (clay k=8 m=4 d=11: Z = 64 sub-chunks, q = 4, t = 3)
+    on a ``PGRig`` of the primary ``osd.0`` and ``CLAY_PEERS`` peers,
+    shards placed by ``clay_acting``.  Steps, each with the launch counts
+    zeroed before and read after (``run_step``):
+
+    1. ``write``: ``client.4100`` sends one ``WRITEFULL`` ``MOSDOp`` an
+       object from ``threads`` threads; ``pg.do_op`` stages it, and
+       ``ECBackend.submit`` pads its planes to whole sub-chunks and
+       encodes it with its CRCs in the queue's ``encp`` kind (the jobs
+       side by side along the sub-chunk byte axis: K1 for the pair
+       transforms and the MDS product, the CRC kernel over each job's
+       own chunk layout).  Every stored shard must equal the plain
+       encode on ``dev`` (every product through ``gf_matmul_bytes_plain``)
+       and its ``hinfo`` the host CRC of it;
+    2. ``repair``: the primary loses shard 0 of every object (marked in
+       ``pg.missing``) and ``pg.recovery_engine().recover`` rebuilds it
+       through the sub-chunk plan: one ``MECSubReadVec`` a helper a
+       round with runs on every row, only the repair layers on the wire
+       (``subread_bytes`` = objects x d x L x s), the queue's ``crep``
+       kind; every shard and ``hinfo`` as before, ``repair_read_frac``
+       at most ``CLAY_FRAC_MAX`` permille, ``missing`` empty;
+    3. ``read``: ``osd.<CLAY_DOWN>`` (two shards) shuts down; one ``READ``
+       ``MOSDOp`` an object through ``_ec_read_object`` ->
+       ``reconstruct_async`` -> the queue's ``cdec`` kind, byte for
+       byte;
+    4. ``scrub``: the peer back, one deep ``scrub_engine().run`` with no
+       rot is clean, its verify decodes on ``cdec``.
+
+    Returns the steps (walls, counts, batch widths by kind), the repair
+    counters and what was checked; raises on any failed check."""
+    from ceph_tpu_torch.core.crc import crc32c
+    from ceph_tpu_torch.ec import codec_from_profile
+    from ceph_tpu_torch.ops import gf256
+    from ceph_tpu_torch.osd import backend as ob
+    from ceph_tpu_torch.osd import messages as om
+    from ceph_tpu_torch.osd import pg as opg
+    from ceph_tpu_torch.osd.osdmap import POOL_ERASURE, PGPool
+    from ceph_tpu_torch.osd.types import OP_READ, OP_WRITEFULL, OSDOp
+    from ceph_tpu_torch.store.objectstore import GHObject, Transaction
+
+    unit = codec_from_profile(CLAY_PROFILE, device=dev).get_chunk_size(
+        stripe_bytes)
+    profile = f"{CLAY_PROFILE} stripe_unit={unit}"
+    codec = codec_from_profile(profile, device=dev)
+    k, m = codec.k, codec.m
+    n = k + m
+    Z = codec.get_sub_chunk_count()
+    acting = clay_acting(n)
+    down_shards = [s for s in range(n) if acting[s] == CLAY_DOWN]
+    require(acting.count(0) == 1 and len(down_shards) <= m,
+            f"clay: the primary holds shard 0 alone and osd.{CLAY_DOWN} at "
+            f"most m shards: {acting}")
+    g = torch.Generator(device=dev).manual_seed(SEED + 22)
+    objs = torch.randint(0, 256, (nobj, obj_bytes), dtype=torch.uint8,
+                         device=dev, generator=g).cpu().numpy()
+    oids = [f"clay_data.{i:016x}" for i in range(nobj)]
+    pool = PGPool(pool_id=CLAY_PGID[0], pool_type=POOL_ERASURE, size=n,
+                  erasure_code_profile=profile)
+    rig = None
+    res = {"steps": {}, "acting": acting, "Z": Z}
+    try:
+        rig = PGRig(dev, pgid=CLAY_PGID, pool=pool, codec=codec,
+                    acting=acting, peers=CLAY_PEERS, threads=threads,
+                    obj_bytes=obj_bytes, tag="clay")
+        prim, host0, pg, q = rig.prim, rig.host0, rig.pg, rig.q
+        prim.record = False  # no sub-read reply is kept
+        be = pg.backend
+        holders, store0 = rig.holders, rig.holders[0]
+        client_d, cconn = rig.client_d, rig.cconn
+        cid = pg.coll
+        # the queue's clay batches, by kind and width
+        batches = []
+        plain_array = q._array_batch
+
+        def array_batch(batch):
+            batches.append((batch[0].kind, len(batch)))
+            return plain_array(batch)
+
+        q._array_batch = array_batch
+        # the sub-chunk plan's messages, as the primary sends them
+        vecs = []
+        plain_send = host0.send_to_osd
+
+        def send_to_osd(osd_id, msg):
+            if isinstance(msg, om.MECSubReadVec):
+                vecs.append((osd_id, [list(r) for r in msg.runs],
+                             len(msg.reads)))
+            plain_send(osd_id, msg)
+
+        host0.send_to_osd = send_to_osd
+
+        def widths(mark: int) -> dict:
+            out = {}
+            for kind, w in batches[mark:]:
+                out.setdefault(kind, {}).setdefault(str(w), 0)
+                out[kind][str(w)] += 1
+            return out
+
+        # 1. write
+        def write(i):
+            rep = client_d.call(cconn, i + 1, oids[i], [
+                OSDOp(OP_WRITEFULL, data=memoryview(objs[i]))])
+            require(rep.result == 0,
+                    f"clay: the write of object {i} answered {rep.result}")
+
+        def do_write():
+            mark = len(batches)
+            wall = run_threads(write, nobj, threads)
+            deadline = time.monotonic() + WIRE_WAIT_S
+            while ((pg._oid_pipes or be.in_flight)
+                   and time.monotonic() < deadline):
+                time.sleep(0.001)
+            return {"wall": wall, "batches": widths(mark)}
+
+        run_step(res, "write", do_write)
+        require(not prim.failed, f"clay: do_op raised {prim.failed}")
+        staged = pg.stage_snapshot()
+        require(staged == {"staged": nobj, "degraded": 0},
+                f"clay: every write staged, none degraded: {staged}")
+        # every stored shard against the plain encode on ``dev``
+        real = gf256.gf_matmul_bytes
+
+        def plain_product(matrix, x, donate=False, seed=0, out=None,
+                          mul_shift=False):
+            got = gf256.gf_matmul_bytes_plain(matrix, x, seed)
+            return got if out is None else out.copy_(got)
+
+        t_check = time.perf_counter()
+        checked = 0
+        gf256.gf_matmul_bytes = plain_product
+        try:
+            for i in range(nobj):
+                planes = be._prep_planes(objs[i].tobytes())
+                coding = codec.encode_array(planes)
+                for num, st in holders.items():
+                    for s in (s for s in range(n) if acting[s] == num):
+                        go = GHObject(oids[i], shard=s)
+                        got = st.read(cid, go)
+                        want = planes[s] if s < k else coding[s - k]
+                        size, hcrc, valid = ob.hinfo_decode(
+                            st.getattr(cid, go, "hinfo"))
+                        require(got == want.tobytes(),
+                                f"clay: osd.{num} object {i} shard {s} "
+                                "equals the plain encode")
+                        require(valid and size == obj_bytes
+                                and hcrc == crc32c(got),
+                                f"clay: osd.{num} object {i} shard {s}: "
+                                "hinfo CRC is the host CRC")
+                        checked += 1
+        finally:
+            gf256.gf_matmul_bytes = real
+        res["check_s"] = time.perf_counter() - t_check
+        res["checked"] = checked
+        width = len(store0.read(cid, GHObject(oids[0], shard=0)))
+        require(width % Z == 0, f"clay: chunk width {width} in sub-chunks")
+
+        # 2. the primary's shard 0 of every object, repaired
+        before = {oid: (bytes(store0.read(cid, GHObject(oid, shard=0))),
+                        store0.getattr(cid, GHObject(oid, shard=0),
+                                       "hinfo")) for oid in oids}
+        t = Transaction()
+        for oid in oids:
+            t.remove(cid, GHObject(oid, shard=0))
+        store0.queue_transaction(t)
+        with pg.lock:
+            for oid in oids:
+                pg.missing[oid] = pg.log.latest_for(oid).version
+            work = {oid: pg.log.latest_for(oid) for oid in oids}
+        perf = host0.pg_perf
+        sub0 = perf.value("subread_bytes")
+        window = int(host0.ctx.conf.get("osd_recovery_max_active"))
+
+        def do_repair():
+            mark, v0 = len(batches), len(vecs)
+            wall_t0 = time.monotonic()
+            pg.recovery_engine().recover(work)
+            wall = time.monotonic() - wall_t0
+            deadline = time.monotonic() + WIRE_WAIT_S
+            while (sum(w for kd, w in batches[mark:] if kd == "crep")
+                   < nobj and time.monotonic() < deadline):
+                time.sleep(0.001)
+            return {"wall": wall, "batches": widths(mark),
+                    "vecs": vecs[v0:]}
+
+        rep_step = run_step(res, "repair", do_repair)
+        rvecs = rep_step.pop("vecs")
+        with pg.lock:
+            missing, unfound = dict(pg.missing), set(pg.unfound)
+        require(not missing and not unfound,
+                f"clay: missing {sorted(missing)[:4]} unfound "
+                f"{sorted(unfound)[:4]} after the repair")
+        for oid, (data, hinfo) in before.items():
+            go = GHObject(oid, shard=0)
+            require(bytes(store0.read(cid, go)) == data
+                    and store0.getattr(cid, go, "hinfo") == hinfo,
+                    f"clay: {oid} shard 0 and its hinfo as before the loss")
+        L = len(codec.repair_layers(0))
+        s_sub = width // Z
+        frac = perf.value("repair_read_frac")
+        rounds = -(-nobj // window)
+        sub_bytes = perf.value("subread_bytes") - sub0
+        require(rvecs and all(all(r for r in runs) and len(runs) == nr
+                              for _o, runs, nr in rvecs),
+                f"clay: every MECSubReadVec row carried runs "
+                f"({len(rvecs)} messages)")
+        require(len(rvecs) <= CLAY_PEERS * rounds,
+                f"clay: {len(rvecs)} MECSubReadVec, at most one a helper "
+                f"a round ({CLAY_PEERS} x {rounds})")
+        require(sub_bytes == nobj * codec.d * L * s_sub,
+                f"clay: only the repair layers on the wire: {sub_bytes} "
+                f"== {nobj} x {codec.d} x {L} x {s_sub}")
+        require(0 < frac <= CLAY_FRAC_MAX,
+                f"clay: repair_read_frac {frac} permille <= "
+                f"{CLAY_FRAC_MAX}")
+        require("crep" in rep_step["batches"],
+                f"clay: the repair rode crep {rep_step['batches']}")
+        res["repair"] = {"frac_permille": frac, "subread_bytes": sub_bytes,
+                         "vecs": len(rvecs), "rounds": rounds,
+                         "window": window, "L": L, "s": s_sub}
+
+        # 3. degraded read with osd.<CLAY_DOWN> (two shards) down
+        rig.peer_m[CLAY_DOWN].shutdown()
+        rig.osdmap.down.add(CLAY_DOWN)
+        pg.note_peers_down({CLAY_DOWN})
+        with pg.lock:
+            pg.state = opg.STATE_DEGRADED
+        pg._obc_invalidate()
+        decoded = [None] * nobj
+
+        def read(i):
+            rep = client_d.call(cconn, nobj + i + 1, oids[i],
+                                [OSDOp(OP_READ)])
+            require(rep.result == 0,
+                    f"clay: the read of object {i} answered {rep.result}")
+            decoded[i] = bytes(rep.ops[0].out_data)
+
+        def do_read():
+            mark = len(batches)
+            wall = run_threads(read, nobj, threads)
+            return {"wall": wall, "batches": widths(mark)}
+
+        rd = run_step(res, "read", do_read)
+        require(not prim.failed, f"clay: do_op raised {prim.failed}")
+        require(all(decoded[i] == objs[i].tobytes() for i in range(nobj)),
+                "clay: every degraded read returns what was written")
+        require(sum(rd["batches"].get("cdec", {}).values()) > 0,
+                f"clay: the degraded reads rode cdec {rd['batches']}")
+        res["down_shards"] = down_shards
+
+        # 4. the peer back; one deep scrub, no rot
+        pm = rig.start_peer(CLAY_DOWN)
+        host0.connect(CLAY_DOWN, rig.primary.connect(pm.addr), pm.addr)
+        rig.osdmap.down.discard(CLAY_DOWN)
+        with pg.lock:
+            pg.state = opg.STATE_ACTIVE
+        eng = pg.scrub_engine()
+
+        def do_scrub():
+            mark = len(batches)
+            errs = eng.run(deep=True)
+            return {"errors": len(errs), "batches": widths(mark)}
+
+        sc = run_step(res, "scrub", do_scrub)
+        require(sc["errors"] == 0, "clay: the deep scrub is clean")
+        require(sum(sc["batches"].get("cdec", {}).values()) > 0,
+                f"clay: the scrub's verify decodes rode cdec "
+                f"{sc['batches']}")
+        res["ragged_products"] = codec.ragged_products
+        res["pair_products"] = codec.pair_products
+        res["products"] = codec.products
+    finally:
+        if rig is not None:
+            rig.close()
+    return res
+
+
+def phase_clay(torch, dev, log) -> dict:
+    """The ``clay`` phase: ``run_clay`` at full width, 32 x 4 MiB objects
+    of clay k=8 m=4 d=11 through one PG over the primary and ten peers.
+    The write must launch K1 and the CRC kernel, the repair, the read and
+    the scrub K1."""
+    t0 = time.monotonic()
+    res = run_clay(torch, dev)
+    st = res["steps"]
+    require(all(st[s]["counts"]["gf256_matmul"] > 0
+                for s in ("write", "repair", "read", "scrub"))
+            and st["write"]["counts"]["crc32c_rows"] > 0,
+            f"clay: K1 in every step, the CRC kernel in the write "
+            f"{ {s: st[s]['counts'] for s in st} }")
+    walls = {s: round(st[s]["wall_s"], 3) for s in st}
+    launches = {s: {kk: v for kk, v in st[s]["counts"].items() if v}
+                for s in st}
+    widths = {s: st[s]["batches"] for s in st}
+    log(f"clay: {CLAY_PROFILE} (Z={res['Z']}), {CLAY_OBJS} x 4 MiB through "
+        f"PG.do_op over osd.0 and {CLAY_PEERS} peers (acting "
+        f"{res['acting']}): walls {json.dumps(walls)}; batch widths by "
+        f"kind {json.dumps(widths)}; launches {json.dumps(launches)}; "
+        f"repair_read_frac {res['repair']['frac_permille']} permille "
+        f"(subread_bytes {res['repair']['subread_bytes']}, "
+        f"{res['repair']['vecs']} MECSubReadVec in "
+        f"{res['repair']['rounds']} rounds, L={res['repair']['L']}, "
+        f"s={res['repair']['s']}); degraded read with shards "
+        f"{res['down_shards']} down; deep scrub clean; {res['checked']} "
+        f"shards equal the plain encode (check {res['check_s']:.3f} s); "
+        f"clay products {res['products']} (1x2 pair transforms "
+        f"{res['pair_products']}, ragged {res['ragged_products']}); "
+        f"phase {time.monotonic() - t0:.1f} s")
+    return res
+
+
+def time_clay_pair(torch, dev, log, clay: dict) -> dict:
+    """K1 on clay's 1x2 uncouple transform at the ``clay`` phase's write
+    shape (one object's data grid: the kk*Z*(q-1)/q coupled symbols of
+    s bytes each, side by side with their partners): device ms from a
+    CUDA graph, the plain version's ms, and the bound of the 1x2 work
+    itself, which K1 runs at its 4x4 row and column bucket."""
+    from ceph_tpu_torch.ec import codec_from_profile
+    from ceph_tpu_torch.ops import gf256
+
+    codec = codec_from_profile(CLAY_PROFILE, device=dev)
+    P = int((~codec.dot[:codec.kk]).sum())
+    W = P * clay["repair"]["s"]
+    mat = codec._uncouple_M
+    g = torch.Generator(device=dev).manual_seed(SEED + 23)
+    bufs = rotating(torch, dev, g, 3, W)
+    it = iter(range(1 << 30))
+
+    def pair():
+        b = bufs[next(it) % len(bufs)]
+        gf256.gf_matmul_bytes(mat, b[:2], out=b[2:])
+
+    ms = graph_ms(torch, pair)
+    x = bufs[0][:2]
+    err = int((gf256.gf_matmul_bytes(mat, x).int()
+               - gf256.gf_matmul_bytes_plain(mat, x).int()).abs().max())
+    plain_ms = event_ms(torch, lambda: gf256.gf_matmul_bytes_plain(mat, x),
+                        5, warmup=1)
+    bound_ms, by = bound(3 * W, gf_ops(mat, W // 4))
+    log(f"gf256 clay 1x2 pair [2, {W}] (K1 at its 4x4 bucket): {ms:.4f} ms, "
+        f"plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({by}), "
+        f"max_abs_err {err}; the phase ran {clay['pair_products']} pair "
+        f"products of {clay['products']} clay products")
+    require(err == 0, "clay: K1's pair product equals its plain version")
+    return {"shape": [2, W], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": by, "max_abs_err": err,
+            "launches": clay["pair_products"], "bucket": "4x4"}
+
+
 def phase_bitmatrix(torch, dev, log) -> dict:
     return drive_path(torch, dev, log, "bitmatrix",
                       "plugin=jerasure k=8 m=4 technique=cauchy_good "
@@ -4695,6 +5130,7 @@ def main() -> int:
     scr_res = phase_scrub(torch, dev, log, wire_res)
     dmn_res = phase_daemon(torch, dev, log)
     cls_res = phase_cluster(torch, dev, log)
+    clay_res = phase_clay(torch, dev, log)
     bm_res = phase_bitmatrix(torch, dev, log)
     sh_res = phase_shec(torch, dev, log)
     phase_lrc(torch, dev, log)
@@ -4714,6 +5150,9 @@ def main() -> int:
                                  for name, s in dmn_res["steps"].items()}
         kr["cluster_launches"] = {name: s["counts"][kr["name"]]
                                   for name, s in cls_res["steps"].items()}
+        kr["clay_launches"] = {name: s["counts"][kr["name"]]
+                               for name, s in clay_res["steps"].items()}
+    kernels[0]["clay_pair"] = time_clay_pair(torch, dev, log, clay_res)
     kernels.append(time_gf2(torch, dev, log, bm_res))
     kernels.append(time_gf2_popcount(torch, dev, log, sh_res))
     kernels[-1]["sass"] = {n: sass[n] for n in (

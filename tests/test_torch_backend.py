@@ -323,13 +323,48 @@ def test_backend_takes_its_codecs_device_and_raises_without_a_card(
 
 
 def test_clay_routes_wait_for_their_slice():
-    """A codec with sub-chunks (clay) is refused at construction, naming
-    ROADMAP item 2; so is a clay repair on a flat backend."""
+    """A clay backend builds (its slice has landed): a degraded read with
+    a data shard lost rides the queue's cdec kind and a single-shard
+    repair from layers-only helper bytes rides crep, each giving the
+    reference codec's bytes; an extent decode is refused (no sub-chunk
+    structure), as in the reference."""
+    from ceph_tpu.ec.clay import ClayCodec as RefClay
+
     coll = Collection("5.0_head")
-    clay = SimpleNamespace(device="cpu", get_sub_chunk_count=lambda: 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 2"):
-        ECBackend((5, 0), coll, _store_with(coll), 0, None, None, clay)
-    be = ECBackend((5, 0), coll, _store_with(coll), 0, None, None,
-                   _codec("plugin=isa k=2 m=1"))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 2"):
-        be.repair_chunk_async("o", 0, {1: b"x"}, lambda c: None)
+    codec = _codec("plugin=clay k=4 m=2")
+    be = ECBackend((5, 0), coll, _store_with(coll), 0, None, None, codec)
+    kinds = []
+    for name in ("clay_decode_async", "clay_repair_async"):
+        orig = getattr(be.queue, name)
+
+        def spy(*a, _orig=orig, _name=name, **kw):
+            kinds.append(_name)
+            return _orig(*a, **kw)
+
+        setattr(be.queue, name, spy)
+    data = bytes(np.random.default_rng(5).integers(0, 256, 20000,
+                                                   dtype=np.uint8))
+    planes = be._prep_planes(data)
+    assert planes.shape[1] % codec.get_sub_chunk_count() == 0
+    ref = RefClay(k=4, m=2)
+    chunks = list(planes) + list(np.asarray(ref.encode_array(planes)))
+    meta = ({"hinfo": _hinfo(chunks[0].tobytes(), len(data))}, {})
+    got = []
+    done = threading.Event()
+    be.reconstruct_async(
+        "o", {i: chunks[i].tobytes() for i in (1, 2, 4, 5)}, meta,
+        lambda st: (got.append(st), done.set()))
+    assert done.wait(30) and got[0].data == data
+    layers = codec.repair_layers(3)
+    s = len(chunks[0]) // codec.get_sub_chunk_count()
+    helper_layers = {h: chunks[h].reshape(-1, s)[layers].tobytes()
+                     for h in (0, 1, 2, 4, 5)}
+    rep = []
+    done.clear()
+    be.repair_chunk_async("o", 3, helper_layers,
+                          lambda c: (rep.append(c), done.set()))
+    assert done.wait(30) and rep[0] == chunks[3].tobytes()
+    assert kinds == ["clay_decode_async", "clay_repair_async"]
+    n = be.unit
+    assert be.assemble_range({i: chunks[i][:n].tobytes()
+                              for i in (1, 2, 4, 5)}, 0, 1) is None

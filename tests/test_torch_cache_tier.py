@@ -5,7 +5,7 @@ EC pool as the base: cold reads proxied, hot reads promoted, writeback,
 flush, evict, the agent, and a remove of both copies.
 
 The cluster is ``torch_daemon_harness.DaemonCluster("ceph_tpu_torch")``
-(six port daemons, the reference's map without the clay pool,
+(six port daemons, the reference's map,
 ``device="cpu"``), the client ``torch_daemon_harness.LibClient``.
 """
 

@@ -4,7 +4,7 @@ classes, and a buggy method failing its op with ``EIO``, called by
 ``IoCtx.call`` through the port's client on the port's cluster.
 
 The cluster is ``torch_daemon_harness.DaemonCluster("ceph_tpu_torch")``
-(six port daemons, the reference's map without the clay pool,
+(six port daemons, the reference's map,
 ``device="cpu"``), the client ``torch_daemon_harness.LibClient``.  The
 same cases run as ``MOSDOp``s through both packages' PGs, and the EC
 plugin load-failure cases over the port's registry, in

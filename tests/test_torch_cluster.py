@@ -7,9 +7,8 @@
 ``LibClient``: the port's ``RadosClient`` and ``Objecter`` place each op
 by the port's CRUSH walk, send it to the acting primary and resend it on
 a map change, on ``EAGAIN``/``ESTALE`` and on the resend timer.  The map
-is the reference's (``test_osd_cluster.py:35-56``) without the clay
-pool, which waits for clay: a replicated pool of size 3, isa k=2 m=1
-and isa k=2 m=2, 8 PGs each.  Each case makes the reference case's
+is the reference's (``test_osd_cluster.py:35-56``): a replicated pool
+of size 3, isa k=2 m=1, isa k=2 m=2 and clay k=4 m=2, 8 PGs each.  Each case makes the reference case's
 assertions on the port's objects; one more holds the two packages' maps
 to the same encoded bytes.
 """

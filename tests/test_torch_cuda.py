@@ -1193,3 +1193,107 @@ def test_daemon_cluster_on_the_card_equals_the_cpu(dev, monkeypatch):
         for key in w:
             assert g[key] == w[key], (name, key)
 
+
+
+@pytest.mark.parametrize("k,m", [(8, 4), (5, 3)])
+def test_clay_codec_on_the_card_equals_plain(dev, k, m):
+    """Clay's encode, every single-shard repair and an m-erasure decode
+    with the codec on the card (every product on K1, the gathers on the
+    card) equal the same codec on the CPU (every product's plain
+    version)."""
+    from ceph_tpu_torch.ec.clay import ClayCodec
+
+    card, plain = ClayCodec(k=k, m=m, device=dev), ClayCodec(
+        k=k, m=m, device="cpu")
+    s = 1000  # a per-sub-chunk width whose pair products are not ragged
+    data = np.random.default_rng(k * 7 + m).integers(
+        0, 256, (k, card.sub_count * s), dtype=np.uint8)
+    before = gf256.launches.value
+    parity = card.encode_array(data)
+    assert gf256.launches.value > before
+    np.testing.assert_array_equal(parity, plain.encode_array(data))
+    chunks = list(data) + list(parity)
+    for lost in range(k + m):
+        helpers = {h: chunks[h] for h in range(k + m) if h != lost}
+        np.testing.assert_array_equal(
+            card.repair_chunk([lost], helpers)[lost], chunks[lost])
+        erased = sorted({(lost + j) % (k + m) for j in range(m)})
+        avail = {i: chunks[i] for i in range(k + m) if i not in erased}
+        got = card.decode_array(avail, erased, card.sub_count * s)
+        for e in erased:
+            np.testing.assert_array_equal(got[e], chunks[e])
+    assert card.products == gf256.launches.value - before
+
+
+def test_clay_queue_kinds_on_the_card_equal_the_cpu(dev):
+    """encp (coalesced, with per-shard CRCs on the CRC kernel), crep and
+    cdec through the queue on the card equal the same jobs through the
+    queue on the CPU."""
+    from ceph_tpu_torch.ec.clay import ClayCodec
+
+    out = {}
+    for where in (dev, "cpu"):
+        codec = ClayCodec(k=8, m=4, device=where)
+        q = StripeBatchQueue(device=where, window_s=0.05)
+        try:
+            rng = np.random.default_rng(22)
+            datas = [rng.integers(0, 256, (8, 64 * s), dtype=np.uint8)
+                     for s in (512, 1000, 33)]
+            futs = [q.encode_crc_async(codec, d) for d in datas]
+            res = [f.result() for f in futs]
+            chunks = list(datas[0]) + list(res[0][0])
+            layers = codec.repair_layers(0)
+            planes = np.stack([chunks[h].reshape(64, -1)[layers]
+                               for h in range(1, 12)])
+            rep = q.clay_repair(codec, 0, list(range(1, 12)), planes)
+            dec = q.clay_decode_async(codec, {i: chunks[i] for i in
+                                              range(12) if i not in
+                                              (1, 5, 9)}).result()
+            out[str(where)] = ([(c, [int(x) for x in cr]) for c, cr in res],
+                               rep, dec)
+            assert np.array_equal(rep, chunks[0])
+            assert np.array_equal(dec, datas[0])
+        finally:
+            q.stop()
+    card, cpu = out[str(dev)], out["cpu"]
+    for (c1, r1), (c2, r2) in zip(card[0], cpu[0]):
+        np.testing.assert_array_equal(c1, c2)
+        assert r1 == r2
+    np.testing.assert_array_equal(card[1], cpu[1])
+    np.testing.assert_array_equal(card[2], cpu[2])
+
+
+def test_clay_phase_on_the_card(dev):
+    """The clay phase's code at a small size on the card: clay k=8 m=4
+    d=11, four 1 MiB objects; K1 in every step, the CRC kernel in the
+    write, and every check of the phase."""
+    import chip_smoke
+
+    res = chip_smoke.run_clay(torch, dev, nobj=4, obj_bytes=1 << 20,
+                              stripe_bytes=256 << 10, threads=4)
+    st = res["steps"]
+    for name in ("write", "repair", "read", "scrub"):
+        assert st[name]["counts"]["gf256_matmul"] > 0, (name, st[name])
+    assert st["write"]["counts"]["crc32c_rows"] > 0
+    assert 0 < res["repair"]["frac_permille"] <= chip_smoke.CLAY_FRAC_MAX
+
+
+def test_clay_daemon_cluster_on_the_card_equals_the_cpu(dev, monkeypatch):
+    """The daemon cross-check's clay sequence (CLAY_POOL, clay k=4 m=2
+    over six daemons) with codecs and queue on the card, held to the
+    same sequence with ``device="cpu"``."""
+    import time as _time
+
+    import test_torch_daemon_xcheck as dx
+    import torch_daemon_harness as H
+
+    monkeypatch.setattr(_time, "time", lambda: dx.CLOCK)
+    kw = {"pools": (H.CLAY_POOL,), "rewrite": False}
+    want = dx._sequence("ceph_tpu_torch", **kw)
+    k1 = gf256.launches.value
+    got = dx._sequence("ceph_tpu_torch", device=dev, **kw)
+    assert gf256.launches.value > k1
+    assert [n for n, _ in got] == [n for n, _ in want]
+    for (name, g), (_, w) in zip(got, want):
+        for key in w:
+            assert g[key] == w[key], (name, key)

@@ -2,12 +2,13 @@
 ``ceph_tpu``'s, through one sequence on a six-daemon cluster of each.
 
 ``torch_daemon_harness.DaemonCluster`` runs each package's
-``OSDService``s on the map of ``tests/test_osd_cluster.py`` (without the
-clay pool): every client op enters ``ms_dispatch`` from a raw messenger,
+``OSDService``s on the map of ``tests/test_osd_cluster.py``: every
+client op enters ``ms_dispatch`` from a raw messenger,
 rides the daemon's mclock workqueue into ``PG.do_op``, and every peer
 message crosses a messenger.  The same numpy-seeded sequence goes
 through both, on ``REP_POOL``, ``EC_POOL`` (isa k=2 m=1) and
-``EC22_POOL`` (isa k=2 m=2): writes, reads, a kill, degraded reads,
+``EC22_POOL`` (isa k=2 m=2), and again on ``CLAY_POOL`` (clay k=4 m=2):
+writes, reads, a kill, degraded reads,
 writes while the daemon is down, its revival on its old store, and the
 settling that catches it up (the primary's recovery, ``pull_from_peer``
 and the pushes).  After each step both clusters must agree on:
@@ -58,9 +59,24 @@ def _snapshot(c, replies) -> dict:
             "pg_stats": c.pg_stats(), "scrubs": c.dump_scrubs()}
 
 
-def _sequence(pkg: str, device: str = "cpu") -> list:
-    """The steps on ``pkg``'s cluster (the port's daemons on ``device``);
-    a snapshot after each."""
+def _every_pg(c, pool: int, prefix: str, write) -> None:
+    """Write one new object, ``<prefix><i>``, into every PG of ``pool``
+    (the first name of each PG in order)."""
+    seen = set()
+    for i in range(256):
+        pgid = tuple(int(x) for x in c.primary_of(pool, f"{prefix}{i}")[0])
+        if pgid not in seen:
+            seen.add(pgid)
+            write(pool, f"{prefix}{i}")
+
+
+def _sequence(pkg: str, device: str = "cpu", pools=POOLS,
+              rewrite: bool = True) -> list:
+    """The steps on ``pkg``'s cluster (the port's daemons on ``device``),
+    writing to ``pools``: ``obj0`` is rewritten while the victim is
+    down when ``rewrite``, else one new object lands in every PG while
+    it is down and one more right after its revival; a snapshot after
+    each."""
     rng = np.random.default_rng(SEED)
     c = H.DaemonCluster(pkg, device=device)
     snaps, replies, want = [], [], {}
@@ -84,18 +100,26 @@ def _sequence(pkg: str, device: str = "cpu") -> list:
             replies.append(_reply_bytes(rep))
 
     try:
-        for pool in POOLS:
+        for pool in pools:
             for i in range(4):
                 write(pool, f"obj{i}")
         snaps.append(("write", _snapshot(c, replies)))
         c.kill(VICTIM)
         read_all()
         snaps.append(("degraded read", _snapshot(c, replies)))
-        for pool in POOLS:
-            write(pool, "obj0")
+        for pool in pools:
+            if rewrite:
+                write(pool, "obj0")
             write(pool, "fresh")
+            if not rewrite:
+                _every_pg(c, pool, "fresh", write)
         snaps.append(("write while down", _snapshot(c, replies)))
         c.revive(VICTIM)
+        if not rewrite:
+            # one new object in every PG of the pools: the revived
+            # member's commit watermark moves with the PG's next write
+            for pool in pools:
+                _every_pg(c, pool, "heal", write)
         snaps.append(("revive", _snapshot(c, replies)))
         read_all()
         snaps.append(("read after", _snapshot(c, replies)))
@@ -120,6 +144,43 @@ def test_daemon_clusters_of_both_packages_agree(monkeypatch):
     assert held, "the revived daemon holds none of the late writes"
     assert all(not miss for rows in last["logs"].values()
                for _ents, miss, _st in rows.values())
+
+
+def test_clay_pool_of_both_packages_agrees(monkeypatch):
+    """The same steps on ``CLAY_POOL`` (clay k=4 m=2 over all six
+    daemons): writes, degraded reads with the victim's shard lost (the
+    queue's cdec kind), new objects in every PG while it is down, and
+    its revival: where it is the primary, its own missing shards are
+    rebuilt from d helpers' repair layers (the sub-chunk plan, the
+    queue's crep kind).  Every
+    daemon holds a shard of every clay object, so nothing is rewritten
+    while the victim is down, and each PG takes a write right after the
+    revival: the revived member's ``committed_to`` otherwise stays
+    behind until the PG's next write, in both packages (ROADMAP R6).
+    Replies, stores, logs, missing sets
+    and ``pg_stats`` agree after every step."""
+    from ceph_tpu_torch.gpu.queue import StripeBatchQueue
+
+    monkeypatch.setattr(time, "time", lambda: CLOCK)
+    kinds = []
+    real = StripeBatchQueue._array_batch
+
+    def array_batch(self, batch):
+        kinds.append(batch[0].kind)
+        return real(self, batch)
+
+    monkeypatch.setattr(StripeBatchQueue, "_array_batch", array_batch)
+    ref = _sequence("ceph_tpu", pools=(H.CLAY_POOL,), rewrite=False)
+    port = _sequence("ceph_tpu_torch", pools=(H.CLAY_POOL,), rewrite=False)
+    assert [name for name, _ in port] == [name for name, _ in ref]
+    for (name, p), (_, r) in zip(port, ref):
+        for key in r:
+            assert p[key] == r[key], (name, key)
+    last = dict(port)["read after"]
+    held = [o for coll in last["stores"][VICTIM].values() for o in coll
+            if o[0][0] == "fresh"]
+    assert held, "the revived daemon holds none of the late writes"
+    assert {"encp", "cdec", "crep"} <= set(kinds), sorted(set(kinds))
 
 
 LIB_CLIENT = 4200

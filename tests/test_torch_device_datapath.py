@@ -7,7 +7,7 @@ its bytes, and the kill switch ``CEPH_TPU_TPU_DEVPATH=0`` stores the
 same shards.
 
 The cluster is ``torch_daemon_harness.DaemonCluster("ceph_tpu_torch")``
-(six port daemons, the reference's map without the clay pool,
+(six port daemons, the reference's map,
 ``device="cpu"``: the queue is ``default_queue("cpu")``), the client
 ``torch_daemon_harness.LibClient``.  The staging and CRC cases of that
 file are mirrored in ``tests/test_torch_staging.py`` and

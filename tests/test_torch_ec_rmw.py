@@ -4,7 +4,7 @@ the port's client moves only the touched stripes, and still works with
 a shard holder down (the old stripes decoded from the survivors).
 
 The cluster is ``torch_daemon_harness.DaemonCluster("ceph_tpu_torch")``
-(six port daemons, the reference's map without the clay pool,
+(six port daemons, the reference's map,
 ``device="cpu"``), the client ``torch_daemon_harness.LibClient``.  The
 backend-level cases of that file (the extent cache's pipelining and the
 hinfo round trip) are mirrored in ``tests/test_torch_backend.py``.

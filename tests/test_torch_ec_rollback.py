@@ -4,7 +4,7 @@ client.
 
 Each case builds its own six-daemon port cluster
 (``torch_daemon_harness.DaemonCluster("ceph_tpu_torch")``, the
-reference's map without the clay pool, ``device="cpu"``) and drives it
+reference's map, ``device="cpu"``) and drives it
 through the port's ``RadosClient`` (``torch_daemon_harness.LibClient``):
 
 - the peering watchdog re-kicks a wedged activation on a backed-off

@@ -8,7 +8,7 @@ The reference's committed 0xd403 schedules (``:245``, ``:359``: a
 degraded EC commit, its ack gated on a durable witness, and the acked
 state surviving a primary's death and a superseding write) run on the
 port's cluster, ``torch_daemon_harness.DaemonCluster("ceph_tpu_torch")``
-(six port daemons, the reference's map without the clay pool,
+(six port daemons, the reference's map,
 ``device="cpu"``), through the port's client, with the port's
 failpoints.  The filestore cases wait for queue 1 item 5.
 """

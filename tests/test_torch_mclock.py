@@ -8,7 +8,7 @@ enqueues in the same order with the same phases, and both
 
 The reference's cluster-level cases (``:383-660``) run on the port's
 cluster, ``torch_daemon_harness.DaemonCluster("ceph_tpu_torch")`` (six
-port daemons, the reference's map without the clay pool,
+port daemons, the reference's map,
 ``device="cpu"``), each tenant a port ``RadosClient``: the
 per-connection message cap's stalls, the fifo arm serving, and the
 OpTracker trail of a client op; with them the OpTracker unit cases of

@@ -6,7 +6,7 @@ the replicated and the EC pool, and on the replicated pool under an OSD
 thrasher.  Same seeds, rounds and object spaces as the reference.
 
 The cluster is ``torch_daemon_harness.DaemonCluster("ceph_tpu_torch")``
-(six port daemons, the reference's map without the clay pool,
+(six port daemons, the reference's map,
 ``device="cpu"``), the client ``torch_daemon_harness.LibClient``.  The
 reference's shard-level forensics dump on a divergence (it writes a
 file) is left out; the failure message carries the same oracle detail.

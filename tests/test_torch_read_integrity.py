@@ -8,7 +8,7 @@ The cluster cases (``:292`` onward: the EC read-repair loop, the
 replicated read's retry and heal, the late ``ECRC`` reply) run on the
 port's cluster, ``torch_daemon_harness.DaemonCluster("ceph_tpu_torch")``
 (six port daemons on MemStores with ``store_debug_inject_data_err`` on,
-the reference's map without the clay pool, ``device="cpu"``), through
+the reference's map, ``device="cpu"``), through
 the port's client (``torch_daemon_harness.LibClient``).
 
 Left out: the ``filestore`` and ``blockstore`` parameters and

@@ -349,6 +349,8 @@ def test_importing_the_port_loads_neither_jax_nor_the_reference():
             "assert 'ceph_tpu_torch.osd.mclock' in sys.modules\n"
             "assert 'ceph_tpu_torch.mon.client' in sys.modules\n"
             "assert 'ceph_tpu_torch.mon.monitor' in sys.modules\n"
+            "assert 'ceph_tpu_torch.ec.clay' in sys.modules\n"
+            "from ceph_tpu_torch.ec.clay import ClayCodec, ErasureCodeClay\n"
             "for m in ('__init__', 'objecter', 'rados', 'striper', "
             "'cache_tier'):\n"
             "    assert ('ceph_tpu_torch.client.' + m).removesuffix("

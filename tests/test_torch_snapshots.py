@@ -7,7 +7,7 @@ its snapshots as a whiteout, the pool-wide trim through the snap
 mapper, and a shared clone outliving a newer snap's trim.
 
 The cluster is ``torch_daemon_harness.DaemonCluster("ceph_tpu_torch")``
-(six port daemons, the reference's map without the clay pool,
+(six port daemons, the reference's map,
 ``device="cpu"``), the client ``torch_daemon_harness.LibClient``.  The
 snap rows through a PG split (``:179``) wait: they build a
 ``VStartCluster`` (ROADMAP queue 1 item 6).

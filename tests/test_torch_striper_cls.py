@@ -3,7 +3,7 @@ port's ``RadosStriper`` (``ceph_tpu_torch/client/striper.py``) and object
 classes called by ``IoCtx.call`` through the port's client.
 
 The cluster is ``torch_daemon_harness.DaemonCluster("ceph_tpu_torch")``
-(six port daemons, the reference's map without the clay pool,
+(six port daemons, the reference's map,
 ``device="cpu"``), the client ``torch_daemon_harness.LibClient``.  The
 cls cases also run as ``MOSDOp``s through both packages' PGs in
 ``tests/test_torch_cls.py``.

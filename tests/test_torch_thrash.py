@@ -4,7 +4,7 @@ writing and verifying; every object intact and right at the end.  Same
 seeds, same rounds.
 
 The cluster is ``torch_daemon_harness.DaemonCluster("ceph_tpu_torch")``
-(six port daemons, the reference's map without the clay pool,
+(six port daemons, the reference's map,
 ``device="cpu"``), the client ``torch_daemon_harness.LibClient``.  The
 reference's wide-seed sweep (``test_thrash_ec_sweep``, marked slow
 there) is not mirrored here.

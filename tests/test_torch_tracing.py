@@ -6,7 +6,7 @@ The wire trace tail runs over the port's messages, each traced message
 also byte-equal to the reference's; the cross-daemon tree, the
 recovery-round spans and the pg op spans run on the port's cluster,
 ``torch_daemon_harness.DaemonCluster("ceph_tpu_torch")`` (six port
-daemons, the reference's map without the clay pool, ``device="cpu"``),
+daemons, the reference's map, ``device="cpu"``),
 through the port's client.
 """
 

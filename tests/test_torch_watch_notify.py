@@ -4,7 +4,7 @@ missed within the timeout, and the objecter's linger re-registering a
 watch on the new primary after a failover.
 
 The cluster is ``torch_daemon_harness.DaemonCluster("ceph_tpu_torch")``
-(six port daemons, the reference's map without the clay pool,
+(six port daemons, the reference's map,
 ``device="cpu"``); every client is the port's ``RadosClient``
 (``torch_daemon_harness.LibClient``).
 """

@@ -3,8 +3,8 @@
 ``DaemonCluster(pkg)`` is ``tests/test_osd_cluster.py``'s ``MiniCluster``
 (``:60-110``) over ``pkg``'s ``OSDService``: six daemons, each over its
 own MemStore, on one shared map (``:35-56``: a replicated pool of size 3,
-isa k=2 m=1 and isa k=2 m=2, eight PGs each; the clay pool is left out,
-clay is not ported).  The port's daemons take ``device``.  The client is
+isa k=2 m=1, isa k=2 m=2 and clay k=4 m=2 over all six daemons, eight PGs
+each).  The port's daemons take ``device``.  The client is
 a raw messenger, ``client.4100``: ``op`` sends one ``MOSDOp`` to the
 object's acting primary and waits for its reply, and resends it (same
 tid and reqid) to the primary of the map of the moment while the answer
@@ -40,8 +40,10 @@ N_OSDS = 6
 REP_POOL = 1
 EC_POOL = 2
 EC22_POOL = 3
+CLAY_POOL = 4
 EC_PROFILE = "plugin=isa k=2 m=1 technique=reed_sol_van"
 EC22_PROFILE = "plugin=isa k=2 m=2 technique=reed_sol_van"
+CLAY_PROFILE = "plugin=clay k=4 m=2"
 CLIENT = 4100
 WAIT_S = 30.0
 RETRYABLE = (-11, -116)  # EAGAIN, ESTALE
@@ -58,7 +60,7 @@ def mods(pkg: str) -> SimpleNamespace:
 
 
 def build_map(M, dev: dict, n_osds: int = N_OSDS):
-    """``test_osd_cluster.build_map`` without the clay pool."""
+    """``test_osd_cluster.build_map``."""
     P = M.osdmap
     cm, root = M.cmap.build_flat_cluster(n_osds, hosts=n_osds)
     cm.add_simple_rule("replicated", root, 1, mode="firstn")
@@ -72,6 +74,9 @@ def build_map(M, dev: dict, n_osds: int = N_OSDS):
     osdmap.add_pool(P.PGPool(EC22_POOL, P.POOL_ERASURE, size=4,
                              min_size=3, pg_num=8, pgp_num=8, crush_rule=1,
                              erasure_code_profile=EC22_PROFILE))
+    osdmap.add_pool(P.PGPool(CLAY_POOL, P.POOL_ERASURE, size=6,
+                             min_size=5, pg_num=8, pgp_num=8, crush_rule=1,
+                             erasure_code_profile=CLAY_PROFILE))
     return osdmap
 
 
