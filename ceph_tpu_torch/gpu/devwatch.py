@@ -36,7 +36,8 @@ from ceph_tpu_torch.core.lockdep import make_lock
 from ceph_tpu_torch.ops import _build
 # the kernel wrappers: importing them creates their launch counts
 from ceph_tpu_torch.ops import (crc32c_device, crush_rule,  # noqa: F401
-                                gf2_matmul, gf256, gf256_planes)
+                                gf2_matmul, gf256, gf256_planes,
+                                mesh_digest)
 
 _BATCH_RING = 256        # recent batches kept for dumps
 _DUMP_BATCHES = 50       # listed by dump()

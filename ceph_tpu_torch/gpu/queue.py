@@ -1,12 +1,12 @@
 """StripeBatchQueue — coalesce concurrent EC encodes and decodes into
 one device batch.
 
-Port of ``ceph_tpu/tpu/queue.py`` (all but the mesh path).  For the
-flat codecs (RS and the GF(2) bit-matrix techniques), kinds ``enc``
-(coding planes), ``encp`` (coding planes + per-shard CRC-32C) and
-``dec`` (data planes rebuilt from k
-survivors, for codecs whose recovery is one MDS matrix product: the RS
-codecs; a bit-matrix code or shec decodes through ``codec.decode``).
+Port of ``ceph_tpu/tpu/queue.py``.  For the flat codecs (RS and the
+GF(2) bit-matrix techniques), kinds ``enc`` (coding planes), ``encp``
+(coding planes + per-shard CRC-32C) and ``dec`` (data planes rebuilt
+from k survivors, for codecs whose recovery is one MDS matrix product:
+the RS codecs; a bit-matrix code or shec decodes through
+``codec.decode``).
 Submit refuses what a batch cannot run, with a ``TypeError``: ``dec``
 for a codec without ``mds_recovery`` (the JAX queue takes shec there and
 fails in its worker), ``enc``/``encp`` for a codec without
@@ -70,10 +70,20 @@ on the device as [rows, Z or 1, s_pad], and the codec runs once over it
 reads them there (the reference rebuilds that layout on the host,
 queue.py:392-409).
 
+With ``mesh=`` (a ``gpu/meshio.MeshCompute``), a flat batch of a
+codec with ``mds_recovery`` (the RS codecs) rides the mesh
+(queue.py:301-330): ``enc`` and ``encp`` through ``encode_scatter``
+with the codec's coding matrix, written into the batch's coding rows,
+``dec`` through ``recovery_gather``, both kept on the device; each such
+batch counts in ``mesh_batches``.  ``encp``'s CRC then runs over the
+batch on the queue's device as without a mesh.  An array codec keeps
+its own batch, and so does every codec without ``mds_recovery`` (the
+bit-matrix codes, shec): the route follows that one capability, as the
+``dec`` kind does.
+
 ``default_queue(device)`` is the process's queue for one resolved
 device (queue.py:581): the CPU's and the card's never mix, and every
-one is stopped at interpreter exit.  (The mesh path comes with a later
-slice.)
+one is stopped at interpreter exit.
 """
 
 from __future__ import annotations
@@ -132,10 +142,14 @@ def _host_rows(rows, width: int) -> List[np.ndarray]:
 
 class StripeBatchQueue:
     def __init__(self, device=None, max_batch_cols: int = 1 << 20,
-                 window_s: float = 0.0005) -> None:
+                 window_s: float = 0.0005, mesh=None) -> None:
         self.device = resolve_device(device)
         self.max_batch_cols = max_batch_cols
         self.window_s = window_s
+        # optional MeshCompute (gpu/meshio.py): the RS codecs' flat
+        # batches run over its grid instead of one K1 launch
+        self.mesh = mesh
+        self.mesh_batches = 0
         self._q: "queue.Queue[_Job | None]" = queue.Queue()
         self._thread: threading.Thread | None = None
         self._lock = threading.Lock()
@@ -438,6 +452,8 @@ class StripeBatchQueue:
         codec = batch[0].codec
         if codec.is_array:
             return self._array_batch(batch)
+        mesh = (self.mesh if getattr(codec, "mds_recovery", False)
+                else None)
         rows = batch[0].rows
         widths = [j.width for j in batch]
         total = sum(widths)
@@ -451,15 +467,24 @@ class StripeBatchQueue:
                                 device=self.device)
                 self._assemble(x, flat, batch)
                 rec, _bits = codec.recovery_matrix(list(batch[0].sig))
-                data = gf256.gf_matmul_bytes(rec, x, donate=True)
+                if mesh is not None:
+                    self.mesh_batches += 1
+                    data = mesh.recovery_gather(rec, x, keep_device=True)
+                else:
+                    data = gf256.gf_matmul_bytes(rec, x, donate=True)
                 host = data[:, :total].cpu().numpy()
                 return [host[:, o:o + w] for o, w in zip(offs, widths)]
             m = codec.m
             full = torch.empty((rows + m, padded), dtype=torch.uint8,
                                device=self.device)
             self._assemble(full[:rows], flat, batch)
-            codec.encode_planes(full[:rows], out=full[rows:],
-                                jobs=(offs, widths))
+            if mesh is not None:
+                self.mesh_batches += 1
+                full[rows:].copy_(mesh.encode_scatter(
+                    codec.coding_u8, full[:rows], keep_device=True))
+            else:
+                codec.encode_planes(full[:rows], out=full[rows:],
+                                    jobs=(offs, widths))
             crcs = (crc32c_rows(full, offs, widths) if kind == "encp"
                     else None)
             coding = full[rows:, :total].cpu().numpy()

@@ -16,8 +16,8 @@ and launched at any shape without a recompile.  What carries over:
 - the declarations (:class:`BucketSpec`, :func:`declare`,
   :func:`sig_declared`) for the port's families: the queue's kinds
   ``enc``, ``encp``, ``dec``, ``crep`` and ``cdec``, K1 inside clay
-  ``gf256_clay``, the row CRC ``crc32c_rows`` and the CRUSH rule walk
-  ``crush_rule``;
+  ``gf256_clay``, the row CRC ``crc32c_rows``, the CRUSH rule walk
+  ``crush_rule`` and the mesh's programs ``meshio``;
 - :class:`DeviceWarmup`: on the card, "warm" means the one kernel build
   plus a first launch of each declared bucket, so the first client op
   pays neither.  Each plan item is one launch: K1 through the codec's
@@ -175,6 +175,11 @@ declare("crush_rule", free_args=(1,),
         note="xs i32[n]: a pool's pg vector (map_pgs) or one id "
              "(pg_to_up_acting); arg1 is the weight vector, sized by "
              "the map epoch's OSD count (free)")
+declare("meshio",
+        note="stripe axis covering-padded to pow2 multiples of 4*dp "
+             "(encode_scatter, recovery_gather; dp for scrub_digest): "
+             "K1 a mesh cell over its column slice, mesh_digest a stripe "
+             "row")
 
 
 # ---------------------------------------------------------------------------

@@ -26,7 +26,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("gf256.cu", "crc32c.cu", "gf2_matmul.cu", "crush.cu")
+SOURCES = ("gf256.cu", "crc32c.cu", "gf2_matmul.cu", "crush.cu", "meshio.cu")
 CUDA_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a"]
 LIB_NAME = "ceph_tpu_torch_kernels"
 
@@ -93,6 +93,8 @@ _SIGNATURES = {
     # (args: RuleArgs*, stream)
     "crush_rule_launch": [_P, _P],
     "crush_rule_args_size": [],
+    # (x, row_bytes, rows, n, out, stream)
+    "mesh_digest_launch": [_P, _I64, _I64, _I64, _P, _P],
 }
 
 

@@ -48,6 +48,20 @@ Phases, each of which fails the run (non-zero exit, no result line):
               shard), then read back degraded through
               ``decode_data_async`` with shards 6, 7, 10, 11 lost, byte
               for byte;
+6a. mesh     ``main``'s workload at full width through
+              ``StripeBatchQueue(mesh=MeshCompute([dev] * 8))``, a 4 x 2
+              grid of cells on the one card (``gpu/meshio.py``): each
+              coalesced ``encp`` batch through ``encode_scatter`` (K1 a
+              cell over its column slice and its two coding rows), then
+              the CRC kernel over the batch; each ``dec`` batch through
+              ``recovery_gather`` (K1 a cell, four rows each); every batch
+              counted in ``mesh_batches``, every CRC and coding byte equal
+              to ``main``'s, every read exact; each object's 12 stored
+              shards folded through ``scrub_digest`` (one ``mesh_digest``
+              launch a stripe row), each digest equal to
+              ``mesh_digest_plain`` on the card and to a one-cell mesh's,
+              a flipped byte changing it; ``encode_scatter(keep_device=
+              True)`` into ``recovery_gather`` on card tensors, exact;
 6b. core     the core host layer on that path (``ceph_tpu_torch/core``):
               the host CRC-32C (``core.crc``) equal to the card's CRC
               kernel on a main batch's rows (2 jobs x 12 shards x 512
@@ -69,7 +83,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
               a messenger (127.0.0.1, cephx authorizers bound to the
               dialed address, frame CRCs on), shard s on osd s % 5, the
               primary ``STATE_ACTIVE``; the primary's queue built under
-              lockdep, its staging pool set to 16 slots of 4 MiB; 64
+              lockdep, its staging pool set to 16 slots of 4 MiB; 32
               seeded 4 MiB objects (isa k=8 m=4, 1 MiB stripe) each sent
               by ``client.4100`` as one ``WRITEFULL`` ``MOSDOp``, which
               osd.0's op threads hand to ``PG.do_op``: ``_do_write``
@@ -82,12 +96,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
               slot is sealed and the ``MOSDOpReply`` comes at the commit;
               checked: every reply 0, every write staged and none
               degraded by a pool timeout, no op in flight, an ``encp``
-              batch wider than one write, no unsanctioned host copy, each
+              batch wider than one write (the first batch held 200 ms at
+              ``queue.batch.dispatch``, so the writes in flight queue up
+              behind it), no unsanctioned host copy, each
               parity handle fetched once, every slot back and at most 16
               in use, the primary's shards applied through
               ``op_payload`` before each seal, no host CRC in the
-              backend's write, 64 ordered log entries on every holder and
-              every PG's ``last_update`` and log head at version 64,
+              backend's write, 32 ordered log entries on every holder and
+              every PG's ``last_update`` and log head at version 32,
               every stored shard read back through its extent seals with
               the host CRC and its ``hinfo`` CRC equal to the card's CRC,
               and the ``devbuf`` check (object 0's parity by K1 on a CUDA
@@ -106,7 +122,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
               decodes every object through the queue's ``dec`` kind (K1,
               one job an object) from the nine survivors, byte for byte;
 6d. recovery  on the wire phase's PGs: osd.4 back on a new messenger,
-              the primary's shards 0, 5 and 10 of all 64 objects removed
+              the primary's shards 0, 5 and 10 of all 32 objects removed
               in one transaction and marked in ``pg.missing`` at their
               log versions, and ``PG.recovery_engine().recover`` rebuilds
               them: one ``MECSubReadVec`` per peer per round (Ceph's
@@ -128,7 +144,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
               gathered, one ``MECSubRead`` a remote shard, each chunk's
               decodes submitted together on the queue's ``dec`` kind, K1,
               and each object re-encoded and compared) naming shard 6 on
-              all 64 objects, ``scrub_errors`` 64, the stamps row
+              all 32 objects, ``scrub_errors`` 32, the stamps row
               written and the cursor cleared; the failpoint disarmed and
               five shards marked with ``debug_inject_data_err`` (the
               primary's shard 0 and shards 1, 7, 8, 11 on three peers),
@@ -147,7 +163,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
               every declared bucket) before its messengers serve; the map
               and address book to every daemon (``handle_osdmap``: one
               K6 launch a PG a call, timed), ``activate_pgs``,
-              ``wait_pgs_settled``, heartbeats; ``client.4100`` sends 64
+              ``wait_pgs_settled``, heartbeats; ``client.4100`` sends 32
               x 4 MiB ``WRITEFULL`` ``MOSDOp``s to pool A and 16 x 64 KiB
               to pool B, each to its acting primary, whose ``ms_dispatch``
               queues it on the mclock workqueue into ``PG.do_op``
@@ -174,7 +190,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
               ``inject_osdmap``ed and handed every map refresh, whose
               objecter places each op (``_calc_target``: one K6 launch a
               send and a resend) and resends it on a map change and on
-              its 1 s timer; 64 x 4 MiB ``IoCtx.aio_operate``
+              its 1 s timer; 32 x 4 MiB ``IoCtx.aio_operate``
               ``WRITEFULL`` to pool A from 8 threads and 16 x 64 KiB to
               pool B, every stored shard equal to the plain encode with
               its ``hinfo`` the host CRC; 8 new pool-A objects in flight
@@ -239,7 +255,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
               the envelope; it is K2's path.
 
 Each path zeroes the kernel launch counts just before its writes and
-reads them just after, then likewise for its reads (the core phase
+reads them just after, then likewise for its reads (the mesh phase
+also around its digest step and its chained step; the core phase
 zeroes them before its lockdep run and reads them after its failpoint
 check; the wire phase's write half is its MOSDOp writes and commits, its
 read half the MOSDOp reads with their sub-reads and reconstructs, the
@@ -261,7 +278,10 @@ phase's two halves, the recovery phase and each step of the scrub phase
 daemon phase and each of its map refreshes (``daemon_launches``) and
 each step of the cluster phase (``cluster_launches``; the
 ``crush_rule`` row adds the objecter's ``_calc_target`` calls a step
-and the refreshes' launches); the
+and the refreshes' launches), and each step of the mesh phase
+(``mesh_launches``); the ``mesh_digest`` row times the digest kernel at
+the digest step's [12, 512 Ki] and at [12, 64 Mi] beside
+``x.sum(dtype=torch.int64)`` (``library_ms``); the
 popcount row times both of
 shec's read shapes
 (``ms`` the contribution, ``solve_ms`` the solve).  The crush phase
@@ -914,10 +934,11 @@ def phase_crc(torch, dev, log) -> None:
 def launch_counts() -> tuple:
     from ceph_tpu_torch.ops import crc32c_device as cd
     from ceph_tpu_torch.ops import crush_rule, gf2_matmul, gf256, gf256_planes
+    from ceph_tpu_torch.ops import mesh_digest
 
     return (gf256.launches, cd.launches, gf2_matmul.launches,
             gf2_matmul.xor_launches, gf256_planes.launches,
-            crush_rule.launches)
+            crush_rule.launches, mesh_digest.launches)
 
 
 def reset_counts() -> None:
@@ -956,7 +977,8 @@ def run_threads(fn, nobj: int, threads: int) -> float:
 def drive_path(torch, dev, log, name: str, profile: str, lost,
                need_write, need_read, queue_read: bool, absent=(),
                nobj: int = 256, obj_bytes: int = 4 * MiB,
-               threads: int = 8) -> dict:
+               threads: int = 8, queue=None,
+               keep_shards: bool = False) -> dict:
     """Write ``nobj`` seeded objects through the stripe-batch queue's
     ``encode_crc_async`` with a 1 MiB stripe from ``threads`` threads,
     then read each back degraded with ``lost`` shards missing: through
@@ -965,7 +987,12 @@ def drive_path(torch, dev, log, name: str, profile: str, lost,
     zeroed just before the writes and read just after them, then zeroed
     just before the reads and read just after them: each kernel in
     ``need_write`` / ``need_read`` must have run in that half, and no
-    kernel in ``absent`` in either."""
+    kernel in ``absent`` in either (on the card: the CPU's plain
+    versions launch nothing).  ``queue`` is the queue to drive (a
+    fresh ``StripeBatchQueue(device=dev)`` by default); it is stopped at
+    the end either way.  The result carries every write's CRCs, each
+    half's batches and mesh batches, and with ``keep_shards`` every
+    object's data planes and coding."""
     from ceph_tpu_torch.ec import codec_from_profile
     from ceph_tpu_torch.gpu.queue import StripeBatchQueue
     from ceph_tpu_torch.ops import crc32c_device as cd
@@ -980,7 +1007,7 @@ def drive_path(torch, dev, log, name: str, profile: str, lost,
                          device=dev, generator=g).cpu().numpy()
     planes = [si.interleave(memoryview(objs[i]))[0] for i in range(nobj)]
     width = planes[0].shape[1]
-    q = StripeBatchQueue(device=dev)
+    q = StripeBatchQueue(device=dev) if queue is None else queue
     coding = [None] * nobj
     crcs = [None] * nobj
     decoded = [None] * nobj
@@ -1000,19 +1027,24 @@ def drive_path(torch, dev, log, name: str, profile: str, lost,
             decoded[i] = np.stack([got[s] for s in range(k)])
 
     try:
+        b0, mb0 = q.batches, q.mesh_batches
         reset_counts()
         w_wall = run_threads(write, nobj, threads)
         w_counts = read_counts()
-        w_batches, w_jobs = q.batches, q.jobs
+        w_batches, w_jobs = q.batches - b0, q.jobs
+        w_mesh = q.mesh_batches - mb0
         batch_jobs = dict(q.batch_jobs)
         reset_counts()
         r_wall = run_threads(read, nobj, threads)
         r_counts = read_counts()
+        r_batches = q.batches - b0 - w_batches
+        r_mesh = q.mesh_batches - mb0 - w_mesh
     finally:
         q.stop()
+    on_card = torch.device(dev).type == "cuda"  # the CPU launches nothing
     for half, counts, need in (("write", w_counts, need_write),
                                ("read", r_counts, need_read)):
-        require(all(counts[n] > 0 for n in need)
+        require(all(counts[n] > 0 or not on_card for n in need)
                 and all(counts[n] == 0 for n in absent),
                 f"{name}: the {half} ran {list(need)} and none of "
                 f"{list(absent)}: {counts}")
@@ -1044,17 +1076,143 @@ def drive_path(torch, dev, log, name: str, profile: str, lost,
         f"through {read_via} in {r_wall:.3f} s = "
         f"{logical / r_wall / 1e9:.3f} GB/s; CRCs and bytes exact; "
         f"launches: write {w_counts}, read {r_counts}")
-    return {"counts": counts, "w_counts": w_counts, "r_counts": r_counts,
-            "codec": codec, "width": width, "nobj": nobj,
-            "batch_jobs": batch_jobs, "survivors": survivors}
+    res = {"counts": counts, "w_counts": w_counts, "r_counts": r_counts,
+           "codec": codec, "width": width, "nobj": nobj,
+           "batch_jobs": batch_jobs, "survivors": survivors,
+           "crcs": np.stack(crcs), "w_wall": w_wall, "r_wall": r_wall,
+           "gbs": (logical / w_wall / 1e9, logical / r_wall / 1e9),
+           "batches": {"write": (w_batches, w_mesh),
+                       "read": (r_batches, r_mesh)}}
+    if keep_shards:
+        res.update(planes=planes, coding=coding)
+    return res
 
 
-def phase_main(torch, dev, log) -> dict:
-    return drive_path(torch, dev, log, "main",
-                      "plugin=isa k=8 m=4 technique=reed_sol_van",
-                      lost=(6, 7, 10, 11),
+MAIN_PROFILE = "plugin=isa k=8 m=4 technique=reed_sol_van"
+MAIN_LOST = (6, 7, 10, 11)
+
+
+def phase_main(torch, dev, log, nobj: int = 256,
+               obj_bytes: int = 4 * MiB) -> dict:
+    """``main``; its shards stay in the result for the mesh phase."""
+    return drive_path(torch, dev, log, "main", MAIN_PROFILE,
+                      lost=MAIN_LOST,
                       need_write=("gf256_matmul", "crc32c_rows"),
-                      need_read=("gf256_matmul",), queue_read=True)
+                      need_read=("gf256_matmul",), queue_read=True,
+                      nobj=nobj, obj_bytes=obj_bytes, keep_shards=True)
+
+
+MESH_CELLS = 8               # [dev] * 8: dp 4 x shard_par 2, test_meshio's grid
+CHAIN_SURVIVORS = [0, 1, 2, 3, 4, 5, 8, 9]  # test_meshio's chain
+
+
+def phase_mesh(torch, dev, log, main: dict, nobj: int = 256,
+               obj_bytes: int = 4 * MiB) -> dict:
+    """The ``mesh`` phase: ``main``'s workload at full width through
+    ``StripeBatchQueue(device=dev, mesh=MeshCompute([dev] * 8))``, a 4 x
+    2 grid of cells on the one card.  Every write and read batch must
+    ride the mesh (``mesh_batches`` equal to the half's batches), K1 and
+    the CRC kernel must launch in the write and K1 in the read, and every
+    CRC and coding byte must equal ``main``'s.  Then the digest step folds
+    each object's 12 stored shards through ``scrub_digest`` (one
+    ``mesh_digest`` launch a stripe row), each digest held against
+    ``mesh_digest_plain`` on the card and a one-cell mesh, and a flipped
+    byte must change it; and the chained step runs
+    ``encode_scatter(keep_device=True)`` into ``recovery_gather`` on card
+    tensors, exact.  ``nobj`` and ``obj_bytes`` must be ``main``'s.  With
+    ``dev`` the CPU (the tests) the plain versions run and launch
+    nothing, so the launch checks hold on the card only."""
+    from ceph_tpu_torch.gpu.meshio import MeshCompute
+    from ceph_tpu_torch.gpu.queue import StripeBatchQueue
+    from ceph_tpu_torch.ops import mesh_digest as md
+
+    mesh = MeshCompute([dev] * MESH_CELLS)
+    require((mesh.dp, mesh.shard_par) == (4, 2),
+            f"mesh: [dev] * 8 is a 4 x 2 grid ({mesh.dp} x "
+            f"{mesh.shard_par})")
+    on_card = torch.device(dev).type == "cuda"
+    q = StripeBatchQueue(device=dev, mesh=mesh)
+    res = drive_path(torch, dev, log, "mesh", MAIN_PROFILE, lost=MAIN_LOST,
+                     need_write=("gf256_matmul", "crc32c_rows"),
+                     need_read=("gf256_matmul",), queue_read=True,
+                     nobj=nobj, obj_bytes=obj_bytes,
+                     queue=q, keep_shards=True)
+    for half, (batches, meshed) in res["batches"].items():
+        require(batches > 0 and meshed == batches,
+                f"mesh: every {half} batch rode the mesh ({meshed} of "
+                f"{batches})")
+    require(np.array_equal(res["crcs"], main["crcs"]),
+            "mesh: every write's CRCs equal main's")
+    nobj = res["nobj"]
+    planes, coding = res.pop("planes"), res.pop("coding")
+    require(all(np.array_equal(coding[i], main["coding"][i])
+                for i in range(nobj)),
+            "mesh: every object's coding equals main's")
+
+    # the digest step: each object's 12 stored shards through the mesh
+    stored = [np.concatenate([planes[i], coding[i]]) for i in range(nobj)]
+    reset_counts()
+    t0 = time.monotonic()
+    digests = [mesh.scrub_digest(s) for s in stored]
+    d_wall = time.monotonic() - t0
+    d_counts = read_counts()
+    require(d_counts["mesh_digest"] == nobj * mesh.dp * on_card
+            and sum(d_counts.values()) == d_counts["mesh_digest"],
+            f"mesh: one mesh_digest launch a stripe row an object and "
+            f"nothing else: {d_counts}")
+    solo = MeshCompute([dev])
+    for i, s in enumerate(stored):
+        x = torch.from_numpy(s).to(dev)
+        require(digests[i] == int(md.mesh_digest_plain(x))
+                == solo.scrub_digest(x),
+                f"mesh: object {i}'s digest equals the plain version's "
+                f"and a one-cell mesh's")
+    flipped = stored[0].copy()
+    flipped[3, 1000] ^= 0xFF
+    require(mesh.scrub_digest(flipped) != digests[0],
+            "mesh: a flipped byte changes the digest")
+    fold = sum(digests) & md.MASK
+
+    # the chained step: device tensors from the encode into the decode
+    codec = res["codec"]
+    reset_counts()
+    x = torch.from_numpy(planes[0]).to(dev)
+    coding_dev = mesh.encode_scatter(codec.coding_u8, x, keep_device=True)
+    surv = torch.cat([x[:6], coding_dev[:2]])
+    rec, _ = codec.recovery_matrix(CHAIN_SURVIVORS)
+    rebuilt = mesh.recovery_gather(rec, surv, keep_device=True)
+    c_counts = read_counts()
+    require(isinstance(rebuilt, torch.Tensor) and rebuilt.device == x.device
+            and torch.equal(rebuilt, x)
+            and np.array_equal(coding_dev.cpu().numpy(), coding[0]),
+            "mesh: encode_scatter -> recovery_gather on card tensors is "
+            "exact")
+    require(c_counts["gf256_matmul"] == 2 * MESH_CELLS * on_card,
+            f"mesh: the chain is one K1 launch a cell a program: "
+            f"{c_counts}")
+
+    per = {half: {"batches": res["batches"][half][0],
+                  "k1_per_batch": c["gf256_matmul"]
+                  / res["batches"][half][0]}
+           for half, c in (("write", res["w_counts"]),
+                           ("read", res["r_counts"]))}
+    main_per = {half: c["gf256_matmul"] / main["batches"][half][0]
+                for half, c in (("write", main["w_counts"]),
+                                ("read", main["r_counts"]))}
+    log(f"mesh: MeshCompute([{dev}] * {MESH_CELLS}), {mesh.dp} x "
+        f"{mesh.shard_par} cells, under StripeBatchQueue(mesh=): write "
+        f"{res['gbs'][0]:.3f} GB/s (main {main['gbs'][0]:.3f}), degraded "
+        f"read {res['gbs'][1]:.3f} GB/s (main {main['gbs'][1]:.3f}); every "
+        f"batch on the mesh {json.dumps(per)} (main's K1 a batch "
+        f"{json.dumps(main_per)}); CRCs and coding equal main's; digest of "
+        f"{nobj} objects x 12 shards through scrub_digest in {d_wall:.3f} s "
+        f"({d_counts['mesh_digest']} mesh_digest launches, fold "
+        f"{fold:#010x}), each equal to the plain version's and a one-cell "
+        f"mesh's, a flipped byte seen; the encode -> recovery chain on "
+        f"card tensors exact ({c_counts['gf256_matmul']} K1 launches)")
+    res.update(d_counts=d_counts, c_counts=c_counts, d_wall=d_wall,
+               digest_shape=list(stored[0].shape))
+    return res
 
 
 CORE_OBJS = 32              # objects of the core phase's lockdep run
@@ -1250,7 +1408,8 @@ def phase_core(torch, dev, log) -> dict:
 # -- the wire phase: client ops through the PG on the wire -----------------
 
 WIRE_PROFILE = "plugin=isa k=8 m=4 technique=reed_sol_van"  # ``main``'s
-WIRE_OBJS = 64               # 4 MiB objects (RADOS's and RBD's default size)
+WIRE_OBJS = 32               # 4 MiB objects (RADOS's and RBD's default size),
+#                              cut from 64 for the script's time limit
 WIRE_PEERS = 4               # osd.1 .. osd.4 beside the primary osd.0
 WIRE_DOWN = (4,)             # shut down before the degraded read
 WIRE_CORRUPT = (1, 6)        # (peer, shard) whose read fails its extent seal
@@ -1260,6 +1419,7 @@ WIRE_EPOCH = 7               # its map epoch, stamped on every message and entry
 WIRE_META = "_pgmeta_"       # the PG meta object that holds the log's omap
 WIRE_CLIENT = 4100           # client.4100 sends the MOSDOps
 WIRE_WAIT_S = 120.0
+WIRE_HOLD_MS = 200           # the write's first batch held at dispatch
 _DAEMON_HAS = ("is the OSD daemon's (ceph_tpu_torch/osd/daemon.py, the "
                "daemon phase); PhaseOSD hosts one PG without it")
 
@@ -2031,6 +2191,14 @@ def run_wire(torch, dev, *, nobj: int = WIRE_OBJS,
         os_mod.op_payload = op_payload
         ob.crc32c = be_crc
         fp.arm("staging.seal", lambda ctx: seals.append(applied[0]))
+        # the first batch waits at dispatch so the writes in flight
+        # behind it queue up: whether an encp batch carries more than
+        # one write then shows whether the PG path submits concurrently,
+        # not how the payloads' host CRCs happened to spread the
+        # arrivals (left alone they coalesce by chance, 0-2 batches of
+        # 32-64)
+        fp.arm("queue.batch.dispatch", fp.sleep_ms(WIRE_HOLD_MS),
+               once=True)
         try:
             reset_counts()
             w_wall = run_threads(write, nobj, threads)
@@ -2045,6 +2213,7 @@ def run_wire(torch, dev, *, nobj: int = WIRE_OBJS,
                 time.sleep(0.001)
         finally:
             fp.disarm("staging.seal")
+            fp.disarm("queue.batch.dispatch")
             ob.crc32c = plain_be_crc
             os_mod.op_payload = plain_op_payload
             del q.encode_crc_async
@@ -2637,11 +2806,13 @@ def _scrub_primary(pg, host0, prim, holders, client_d, cconn, q, oids, objs,
 
 def phase_wire(torch, dev, log) -> dict:
     """``run_wire`` at full width: isa k=8 m=4 (the ``main`` profile), a
-    1 MiB stripe, 64 x 4 MiB objects written and read by ``MOSDOp``
+    1 MiB stripe, 32 x 4 MiB objects written and read by ``MOSDOp``
     through ``PG.do_op``, the primary and four peers; osd.4 (shards 4,
     9) down and shard 6 rotten on osd.1 for the degraded read.  The
     write half must launch K1 and the CRC kernel, the read half K1, and
-    at least one encp batch must carry more than one write."""
+    at least one encp batch must carry more than one write (the write's
+    first batch waits ``WIRE_HOLD_MS`` at ``queue.batch.dispatch``, so
+    the writes in flight queue up behind it)."""
     res = run_wire(torch, dev, scrub=True)
     require(res["lost"] == [4, 6, 9], f"wire: lost {res['lost']}")
     for half, counts, need in (("write", res["w_counts"],
@@ -2691,7 +2862,7 @@ def phase_wire(torch, dev, log) -> dict:
 
 def phase_recovery(torch, dev, log, wire: dict) -> dict:
     """The ``recovery`` phase: ``run_wire``'s step 5 on the wire phase's
-    PGs (osd.4 back, the primary's shards 0, 5 and 10 of all 64 objects
+    PGs (osd.4 back, the primary's shards 0, 5 and 10 of all 32 objects
     lost and rebuilt by ``PG.recovery_engine().recover`` from exactly
     k = 8 sources, the rotten shard 6 answering ``ECRC``).  K1 must
     launch in it."""
@@ -2717,9 +2888,9 @@ def phase_recovery(torch, dev, log, wire: dict) -> dict:
 
 def phase_scrub(torch, dev, log, wire: dict) -> dict:
     """The ``scrub`` phase: ``run_wire``'s step 6 (``_scrub_primary``) on
-    the wire phase's PGs, 64 x 4 MiB isa k=8 m=4 objects with shard 6
+    the wire phase's PGs, 32 x 4 MiB isa k=8 m=4 objects with shard 6
     still rotten on osd.1: cls through ``do_op``, a shallow scrub, a deep
-    scrub that names shard 6 on all 64 objects, then five marked shards
+    scrub that names shard 6 on all 32 objects, then five marked shards
     auto-repaired and a clean deep scrub.  K1 must launch in the cls
     writes and in each deep pass."""
     scr = wire["scrub"]
@@ -2759,6 +2930,8 @@ def phase_scrub(torch, dev, log, wire: dict) -> dict:
 
 
 DAEMON_OSDS = 12             # one port OSDService a shard of isa k=8 m=4
+DAEMON_OBJS = 32             # 4 MiB objects written to pool A, cut from
+#                              64 for the script's time limit
 DAEMON_EC_POOL = 2           # pool A: the wire profile, size k+m
 DAEMON_REP_POOL = 1          # pool B: replicated, size 3
 DAEMON_PG_NUM = 8
@@ -2965,7 +3138,7 @@ def ec_shards_checked(ds: DaemonSet, pool: int, oid: str, data, plain, si,
 
 
 def run_daemon(torch, dev, *, n_osds: int = DAEMON_OSDS,
-               profile: str = WIRE_PROFILE, nobj: int = WIRE_OBJS,
+               profile: str = WIRE_PROFILE, nobj: int = DAEMON_OBJS,
                obj_bytes: int = 4 * MiB, stripe_bytes: int = 1 * MiB,
                rep_objs: int = DAEMON_REP_OBJS,
                rep_bytes: int = DAEMON_REP_BYTES,
@@ -3394,7 +3567,7 @@ def phase_daemon(torch, dev, log) -> dict:
                 for name, s in st.items()}
     log(f"daemon: {DAEMON_OSDS} OSDService (isa k=8 m=4 pool, size 12, "
         f"{DAEMON_PG_NUM} PGs; replicated pool, size 3, {DAEMON_PG_NUM} "
-        f"PGs) on one map under lockdep: {WIRE_OBJS} x 4 MiB WRITEFULL "
+        f"PGs) on one map under lockdep: {DAEMON_OBJS} x 4 MiB WRITEFULL "
         f"MOSDOp from client.{WIRE_CLIENT} to each acting primary "
         f"(ms_dispatch -> the mclock wq -> PG.do_op -> encp) "
         f"{w['gbs']:.3f} GB/s ({w['wall_a_s']:.3f} s), "
@@ -3417,6 +3590,8 @@ def phase_daemon(torch, dev, log) -> dict:
 
 
 CLUSTER_CLIENT = 4200         # the RadosClient's entity: client.4200
+CLUSTER_OBJS = 32             # 4 MiB objects the client writes to pool A,
+#                               cut from 64 for the script's time limit
 CLUSTER_INFLIGHT = 8          # pool A writes in flight when their primary dies
 # Reads go one at a time: the objecter re-sends an op unanswered for 1 s
 # (its resend_interval, the reference's), and the PG runs every copy of a
@@ -3428,7 +3603,7 @@ CLUSTER_STRIPED = (64 * MiB, 1 * MiB, 4, 4 * MiB)
 
 
 def run_cluster(torch, dev, *, n_osds: int = DAEMON_OSDS,
-                profile: str = WIRE_PROFILE, nobj: int = WIRE_OBJS,
+                profile: str = WIRE_PROFILE, nobj: int = CLUSTER_OBJS,
                 obj_bytes: int = 4 * MiB, stripe_bytes: int = 1 * MiB,
                 rep_objs: int = DAEMON_REP_OBJS,
                 rep_bytes: int = DAEMON_REP_BYTES, threads: int = 8,
@@ -3777,7 +3952,7 @@ def phase_cluster(torch, dev, log) -> dict:
     log(f"cluster: RadosClient(client.{CLUSTER_CLIENT}) over "
         f"{DAEMON_OSDS} OSDService (isa k=8 m=4 pool, size 12, "
         f"{DAEMON_PG_NUM} PGs; replicated pool, size 3, {DAEMON_PG_NUM} "
-        f"PGs) under lockdep: {WIRE_OBJS} x 4 MiB IoCtx.aio_operate "
+        f"PGs) under lockdep: {CLUSTER_OBJS} x 4 MiB IoCtx.aio_operate "
         f"WRITEFULL from 8 threads {w['gbs']:.3f} GB/s "
         f"({w['wall_a_s']:.3f} s, {w['ec_shards_checked']} shards equal "
         f"to the plain encode, hinfo the host CRC), {DAEMON_REP_OBJS} x "
@@ -5098,6 +5273,64 @@ def time_kernels(torch, dev, log, main: dict) -> list:
     ]
 
 
+MESH_BIG = (12, 64 * MiB)    # the digest kernel's second timed shape
+
+
+def time_mesh_digest(torch, dev, log, mesh: dict) -> dict:
+    """The ``mesh_digest`` row: ``ms`` from a CUDA graph of launches over
+    rotating [12, 512 Ki] buffers (the digest step's shape: one object's
+    stored shards), ``call_ms`` the eager wrapper call, the plain
+    version's time, and ``library_ms`` for ``x.sum(dtype=torch.int64)``,
+    one PyTorch call over the same bytes (the digest is that sum times a
+    constant mod 2^32); then the same at [12, 64 Mi] (``big``).  The bound
+    is the bytes read once at 3.35 TB/s (one dp4a a word is far below the
+    integer peak)."""
+    from ceph_tpu_torch.ops import mesh_digest as md
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 7)
+
+    def timed(bufs) -> dict:
+        nbuf = len(bufs)
+        out = torch.empty(2, dtype=torch.int64, device=dev)
+        it = iter(range(1 << 30))
+        ms = graph_ms(torch, lambda: md.mesh_digest(
+            bufs[next(it) % nbuf], out=out))
+        call_ms = event_ms(torch, lambda: md.mesh_digest(
+            bufs[next(it) % nbuf]), 40)
+        lib_ms = event_ms(torch, lambda: bufs[next(it) % nbuf].sum(
+            dtype=torch.int64), 40)
+        x = bufs[0]
+        plain = md.mesh_digest_plain(x)
+        err = abs(int(md.mesh_digest(x)) - int(plain))
+        plain_ms = event_ms(torch, lambda: md.mesh_digest_plain(x), 3,
+                            warmup=1)
+        rows, n = x.shape
+        b, by = bound(rows * n + 8, rows * n // 4)
+        return {"shape": [rows, n], "ms": ms, "call_ms": call_ms,
+                "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b,
+                "bound_by": by, "max_abs_err": err}
+
+    rows, width = mesh["digest_shape"]
+    small = timed(rotating(torch, dev, g, rows, width))
+    big = timed([torch.randint(0, 256, MESH_BIG, dtype=torch.uint8,
+                               device=dev, generator=g)])
+    torch.cuda.empty_cache()
+    for r in (small, big):
+        log(f"mesh_digest {r['shape']}: {r['ms']:.4f} ms (graph), call "
+            f"{r['call_ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, "
+            f"x.sum(int64) {r['library_ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}), max_abs_err "
+            f"{r['max_abs_err']}")
+    return {"name": "mesh_digest", "route": "cuda",
+            "source": "ceph_tpu_torch/csrc/meshio.cu",
+            "replaces": "ceph_tpu/tpu/meshio.py:216",
+            "launches": mesh["d_counts"]["mesh_digest"],
+            **{k: small[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                     "bound_ms", "bound_by", "library_ms",
+                                     "call_ms", "shape")},
+            "big": big}
+
+
 def main() -> int:
     import torch
 
@@ -5124,6 +5357,8 @@ def main() -> int:
     phase_gf2(torch, dev, log)
     phase_gf256i(torch, dev, log)
     main_res = phase_main(torch, dev, log)
+    mesh_res = phase_mesh(torch, dev, log, main_res)
+    del main_res["planes"], main_res["coding"]
     phase_core(torch, dev, log)
     wire_res = phase_wire(torch, dev, log)
     rec_res = phase_recovery(torch, dev, log, wire_res)
@@ -5152,6 +5387,11 @@ def main() -> int:
                                   for name, s in cls_res["steps"].items()}
         kr["clay_launches"] = {name: s["counts"][kr["name"]]
                                for name, s in clay_res["steps"].items()}
+        kr["mesh_launches"] = {
+            "write": mesh_res["w_counts"][kr["name"]],
+            "read": mesh_res["r_counts"][kr["name"]],
+            "digest": mesh_res["d_counts"][kr["name"]],
+            "chain": mesh_res["c_counts"][kr["name"]]}
     kernels[0]["clay_pair"] = time_clay_pair(torch, dev, log, clay_res)
     kernels.append(time_gf2(torch, dev, log, bm_res))
     kernels.append(time_gf2_popcount(torch, dev, log, sh_res))
@@ -5159,6 +5399,7 @@ def main() -> int:
         "popcount_k16", "popcount_k32", "popcount_k64", "popcount_k128")}
     kernels.append(time_gf256i(torch, dev, log, eb_res))
     kernels[-1]["sass"] = {"inter_4x8": sass["inter_4x8"]}
+    kernels.append(time_mesh_digest(torch, dev, log, mesh_res))
     kernels.append(time_crush(torch, dev, log, cr_res, sass))
     kernels[-1]["placement_launches"] = pl_res["launches"]
     kernels[-1]["placement_sweep_ms"] = pl_res["sweep_ms"]

@@ -164,7 +164,7 @@ def test_devwatch_counts_batches_and_launches(tmp_path):
     assert last["kind"] == "encp" and last["jobs"] == 1
     assert last["shapes"] == [[K, 1024]]
     names = {"gf256_matmul", "crc32c_rows", "gf2_matmul", "gf2_xor",
-             "gf256_interleaved", "crush_rule"}
+             "gf256_interleaved", "crush_rule", "mesh_digest"}
     assert set(dw.launches()) == names
     # on the CPU the plain versions run: no kernel was launched
     assert dw.launches() == {c.name: c.value for c in _build.COUNTS}

@@ -14,10 +14,11 @@ import torch
 from ceph_tpu_torch.crush import map as cmap
 from ceph_tpu_torch.crush import mapper, samples
 from ceph_tpu_torch.ec import codec_from_profile, matrices
+from ceph_tpu_torch.gpu.meshio import MeshCompute
 from ceph_tpu_torch.gpu.queue import StripeBatchQueue
 from ceph_tpu_torch.ops import crc32c_device as cd
 from ceph_tpu_torch.ops import benchloop, crush_rule, gf2_matmul, gf256
-from ceph_tpu_torch.ops import gf256_planes
+from ceph_tpu_torch.ops import gf256_planes, mesh_digest
 from ceph_tpu_torch.osd.ecutil import StripeInfo
 from ceph_tpu_torch.tools import ecbench
 
@@ -1297,3 +1298,103 @@ def test_clay_daemon_cluster_on_the_card_equals_the_cpu(dev, monkeypatch):
     for (name, g), (_, w) in zip(got, want):
         for key in w:
             assert g[key] == w[key], (name, key)
+
+
+# -- K8: the mesh (gpu/meshio.py) and its digest kernel (csrc/meshio.cu) ----
+
+@pytest.mark.parametrize("n", [1, 3, 4095, 1 << 20])
+def test_mesh_digest_kernel_equals_plain(dev, n):
+    g = torch.Generator(device=dev).manual_seed(n)
+    x = torch.randint(0, 256, (12, n), dtype=torch.uint8, device=dev,
+                      generator=g)
+    before = mesh_digest.launches.value
+    got = mesh_digest.mesh_digest(x)
+    assert mesh_digest.launches.value == before + 1
+    assert got.device == x.device and got.dtype == torch.int64
+    assert torch.equal(got, mesh_digest.mesh_digest_plain(x))
+
+
+def test_mesh_digest_kernel_on_pitched_column_slices(dev):
+    """Column slices at every alignment (head and tail bytes of each row
+    read apart from its 16-byte vectors), a one-row slice, the out=
+    scratch, and a byte sum past 2^32 that wraps."""
+    g = torch.Generator(device=dev).manual_seed(23)
+    base = torch.randint(0, 256, (12, (1 << 16) + 37), dtype=torch.uint8,
+                         device=dev, generator=g)
+    out = torch.empty(2, dtype=torch.int64, device=dev)
+    for x in (base[:, 5:5 + 4099], base[3:9, 1:], base[:, 16:16 + 65536],
+              base[:1, 7:8], base[:, 13:29], base[:, 3:3]):
+        want = mesh_digest.mesh_digest_plain(x)
+        assert torch.equal(mesh_digest.mesh_digest(x), want)
+        assert torch.equal(mesh_digest.mesh_digest(x, out=out), want)
+    ones = torch.full((12, 1 << 22), 255, dtype=torch.uint8, device=dev)
+    assert 12 * (1 << 22) * 255 > 1 << 32
+    assert torch.equal(mesh_digest.mesh_digest(ones),
+                       mesh_digest.mesh_digest_plain(ones))
+
+
+def test_mesh_on_the_card_equals_k1_alone(dev):
+    """A 4 x 2 mesh on one card (``[dev] * 8``): the encode is one K1
+    launch a cell (two coding rows each) and equals K1 over the whole
+    batch, from a tensor and from numpy; the decode likewise; the digest
+    is one launch a stripe row and equals a one-cell mesh's and the
+    plain version's."""
+    mesh = MeshCompute([dev] * 8)
+    assert (mesh.dp, mesh.shard_par) == (4, 2)
+    codec = codec_from_profile("plugin=isa k=8 m=4", device=dev)
+    g = torch.Generator(device=dev).manual_seed(8)
+    x = torch.randint(0, 256, (8, (1 << 20) + 37), dtype=torch.uint8,
+                      device=dev, generator=g)
+    before = gf256.launches.value
+    got = mesh.encode_scatter(codec.coding_u8, x, keep_device=True)
+    assert gf256.launches.value - before == 8
+    want = gf256.gf_matmul_bytes(codec.coding_u8, x)
+    assert got.device == x.device and torch.equal(got, want)
+    host = mesh.encode_scatter(codec.coding_u8, x.cpu().numpy())
+    np.testing.assert_array_equal(host, want.cpu().numpy())
+    survivors = [0, 1, 2, 3, 4, 5, 8, 9]
+    rec, _ = codec.recovery_matrix(survivors)
+    surv = torch.cat([x[:6], got[:2]])
+    before = gf256.launches.value
+    rebuilt = mesh.recovery_gather(rec, surv, keep_device=True)
+    assert gf256.launches.value - before == 8
+    assert torch.equal(rebuilt, x)
+    assert torch.equal(rebuilt, gf256.gf_matmul_bytes(rec, surv))
+    shards = torch.cat([x, got])
+    before = mesh_digest.launches.value
+    d = mesh.scrub_digest(shards)
+    assert mesh_digest.launches.value - before == 4
+    assert d == MeshCompute([dev]).scrub_digest(shards)
+    assert d == int(mesh_digest.mesh_digest_plain(shards))
+    assert d == mesh.scrub_digest(shards.cpu().numpy())
+
+
+def test_mesh_queue_on_the_card(dev):
+    """The queue's mesh route on the card: encp and dec batches ride a 4
+    x 2 mesh and give the coding, CRCs and data of the queue without
+    one."""
+    codec = codec_from_profile("plugin=isa k=8 m=4", device=dev)
+    rng = np.random.default_rng(31)
+    objs = [rng.integers(0, 256, (8, 128 << 10), dtype=np.uint8)
+            for _ in range(8)]
+    survivors = [0, 1, 2, 3, 4, 5, 8, 9]
+    outs = []
+    for mesh in (MeshCompute([dev] * 8), None):
+        q = StripeBatchQueue(device=dev, mesh=mesh, window_s=0.005)
+        try:
+            enc = [f.result() for f in
+                   [q.encode_crc_async(codec, o) for o in objs]]
+            dec = [f.result() for f in [
+                q.decode_data_async(codec, {
+                    s: o[s] if s < 8 else c[s - 8] for s in survivors})
+                for o, (c, _) in zip(objs, enc)]]
+        finally:
+            q.stop()
+        assert q.mesh_batches == (q.batches if mesh else 0)
+        outs.append((enc, dec))
+    for (c1, r1), (c2, r2) in zip(outs[0][0], outs[1][0]):
+        np.testing.assert_array_equal(c1, c2)
+        np.testing.assert_array_equal(r1, r2)
+    for o, d1, d2 in zip(objs, outs[0][1], outs[1][1]):
+        np.testing.assert_array_equal(d1, o)
+        np.testing.assert_array_equal(d2, o)
