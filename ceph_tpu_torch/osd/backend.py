@@ -60,6 +60,7 @@ Completion: an op commits when every PEER (not every shard) acked
 
 from __future__ import annotations
 
+import contextlib
 import threading
 import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
@@ -210,6 +211,19 @@ class PGBackend:
         # info.committed_to (rides EC sub-writes so shards learn which
         # entries are beyond divergent rollback)
         self.committed_fn: Callable[[], EVersion] = EVersion
+        # the divergent-rewind fence, bound by the PG: `log_fence` is
+        # the lock its rewind (_rollback_to) holds, `in_log(entry)` says
+        # whether that very entry is still in its log (a version may be
+        # minted again after a rewind).  A deferred fan-out asks under
+        # the fence before it applies or sends anything: an entry
+        # rewound while its encode was queued fans out nowhere (Ceph's
+        # ECBackend::on_change drops such writes; the client resends)
+        self.log_fence = contextlib.nullcontext()
+        self.in_log: Callable[[LogEntry], bool] = lambda entry: True
+        # entries this primary minted whose write has stored nothing
+        # anywhere yet, by id: submitted, their fan-out not yet past the
+        # fence (or their encode failed).  Rewinding one undoes nothing
+        self._unfanned: Dict[int, LogEntry] = {}
         # optional perf sinks (the daemon's osd.N.pg counter set, and
         # osd.N.op for the per-peer fan-out RTT histogram) and log
         # hook, all bound by the host PG; no-ops stand alone so unit
@@ -271,6 +285,53 @@ class PGBackend:
 
     def _done(self, tid: int) -> None:
         self.in_flight.pop(tid, None)
+
+    def _note_unfanned(self, entries: List[LogEntry]) -> None:
+        if entries:
+            with self._lock:
+                self._unfanned[id(entries[-1])] = entries[-1]
+
+    def _fanned(self, entries: List[LogEntry]) -> None:
+        """This write's entry leaves `_unfanned`: its fan-out ran (or
+        failed), or its encode failed.  After a failed encode nothing is
+        stored anywhere, and a rewind of the entry marks the object
+        missing at a version every shard still holds."""
+        if entries:
+            with self._lock:
+                self._unfanned.pop(id(entries[-1]), None)
+
+    def _rewound(self, entries: List[LogEntry], tid: int) -> bool:
+        """Under `log_fence`: True when this write's entry left the PG's
+        log before its deferred fan-out ran.  The op leaves `in_flight`
+        uncommitted: nothing is stored or sent, and the client, never
+        answered, resends."""
+        if not entries:
+            return False
+        entry = entries[-1]
+        self._fanned(entries)
+        if self.in_log(entry):
+            return False
+        self.in_flight.pop(tid, None)
+        self.log(1, f"pg {self.pgid}: fan-out of rewound entry "
+                    f"{entry.version} dropped")
+        return True
+
+    def _apply_local(self, entries: List[LogEntry], tid: int, op,
+                     txns, capture) -> bool:
+        """A deferred fan-out's local half, in one step against a rewind
+        (under `log_fence`, so a later rollback finds its record): unless
+        the entry was rewound, ``capture(txn, shards)`` adds the rollback
+        records and this OSD's transaction is queued.  False when the
+        write was dropped as rewound."""
+        with self.log_fence:
+            if self._rewound(entries, tid):
+                return False
+            for osd, shards, txn in txns:
+                if osd == self.whoami:
+                    capture(txn, shards)
+                    self.store.queue_transaction(
+                        txn, on_commit=lambda o=osd: op.ack(o))
+        return True
 
     # -- fan-out sequencer -------------------------------------------------
     def _fan_ticket(self) -> int:
@@ -798,11 +859,21 @@ class ECBackend(PGBackend):
                         ) -> bool:
         """Undo one divergent entry: restore every local shard's
         pre-write state from the records persisted with it, and drop
-        the entry's log row.  False when no record exists (pre-
-        machinery entry, capture skipped, or applied elsewhere) — the
-        caller falls back to marking the object missing."""
+        the entry's log row.  An entry this primary minted whose write
+        stored nothing yet needs no undo (True).  False when no record
+        exists (pre-machinery entry, capture skipped, or applied
+        elsewhere) — the caller falls back to marking the object
+        missing."""
         from ceph_tpu_torch.osd.pglog import _logkey, rollback_prefix
 
+        with self._lock:
+            unfanned = self._unfanned.get(id(entry)) is entry
+        if unfanned:
+            # its fan-out has not passed the fence: nothing of this
+            # write is stored here or anywhere, and the fan-out, finding
+            # its entry gone, stores nothing (ROADMAP R7)
+            self.cache.invalidate(entry.oid)
+            return True
         omap = (meta_omap if meta_omap is not None
                 else self.store.omap_get(self.coll, _meta_oid()))
         pre = rollback_prefix(entry.version)
@@ -900,6 +971,7 @@ class ECBackend(PGBackend):
         version = entries[-1].version if entries else None
         av = _av_stamp(version) if version is not None else None
         rb_kind = RB_FULL if version is not None else 0
+        self._note_unfanned(entries)
         # epoch + watermark are minted NOW, under the pg lock — the
         # fan-out closure may run after an interval change, and a
         # stale sub-write stamped with the NEW epoch would evade the
@@ -909,8 +981,9 @@ class ECBackend(PGBackend):
         committed_to = self.committed_fn()
 
         def fanout(chunks: List, crcs=None) -> None:
+            rewound = False
             try:
-                msgs = 0
+                txns = []
                 for osd, shards in sorted(peer_shards.items()):
                     txn = Transaction()
                     for i, shard in enumerate(shards):
@@ -923,36 +996,46 @@ class ECBackend(PGBackend):
                             log_rm if i == 0 else None, av=av,
                             chunk_crc=(int(crcs[shard])
                                        if crcs is not None else None)))
+                    txns.append((osd, shards, txn))
+                def capture(txn, shards) -> None:
+                    # one rollback-capture pass + one WAL append for
+                    # every local shard of this write
+                    if rb_kind:
+                        for shard in shards:
+                            self.rb_capture(txn, oid, shard, rb_kind,
+                                            0, 0, version)
+
+                rewound = not self._apply_local(entries, tid, op, txns,
+                                                capture)
+                if rewound:
+                    return
+                msgs = 0
+                for osd, shards, txn in txns:
                     if osd == self.whoami:
-                        # one rollback-capture pass + one WAL append
-                        # for every local shard of this write
-                        if rb_kind:
-                            for shard in shards:
-                                self.rb_capture(txn, oid, shard, rb_kind,
-                                                0, 0, version)
-                        self.store.queue_transaction(
-                            txn, on_commit=lambda o=osd: op.ack(o))
-                    else:
-                        if (fp.enabled("backend.subwrite.fanout")
-                                and fp.failpoint(
-                                    "backend.subwrite.fanout",
-                                    peer=osd, oid=oid) is fp.DROP):
-                            continue  # modeled loss: never sent
-                        msg = m.MECSubWriteVec(
-                            self.pgid, epoch, oid,
-                            txn.to_bytes(), entries,
-                            rb=[(shard, rb_kind, 0, 0)
-                                for shard in shards],
-                            committed_to=committed_to)
-                        msg.tid = tid
-                        # the client op's span context rides the wire;
-                        # the peer opens its store-commit child off it
-                        msg.set_trace(trace)
-                        op.sent_at[osd] = time.monotonic()
-                        self.osd_send(osd, msg)
-                        msgs += 1
+                        continue
+                    if (fp.enabled("backend.subwrite.fanout")
+                            and fp.failpoint(
+                                "backend.subwrite.fanout",
+                                peer=osd, oid=oid) is fp.DROP):
+                        continue  # modeled loss: never sent
+                    msg = m.MECSubWriteVec(
+                        self.pgid, epoch, oid,
+                        txn.to_bytes(), entries,
+                        rb=[(shard, rb_kind, 0, 0)
+                            for shard in shards],
+                        committed_to=committed_to)
+                    msg.tid = tid
+                    # the client op's span context rides the wire;
+                    # the peer opens its store-commit child off it
+                    msg.set_trace(trace)
+                    op.sent_at[osd] = time.monotonic()
+                    self.osd_send(osd, msg)
+                    msgs += 1
                 self._note_fanout(msgs)
             finally:
+                self._fanned(entries)
+                if rewound and on_error is not None:
+                    on_error()
                 if state is not None and isinstance(state.data, DeviceBuf):
                     # every host sink (local store apply, wire frames)
                     # has read the staged slot: return it to the pool.
@@ -980,14 +1063,14 @@ class ECBackend(PGBackend):
                 lambda res: fanout(self._chunks_dev(planes, res[0]),
                                    crcs=res[1]),
                 self._encode_error_fn(tid, on_submitted, on_error,
-                                      state),
+                                      entries, state),
                 fused=True, size=len(state.data), trop=trop)
             return
         self._encode_then_fanout(
             planes,
             lambda coding: fanout(
                 self._chunks_of(planes, coding)),
-            self._encode_error_fn(tid, on_submitted, on_error),
+            self._encode_error_fn(tid, on_submitted, on_error, entries),
             trop=trop)
 
     def _chunks_dev(self, planes: np.ndarray, coding) -> List[DeviceBuf]:
@@ -1004,14 +1087,17 @@ class ECBackend(PGBackend):
                 for s, row in enumerate(
                     self._shard_rows(planes, np.asarray(coding)))]
 
-    def _encode_error_fn(self, tid, on_submitted, on_error, state=None):
+    def _encode_error_fn(self, tid, on_submitted, on_error, entries,
+                         state=None):
         """Unwind for a failed device encode: nothing was written or
         sent anywhere, so drop the in-flight op (a later peer-change
-        must not complete it as success), let the PG roll back its
-        projected bookkeeping, and release the admission FIFO; the
-        client's write times out retryable."""
+        must not complete it as success) and the entry from
+        `_unfanned`, let the PG roll back its projected bookkeeping, and
+        release the admission FIFO; the client's write times out
+        retryable."""
         def unwind() -> None:
             self.in_flight.pop(tid, None)
+            self._fanned(entries)
             try:
                 if state is not None and isinstance(state.data, DeviceBuf):
                     state.data.seal()  # release the staging slot
@@ -1109,9 +1195,13 @@ class ECBackend(PGBackend):
         """
         if not (getattr(self.store, "checksums_at_rest", False)
                 or getattr(self.store, "verify_reads", False)):
+            if self.perf is not None:
+                self.perf.inc("extent_reads_whole_chunk")
             data, code = self.read_local_chunk2(oid, shard)
             return (None, code) if data is None else (
                 data[off: off + length], 0)
+        if self.perf is not None:
+            self.perf.inc("extent_reads_at_rest")
         g = GHObject(oid, shard=shard)
         if not self.store.exists(self.coll, g):
             return None, EIO_MISSING
@@ -1466,6 +1556,7 @@ class ECBackend(PGBackend):
         self.in_flight[tid] = op
         ext_off, ext_len = self.sinfo.chunk_extent(s0, s0 + S)
         version = entries[-1].version if entries else None
+        self._note_unfanned(entries)
         # minted under the pg lock, NOT in the deferred closure (see
         # submit: a post-interval-change epoch would evade the peer's
         # interval_epoch drop-gate)
@@ -1474,8 +1565,9 @@ class ECBackend(PGBackend):
 
         def fanout(coding: np.ndarray) -> None:
             rows = self._shard_rows(planes, coding)
+            rewound = False
             try:
-                msgs = 0
+                txns = []
                 for osd, shards in sorted(peer_shards.items()):
                     txn = Transaction()
                     for i, shard in enumerate(shards):
@@ -1504,35 +1596,45 @@ class ECBackend(PGBackend):
                                     self.coll, _meta_oid(),
                                     list(log_rm)
                                     + self._rb_trim_keys(log_rm))
+                    txns.append((osd, shards, txn))
+                def capture(txn, shards) -> None:
+                    if version is not None:
+                        for shard in shards:
+                            self.rb_capture(txn, oid, shard, RB_EXTENT,
+                                            ext_off, ext_len, version)
+
+                rewound = not self._apply_local(entries, tid, op, txns,
+                                                capture)
+                if rewound:
+                    return
+                msgs = 0
+                for osd, shards, txn in txns:
                     if osd == self.whoami:
-                        if version is not None:
-                            for shard in shards:
-                                self.rb_capture(txn, oid, shard,
-                                                RB_EXTENT, ext_off,
-                                                ext_len, version)
-                        self.store.queue_transaction(
-                            txn, on_commit=lambda o=osd: op.ack(o))
-                    else:
-                        if (fp.enabled("backend.subwrite.fanout")
-                                and fp.failpoint(
-                                    "backend.subwrite.fanout",
-                                    peer=osd, oid=oid) is fp.DROP):
-                            continue  # modeled loss: never sent
-                        msg = m.MECSubWriteVec(
-                            self.pgid, epoch, oid,
-                            txn.to_bytes(), entries,
-                            rb=[(shard, RB_EXTENT, ext_off, ext_len)
-                                for shard in shards],
-                            committed_to=committed_to)
-                        msg.tid = tid
-                        self.osd_send(osd, msg)
-                        msgs += 1
+                        continue
+                    if (fp.enabled("backend.subwrite.fanout")
+                            and fp.failpoint(
+                                "backend.subwrite.fanout",
+                                peer=osd, oid=oid) is fp.DROP):
+                        continue  # modeled loss: never sent
+                    msg = m.MECSubWriteVec(
+                        self.pgid, epoch, oid,
+                        txn.to_bytes(), entries,
+                        rb=[(shard, RB_EXTENT, ext_off, ext_len)
+                            for shard in shards],
+                        committed_to=committed_to)
+                    msg.tid = tid
+                    self.osd_send(osd, msg)
+                    msgs += 1
                 self._note_fanout(msgs)
             finally:
-                if on_submitted is not None:
+                self._fanned(entries)
+                if rewound:
+                    unwind_with_cache()
+                elif on_submitted is not None:
                     on_submitted()
 
-        unwind = self._encode_error_fn(tid, on_submitted, on_error)
+        unwind = self._encode_error_fn(tid, on_submitted, on_error,
+                                       entries)
 
         def unwind_with_cache() -> None:
             # the merged stripes were cached optimistically above, but

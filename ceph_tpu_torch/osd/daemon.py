@@ -255,6 +255,17 @@ class OSDService(Dispatcher):
                              "decode jobs handed to the "
                              "StripeBatchQueue by degraded reads and "
                              "recovery reconstructs")
+        pgpc.add_u64_counter("extent_reads_at_rest",
+                             "ranged shard sub-reads served straight "
+                             "from a store whose reads verify at rest "
+                             "(its own block checksums or extent seals)")
+        pgpc.add_u64_counter("extent_reads_whole_chunk",
+                             "ranged shard sub-reads served by reading "
+                             "the whole chunk and checking its hinfo "
+                             "CRC")
+        pgpc.add_u64_counter("laggard_retries",
+                             "laggards pushed forward again by the "
+                             "watchdog after a push to them failed")
         pgpc.add_u64_counter("recover_on_read_hits",
                              "reads of missing objects served by a "
                              "promoted recovery instead of EAGAIN")
@@ -1158,13 +1169,18 @@ class OSDService(Dispatcher):
         interval token, left the gate closed with nothing scheduled to
         reopen it — an op-timeout class of 0.7% of loaded runs, whose
         forensics read 'state=peering, all OSDs up, 35 EAGAIN
-        attempts')."""
+        attempts'), and push forward again a laggard that a failed push
+        left stale (nothing else retries it: the PG serves on without
+        that holder's shards, and the holder stays behind)."""
         while self.up:
             time.sleep(1.0)
             try:
                 for pg in list(self.pgs.values()):
                     if pg.peering_stuck():
                         pg.activate_async()
+                    elif pg.laggards_due():
+                        # a laggard a failed push left stale
+                        pg.retry_laggards_async()
                     # pipelined writes don't block on commit: this
                     # sweep turns a never-acked write into a prompt
                     # retryable EAGAIN instead of silence

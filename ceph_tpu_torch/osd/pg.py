@@ -266,6 +266,10 @@ class PG:
         # roll-forward watermark rides EC sub-writes (divergent-entry
         # rollback must never rewind past an acked write)
         self.backend.committed_fn = lambda: self.info.committed_to
+        # a deferred fan-out asks, under the lock _rollback_to holds,
+        # whether its entry is still in the log (ROADMAP R7)
+        self.backend.log_fence = self.lock
+        self.backend.in_log = self._in_log
         self.backend.log = getattr(osd, "_log", self.backend.log)
         self.backend.perf = getattr(osd, "pg_perf", None)
         # osd.N.op stage histograms (per-peer fan-out RTT lands there)
@@ -290,6 +294,12 @@ class PG:
         # peering-watchdog backoff state (exponential per PG)
         self._wd_backoff = 0.0
         self._wd_next = 0.0
+        # laggards a push left stale, by osd, with the info they
+        # answered at activation: the watchdog pushes them forward again
+        # (laggards_due) until every push lands or the interval moves
+        self._laggard_retry: Dict[int, PGInfo] = {}
+        self._lag_backoff = 0.0
+        self._lag_next = 0.0
         # leaf lock for the roll-forward watermark CAS (commit
         # callbacks race it from shard-ack threads); _ct_dirty marks a
         # healthy-path watermark advance whose broadcast was absorbed
@@ -2598,14 +2608,15 @@ class PG:
         threading.Thread(target=self._activate_loop, daemon=True,
                          name=f"pg{t_.pgid_str(self.pgid)}-act").start()
 
-    def _activate_loop(self) -> None:
+    def _activate_loop(self, first=None) -> None:
         try:
             while True:
                 try:
-                    self.activate()
+                    (first or self.activate)()
                 except Exception as e:  # noqa: BLE001 — must not die wedged
                     self.osd._log(1, f"pg {self.pgid}: activation failed: "
                                      f"{e!r}")
+                first = None
                 with self.lock:
                     if self._activate_again:
                         self._activate_again = False
@@ -2641,6 +2652,45 @@ class PG:
             self._wd_backoff = min(max(2 * self._wd_backoff, 1.0), 30.0)
             self._wd_next = now + self._wd_backoff
             return True
+
+    def laggards_due(self) -> bool:
+        """Watchdog predicate: a primary with no activation in flight
+        holds a laggard that a failed push left stale (a push lost to a
+        kill window or timed out behind a slow store), and its fuse has
+        burnt.  Each True arms an exponentially longer fuse (1s, 2s, 4s,
+        ... capped at 30s), as ``peering_stuck`` does; an interval change
+        resets it."""
+        with self.lock:
+            if (not self._laggard_retry or self._activating
+                    or not self.is_primary()):
+                return False
+            now = time.monotonic()
+            if now < self._lag_next:
+                return False
+            self._lag_backoff = min(max(2 * self._lag_backoff, 1.0), 30.0)
+            self._lag_next = now + self._lag_backoff
+            return True
+
+    def retry_laggards_async(self) -> None:
+        """Push the stale laggards forward again on the activation
+        thread (one at a time with activations: an activation kicked
+        meanwhile runs after it, and recomputes the laggards)."""
+        with self.lock:
+            if self._activating:
+                return
+            self._activating = True
+        threading.Thread(target=self._activate_loop,
+                         args=(self._retry_laggards,), daemon=True,
+                         name=f"pg{t_.pgid_str(self.pgid)}-lag").start()
+
+    def _retry_laggards(self) -> None:
+        with self.lock:
+            infos = dict(self._laggard_retry) if self.is_primary() else {}
+            self._laggard_retry.clear()
+        perf = getattr(self.osd, "pg_perf", None)
+        if infos and perf is not None:
+            perf.inc("laggard_retries", len(infos))
+        self._push_laggards(infos)
 
     def activate(self) -> None:
         """Collect peer infos+logs, converge, then go active.
@@ -2707,6 +2757,8 @@ class PG:
                 osd_id for osd_id, info in infos.items()
                 if info.last_update < self.info.last_update
             }
+            self._laggard_retry = {}
+            self._lag_backoff = self._lag_next = 0.0
             # "Active accepts ops while recovery proceeds" (reference
             # PG.h:1955): with peer infos converged, the authoritative
             # log pulled, and behind peers fenced from reads, the
@@ -2846,6 +2898,18 @@ class PG:
                         infos[src] = rep.info
         return infos
 
+    def _in_log(self, entry: LogEntry) -> bool:
+        """Whether this very entry is still in the log (or trimmed below
+        its tail, which only an entry that stayed can be); after a
+        rewind its version may have been minted again for another."""
+        v = entry.version
+        if v <= self.log.tail:
+            return True
+        for en in reversed(self.log.entries):
+            if en.version <= v:
+                return en is entry
+        return False
+
     def _rollback_to(self, target: EVersion) -> None:
         """Rewind the local log above `target`, undoing each divergent
         entry's shard mutations from its persisted rollback records
@@ -2960,8 +3024,14 @@ class PG:
                         reserver.release()
                 else:
                     ok = self.push_object(oid, osd_id) and ok
-            if ok:
-                self.stale_peers.discard(osd_id)
+            with self.lock:
+                if ok:
+                    self.stale_peers.discard(osd_id)
+                elif osd_id in self.stale_peers:
+                    # retried from the info it answered: a push that
+                    # landed meanwhile may have moved its last_update
+                    # past an object that did not
+                    self._laggard_retry[osd_id] = info
 
     def _push_timeout_s(self) -> float:
         try:

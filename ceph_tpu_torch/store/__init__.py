@@ -1,12 +1,16 @@
-"""Local storage layer (L5): transactional object stores.
+"""Local storage layer (L5): transactional object stores + KV abstraction.
 
 Reference roles: ObjectStore/Transaction (src/os/ObjectStore.h,
-src/os/Transaction.cc) and MemStore (src/os/memstore/ — the test-tier
-fake backend, and the MiniCluster's store).
+src/os/Transaction.cc), MemStore (src/os/memstore/ — the test-tier fake
+backend), a journaled file-backed store standing in for
+FileStore/BlueStore (src/os/filestore/, src/os/bluestore/), and the
+pluggable KeyValueDB (src/kv/KeyValueDB.h) the metadata path rides on.
 
-Port of ``ceph_tpu/store/``: ``objectstore`` and ``memstore``.  The
-durable backends (``filestore``, ``blockstore``) and the KV layer under
-them are ROADMAP queue 1 item 5; ``create`` names that item for them.
+Port of ``ceph_tpu/store/``, module for module: ``objectstore``,
+``memstore``, ``kv``, ``lsm``, ``filestore`` and ``blockstore``.  What
+one package writes to disk, the other mounts: the WAL and KV log
+framing, the LSM tables, the block files and their onodes are the
+reference's byte for byte.
 """
 
 from ceph_tpu_torch.store.objectstore import (  # noqa: F401
@@ -24,8 +28,12 @@ def create(kind: str, path: str = "", **kw):
         from ceph_tpu_torch.store.memstore import MemStore
 
         return MemStore(**kw)
-    if kind in ("filestore", "blockstore"):
-        raise NotImplementedError(
-            f"the {kind} backend is ROADMAP queue 1 item 5 (the other store "
-            "backends); the port has memstore")
+    if kind == "filestore":
+        from ceph_tpu_torch.store.filestore import FileStore
+
+        return FileStore(path, **kw)
+    if kind == "blockstore":
+        from ceph_tpu_torch.store.blockstore import BlockStore
+
+        return BlockStore(path, **kw)
     raise ValueError(f"unknown objectstore {kind!r}")

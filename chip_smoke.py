@@ -2939,6 +2939,12 @@ DAEMON_REP_OBJS = 16         # small writes to pool B
 DAEMON_REP_BYTES = 64 << 10
 DAEMON_OVERWRITE = (8, 4)    # pool A, pool B objects rewritten while down
 DAEMON_SCRUB_IV = 0.5        # the scheduled scrub's interval (seconds)
+DAEMON_RMW_OBJS = 4          # pool A objects partly overwritten
+# each step's counts of the stores' commits, and of the PGs' ranged
+# shard reads (by the branch the backend took) and laggard push retries
+DAEMON_STORE_COUNTS = ("queued_txns", "dev_fsyncs")
+DAEMON_PG_COUNTS = ("extent_reads_at_rest", "extent_reads_whole_chunk",
+                    "laggard_retries")
 # threads that outlive the daemons by design: the process's stripe-batch
 # queue worker and the EC fan-out executor, stopped at interpreter exit
 DAEMON_SHARED_THREADS = ("stripe-batch", "pg-fanout")
@@ -2969,17 +2975,20 @@ def daemon_map(dev, n_osds: int, profile: str, k: int, pg_num: int):
 class DaemonSet:
     """Port OSD daemons on one map, booted, refreshed, killed, revived and
     stopped as ``run_daemon`` and ``run_cluster`` drive them: one
-    ``OSDService`` a store of ``stores`` (MemStores), all on ``osdmap``,
-    sharing ``ctx``.  ``refresh`` hands every live daemon the map and the
-    address book (timed, its K6 launches counted into ``refreshes``),
-    then each function of ``watchers`` the book (a client's objecter),
-    then activates every daemon and waits for its PGs to settle."""
+    ``OSDService`` a store of ``stores`` (``store_factory(i)``, MemStores
+    without one), all on ``osdmap``, sharing ``ctx``.  ``refresh`` hands
+    every live daemon the map and the address book (timed, its K6
+    launches counted into ``refreshes``), then each function of
+    ``watchers`` the book (a client's objecter), then activates every
+    daemon and waits for its PGs to settle."""
 
-    def __init__(self, dev, ctx, osdmap, n_osds: int, what: str) -> None:
+    def __init__(self, dev, ctx, osdmap, n_osds: int, what: str,
+                 store_factory=None) -> None:
         from ceph_tpu_torch.store.memstore import MemStore
 
         self.dev, self.ctx, self.osdmap, self.what = dev, ctx, osdmap, what
-        self.stores = {i: MemStore() for i in range(n_osds)}
+        self.make_store = store_factory or (lambda i: MemStore())
+        self.stores = {i: self.make_store(i) for i in range(n_osds)}
         self.osds: dict = {}
         self.refreshes: list = []
         self.watchers: list = []
@@ -3053,12 +3062,15 @@ class DaemonSet:
         self.osdmap.set_osd_down(i)
         self.refresh("kill")
 
-    def revive(self, i: int, wrap=None) -> None:
-        """A new daemon on the old store; its new address reaches every
-        daemon before the map that marks it up (as its boot message
-        precedes that map): a peer answering its pull from the old
-        address book would push to the dead messenger.  ``wrap(svc)``
-        runs before its ``init``."""
+    def revive(self, i: int, wrap=None, remount: bool = False) -> None:
+        """A new daemon on the old store, or with ``remount`` on a new
+        store object from the factory (a durable store mounted from its
+        files); its new address reaches every daemon before the map that
+        marks it up (as its boot message precedes that map): a peer
+        answering its pull from the old address book would push to the
+        dead messenger.  ``wrap(svc)`` runs before its ``init``."""
+        if remount:
+            self.stores[i] = self.make_store(i)
         svc = self.service(i)
         if wrap is not None:
             wrap(svc)
@@ -3102,11 +3114,12 @@ def no_threads_left(before: set, what: str) -> None:
 
 
 def ec_shards_checked(ds: DaemonSet, pool: int, oid: str, data, plain, si,
-                      only=None) -> int:
+                      only=None, whole: bool = True) -> int:
     """Each stored shard of ``oid`` (on daemon ``only``, else on every
     holder the map names) equals the plain encode of ``data`` (the codec
-    on the CPU), and its ``hinfo`` CRC is the host CRC of it; the number
-    of shards checked."""
+    on the CPU), and its ``hinfo`` CRC is the host CRC of it (``whole``;
+    else, after a partial overwrite, the hinfo is marked invalid); the
+    number of shards checked."""
     from ceph_tpu_torch.core.crc import crc32c
     from ceph_tpu_torch.osd import backend as ob
     from ceph_tpu_torch.osd.types import pgid_str
@@ -3130,11 +3143,43 @@ def ec_shards_checked(ds: DaemonSet, pool: int, oid: str, data, plain, si,
         require(got == shards[s].tobytes(),
                 f"{ds.what}: osd.{osd} {oid} shard {s} equals the plain "
                 "encode")
-        require(valid and size == len(data) and hcrc == crc32c(got),
+        require(size == len(data) and (
+                    valid and hcrc == crc32c(got) if whole else not valid),
                 f"{ds.what}: osd.{osd} {oid} shard {s}: its hinfo CRC is "
-                "the host CRC of the stored bytes")
+                "the host CRC of the stored bytes" if whole else
+                f"{ds.what}: osd.{osd} {oid} shard {s}: its hinfo is marked "
+                "invalid after the partial overwrite")
         done += 1
     return done
+
+
+def flip_at_rest(store, coll, g, nbytes: int = 16) -> int:
+    """Flip ``nbytes`` of the first stored block of object ``g`` in a
+    BlockStore's raw block file, behind the live store (its onode and
+    blob caches dropped, as ``test_scrub_repair_blockstore.py`` does);
+    the file offset flipped."""
+    from ceph_tpu_torch.store.blockstore import BLOCK, _objkey
+
+    with store._lock:
+        on = store._onode(_objkey(coll, g))
+        _loff, _ln, bid, boff = on.extents[0]
+        blob = store._blob(bid)
+        index = 0 if blob.comp else boff // BLOCK
+        at = 0
+        for blk, cnt in blob.pextents:
+            if index < at + cnt:
+                pos = (blk + index - at) * BLOCK
+                break
+            at += cnt
+        store._dev_fh.flush()
+        with open(store._dev_path, "r+b") as f:
+            f.seek(pos)
+            old = f.read(nbytes)
+            f.seek(pos)
+            f.write(bytes(b ^ 0xFF for b in old))
+        store._onodes.clear()
+        store._blobs.clear()
+    return pos
 
 
 def run_daemon(torch, dev, *, n_osds: int = DAEMON_OSDS,
@@ -3150,7 +3195,8 @@ def run_daemon(torch, dev, *, n_osds: int = DAEMON_OSDS,
 
     1. boot: one Context (``tpu_boot_warmup`` on, the staging pool at
        ``WIRE_SLOTS`` slots of an object, ``osd_op_history_size`` 256),
-       one ``OSDService`` a shard, each over its own MemStore, all on
+       one ``OSDService`` a shard, each over its own ``BlockStore`` in a
+       temporary directory (no ``O_SYNC``, ``kv_kind="log"``), all on
        one ``OSDMap`` of ``daemon_map``; each ``init()`` runs
        ``DeviceWarmup`` (K1 through ``encode_planes`` and the recovery
        product, the CRC kernel, K6 through ``map_pgs``) before its
@@ -3170,6 +3216,10 @@ def run_daemon(torch, dev, *, n_osds: int = DAEMON_OSDS,
        host CRC of it; every PG's ``last_update`` equal on all its
        holders; each primary's ``osd.N.qos`` ``admitted_client`` moved
        by the ops sent to it; every op in some ``dump_historic_ops``;
+       then ``rmw``: ``DAEMON_RMW_OBJS`` pool A objects take an offset
+       ``WRITE`` (the partial-stripe RMW, whose old-stripe sub-reads are
+       ranged: ``read_local_chunk_extent2``, served from the stores'
+       own checksums at rest);
     3. degraded read: the primary of pool B's first object's PG shuts
        down, is marked down in the map, and every daemon takes the map
        (``handle_osdmap``, ``activate_pgs``: peering through
@@ -3178,21 +3228,39 @@ def run_daemon(torch, dev, *, n_osds: int = DAEMON_OSDS,
        ``reconstruct_async`` (K1 ``dec``) where a data shard is lost;
     4. recover: while it is down, ``overwrite`` objects of pools A and B
        are rewritten (pool B's first the ones of PGs it leads); then a
-       new ``OSDService`` on its old store, ``set_osd_up``, the map and
+       new ``OSDService`` on a new ``BlockStore`` mounted from its
+       directory (its KV log replayed), ``set_osd_up``, the map and
        activation everywhere: its PGs catch up through peering, the
-       recovery engine on pool A (K1) and ``pull_from_peer`` on pool B
-       (counted); every shard and ``hinfo`` on it equal to the plain
-       encode, pool B's copies to the data, ``missing`` empty everywhere;
-    5. scrub: one shard of object 0 marked with ``debug_inject_data_err``
-       on a holder that is not its primary; ``start_scrub_scheduler`` on
-       the primary until the cluster log's ``deep-scrub`` ERR names the
-       object; ``osd.N.qos`` ``admitted_scrub`` moved;
+       recovery engine on pool A (K1), ``pull_from_peer`` on pool B
+       (counted) and the primaries' pushes to it; the step ends when
+       ``missing`` is empty everywhere and every PG's ``last_update``
+       agrees on its holders; every shard and ``hinfo`` on it equal to
+       the plain encode, pool B's copies to the data;
+    5. rot at rest: bytes of a data shard of object 0 flipped in its
+       holder's block file (a holder that is not its primary;
+       ``flip_at_rest``), and in turn ``rot_read`` (the store refuses
+       them, the READ answers ECRC's attribution and decodes around it
+       on K1), ``scrub`` (``start_scrub_scheduler`` on the primary until
+       the cluster log's ``deep-scrub`` ERR names the object;
+       ``osd.N.qos`` ``admitted_scrub`` moved) and ``repair``
+       (``PG.repair`` rebuilds the shard; it reads clean from its store
+       and through a READ);
     6. every daemon and the client shut down, and no thread they started
        is left (the process's queue worker and fan-out executor aside).
 
     Launch counts are zeroed before and read after each step and each
-    map refresh.  Returns the counts, walls, warmup stats and checks;
+    map refresh.  Each step also carries the stores' ``queued_txns`` and
+    ``dev_fsyncs`` (0 without ``O_SYNC``: the apply is the commit
+    point) and the backends' ``osd.N.pg`` counts of ranged shard reads
+    by the branch each took: ``extent_reads_at_rest`` (served straight
+    from the store, whose reads verify at rest) or
+    ``extent_reads_whole_chunk`` (the whole chunk read and its hinfo
+    CRC checked), and ``laggard_retries``, the laggards that a primary's
+    watchdog pushed forward again after a push to them failed.  Returns the counts, walls, warmup stats and checks;
     raises on any failed check."""
+    import os
+    import tempfile
+
     from ceph_tpu_torch.core import lockdep
     from ceph_tpu_torch.core.context import Context
     from ceph_tpu_torch.ec import codec_from_profile
@@ -3202,9 +3270,11 @@ def run_daemon(torch, dev, *, n_osds: int = DAEMON_OSDS,
     from ceph_tpu_torch.osd import backend as ob
     from ceph_tpu_torch.osd import messages as om
     from ceph_tpu_torch.osd.ecutil import StripeInfo
-    from ceph_tpu_torch.osd.types import OP_READ, OP_WRITEFULL, OSDOp
-    from ceph_tpu_torch.osd.types import pgid_str
-    from ceph_tpu_torch.store.objectstore import Collection, GHObject
+    from ceph_tpu_torch.osd.types import OP_READ, OP_WRITE, OP_WRITEFULL
+    from ceph_tpu_torch.osd.types import OSDOp, pgid_str
+    from ceph_tpu_torch.store.blockstore import BlockStore
+    from ceph_tpu_torch.store.objectstore import (ChecksumError, Collection,
+                                                  GHObject)
 
     unit = codec_from_profile(profile, device=dev).get_chunk_size(
         stripe_bytes)
@@ -3228,6 +3298,11 @@ def run_daemon(torch, dev, *, n_osds: int = DAEMON_OSDS,
     want.update({(B, roids[i]): reps[i] for i in range(rep_objs)})
 
     osdmap = daemon_map(dev, n_osds, ec_profile, k, pg_num)
+    tmp = tempfile.TemporaryDirectory(prefix="daemon-blockstore-")
+
+    def factory(i: int):
+        return BlockStore(os.path.join(tmp.name, f"osd{i}"), o_sync=False,
+                          kv_kind="log")
     before_threads = {t.ident for t in threading.enumerate()}
     was = lockdep.enabled()
     lockdep.reset()
@@ -3237,7 +3312,7 @@ def run_daemon(torch, dev, *, n_osds: int = DAEMON_OSDS,
         "tpu_staging_slot_kib": max(1, obj_bytes >> 10),
         "tpu_staging_slots": WIRE_SLOTS,
         "osd_op_history_size": 256})
-    ds = DaemonSet(dev, ctx, osdmap, n_osds, "daemon")
+    ds = DaemonSet(dev, ctx, osdmap, n_osds, "daemon", store_factory=factory)
     osds = ds.osds
     client = None
     res: dict = {"steps": {}, "refresh": ds.refreshes}
@@ -3306,8 +3381,23 @@ def run_daemon(torch, dev, *, n_osds: int = DAEMON_OSDS,
                 f"daemon: the read of {oid} answered {rep.result} with "
                 f"{len(rep.ops[0].out_data) if rep.ops else 0} bytes")
 
+    def store_counts() -> dict:
+        """Each store's commit counts and each daemon's PG counts, by
+        the object that keeps them (a revived daemon and its store start
+        new ones)."""
+        out = {(id(st_), c): st_.perf.value(c)
+               for st_ in ds.stores.values() for c in DAEMON_STORE_COUNTS}
+        out.update({(id(o.pg_perf), c): o.pg_perf.value(c)
+                    for o in osds.values() for c in DAEMON_PG_COUNTS})
+        return out
+
     def step(name: str, fn) -> dict:
-        return run_step(res, name, fn)
+        c0 = store_counts()
+        out = run_step(res, name, fn)
+        for c in DAEMON_STORE_COUNTS + DAEMON_PG_COUNTS:
+            out[c] = sum(v - c0.get(key, 0)
+                         for key, v in store_counts().items() if key[1] == c)
+        return out
 
     def holders_agree() -> dict:
         """Every PG's last_update on each of its live holders, once they
@@ -3325,14 +3415,26 @@ def run_daemon(torch, dev, *, n_osds: int = DAEMON_OSDS,
             if not bad or time.monotonic() > deadline:
                 break
             time.sleep(0.01)
+        # on failure: each holder's view of each disagreeing PG
+        views = {pgid_str(p): {
+            o.whoami: (str(pg.info.last_update), pg.state,
+                       pg.primary, sorted(pg.stale_peers),
+                       sorted(pg.missing))
+            for o in ds.up() for q, pg in list(o.pgs.items()) if q == p}
+            for p in bad}
         require(not bad, f"daemon: every PG's last_update agrees on its "
-                         f"holders: {bad}")
+                         f"holders: {bad} (osd: last_update, state, "
+                         f"primary, stale peers, missing: {views})")
         return {pgid_str(p): sorted(v)[0] for p, v in sorted(seen.items())}
 
+    rmw_set: set = set()
+
     def check_ec(i: int, only=None) -> int:
-        """Object i of pool A on its holders (``only``: that daemon)."""
+        """Object i of pool A on its holders (``only``: that daemon); an
+        object an offset WRITE touched carries an invalid whole-chunk
+        hinfo, as Ceph's does after a partial overwrite."""
         return ec_shards_checked(ds, A, oids[i], want[(A, oids[i])], plain,
-                                 si, only)
+                                 si, only, whole=i not in rmw_set)
 
     try:
         # 1. boot
@@ -3400,6 +3502,35 @@ def run_daemon(torch, dev, *, n_osds: int = DAEMON_OSDS,
         require(not missing_hist,
                 f"daemon: every op in some dump_historic_ops "
                 f"({len(missing_hist)} missing)")
+        # an offset WRITE into the last objects: the partial-stripe RMW
+        # reads its old stripe from the peers as ranged extents
+        ext_off = stripe_bytes + stripe_bytes // 128
+        ext_len = stripe_bytes // 16
+
+        def rmws():
+            for j in range(DAEMON_RMW_OBJS):
+                i = nobj - 1 - j
+                patch = objs[j][:ext_len]
+                rep = op(A, oids[i], [OSDOp(OP_WRITE, off=ext_off,
+                                            data=patch.tobytes())])
+                require(rep.result == 0,
+                        f"daemon: the offset write of {oids[i]} answered "
+                        f"{rep.result}")
+                new = np.array(want[(A, oids[i])])
+                new[ext_off:ext_off + ext_len] = patch
+                want[(A, oids[i])] = new
+                rmw_set.add(i)
+            return {"objects": DAEMON_RMW_OBJS, "bytes": ext_len,
+                    "offset": ext_off}
+
+        rm = step("rmw", rmws)
+        rm["ec_shards_checked"] = sum(check_ec(i) for i in rmw_set)
+        require(rm["extent_reads_at_rest"] > 0
+                and rm["extent_reads_whole_chunk"] == 0,
+                f"daemon: the backends served the RMW's ranged sub-reads "
+                f"straight from the BlockStores, which verify at rest "
+                f"({rm['extent_reads_at_rest']} at rest, "
+                f"{rm['extent_reads_whole_chunk']} whole chunk)")
 
         # 3. degraded read: the daemon leading pool B's first object's
         # PG goes down (so its revival pulls that PG from a peer)
@@ -3455,23 +3586,24 @@ def run_daemon(torch, dev, *, n_osds: int = DAEMON_OSDS,
             svc.pull_from_peer = pull_from_peer
 
         def revive():
-            ds.revive(down, count_pulls)
+            ds.revive(down, count_pulls, remount=True)
             deadline = time.monotonic() + WIRE_WAIT_S
             while (any(pg.missing for o in ds.up() for pg in o.pgs.values())
                    and time.monotonic() < deadline):
                 time.sleep(0.01)
-            return {}
+            left = {f"osd.{o.whoami} {pgid_str(p)} {pg.state}":
+                    sorted(pg.missing)
+                    for o in ds.up() for p, pg in o.pgs.items() if pg.missing}
+            require(not left, f"daemon: missing is empty on every PG after "
+                              f"the revival: {left}")
+            # caught up: every holder at its PG's head
+            return {"heads": holders_agree()}
 
         rv = step("recover", revive)
-        left = {f"osd.{o.whoami} {pgid_str(p)} {pg.state}": sorted(pg.missing)
-                for o in ds.up() for p, pg in o.pgs.items() if pg.missing}
-        require(not left, f"daemon: missing is empty on every PG after the "
-                          f"revival: {left}")
         rv["pulls"] = pulls
         require(any(p.startswith(f"{B}.") for p, _ in pulls),
                 f"daemon: the revived daemon pulled pool B from a peer "
                 f"{pulls}")
-        rv["heads"] = holders_agree()
         rv["ec_shards_checked"] = sum(check_ec(i, only=down)
                                       for i in range(nobj))
         for x in roids:
@@ -3483,16 +3615,17 @@ def run_daemon(torch, dev, *, n_osds: int = DAEMON_OSDS,
                         f"daemon: the revived osd.{down} holds {x}")
         rv["objs_per_s"] = (overwrite[0] + len(rew_b)) / rv["wall_s"]
 
-        # 5. the scheduled deep scrub finds a marked shard
+        # 5. rot at rest: read around, found by the scheduled deep
+        # scrub, repaired
         oid = oids[0]
         pgid = osdmap.object_to_pg(A, oid)
         acting = osdmap.pg_to_up_acting(pgid)[2]
         prim = osdmap.pg_to_up_acting(pgid)[3]
         shard = next(s for s, o in enumerate(acting)
-                     if o not in (prim, ob.CRUSH_ITEM_NONE))
-        ctx.conf.set_val("store_debug_inject_data_err", True)
-        osds[acting[shard]].store.debug_inject_data_err(
-            Collection(pgid_str(pgid) + "_head"), GHObject(oid, shard=shard))
+                     if o not in (prim, ob.CRUSH_ITEM_NONE) and s < k)
+        holder = acting[shard]
+        coll = Collection(pgid_str(pgid) + "_head")
+        gs = GHObject(oid, shard=shard)
         hits = []
         found = threading.Event()
 
@@ -3503,6 +3636,31 @@ def run_daemon(torch, dev, *, n_osds: int = DAEMON_OSDS,
 
         ctx.log.cluster_cb = cluster_cb
         psvc = osds[prim]
+        ppg = psvc.pgs[pgid]
+        good = osds[holder].store.read(coll, gs)
+        res["rot_at"] = flip_at_rest(osds[holder].store, coll, gs)
+        try:
+            osds[holder].store.read(coll, gs)
+            refused = False
+        except ChecksumError:
+            refused = True
+        require(refused, f"daemon: osd.{holder}'s BlockStore refuses the "
+                         f"flipped blocks of {oid} shard {shard}")
+
+        def rot_read():
+            ppg._obc_invalidate()
+            d0 = sum(w_ * c for w_, c in dq.dec_batch_jobs.items())
+            read(A, oid)
+            return {"dec_jobs": sum(w_ * c for w_, c in
+                                    dq.dec_batch_jobs.items()) - d0}
+
+        rr = step("rot_read", rot_read)
+        rr["errors"] = [msg for lvl, msg in hits
+                        if lvl == "ERR" and "at-rest" in msg]
+        require(rr["dec_jobs"] >= 1 and any(oid in e for e in rr["errors"]),
+                f"daemon: the read of {oid} refused shard {shard} and "
+                f"decoded around it: {rr['dec_jobs']} dec jobs, "
+                f"{rr['errors']}")
         sq0 = psvc.qos.perf.dump().get("admitted_scrub", 0)
 
         def scrub():
@@ -3516,17 +3674,43 @@ def run_daemon(torch, dev, *, n_osds: int = DAEMON_OSDS,
                                 - sq0)
         require(sc["admitted_scrub"] > 0,
                 "daemon: osd.N.qos admitted the scheduled scrub's chunks")
-        sc.update(primary=prim, shard=shard, holder=acting[shard],
+        sc.update(primary=prim, shard=shard, holder=holder,
                   errors=[msg for lvl, msg in hits if lvl == "ERR"],
                   scrubs=[r_ for r_ in psvc.dump_scrubs()["scrubs"]
                           if r_["last_deep_scrub"]])
+
+        def repair():
+            # the scheduler skips a PG whose guard is held
+            require(ppg.maintenance_guard.acquire(timeout=WIRE_WAIT_S),
+                    f"daemon: the repair of pg {pgid_str(pgid)} got its "
+                    "maintenance guard")
+            try:
+                post = ppg.repair()
+            finally:
+                ppg.maintenance_guard.release()
+            require(post.get(oid) is None,
+                    f"daemon: the repair healed {oid}: {post}")
+            require(osds[holder].store.read(coll, gs) == good,
+                    f"daemon: osd.{holder} reads {oid} shard {shard} clean "
+                    "after the repair")
+            ppg._obc_invalidate()
+            read(A, oid)
+            return {"post_errors": sorted(post)}
+
+        rp = step("repair", repair)
+        rp["ec_shards_checked"] = check_ec(0, only=holder)
         res["edges"] = sum(len(v) for v in lockdep.edge_graph().values())
     finally:
-        ctx.conf.set_val("store_debug_inject_data_err", False)
         ds.shutdown()
         if client is not None:
             client.shutdown()
         lockdep.enable(was)
+        res["store_bytes"] = {
+            name: sum(os.path.getsize(os.path.join(tmp.name, d, name))
+                      for d in os.listdir(tmp.name)
+                      if os.path.exists(os.path.join(tmp.name, d, name)))
+            for name in ("block", "meta.kv")}
+        tmp.cleanup()
 
     # 6. nothing the daemons started is left
     no_threads_left(before_threads, "daemon")
@@ -3535,19 +3719,24 @@ def run_daemon(torch, dev, *, n_osds: int = DAEMON_OSDS,
 
 
 def phase_daemon(torch, dev, log) -> dict:
-    """The ``daemon`` phase: ``run_daemon`` at full width, twelve port
-    OSD daemons (isa k=8 m=4 over all twelve, a replicated pool of size
-    3) on one map.  The warmup must launch K1, the CRC kernel and K6; a
-    map refresh K6; the write K1 and the CRC kernel; the read and the
-    recovery K1; the scrub K1."""
+    """The ``daemon`` phase: ``run_daemon`` at full width on BlockStores,
+    twelve port OSD daemons (isa k=8 m=4 over all twelve, a replicated
+    pool of size 3) on one map, the revived one on a new BlockStore
+    mounted from its directory.  The warmup must launch K1, the CRC
+    kernel and K6; a map refresh K6; the write K1 and the CRC kernel;
+    the offset writes, the read, the recovery, the read around the rot,
+    the scrub and the repair K1."""
     res = run_daemon(torch, dev)
     st = res["steps"]
     for name, need in (("warmup", ("gf256_matmul", "crc32c_rows",
                                    "crush_rule")),
                        ("write", ("gf256_matmul", "crc32c_rows")),
+                       ("rmw", ("gf256_matmul",)),
                        ("read", ("gf256_matmul",)),
                        ("recover", ("gf256_matmul",)),
-                       ("scrub", ("gf256_matmul",))):
+                       ("rot_read", ("gf256_matmul",)),
+                       ("scrub", ("gf256_matmul",)),
+                       ("repair", ("gf256_matmul",))):
         require(all(st[name]["counts"][x] > 0 for x in need),
                 f"daemon: the {name} step ran {list(need)}: "
                 f"{st[name]['counts']}")
@@ -3563,29 +3752,40 @@ def phase_daemon(torch, dev, log) -> dict:
         f"shard short (no host found within the rule's tries): "
         f"{json.dumps(res['holes'])}")
     w, r, rv, sc = st["write"], st["read"], st["recover"], st["scrub"]
+    rm, rr, rp = st["rmw"], st["rot_read"], st["repair"]
     launches = {name: {x: v for x, v in s["counts"].items() if v}
                 for name, s in st.items()}
-    log(f"daemon: {DAEMON_OSDS} OSDService (isa k=8 m=4 pool, size 12, "
-        f"{DAEMON_PG_NUM} PGs; replicated pool, size 3, {DAEMON_PG_NUM} "
-        f"PGs) on one map under lockdep: {DAEMON_OBJS} x 4 MiB WRITEFULL "
-        f"MOSDOp from client.{WIRE_CLIENT} to each acting primary "
-        f"(ms_dispatch -> the mclock wq -> PG.do_op -> encp) "
-        f"{w['gbs']:.3f} GB/s ({w['wall_a_s']:.3f} s), "
-        f"{DAEMON_REP_OBJS} x 64 KiB to the replicated pool "
-        f"{w['wall_b_s']:.3f} s; every shard equal to the plain encode and "
-        f"its hinfo to the host CRC ({w['ec_shards_checked']} shards); "
+    log(f"daemon: {DAEMON_OSDS} OSDService on BlockStores (no O_SYNC, "
+        f"kv_kind log; isa k=8 m=4 pool, size 12, {DAEMON_PG_NUM} PGs; "
+        f"replicated pool, size 3, {DAEMON_PG_NUM} PGs) on one map under "
+        f"lockdep: {DAEMON_OBJS} x 4 MiB WRITEFULL MOSDOp from "
+        f"client.{WIRE_CLIENT} to each acting primary (ms_dispatch -> the "
+        f"mclock wq -> PG.do_op -> encp) {w['gbs']:.3f} GB/s "
+        f"({w['wall_a_s']:.3f} s), {DAEMON_REP_OBJS} x 64 KiB to the "
+        f"replicated pool {w['wall_b_s']:.3f} s; every shard equal to the "
+        f"plain encode and its hinfo to the host CRC "
+        f"({w['ec_shards_checked']} shards); {rm['objects']} offset "
+        f"WRITEs of {rm['bytes']} B in {rm['wall_s']:.3f} s; "
         f"osd.{res['down']} down: degraded READ {r['gbs']:.3f} GB/s "
         f"({r['wall_a_s']:.3f} s, {r['dec_jobs']} dec jobs, "
         f"{r['lost_data_objects']} objects lost a data shard); "
         f"{sum(DAEMON_OVERWRITE)} objects rewritten while down, revived "
-        f"and caught up in {rv['wall_s']:.3f} s "
-        f"({rv['objs_per_s']:.2f} objects/s; pulls {rv['pulls']}; "
-        f"{rv['ec_shards_checked']} shards on it equal to the plain "
-        f"encode); the scheduled deep scrub named the marked shard "
-        f"{sc['shard']} on osd.{sc['holder']} in {sc['wall_s']:.3f} s "
-        f"(admitted_scrub {sc['admitted_scrub']}); launches "
-        f"{json.dumps(launches)}; {res['edges']} lock-order edges; "
-        f"retries {res['retries']}; no thread left")
+        f"on a new BlockStore mounted from its directory and caught up in "
+        f"{rv['wall_s']:.3f} s ({rv['objs_per_s']:.2f} objects/s; pulls "
+        f"{rv['pulls']}; {rv['ec_shards_checked']} shards on it equal to "
+        f"the plain encode); shard {sc['shard']} of object 0 flipped in "
+        f"osd.{sc['holder']}'s block file at {res['rot_at']}: refused by "
+        f"its store, the READ decoded around it ({rr['dec_jobs']} dec "
+        f"jobs, {rr['wall_s']:.3f} s), the scheduled deep scrub named it "
+        f"in {sc['wall_s']:.3f} s (admitted_scrub {sc['admitted_scrub']}), "
+        f"the repair healed it in {rp['wall_s']:.3f} s and it reads "
+        f"clean; launches {json.dumps(launches)}; {res['edges']} "
+        f"lock-order edges; retries {res['retries']}; no thread left")
+    log("daemon stores: " + json.dumps({
+        "bytes": res["store_bytes"],
+        "steps": {name: {x: s[x] for x in ("wall_s", *DAEMON_STORE_COUNTS,
+                                           *DAEMON_PG_COUNTS)}
+                  for name, s in st.items()}}))
     return res
 
 

@@ -28,6 +28,7 @@ pinned at the end.
 """
 
 import importlib
+import os
 import threading
 import time
 
@@ -60,7 +61,7 @@ class _Cluster:
     s % osds, every sub-write delivered by ``flush``."""
 
     def __init__(self, pkg: str, profile: str, osds: int,
-                 device="cpu") -> None:
+                 device="cpu", store_dir=None) -> None:
         self.mods = md = _mods(pkg)
         kw = {"device": device} if pkg == "ceph_tpu_torch" else {}
         self.profile = profile
@@ -71,7 +72,9 @@ class _Cluster:
         self.coll = os_.Collection("7.0_head")
         self.stores, self.backends = {}, {}
         for o in range(osds):
-            st = md["memstore"].MemStore()
+            st = (md["memstore"].MemStore() if store_dir is None else
+                  importlib.import_module(f"{pkg}.store.blockstore")
+                  .BlockStore(os.path.join(store_dir, f"osd{o}")))
             st.mkfs()
             st.mount()
             t = os_.Transaction()
@@ -150,6 +153,17 @@ class _Cluster:
 
     def meta(self, oid: str, shard: int):
         return self.backends[self.acting[shard]].shard_meta(oid, shard)
+
+
+    def ranged(self, oid: str, off: int, length: int) -> dict:
+        """Every shard's extent [off, off+length) through the sub-read
+        path's ``read_local_chunk_extent2`` on its holder."""
+        return {s: self.backends[self.acting[s]].read_local_chunk_extent2(
+            oid, s, off, length) for s in range(self.n)}
+
+    def umount(self) -> None:
+        for st in self.stores.values():
+            st.umount()
 
 
 def _state(st):
@@ -247,6 +261,46 @@ def test_backends_write_store_and_read_alike(name):
     assert port.dump() == ref.dump()
     assert _state(port.primary.reconstruct(
         "a", port.avail("a", lost), port.meta("a", 1)))[0] == want["a2"]
+
+
+@pytest.mark.parametrize("name", ["isa_2_1", "isa_8_4"])
+def test_backends_on_blockstores_write_store_and_read_alike(name,
+                                                           tmp_path):
+    """The same sequence with every OSD of each package on a BlockStore
+    of its own package: the same messages and stores, and the ranged
+    sub-reads served by the stores' own checksums at rest
+    (``checksums_at_rest``: the extent read straight from the store)
+    equal to the reference's, to the stored chunks' bytes, and refused
+    as ECRC once the block under them rots."""
+    profile, osds = PROFILES[name]
+    ref = _Cluster("ceph_tpu", profile, osds, store_dir=str(tmp_path / "r"))
+    port = _Cluster("ceph_tpu_torch", profile, osds,
+                    store_dir=str(tmp_path / "p"))
+    try:
+        want = _script(ref, np.random.default_rng(17))
+        assert _script(port, np.random.default_rng(17)) == want
+        assert port.sent == ref.sent
+        assert port.dump() == ref.dump()
+        assert all(st.checksums_at_rest for st in port.stores.values())
+        off, length = 100, port.primary.unit - 200
+        got = port.ranged("a", off, length)
+        assert got == ref.ranged("a", off, length)
+        for s, (data, code) in got.items():
+            chunk = port.backends[port.acting[s]].read_local_chunk("a", s)
+            assert code == 0 and data == chunk[off: off + length]
+        # rot under shard 1's first block: the extent read refuses it
+        st = port.stores[port.acting[1]]
+        G = port.mods["objectstore"].GHObject
+        import chip_smoke
+
+        chip_smoke.flip_at_rest(st, port.coll, G("a", shard=1))
+        data, code = port.backends[port.acting[1]].read_local_chunk_extent2(
+            "a", 1, off, length)
+        assert data is None
+        assert code == port.mods["backend"].ECRC
+    finally:
+        ref.umount()
+        port.umount()
 
 
 def test_lrc_pool_is_held_to_the_reference_codec():

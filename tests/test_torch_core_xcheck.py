@@ -39,6 +39,25 @@ def test_crc_odd_offsets_into_a_larger_buffer(off):
         assert crc.crc32c(bytearray(view.tobytes())) == want
 
 
+@pytest.mark.parametrize("block", [4, 100, 512, 4096, 3 * 4096 + 8,
+                                   65536])
+def test_crc_blocks_equal_the_reference_per_block(block):
+    """``crc32c_blocks``: every piece's crc32c, all at once, equal to the
+    reference's ``crc32c`` of that piece (the BlockStore's per-block
+    checksums)."""
+    rng = np.random.default_rng(block)
+    for nblk in (1, 2, 5, 64):
+        data = rng.integers(0, 256, nblk * block, dtype=np.uint8)
+        got = crc.crc32c_blocks(data.tobytes(), block)
+        assert got.dtype == np.uint32
+        assert got.tolist() == [
+            ref_crc.crc32c(data[i * block:(i + 1) * block].tobytes())
+            for i in range(nblk)]
+    assert crc.crc32c_blocks(b"", block).size == 0
+    with pytest.raises(ValueError):
+        crc.crc32c_blocks(b"x" * (block + 1), block)
+
+
 def test_crc_chained_calls():
     d = _BUF.tobytes()
     inits = [0, 1, 0xFFFFFFFF, 0x80000000, 0x12345678]

@@ -805,6 +805,40 @@ def test_backend_write_and_degraded_read_on_the_card(dev, name):
         assert gf256.launches.value > k1
 
 
+@pytest.mark.parametrize("name", ["isa_2_1", "isa_8_4"])
+def test_devbuf_write_onto_blockstores_reads_at_rest_on_the_card(
+        dev, name, tmp_path):
+    """The backend's write sequence onto BlockStores with codecs on the
+    card (its first write a ``DeviceBuf`` through ``ECBackend.submit``:
+    K1 and the CRC kernel, the payload fetched once through
+    ``op_payload(op, copy=True)``), held to the same on the CPU: the same
+    messages and stores; each shard's extent read back through
+    ``read_local_chunk_extent2``'s ``checksums_at_rest`` route equals the
+    CPU run's."""
+    import test_torch_backend_xcheck as xc
+
+    profile, osds = xc.PROFILES[name]
+    cpu = xc._Cluster("ceph_tpu_torch", profile, osds,
+                      store_dir=str(tmp_path / "cpu"))
+    card = xc._Cluster("ceph_tpu_torch", profile, osds, device=dev,
+                       store_dir=str(tmp_path / "card"))
+    try:
+        want = xc._script(cpu, np.random.default_rng(31))
+        k1, crc = gf256.launches.value, cd.launches.value
+        assert xc._script(card, np.random.default_rng(31)) == want
+        assert gf256.launches.value > k1 and cd.launches.value > crc
+        assert card.sent == cpu.sent
+        assert card.dump() == cpu.dump()
+        assert all(st.checksums_at_rest for st in card.stores.values())
+        off, length = 100, card.primary.unit - 200
+        got = card.ranged("a", off, length)
+        assert got == cpu.ranged("a", off, length)
+        assert all(code == 0 for _data, code in got.values())
+    finally:
+        cpu.umount()
+        card.umount()
+
+
 def test_recovery_engine_over_a_stub_pg_on_the_card(dev):
     """The recovery engine's aggregation window over the stub PG with
     the port's codec on the card: the same messages and recovered shards
@@ -1103,10 +1137,14 @@ def test_device_warmup_launches_every_declared_bucket_on_the_card(dev):
 
 
 def test_daemon_phase_on_the_card(dev):
-    """The daemon phase's code at a small size on the card: six daemons
-    (isa k=4 m=2 over all six, a replicated pool), 1 MiB objects; each
-    step's launches as the phase requires them, and every check of the
-    phase."""
+    """The daemon phase's code at a small size on the card, on
+    BlockStores as the phase runs: six daemons (isa k=4 m=2 over all six,
+    a replicated pool), 1 MiB objects; each step's launches as the phase
+    requires them, the offset writes' ranged sub-reads served from the
+    stores' checksums at rest, the revival on a new BlockStore mounted
+    from its directory, the rot refused by the read (K1 decodes around
+    it), named by the scrub and healed by the repair, and every check of
+    the phase."""
     import chip_smoke
 
     res = chip_smoke.run_daemon(
@@ -1118,13 +1156,19 @@ def test_daemon_phase_on_the_card(dev):
     for name, need in (("warmup", ("gf256_matmul", "crc32c_rows",
                                    "crush_rule")),
                        ("write", ("gf256_matmul", "crc32c_rows")),
+                       ("rmw", ("gf256_matmul",)),
                        ("read", ("gf256_matmul",)),
                        ("recover", ("gf256_matmul",)),
+                       ("rot_read", ("gf256_matmul",)),
                        ("scrub", ("gf256_matmul",))):
         for x in need:
             assert st[name]["counts"][x] > 0, (name, x, st[name]["counts"])
     assert all(r["k6"] > 0 for r in res["refresh"])
     assert any(p.startswith("1.") for p, _ in st["recover"]["pulls"])
+    assert st["rmw"]["extent_reads_at_rest"] > 0
+    assert st["rmw"]["extent_reads_whole_chunk"] == 0
+    assert st["rot_read"]["dec_jobs"] >= 1
+    assert st["repair"]["post_errors"] == []
 
 
 def test_cluster_phase_on_the_card(dev):

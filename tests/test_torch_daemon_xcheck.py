@@ -32,6 +32,7 @@ gets, the revival and gets again, with the same agreement after each
 step.  No object the dying daemon holds is rewritten while it is down.
 """
 
+import importlib
 import threading
 import time
 
@@ -71,14 +72,15 @@ def _every_pg(c, pool: int, prefix: str, write) -> None:
 
 
 def _sequence(pkg: str, device: str = "cpu", pools=POOLS,
-              rewrite: bool = True) -> list:
+              rewrite: bool = True, store_factory=None) -> list:
     """The steps on ``pkg``'s cluster (the port's daemons on ``device``),
     writing to ``pools``: ``obj0`` is rewritten while the victim is
     down when ``rewrite``, else one new object lands in every PG while
     it is down and one more right after its revival; a snapshot after
-    each."""
+    each.  With ``store_factory`` the daemons run on its stores and the
+    victim revives on a new store mounted from its path."""
     rng = np.random.default_rng(SEED)
-    c = H.DaemonCluster(pkg, device=device)
+    c = H.DaemonCluster(pkg, device=device, store_factory=store_factory)
     snaps, replies, want = [], [], {}
 
     def blob() -> bytes:
@@ -114,7 +116,7 @@ def _sequence(pkg: str, device: str = "cpu", pools=POOLS,
             if not rewrite:
                 _every_pg(c, pool, "fresh", write)
         snaps.append(("write while down", _snapshot(c, replies)))
-        c.revive(VICTIM)
+        c.revive(VICTIM, remount=store_factory is not None)
         if not rewrite:
             # one new object in every PG of the pools: the revived
             # member's commit watermark moves with the PG's next write
@@ -144,6 +146,31 @@ def test_daemon_clusters_of_both_packages_agree(monkeypatch):
     assert held, "the revived daemon holds none of the late writes"
     assert all(not miss for rows in last["logs"].values()
                for _ents, miss, _st in rows.values())
+
+
+def test_daemon_clusters_on_blockstores_agree(monkeypatch, tmp_path):
+    """The same steps with every daemon of each package on a BlockStore
+    of its own package (``kv_kind="log"``, no ``O_SYNC``), the victim
+    revived on a new BlockStore mounted from its directory."""
+    monkeypatch.setattr(time, "time", lambda: CLOCK)
+    runs = {}
+    for pkg in ("ceph_tpu", "ceph_tpu_torch"):
+        BS = importlib.import_module(pkg + ".store.blockstore").BlockStore
+        base = tmp_path / pkg
+
+        def factory(i, BS=BS, base=base):
+            return BS(str(base / f"osd{i}"), o_sync=False, kv_kind="log")
+
+        runs[pkg] = _sequence(pkg, store_factory=factory)
+    ref, port = runs["ceph_tpu"], runs["ceph_tpu_torch"]
+    assert [name for name, _ in port] == [name for name, _ in ref]
+    for (name, p), (_, r) in zip(port, ref):
+        for key in r:
+            assert p[key] == r[key], (name, key)
+    last = dict(port)["read after"]
+    held = [o for coll in last["stores"][VICTIM].values() for o in coll
+            if o[0][0] == "fresh"]
+    assert held, "the revived daemon holds none of the late writes"
 
 
 def test_clay_pool_of_both_packages_agrees(monkeypatch):

@@ -10,13 +10,24 @@ that order on a six-daemon cluster of each package
 ``queue.batch.dispatch`` failpoint holds a ``WRITEFULL``'s encode, one
 member of the object's acting set is killed and revived, and the
 primary's peering rewinds the held entry (``roll_back_entry`` False, no
-record yet) before the barrier is released.  Both packages must take
-the same path: the same rollback events and ``roll_back_entry`` results,
-the write unanswered, the object's old image served, nothing left in
-``missing``, the same stores and logs, and the same stale row: the held
-fan-out lands after the rewind and writes the rewound entry's log row
-(and its rollback record) back into the primary's store, above the
-in-memory log's head (ROADMAP queue 3, F4).
+record yet) before the barrier is released.  Both packages take the
+same path up to there: the same rollback events, the write unanswered,
+the object's old image served, nothing left in ``missing``, the same
+in-memory logs.
+
+They part in two places (ROADMAP queue 3: F4 on the port, R7 on the
+reference).  The reference's ``roll_back_entry`` finds no record and
+marks the object missing, to be re-replicated; the port's knows the
+entry's write has stored nothing yet and answers True, so nothing is
+marked (an object the rewound write would have created could never be
+re-replicated, and stalled in ``missing``).  The reference then lets the
+held fan-out land after the rewind: it writes the rewound entry's log
+row and rollback record back into the primary's store, above the
+in-memory log's head, where a later reload of that log resurrects the
+entry.  The port's fan-out asks, under the lock the rewind holds,
+whether its entry is still in the log, and drops the write when it is
+not: its stores are the reference's without that row and record, and no
+row stands above its head.
 """
 
 import importlib
@@ -113,10 +124,67 @@ def test_rollback_of_an_entry_still_on_the_queue_matches_reference(
     assert ref["rolled"] and not any(ok for *_, ok in ref["rolled"])
     assert ref["write"] == "no reply"
     assert ref["read"] == OLD and ref["missing"] == {}
-    # the held fan-out lands after the rewind: the rewound entry's log
-    # row is back in the primary's store, above the in-memory head
+    for key in ("events", "write", "read", "missing", "head", "logs"):
+        assert port[key] == ref[key], key
+    # the port's rollback of the entry whose write stored nothing yet
+    # has nothing to undo
+    assert [r[:3] for r in port["rolled"]] == [r[:3] for r in ref["rolled"]]
+    assert all(ok for *_, ok in port["rolled"])
+    # R7, the reference: the held fan-out lands after the rewind, and
+    # the rewound entry's log row is back in the primary's store, above
+    # the in-memory head
     rewound = ref["events"][0][3][0][1]
     assert len(ref["log_rows"]) == 2 and ref["head"] != rewound
-    for key in ("events", "rolled", "write", "read", "missing", "head",
-                "log_rows", "stores", "logs"):
-        assert port[key] == ref[key], key
+    stale = [k for k in ref["log_rows"] if k not in port["log_rows"]]
+    assert len(stale) == 1
+    # the port: the fan-out of the rewound entry stored nothing, so no
+    # log row stands above the head and no rollback record is left
+    assert port["log_rows"] == [k for k in ref["log_rows"]
+                                if k not in stale]
+    expect = {}
+    for osd, colls in ref["stores"].items():
+        expect[osd] = {c: [(key, data, attrs, {
+            k: v for k, v in omap.items()
+            if k not in stale and not k.startswith(f"rb_{stale[0]}.")})
+            for key, data, attrs, omap in objs]
+            for c, objs in colls.items()}
+    assert expect != ref["stores"]
+    assert port["stores"] == expect
+
+
+def test_unfanned_entries_leave_with_their_write():
+    """``ECBackend._unfanned`` holds an entry only from its write's
+    submit to its fan-out: an entry whose write fanned out, or whose
+    encode failed (a full-object write and a partial one, each with an
+    error armed on the queue's dispatch), is not left behind, so the
+    table does not grow under encode faults.  A full-object write of
+    each object lands after the failure (a resent partial write does not:
+    ROADMAP queue 3, F6)."""
+    from ceph_tpu_torch.core import failpoint as fp
+
+    c = H.DaemonCluster("ceph_tpu_torch")
+    M = c.M
+    try:
+        c.put(H.EC_POOL, "u0", OLD)
+        f0 = fp.fired("queue.batch.dispatch")
+        fails = {}
+        for oid, op in (("u1", M.t.OSDOp(M.t.OP_WRITEFULL, data=NEW)),
+                        ("u0", M.t.OSDOp(M.t.OP_WRITE, off=100,
+                                         data=NEW[:64]))):
+            fp.arm("queue.batch.dispatch", fp.error(), once=True)
+            try:
+                fails[oid] = c.op(H.EC_POOL, oid, [op], timeout=5.0).result
+            except AssertionError:
+                fails[oid] = "no reply"
+            assert c.put(H.EC_POOL, oid, NEW).result == 0
+        assert fp.fired("queue.batch.dispatch") - f0 == 2
+        assert 0 not in fails.values(), fails
+        c.quiesce()
+        assert c.get(H.EC_POOL, "u0") == c.get(H.EC_POOL, "u1") == NEW
+        left = {(o.whoami, str(pgid)): dict(pg.backend._unfanned)
+                for o in c.osds.values() for pgid, pg in o.pgs.items()
+                if pg.backend._unfanned}
+        assert left == {}
+    finally:
+        fp.disarm_all()
+        c.shutdown()

@@ -10,7 +10,8 @@ state surviving a primary's death and a superseding write) run on the
 port's cluster, ``torch_daemon_harness.DaemonCluster("ceph_tpu_torch")``
 (six port daemons, the reference's map,
 ``device="cpu"``), through the port's client, with the port's
-failpoints.  The filestore cases wait for queue 1 item 5.
+failpoints.  The FileStore cases (``:143``, ``:177``) run on the port's
+FileStore and ``OSDService``.
 """
 
 import threading
@@ -165,6 +166,67 @@ def test_eio_waits_for_the_store_slice():
     assert not isinstance(got.value, StoreError)
     assert fp.fired("store.filestore.read") == 1
     assert fp.failpoint("store.filestore.read") is None  # once: disarmed
+
+
+# ---------------------------------------------------------------------------
+# filestore_debug_inject_read_err wiring
+# ---------------------------------------------------------------------------
+
+
+def test_filestore_read_err_injection(tmp_path):
+    from ceph_tpu_torch.store.filestore import FileStore
+    from ceph_tpu_torch.store.objectstore import (Collection, GHObject,
+                                            StoreError, Transaction)
+
+    st = FileStore(str(tmp_path / "fs"))
+    st.mkfs()
+    st.mount()
+    coll, g = Collection("1.0_head"), GHObject("victim")
+    t = Transaction()
+    t.create_collection(coll)
+    t.write(coll, g, 0, b"payload")
+    st.queue_transaction(t)
+    try:
+        # conf off: marking alone injects nothing
+        st.debug_inject_read_err(coll, g)
+        assert st.read(coll, g) == b"payload"
+        # conf on (the previously-orphaned option, wired through the
+        # daemon's _apply_fault_conf): marked object reads EIO
+        st.debug_read_err_enabled = True
+        with pytest.raises(StoreError):
+            st.read(coll, g)
+        st.debug_clear_read_err()
+        assert st.read(coll, g) == b"payload"
+        # the generic failpoint route needs no marking at all
+        fp.arm_from_spec(
+            "store.filestore.read=error(EIO):match(oid=victim)")
+        with pytest.raises(StoreError):
+            st.read(coll, g)
+        fp.disarm("store.filestore.read")
+    finally:
+        st.umount()
+
+
+def test_filestore_conf_plumbs_to_store():
+    """OSDService.init applies filestore_debug_inject_read_err to its
+    store and observes runtime toggles."""
+    from ceph_tpu_torch.core.context import Context
+    from ceph_tpu_torch.osd.daemon import OSDService
+
+    ctx = Context("osd.fptest",
+                  overrides={"filestore_debug_inject_read_err": True})
+    svc = OSDService.__new__(OSDService)  # only the conf hook matters
+
+    class _St:
+        debug_read_err_enabled = False
+
+    svc.ctx = ctx
+    svc.store = _St()
+    svc._log = lambda lvl, msg: None
+    svc._apply_fault_conf()
+    assert svc.store.debug_read_err_enabled is True
+    ctx.conf.set_val("filestore_debug_inject_read_err", False)
+    assert svc.store.debug_read_err_enabled is False
 
 
 EC_POOL, N_OSDS = H.EC_POOL, H.N_OSDS

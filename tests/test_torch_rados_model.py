@@ -11,9 +11,9 @@ The cluster is ``torch_daemon_harness.DaemonCluster("ceph_tpu_torch")``
 reference's shard-level forensics dump on a divergence (it writes a
 file) is left out; the failure message carries the same oracle detail.
 The EC pool under the thrasher (``test_rados_model_ec_under_thrash``)
-is not mirrored: on the port's cluster an op stalls on an object its
-primary holds current but keeps in ``missing`` at an older version
-after a divergent entry without a rollback record (ROADMAP).
+is not mirrored: on this harness it fails some runs in both packages
+(an op timing out after a rollback restored from its records), so it
+would not hold the suite's count (ROADMAP queue 3, F4).
 """
 
 import random

@@ -1,8 +1,9 @@
 """The port's per-extent at-rest seals (``ceph_tpu_torch/store/``),
 case for case against the store cases of ``tests/test_read_integrity.py``
-over ``memstore`` (seal on write, verify on read), plus the
-``store.corrupt_chunk`` and ``store.corrupt_xattr`` failpoints at the
-read boundary.
+(seal on write, verify on read, each over ``memstore``, ``filestore``
+and ``blockstore``; ``test_filestore_torn_tail_replay_reseals``), plus
+the ``store.corrupt_chunk`` and ``store.corrupt_xattr`` failpoints at
+the read boundary over the same three stores.
 
 The cluster cases (``:292`` onward: the EC read-repair loop, the
 replicated read's retry and heal, the late ``ECRC`` reply) run on the
@@ -10,9 +11,6 @@ port's cluster, ``torch_daemon_harness.DaemonCluster("ceph_tpu_torch")``
 (six port daemons on MemStores with ``store_debug_inject_data_err`` on,
 the reference's map, ``device="cpu"``), through
 the port's client (``torch_daemon_harness.LibClient``).
-
-Left out: the ``filestore`` and ``blockstore`` parameters and
-``test_filestore_torn_tail_replay_reseals`` (ROADMAP queue 1 item 5).
 """
 
 import time
@@ -25,6 +23,8 @@ from ceph_tpu_torch.osd import types as t_
 from ceph_tpu_torch.core import failpoint as fp
 from ceph_tpu_torch.core.crc import crc32c
 from ceph_tpu_torch.store import create
+from ceph_tpu_torch.store.filestore import FileStore
+from ceph_tpu_torch.store.memstore import MemStore
 from ceph_tpu_torch.store.objectstore import (
     ChecksumError,
     Collection,
@@ -38,7 +38,7 @@ OID = GHObject("obj1")
 E = 16  # small extent size: multi-extent objects stay tiny
 
 
-@pytest.fixture(params=["memstore"])
+@pytest.fixture(params=["memstore", "filestore", "blockstore"])
 def store(request, tmp_path):
     s = create(request.param, path=str(tmp_path / "store"))
     s.csum_extent_size = E
@@ -179,12 +179,25 @@ def test_injected_rot_refused_at_read_time(store):
 def test_ranged_read_verifies_exactly_served_extents(store):
     """Physical rot in one extent: ranged reads of OTHER extents still
     serve (verify covers exactly what is read), any read covering the
-    rotted extent refuses."""
+    rotted extent refuses.  Backends with their own device layer
+    (BlockStore) catch physical rot below the seal layer, so this
+    physically flips bytes only where the test can reach the media."""
     _mkcoll(store)
     data = b"0" * E + b"1" * E + b"2" * E + b"3" * E
     _write(store, data)
     victim_off = 2 * E + 5  # inside extent 2
-    store._colls[CID][OID].data[victim_off] ^= 0x01
+    if isinstance(store, MemStore):
+        store._colls[CID][OID].data[victim_off] ^= 0x01
+    elif isinstance(store, FileStore):
+        path = store._datafile(CID, OID)
+        with open(path, "r+b") as f:
+            f.seek(victim_off)
+            b = f.read(1)
+            f.seek(victim_off)
+            f.write(bytes([b[0] ^ 0x01]))
+    else:
+        pytest.skip("blockstore media rot is caught by its own "
+                    "per-block device crc (covered elsewhere)")
     assert store.read(CID, OID, 0, 2 * E) == data[: 2 * E]  # clean extents
     assert store.read(CID, OID, 3 * E, E) == data[3 * E:]
     with pytest.raises(ChecksumError):
@@ -200,7 +213,18 @@ def test_object_without_seals_reads_unverified(store):
     _mkcoll(store)
     data = b"legacy" * E
     _write(store, data)
-    store._colls[CID][OID].seals = None
+    if isinstance(store, MemStore):
+        store._colls[CID][OID].seals = None
+    else:
+        from ceph_tpu_torch.store.kv import WriteBatch
+
+        if isinstance(store, FileStore):
+            from ceph_tpu_torch.store.filestore import P_SEAL, _objkey
+        else:
+            from ceph_tpu_torch.store.blockstore import P_SEAL, _objkey
+        b = WriteBatch()
+        b.rmkey(P_SEAL, _objkey(CID, OID))
+        store._kv.submit(b)
     assert _seals(store) is None
     assert store.read(CID, OID) == data
 
@@ -220,6 +244,47 @@ def test_extent_size_change_verifies_at_stored_granularity(store):
     assert seals.extent_size == 2 * E
     assert seals.crcs == _extent_crcs(data, 2 * E)
 
+
+
+def test_filestore_torn_tail_replay_reseals(tmp_path):
+    """Crash consistency: a torn apply (WAL ahead of applied_seq, file
+    bytes half-written) replays on mount and converges BOTH the file
+    content and its seals — the replayed reads verify clean."""
+    s = create("filestore", path=str(tmp_path / "fs"))
+    s.csum_extent_size = E
+    s.mkfs()
+    s.mount()
+    _mkcoll(s)
+    base = b"b" * (3 * E)
+    _write(s, base)
+    seq_before = s._seq
+    patch = b"P" * 10
+    _write(s, patch, off=E + 2)  # the txn that will be "torn"
+    expected = base[: E + 2] + patch + base[E + 12:]
+    assert s.read(CID, OID) == expected
+    # rewind applied_seq to before the patch and tear the patched
+    # bytes on the media, then kill WITHOUT umount (umount would trim
+    # the WAL): exactly the state a crash between the data write and
+    # the seal/seq batch leaves behind
+    from ceph_tpu_torch.store.filestore import P_META
+    from ceph_tpu_torch.store.kv import WriteBatch
+
+    b = WriteBatch()
+    b.set(P_META, "applied_seq", str(seq_before).encode())
+    s._kv.submit(b, sync=True)
+    path = s._datafile(CID, OID)
+    with open(path, "r+b") as f:
+        f.seek(E + 2)
+        f.write(b"\xff" * 5)  # half-applied patch
+    s._kv.close()
+    s._wal_fh.close()
+
+    s2 = create("filestore", path=str(tmp_path / "fs"))
+    s2.csum_extent_size = E
+    s2.mount()
+    assert s2.read(CID, OID) == expected  # replayed AND verifying
+    assert _seals(s2).crcs == _extent_crcs(expected)
+    s2.umount()
 
 
 def test_corrupt_chunk_failpoint_is_caught_by_the_seals(store):

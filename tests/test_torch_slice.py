@@ -350,6 +350,22 @@ def test_importing_the_port_loads_neither_jax_nor_the_reference():
             "assert 'ceph_tpu_torch.mon.client' in sys.modules\n"
             "assert 'ceph_tpu_torch.mon.monitor' in sys.modules\n"
             "assert 'ceph_tpu_torch.ec.clay' in sys.modules\n"
+            "for m in ('compress', 'compress.plugins', 'store.kv', "
+            "'store.lsm', 'store.filestore', 'store.blockstore'):\n"
+            "    assert 'ceph_tpu_torch.' + m in sys.modules, m\n"
+            "from ceph_tpu_torch.store import create\n"
+            "from ceph_tpu_torch.store.blockstore import BlockStore\n"
+            "from ceph_tpu_torch.store.filestore import FileStore\n"
+            "from ceph_tpu_torch.store.lsm import LSMStore\n"
+            "import tempfile\n"
+            "with tempfile.TemporaryDirectory() as d:\n"
+            "    for kind in ('filestore', 'blockstore'):\n"
+            "        st = create(kind, d + '/' + kind)\n"
+            "        st.mkfs(); st.mount(); st.umount()\n"
+            "    db = LSMStore(d + '/lsm'); db.open(); db.close()\n"
+            "    bs = BlockStore(d + '/bs', compression='zlib', "
+            "kv_kind='lsm')\n"
+            "    bs.mkfs(); bs.mount(); bs.umount()\n"
             "from ceph_tpu_torch.ec.clay import ClayCodec, ErasureCodeClay\n"
             "for m in ('__init__', 'objecter', 'rados', 'striper', "
             "'cache_tier'):\n"

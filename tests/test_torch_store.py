@@ -1,15 +1,9 @@
 """The port's object store (``ceph_tpu_torch/store/``), case for case
-against the memstore cases of ``tests/test_store.py`` (its fixture cases
-run over ``memstore`` here; ``test_transaction_encode_roundtrip``), and
+against ``tests/test_store.py`` (its fixture cases over ``memstore``,
+``filestore`` and ``blockstore``; the FileStore remount and WAL replay;
+the KV cases over ``LogKV`` and ``MemDB``), and
 ``tests/test_dencoder.py::test_v1_extent_seals_decodes_and_reencodes_byte_stable``,
 which reads the committed corpus blob in place.
-
-Left out, with the backends they need (ROADMAP queue 1 item 5, the
-other store backends): the fixture cases' ``filestore`` and
-``blockstore`` parameters, ``test_filestore_survives_remount``,
-``test_filestore_wal_replay_after_crash``, and the KV cases
-(``test_logkv_*``, ``test_memdb_batch``, ``test_kv_*``).  The durable
-backends' ``create`` names that item (pinned below).
 """
 
 import binascii
@@ -19,6 +13,7 @@ import pytest
 
 from ceph_tpu_torch.core.crc import crc32c
 from ceph_tpu_torch.store import create
+from ceph_tpu_torch.store.kv import LogKV, MemDB, WriteBatch
 from ceph_tpu_torch.store.objectstore import (
     Collection,
     ExtentSeals,
@@ -34,7 +29,7 @@ OID = GHObject("obj1")
 V1_CORPUS = os.path.join(os.path.dirname(__file__), "corpus_v1")
 
 
-@pytest.fixture(params=["memstore"])
+@pytest.fixture(params=["memstore", "filestore", "blockstore"])
 def store(request, tmp_path):
     s = create(request.param, path=str(tmp_path / "store"))
     s.mkfs()
@@ -165,6 +160,110 @@ def test_transaction_encode_roundtrip():
                b.keys, b.dest_cid, b.dest_oid)
 
 
+# -- durability -------------------------------------------------------------
+
+
+def test_filestore_survives_remount(tmp_path):
+    path = str(tmp_path / "fs")
+    s = create("filestore", path=path)
+    s.mkfs()
+    s.mount()
+    _mkcoll(s)
+    t = Transaction()
+    t.write(CID, OID, 0, b"durable")
+    t.setattrs(CID, OID, {"a": b"b"})
+    s.queue_transaction(t)
+    s.umount()
+
+    s2 = create("filestore", path=path)
+    s2.mount()
+    assert s2.read(CID, OID) == b"durable"
+    assert s2.getattr(CID, OID, "a") == b"b"
+    s2.umount()
+
+
+def test_filestore_wal_replay_after_crash(tmp_path):
+    """Kill without umount: WAL newer than applied_seq replays on mount."""
+    path = str(tmp_path / "fs")
+    s = create("filestore", path=path)
+    s.mkfs()
+    s.mount()
+    _mkcoll(s)
+    t = Transaction()
+    t.write(CID, OID, 0, b"committed")
+    s.queue_transaction(t)
+    # simulate crash: forcibly roll the KV back by rewriting applied_seq,
+    # as if the metadata batch never hit the KV (the WAL survives)
+    b = WriteBatch()
+    b.set("S", "applied_seq", b"0")
+    s._kv.submit(b)
+    s._kv.close()
+    s._wal_fh.close()
+
+    s2 = create("filestore", path=path)
+    s2.mount()
+    assert s2.read(CID, OID) == b"committed"
+    s2.umount()
+
+
+def test_logkv_torn_tail_discarded(tmp_path):
+    path = str(tmp_path / "kv.log")
+    kv = LogKV(path)
+    kv.open()
+    b = WriteBatch()
+    b.set("p", "good", b"1")
+    kv.submit(b)
+    kv.close()
+    # append garbage (torn write)
+    with open(path, "ab") as f:
+        f.write(b"\xde\xad\xbe\xef-torn")
+    kv2 = LogKV(path)
+    kv2.open()
+    assert kv2.get("p", "good") == b"1"
+    # log usable after truncating the torn tail
+    b = WriteBatch()
+    b.set("p", "more", b"2")
+    kv2.submit(b)
+    kv2.close()
+    kv3 = LogKV(path)
+    kv3.open()
+    assert kv3.get("p", "more") == b"2"
+    kv3.close()
+
+
+def test_logkv_compaction_preserves_state(tmp_path):
+    kv = LogKV(str(tmp_path / "kv.log"))
+    kv.open()
+    for i in range(10):
+        b = WriteBatch()
+        b.set("p", f"k{i}", str(i).encode())
+        if i % 2:
+            b.rmkey("p", f"k{i - 1}")
+        kv.submit(b)
+    kv.compact()
+    assert dict(kv.iterate("p")) == {
+        f"k{i}": str(i).encode() for i in (1, 3, 5, 7, 9)
+    }
+    kv.close()
+    kv2 = LogKV(str(tmp_path / "kv.log"))
+    kv2.open()
+    assert kv2.get("p", "k9") == b"9"
+    kv2.close()
+
+
+def test_memdb_batch():
+    db = MemDB()
+    db.open()
+    b = WriteBatch()
+    b.set("a", "x", b"1")
+    b.set("b", "x", b"2")
+    b.rmkey("a", "nope")
+    db.submit(b)
+    assert db.get("a", "x") == b"1"
+    assert db.get("b", "x") == b"2"
+    assert list(db.iterate("a")) == [("x", b"1")]
+
+
 def test_transaction_atomicity_all_or_nothing(store):
     """A failing op mid-transaction must leave NO partial effects."""
     _mkcoll(store)
@@ -217,11 +316,8 @@ def test_same_txn_setattr_then_remove_no_resurrect(store):
 
 
 
-@pytest.mark.parametrize("kind", ["filestore", "blockstore"])
-def test_durable_backends_name_their_roadmap_item(kind, tmp_path):
-    with pytest.raises(NotImplementedError, match="item 5"):
-        create(kind, path=str(tmp_path / "store"))
-    with pytest.raises(ValueError):
+def test_create_refuses_unknown_kind():
+    with pytest.raises(ValueError, match="unknown objectstore"):
         create("nosuchstore")
 
 
@@ -281,3 +377,59 @@ def test_commit_pipeline_batches_in_order_like_the_reference():
     assert got == run(RefPipeline)
     assert got == ([0, 8, 8], [0, 1, 2, 3, 4, 5, 6, 7, 9])
     assert pc.dump()["commit_batch"]["sum"] == 10  # 9 + the flush marker
+
+
+def test_kv_iterator_seek_surface():
+    db = MemDB()
+    db.open()
+    b = WriteBatch()
+    for k in ("a", "b", "d", "e"):
+        b.set("P", k, k.encode())
+    db.submit(b)
+    it = db.get_iterator("P")
+    it.seek_to_first()
+    assert it.valid() and it.key() == "a"
+    it.lower_bound("c")
+    assert it.key() == "d"
+    it.upper_bound("d")
+    assert it.key() == "e"
+    it.next()
+    assert not it.valid()
+    it.seek_to_last()
+    assert it.key() == "e"
+    it.prev()
+    assert it.key() == "d"
+    # iterators are stable views: later writes don't appear
+    b2 = WriteBatch()
+    b2.set("P", "c", b"c")
+    db.submit(b2)
+    it.seek_to_first()
+    keys = []
+    while it.valid():
+        keys.append(it.key())
+        it.next()
+    assert keys == ["a", "b", "d", "e"]  # no "c" in the old view
+    it2 = db.get_iterator("P")
+    it2.lower_bound("c")
+    assert it2.key() == "c"
+
+
+def test_kv_snapshot_isolated_from_writes(tmp_path):
+    db = LogKV(str(tmp_path / "kv.log"))
+    db.open()
+    b = WriteBatch()
+    b.set("P", "x", b"1")
+    db.submit(b)
+    snap = db.snapshot()
+    b2 = WriteBatch()
+    b2.set("P", "x", b"2")
+    b2.set("P", "y", b"3")
+    db.submit(b2)
+    assert snap.get("P", "x") == b"1"
+    assert snap.get("P", "y") is None
+    assert dict(snap.iterate("P")) == {"x": b"1"}
+    assert db.get("P", "x") == b"2"
+    it = snap.get_iterator("P")
+    it.seek_to_first()
+    assert it.key() == "x" and it.value() == b"1"
+    db.close()

@@ -81,11 +81,15 @@ def build_map(M, dev: dict, n_osds: int = N_OSDS):
 
 
 class DaemonCluster:
-    """``n_osds`` daemons of ``pkg`` over MemStores and one shared map."""
+    """``n_osds`` daemons of ``pkg`` over MemStores and one shared map.
+
+    ``store_factory(i)`` gives osd.i another store, as the reference's
+    ``MiniCluster(store_factory=...)`` does (``test_osd_cluster.py:61``);
+    ``revive(i, remount=True)`` then mounts a new one on osd.i's path."""
 
     def __init__(self, pkg: str, overrides: Optional[dict] = None,
                  device: str = "cpu", n_osds: int = N_OSDS,
-                 map_fn=build_map) -> None:
+                 map_fn=build_map, store_factory=None) -> None:
         self.M = M = mods(pkg)
         self.pkg = pkg
         self.dev = {"device": device} if pkg == "ceph_tpu_torch" else {}
@@ -96,9 +100,10 @@ class DaemonCluster:
         self._tid = 0
         self._replies: Dict[int, object] = {}
         self._cond = threading.Condition()
+        self.make_store = store_factory or (lambda i: M.memstore.MemStore())
         try:
             for i in range(n_osds):
-                svc = self._service(i, M.memstore.MemStore())
+                svc = self._service(i, self.make_store(i))
                 svc.store.mkfs()
                 svc.init()
                 self.osds[i] = svc
@@ -161,8 +166,13 @@ class DaemonCluster:
         self.refresh()
         self.activate()
 
-    def revive(self, osd_id: int) -> None:
-        svc = self._service(osd_id, self.osds[osd_id].store)
+    def revive(self, osd_id: int, remount: bool = False) -> None:
+        """Restart osd_id on its old store object, or with ``remount`` on
+        a new one from the store factory (a durable store's state is
+        then read back from its files)."""
+        store = (self.make_store(osd_id) if remount
+                 else self.osds[osd_id].store)
+        svc = self._service(osd_id, store)
         svc.init()
         self.osds[osd_id] = svc
         # the new address first, then the map that marks it up: a peer

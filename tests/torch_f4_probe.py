@@ -7,7 +7,8 @@ every divergent-entry rollback that found no rollback record traced.
 
 (from the repo root).  It wraps, on the package's classes, ``rb_capture``
 (which early return it took: none, an absent shard, a store read that
-raised, ``RB_MAX_CAPTURE``), ``roll_back_entry`` (its result),
+raised, ``RB_MAX_CAPTURE``), ``roll_back_entry`` (its result, and on the
+port whether the entry's write had stored nothing yet: ``unfanned``),
 ``_rb_trim_keys`` (the records trimmed), ``ECBackend.submit``,
 ``apply_sub_write_vec``, ``PG._commit_write`` and ``PG._note_entries``
 (where each log entry came from), and prints one JSON object: the run's
@@ -66,8 +67,12 @@ def main(pkg: str, seed: int) -> dict:
     o_rb = B.ECBackend.roll_back_entry
 
     def roll_back_entry(self, entry, meta_omap=None):
+        # the port's backend knows the entries whose write stored
+        # nothing yet (its fan-out not past the log fence)
+        unfanned = getattr(self, "_unfanned", {}).get(id(entry)) is entry
         ok = o_rb(self, entry, meta_omap)
-        counts["rollback_" + ("restored" if ok else "no_record")] += 1
+        counts["rollback_" + ("unfanned" if unfanned and ok else
+                              "restored" if ok else "no_record")] += 1
         if not ok:
             v, pg = str(entry.version), str(self.pgid)
             fails.append({
