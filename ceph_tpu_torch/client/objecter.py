@@ -17,7 +17,11 @@ reply:
   "homeless" and resume on the next map (reference op_target_t::paused).
 - timed-out sends resend to the current target; the PG's reqid dedup
   (client name + nonce + tid, mirroring osd_reqid_t) makes resends
-  exactly-once even across primary failover.
+  exactly-once even across primary failover.  The wait before such a
+  resend doubles with each send of the op, up to ``RESEND_BACKOFF_MAX``
+  times ``resend_interval`` (F12: on the card an op that outlived the
+  1 s wait was sent again every second, and the copies, each a 4 MiB
+  frame or a degraded read run again, slowed every op behind them).
 
 Every op carries the submission-time epoch; replies carry the OSD's
 epoch, which (being newer) flags that the client's map is stale —
@@ -93,6 +97,7 @@ class ObjecterOp:
 
 class Objecter(Dispatcher):
     MAX_ATTEMPTS = 60
+    RESEND_BACKOFF_MAX = 8
 
     def __init__(self, ctx: Context, msgr: Messenger,
                  resend_interval: float = 1.0,
@@ -358,7 +363,9 @@ class Objecter(Dispatcher):
                     # _send_op parks it again harmlessly while the
                     # address is still unknown
                     self._send_op(op)
-                elif now - op.last_send > self.resend_interval:
+                elif now - op.last_send > self.resend_interval * min(
+                        1 << max(op.attempts - 1, 0),
+                        self.RESEND_BACKOFF_MAX):
                     # no reply: primary may have died before the map
                     # noticed; resend to the current target (reqid dedup
                     # makes this safe)

@@ -139,7 +139,7 @@ class InFlightOp:
     learn the write happened (the 0xd403 acked-loss class)."""
 
     __slots__ = ("waiting_on", "on_commit", "lock", "acked", "dropped",
-                 "sent_at")
+                 "sent_at", "entry")
 
     def __init__(self, waiting_on: set, on_commit: Callable[[], None]):
         self.waiting_on = waiting_on
@@ -150,6 +150,10 @@ class InFlightOp:
         # per-peer send stamps (fan-out RTT attribution): filled by
         # the fan-out just before each peer send
         self.sent_at: Dict = {}
+        # the write's log entry (replicated writes): a peer holds it
+        # once peering has pushed it to the primary's head, while the
+        # entry itself is still in the primary's log
+        self.entry = None
 
     def ack(self, who) -> None:
         fire = False
@@ -501,6 +505,8 @@ class ReplicatedBackend(PGBackend):
         op = InFlightOp(set(peers) | {self.whoami}, lambda: None)
         op.on_commit = lambda: (self._done(tid),
                                 _fire_commit(on_commit, op))
+        if entries:
+            op.entry = entries[-1]
         self.in_flight[tid] = op
         body = txn.to_bytes()
         for peer in peers:

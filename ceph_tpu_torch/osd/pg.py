@@ -281,10 +281,15 @@ class PG:
         self._pipe_lock = make_lock("pg.write_pipe")
         self._oid_pipes: Dict[str, _OidPipe] = {}
         # reqid -> expiry of writes submitted but not yet committed: a
-        # client resend racing its own in-flight original answers
-        # EAGAIN instead of re-executing (exactly-once); entries expire
-        # so a wedged original can't livelock the resend forever
+        # client resend racing its own in-flight original never
+        # re-executes (exactly-once); entries expire so a wedged
+        # original can't livelock the resend forever
         self._inflight_reqids: Dict[str, float] = {}
+        # reqid -> the resends of a marked write whose original has not
+        # replied yet: each is answered with the original's result when
+        # it replies (the reference's waiting_for_ondisk), never staged,
+        # queued or answered EAGAIN meanwhile (F12)
+        self._reqid_waiters: Dict[str, list] = {}
         # (deadline, replied-flag, fire) rows for in-flight client
         # writes, swept by the osd watchdog: a shard that never acks
         # becomes a retryable EAGAIN instead of silence; replied rows
@@ -1329,6 +1334,8 @@ class PG:
                 del self._inflight_reqids[r]
         for row in due:
             row[2]()
+        for r in stale:
+            self._release_waiters(r)
 
     def _note_inflight(self, delta: int) -> None:
         note = getattr(self.osd, "note_write_inflight", None)
@@ -1390,10 +1397,14 @@ class PG:
         # authoritative re-check runs again after admission)
         reqid = getattr(msg, "reqid", "")
         if reqid:
-            with self.lock:
+            with self._pipe_lock:
                 done_v = self._reqids.get(reqid)
+                waiting = self._wait_on_original(reqid, done_v, msg, reply)
             if done_v is not None:
                 self._replay_reply(msg, reply, done_v)
+                return
+            if waiting:
+                self._op_stage(msg, "waiting_for_original")
                 return
         # device-resident small-object path: an all-WRITEFULL payload
         # is staged ONCE into the pinned pool owned by the stripe
@@ -1425,6 +1436,44 @@ class PG:
         # writes to different objects proceed concurrently.  Nothing
         # blocks this workqueue shard waiting for shard acks anymore.
         self._oid_admit(msg.oid, lambda: self._execute_write(msg, reply))
+
+    def _wait_on_original(self, reqid: str, done_v, msg, reply) -> bool:
+        """Under ``_pipe_lock``: park a resend of a write whose original
+        is marked here and has not replied yet; True when parked."""
+        if done_v is not None or reqid not in self._inflight_reqids:
+            return False
+        waiters = self._reqid_waiters.get(reqid)
+        if waiters is None:
+            return False
+        waiters.append((msg, reply))
+        return True
+
+    def _answering_waiters(self, reqid: str, reply):
+        """The original's ``reply``, which also answers each resend
+        parked on it with the same result and version."""
+        def answer(rep) -> None:
+            try:
+                reply(rep)
+            finally:
+                with self._pipe_lock:
+                    waiters = self._reqid_waiters.pop(reqid, [])
+                for wmsg, wreply in waiters:
+                    wreply(m.MOSDOpReply(self.pgid, rep.epoch, wmsg.oid,
+                                         wmsg.ops, result=rep.result,
+                                         version=rep.version))
+        return answer
+
+    def _release_waiters(self, reqid: str) -> None:
+        """Answer EAGAIN to the resends parked on an original that left
+        without replying (an early bail that raised, an expired mark):
+        the client's retry runs the write again."""
+        with self._pipe_lock:
+            if reqid in self._inflight_reqids:
+                return  # marked again meanwhile: its reply answers them
+            waiters = self._reqid_waiters.pop(reqid, [])
+        for wmsg, wreply in waiters:
+            wreply(m.MOSDOpReply(self.pgid, self.osd.epoch(), wmsg.oid,
+                                 wmsg.ops, result=EAGAIN))
 
     def _execute_write(self, msg, reply):
         """Head of `msg.oid`'s admission FIFO: state read -> op exec ->
@@ -1473,22 +1522,29 @@ class PG:
                     done_v = self._reqids.get(reqid)
                     dup = (done_v is None
                            and reqid in self._inflight_reqids)
+                    waiting = self._wait_on_original(reqid, done_v, msg,
+                                                     reply)
                     if done_v is None and not dup:
                         self._inflight_reqids[reqid] = (
                             time.monotonic()
                             + 2 * self._write_timeout_s())
+                        self._reqid_waiters.setdefault(reqid, [])
                         req_marked = True
                 if done_v is not None:
                     self._replay_reply(msg, reply, done_v)
                     return
-                if dup:
+                if waiting:
                     # resend racing its own in-flight original: never
-                    # re-execute (exactly-once); by the client's next
-                    # retry the original has committed and the replay
-                    # guard answers
+                    # re-execute (exactly-once); the original's reply
+                    # answers it
+                    return
+                if dup:
+                    # the original already answered (EAGAIN at its
+                    # deadline) and its mark holds until it expires
                     reply(m.MOSDOpReply(self.pgid, self.osd.epoch(),
                                         msg.oid, msg.ops, result=EAGAIN))
                     return
+                reply = self._answering_waiters(reqid, reply)
             # partial-stripe EC overwrite fast path: a single ranged
             # write inside the object moves only the touched stripes
             # (reference start_rmw, ECBackend.cc:1791) instead of
@@ -1505,6 +1561,7 @@ class PG:
                 if req_marked:
                     with self._pipe_lock:
                         self._inflight_reqids.pop(reqid, None)
+                    self._release_waiters(reqid)
                 # early bail (ESTALE/EAGAIN/op error): the staged
                 # payload never reached the backend — return its slot
                 # without seal()'s defensive copy (nothing reads it)
@@ -2984,11 +3041,48 @@ class PG:
         rep.tid = msg.tid
         conn.send(rep)
 
+    def _ack_caught_up(self, reached: Dict[int, EVersion]) -> None:
+        """A replicated write in flight across an interval change waits
+        for good on an ack that never comes: a replica that detected
+        the new interval first drops the old interval's MOSDRepOp
+        unapplied and unanswered (``handle_rep_op``), and the new
+        interval's laggard push is what brings it the entry (F13).
+        ``reached`` is the version each acting peer is known to hold
+        (the info it answered, or the head a push brought it to): count
+        it as having acked every write at or below that version whose
+        entry is still in this log.  A write whose entry a newer
+        authoritative log rewound is dropped unanswered, as the EC
+        fan-out drops one (``_rewound``): its version may have been
+        minted again for another write, which is what the peers hold.
+        Its reqid mark goes with it, so the client's resend runs."""
+        if self.is_ec() or not self.is_primary():
+            return
+        with self.lock:
+            acting = set(self.acting)
+        for tid, op in list(self.backend.in_flight.items()):
+            if op.entry is None:
+                continue
+            if not self._in_log(op.entry):
+                self.backend.in_flight.pop(tid, None)
+                if op.entry.reqid:
+                    with self._pipe_lock:
+                        self._inflight_reqids.pop(op.entry.reqid, None)
+                self.osd._log(1, f"pg {t_.pgid_str(self.pgid)}: in-flight "
+                                 f"write of rewound entry "
+                                 f"{op.entry.version} dropped")
+                continue
+            for who in set(op.waiting_on) & acting:
+                if who in reached and reached[who] >= op.entry.version:
+                    op.ack(who)
+
     def _push_laggards(self, infos: Dict[int, PGInfo]) -> None:
+        reached: Dict[int, EVersion] = {}  # what each peer now holds
         for osd_id, info in infos.items():
             if osd_id not in self.acting:
                 continue  # strays are not pushed forward (they drain)
-            if info.last_update >= self.info.last_update:
+            head = self.info.last_update
+            if info.last_update >= head:
+                reached[osd_id] = info.last_update
                 continue
             changed = self.log.objects_changed_after(info.last_update)
             names = (self.backend.object_names() if changed is None
@@ -3027,11 +3121,13 @@ class PG:
             with self.lock:
                 if ok:
                     self.stale_peers.discard(osd_id)
+                    reached[osd_id] = head
                 elif osd_id in self.stale_peers:
                     # retried from the info it answered: a push that
                     # landed meanwhile may have moved its last_update
                     # past an object that did not
                     self._laggard_retry[osd_id] = info
+        self._ack_caught_up(reached)
 
     def _push_timeout_s(self) -> float:
         try:

@@ -201,6 +201,30 @@ Phases, each of which fails the run (non-zero exit, no result line):
               ``RadosStriper`` (1 MiB units, 4 wide, 4 MiB objects) read
               back whole and at an unaligned offset; the client and every
               daemon shut down and no thread left;
+6h. clay     32 x 4 MiB through one clay k=8 m=4 d=11 PG over eleven
+              hosts: write (``encp``), a shard repaired (``crep``), a
+              degraded read (``cdec``), a deep scrub;
+6i. vstart   the cluster a monitor quorum runs
+              (``ceph_tpu_torch/vstart.py``, ``mon/``): three port
+              ``Monitor``s on LSMStores and twelve port daemons on
+              BlockStores under a temporary ``data_dir``, warmup on, under
+              lockdep; the election and the boot through the mons timed
+              apart, every daemon up in the leader's map; an isa k=8 m=4
+              pool (1 MiB stripe) made by ``osd erasure-code-profile set``
+              and ``osd pool create`` through the mons (each daemon's
+              warmup resumed with its codec: K1); 8 x 4 MiB written by
+              the port's ``RadosClient`` (``WRITEFULL`` one at a time:
+              K6 placement, ``encp``), every stored shard equal to the
+              plain encode with its ``hinfo`` the host CRC; ``pg
+              deep-scrub`` relayed by the leader (its ``pg_to_up_acting``:
+              K6) until the PG's stamp moves; the leader mon shut down,
+              a new leader elected, a ``config set`` committed through it
+              on every live mon and 2 more objects written; the daemon
+              holding data shard 1 of object 0's PG shut down and marked
+              down from failure reports, every object read back byte for
+              byte (``dec``: K1); the killed mon restarted from its
+              LSMStore directory and every mon at the leader's version and
+              map epoch; the cluster shut down and no thread left;
 7. bitmatrix  the same 1 GiB write through ``jerasure k=8 m=4
               technique=cauchy_good``, read back degraded through
               ``codec.decode_array`` with shards 6, 7, 10, 11 lost (the
@@ -264,8 +288,10 @@ recovery phase zeroes them just before the recovery window and reads
 them just after, the scrub phase around each of its steps, and the
 daemon phase around each of its steps: warmup, write, kill, read,
 write_down, recover, scrub, and the cluster phase around each of its
-steps: boot, write, failover, read, stripe; a map refresh's K6 launches
-are read before and after it); each
+steps: boot, write, failover, read, stripe, and the vstart phase around
+each of its steps: boot, pool, write, relay, leader_loss, osd_loss, read,
+mon_restart; a map refresh's K6 launches are read before and after it);
+each
 kernel of each
 half must have run (for ecbench, K2 and K1: its loops capture one launch
 per iteration in a CUDA graph and replay it, and the counts are of the
@@ -278,8 +304,10 @@ phase's two halves, the recovery phase and each step of the scrub phase
 daemon phase and each of its map refreshes (``daemon_launches``) and
 each step of the cluster phase (``cluster_launches``; the
 ``crush_rule`` row adds the objecter's ``_calc_target`` calls a step
-and the refreshes' launches), and each step of the mesh phase
-(``mesh_launches``); the ``mesh_digest`` row times the digest kernel at
+and the refreshes' launches), each step of the vstart phase
+(``vstart_launches``; the ``crush_rule`` row adds the client objecter's
+``_calc_target`` calls a step and the relay command's launches), and
+each step of the mesh phase (``mesh_launches``); the ``mesh_digest`` row times the digest kernel at
 the digest step's [12, 512 Ki] and at [12, 64 Mi] beside
 ``x.sum(dtype=torch.int64)`` (``library_ms``); the
 popcount row times both of
@@ -3113,6 +3141,62 @@ def no_threads_left(before: set, what: str) -> None:
     require(not left, f"{what}: threads left after shutdown: {left}")
 
 
+class ObjecterWatch:
+    """A client objecter's placements (``_calc_target`` calls, one K6
+    launch each on the card), ops and op latencies from submission to
+    the final reply, counted between ``reset`` and ``read``."""
+
+    def __init__(self) -> None:
+        self.lock = threading.Lock()
+        self.targets = 0
+        self.ops: list = []
+        self.lat: list = []
+
+    def attach(self, objecter):
+        """Wrap ``objecter``'s ``_calc_target`` and ``op_submit``; the
+        unwrapped ``_calc_target``."""
+        real_target, real_submit = objecter._calc_target, objecter.op_submit
+
+        def calc_target(pool, oid):
+            with self.lock:
+                self.targets += 1
+            return real_target(pool, oid)
+
+        def op_submit(*args, on_complete=None, **kw):
+            t0 = time.perf_counter()
+
+            def completed(op):
+                with self.lock:
+                    self.lat.append(time.perf_counter() - t0)
+                if on_complete is not None:
+                    on_complete(op)
+
+            op = real_submit(*args, on_complete=completed, **kw)
+            with self.lock:
+                self.ops.append(op)
+            return op
+
+        objecter._calc_target = calc_target
+        objecter.op_submit = op_submit
+        return real_target
+
+    def reset(self) -> None:
+        with self.lock:
+            self.targets = 0
+            self.ops.clear()
+            self.lat.clear()
+
+    def read(self) -> dict:
+        with self.lock:
+            lat = self.lat
+            return {
+                "objecter_k6": self.targets,
+                "resends": sum(op.attempts - 1 for op in self.ops),
+                "resent_ops": sum(op.attempts > 1 for op in self.ops),
+                "op_s": ({"n": len(lat), "mean": sum(lat) / len(lat),
+                          "max": max(lat)} if lat else {})}
+
+
 def ec_shards_checked(ds: DaemonSet, pool: int, oid: str, data, plain, si,
                       only=None, whole: bool = True) -> int:
     """Each stored shard of ``oid`` (on daemon ``only``, else on every
@@ -3891,29 +3975,17 @@ def run_cluster(torch, dev, *, n_osds: int = DAEMON_OSDS,
     rc = None
     res: dict = {"steps": {}, "refresh": ds.refreshes}
     dq = default_queue(dev)
-    lock = threading.Lock()
-    targets = [0]       # the objecter's _calc_target calls
-    ops: list = []      # the step's ObjecterOps
-    lat: list = []      # the step's op latencies (seconds, host clock)
+    watch = ObjecterWatch()
 
     def widths(d: dict, d0: dict) -> dict:
         return {w: c - d0.get(w, 0) for w, c in sorted(d.items())
                 if c - d0.get(w, 0)}
 
     def step(name: str, fn) -> dict:
-        with lock:
-            targets[0] = 0
-            ops.clear()
-            lat.clear()
+        watch.reset()
         enc0, dec0 = dict(dq.batch_jobs), dict(dq.dec_batch_jobs)
         out = run_step(res, name, fn)
-        with lock:
-            out.update(
-                objecter_k6=targets[0],
-                resends=sum(op.attempts - 1 for op in ops),
-                resent_ops=sum(op.attempts > 1 for op in ops),
-                op_s=({"n": len(lat), "mean": sum(lat) / len(lat),
-                       "max": max(lat)} if lat else {}))
+        out.update(watch.read())
         out["encp_widths"] = widths(dq.batch_jobs, enc0)
         out["dec_widths"] = widths(dq.dec_batch_jobs, dec0)
         return out
@@ -3959,33 +4031,7 @@ def run_cluster(torch, dev, *, n_osds: int = DAEMON_OSDS,
         rc.inject_osdmap(osdmap, ds.book())
         ds.watchers.append(
             lambda book: rc.objecter.handle_osdmap(osdmap, book))
-        real_target = rc.objecter._calc_target
-
-        def calc_target(pool, oid):
-            with lock:
-                targets[0] += 1
-            return real_target(pool, oid)
-
-        rc.objecter._calc_target = calc_target
-        real_submit = rc.objecter.op_submit
-
-        def op_submit(*args, on_complete=None, **kw):
-            """Every op of the step (the striper's too) and its latency
-            from submission to its final reply."""
-            t0 = time.perf_counter()
-
-            def completed(op):
-                with lock:
-                    lat.append(time.perf_counter() - t0)
-                if on_complete is not None:
-                    on_complete(op)
-
-            op = real_submit(*args, on_complete=completed, **kw)
-            with lock:
-                ops.append(op)
-            return op
-
-        rc.objecter.op_submit = op_submit
+        real_target = watch.attach(rc.objecter)  # the striper's ops too
         reset_counts()
         real_target(A, "probe")
         res["k6_per_target"] = read_counts()["crush_rule"]
@@ -4026,7 +4072,7 @@ def run_cluster(torch, dev, *, n_osds: int = DAEMON_OSDS,
         for j, x in enumerate(fos):
             want[(A, x)] = objs[nobj + j]
         once = {}
-        for op in ops:
+        for op in watch.ops:
             pgid = osdmap.object_to_pg(A, op.oid)
             prim = osdmap.pg_to_up_acting(pgid)[3]
             require(prim != down, f"cluster: {op.oid} has a new primary")
@@ -4171,6 +4217,434 @@ def phase_cluster(torch, dev, log) -> dict:
         f"offset; per step "
         f"{json.dumps(lines)}; refreshes {json.dumps(res['refresh'])}; "
         f"{res['edges']} lock-order edges; no thread left")
+    return res
+
+
+VSTART_MONS = 3              # a quorum of three port Monitors
+VSTART_OBJS = 8              # 4 MiB objects (RADOS's default object size),
+#                              cut from 16: at 16 the script took 731.3 s
+#                              to the kernel line on an NVIDIA H100 80GB
+#                              HBM3 at 700 W, above its 673 s budget
+VSTART_PG_NUM = 8            # the EC pool's PGs (VStartCluster's default)
+VSTART_THREADS = 8           # concurrent writers, as the cluster phase's
+VSTART_WAIT_S = 60.0         # each wait of the phase (elections, boots)
+
+
+class _VStartShards:
+    """What ``ec_shards_checked`` reads of a ``DaemonSet``, over a
+    ``VStartCluster``: the map a mon committed and the daemons."""
+
+    def __init__(self, c, osdmap) -> None:
+        self.osdmap, self.osds, self.what = osdmap, c.osds, "vstart"
+
+
+def run_vstart(torch, dev, *, n_mons: int = VSTART_MONS,
+               n_osds: int = DAEMON_OSDS, profile: str = WIRE_PROFILE,
+               nobj: int = VSTART_OBJS, obj_bytes: int = 4 * MiB,
+               stripe_bytes: int = 1 * MiB, threads: int = VSTART_THREADS,
+               pg_num: int = VSTART_PG_NUM) -> dict:
+    """A cluster as ``vstart`` starts one (``ceph_tpu_torch/vstart.py``),
+    under lockdep: ``n_mons`` port ``Monitor``s on ``LSMStore``s and
+    ``n_osds`` port ``OSDService``s on BlockStores under a temporary
+    ``data_dir``, ``warmup=True``, every mon, daemon and client on
+    ``dev``.  Its steps, each timed, with the launch counts zeroed before
+    and read after:
+
+    1. ``boot``: ``VStartCluster(..., wait=False)`` starts the mons
+       and every daemon's ``init`` (its boot warmup, which waits for a
+       pool's codec) and ``MOSDBoot`` (``start_s``); then the mons'
+       leader (rank 0 by deference) is seen (``quorum_s``, from the
+       start), and every daemon up in the leader's map, each boot a
+       committed map epoch (``boot_s``, from the quorum);
+       ``pool``: ``osd erasure-code-profile set`` (``profile`` with a
+       ``stripe_bytes`` stripe) and ``osd pool create`` through the
+       mons, each daemon's maps caught up and its warmup resumed with the
+       pool's codec (K1, the CRC kernel, K6), then every daemon's PGs
+       settled (``settle_s``);
+    2. ``write``: ``nobj`` seeded objects of ``obj_bytes`` written by
+       ``IoCtx.operate`` ``WRITEFULL`` of the port's ``RadosClient``
+       (``c.client()``) from ``threads`` threads, every reply 0: the objecter's
+       ``_calc_target`` (K6) and the primary's ``encp`` batch (K1 and
+       the CRC kernel); every stored shard equal to the plain encode
+       with its ``hinfo`` the host CRC of it; then ``relay``: ``pg
+       deep-scrub`` of object 0's PG through the mons, whose leader walks
+       the PG's primary (``pg_to_up_acting``, K6) and relays an
+       ``MPGCommand`` to it, until that PG's deep-scrub stamp moves;
+    3. ``leader_loss``: the leader mon shut down; the two left elect a
+       new leader, a ``config set`` commits through it and reaches every
+       live mon, and ``nobj // 4`` more objects are written;
+    4. ``osd_loss``: the daemon holding data shard 1 of object 0's PG
+       (not its primary) shut down; the mons mark it down from the
+       others' failure reports, the client's map follows; ``read``: every
+       object read back by ``IoCtx.operate`` ``READ``, one at a time
+       (as the cluster phase reads), byte for byte,
+       ``dec`` jobs (K1) for the objects that lost a data shard;
+    5. ``mon_restart``: the killed mon restarts from its ``LSMStore``
+       directory on its old port and rejoins (rank 0 leads again); its
+       ``last_committed`` and every other mon's reach the leader's, at
+       least the version committed before the restart, and every mon's
+       map the leader's epoch, at least the epoch before the restart;
+    6. the cluster shut down and no thread it started left (the
+       process's queue worker and fan-out executor aside).
+
+    Returns the walls, counts and checks; raises on any failed check."""
+    import os
+    import tempfile
+
+    from ceph_tpu_torch.core import lockdep
+    from ceph_tpu_torch.ec import codec_from_profile
+    from ceph_tpu_torch.gpu.queue import default_queue
+    from ceph_tpu_torch.mon import Monitor
+    from ceph_tpu_torch.osd import backend as ob
+    from ceph_tpu_torch.osd.ecutil import StripeInfo
+    from ceph_tpu_torch.osd.types import (OP_READ, OP_WRITEFULL, OSDOp,
+                                          pgid_str)
+    from ceph_tpu_torch.store.lsm import LSMStore
+    from ceph_tpu_torch.vstart import VStartCluster
+
+    unit = codec_from_profile(profile, device=dev).get_chunk_size(
+        stripe_bytes)
+    ec_profile = f"{profile} stripe_unit={unit}"
+    plain = codec_from_profile(ec_profile, device="cpu")
+    k, m = plain.k, plain.m
+    require(k + m == n_osds, f"vstart: one daemon a shard "
+                             f"({k + m} != {n_osds})")
+    si = StripeInfo(k, unit)
+    extra = max(1, nobj // 4)
+    g = torch.Generator(device=dev).manual_seed(SEED + 40)
+    objs = torch.randint(0, 256, (nobj + extra, obj_bytes),
+                         dtype=torch.uint8, device=dev,
+                         generator=g).cpu().numpy()
+    oids = [f"rbd_data.{i:016x}" for i in range(nobj + extra)]
+    tmp = tempfile.TemporaryDirectory(prefix="vstart-")
+    before_threads = {t.ident for t in threading.enumerate()}
+    was = lockdep.enabled()
+    lockdep.reset()
+    lockdep.enable(True)
+    res: dict = {"steps": {}}
+    dq = default_queue(dev)
+    watch = ObjecterWatch()
+    c = None            # the cluster
+    dead = [None]       # the mon shut down in the leader_loss step
+
+    def step(name: str, fn) -> dict:
+        watch.reset()
+        dec0 = sum(w_ * n_ for w_, n_ in dq.dec_batch_jobs.items())
+        out = run_step(res, name, fn)
+        out.update(watch.read())
+        out["dec_jobs"] = sum(w_ * n_ for w_, n_ in
+                              dq.dec_batch_jobs.items()) - dec0
+        return out
+
+    def live_leader():
+        lead = [mo for mo in c.mons if mo is not dead[0]
+                and mo.state == "leader"]
+        return lead[0] if len(lead) == 1 else None
+
+    def wait(pred, what: str) -> float:
+        t0 = time.perf_counter()
+        c.wait_for(pred, VSTART_WAIT_S, what)
+        return time.perf_counter() - t0
+
+    try:
+        # 1. quorum and boot, then the pool through the mons
+        def boot():
+            nonlocal c
+            t0 = time.perf_counter()
+            c = VStartCluster(n_mons=n_mons, n_osds=n_osds,
+                              data_dir=tmp.name, store_kind="blockstore",
+                              warmup=True, wait=False, device=dev)
+            start_s = time.perf_counter() - t0
+            quorum_s = start_s + wait(lambda: live_leader() is not None,
+                                      "mon quorum")
+            boot_s = wait(lambda: int(
+                live_leader().osdmap.osd_state_up.sum()) == n_osds,
+                "every daemon up in the leader's map")
+            lead = live_leader()
+            return {"start_s": start_s, "quorum_s": quorum_s,
+                    "boot_s": boot_s,
+                    "leader": lead.rank,
+                    "election_epoch": lead.election_epoch,
+                    "epoch": lead.osdmap.epoch,
+                    "last_committed": lead.last_committed,
+                    "warmup_s": [round(o._warmup.stats()["seconds"], 3)
+                                 for o in c.osds.values()]}
+
+        step("boot", boot)
+        pool_box: dict = {}
+
+        def make_pool():
+            pool_box["id"] = c.create_pool(
+                "ecpool", pool_type="erasure", ec_profile=ec_profile,
+                pg_num=pg_num)
+            created = time.perf_counter()
+            # the writes start once every PG is active, as a user waits
+            # for the pool's PGs before loading it
+            for o in c.osds.values():
+                require(o.wait_pgs_settled(WIRE_WAIT_S),
+                        f"vstart: osd.{o.whoami}'s PGs settled after the "
+                        "pool create")
+            return {"pool": pool_box["id"],
+                    "epoch": live_leader().osdmap.epoch,
+                    "settle_s": time.perf_counter() - created}
+
+        step("pool", make_pool)
+        A = pool_box["id"]
+        rc = c.client()
+        watch.attach(rc.objecter)
+        io_ = rc.ioctx(A)
+
+        def pg_view(oid: str) -> dict:
+            """Each live holder's view of ``oid``'s PG (for a failure)."""
+            om = live_leader().osdmap
+            pgid = om.object_to_pg(A, oid)
+            return {o.whoami: (o.pgs[pgid].state, str(
+                o.pgs[pgid].info.last_update), o.pgs[pgid].primary)
+                for o in c.osds.values() if o.up and pgid in o.pgs}
+
+        def put(i: int) -> None:
+            op = io_.aio_operate(oids[i], [OSDOp(OP_WRITEFULL,
+                                                 data=memoryview(objs[i]))],
+                                 timeout=WIRE_WAIT_S)
+            rep = op.result(WIRE_WAIT_S)
+            require(rep.result == 0,
+                    f"vstart: the write of {oids[i]} answered {rep.result} "
+                    f"after {op.attempts} sends (holders' state, "
+                    f"last_update, primary: {pg_view(oids[i])})")
+
+        # 2. write, then the leader's relay of a deep scrub
+        def writes():
+            return {"wall_a_s": run_threads(put, nobj, threads)}
+
+        w = step("write", writes)
+        w["gbs"] = nobj * obj_bytes / w["wall_a_s"] / 1e9
+        osdmap = live_leader().osdmap
+        shards = _VStartShards(c, osdmap)
+        w["ec_shards_checked"] = sum(
+            ec_shards_checked(shards, A, oids[i], objs[i], plain, si)
+            for i in range(nobj))
+        pg0 = osdmap.object_to_pg(A, oids[0])
+        _u, _up, acting0, prim0 = osdmap.pg_to_up_acting(pg0)
+
+        def stamp() -> float:
+            return next(r_["last_deep_scrub"]
+                        for r_ in c.osds[prim0].dump_scrubs()["scrubs"]
+                        if r_["pgid"] == pgid_str(pg0))
+
+        def relay():
+            s0 = stamp()
+            k6 = read_counts()["crush_rule"]
+            code, out = c.command({"prefix": "pg deep-scrub",
+                                   "pgid": pgid_str(pg0)})
+            k6 = read_counts()["crush_rule"] - k6
+            require(code == 0 and out.get("instructed") == f"osd.{prim0}",
+                    f"vstart: pg deep-scrub relayed to osd.{prim0}: "
+                    f"{code} {out}")
+            wait(lambda: stamp() > s0, f"the deep scrub of pg "
+                 f"{pgid_str(pg0)}")
+            return {"pgid": pgid_str(pg0), "primary": prim0,
+                    "command_k6": k6}
+
+        step("relay", relay)
+
+        # 3. the leader lost: a new one elected, a config set through
+        # it, and the writes go on
+        def leader_loss():
+            old = live_leader()
+            dead[0] = old
+            t0 = time.perf_counter()
+            old.shutdown()
+            elect_s = wait(lambda: live_leader() is not None,
+                           "a new leader of the mons left")
+            new = live_leader()
+            code, out = c.command({"prefix": "config set", "who": "global",
+                                   "name": "vstart_phase", "value": "on"})
+            require(code == 0, f"vstart: config set through mon."
+                               f"{new.rank}: {code} {out}")
+            wait(lambda: all(
+                mo.services["config"].db.get("global", {}).get(
+                    "vstart_phase") == "on"
+                for mo in c.mons if mo is not old),
+                "the config set on every live mon")
+            commit_s = time.perf_counter() - t0 - elect_s
+            wall = run_threads(lambda i: put(nobj + i), extra, threads)
+            return {"killed": old.rank, "leader": new.rank,
+                    "election_epoch": new.election_epoch,
+                    "elect_s": elect_s, "config_commit_s": commit_s,
+                    "objects": extra, "wall_a_s": wall}
+
+        ll = step("leader_loss", leader_loss)
+        res["killed_mon"] = ll["killed"]
+
+        # 4. an OSD lost: marked down by failure reports, every object
+        # read back degraded
+        victim = acting0[1]
+        require(victim != prim0 and victim != ob.CRUSH_ITEM_NONE,
+                f"vstart: data shard 1 of {oids[0]} on a daemon that is "
+                f"not its primary ({acting0})")
+
+        def osd_loss():
+            c.kill_osd(victim)
+            down_s = wait(lambda: not live_leader().osdmap.is_up(victim),
+                          f"osd.{victim} marked down")
+            client_s = wait(lambda: not rc.objecter.osdmap.is_up(victim),
+                            f"the client's map with osd.{victim} down")
+            return {"victim": victim, "down_s": down_s,
+                    "client_map_s": client_s,
+                    "epoch": live_leader().osdmap.epoch}
+
+        step("osd_loss", osd_loss)
+        lost_data = 0
+        lmap = live_leader().osdmap
+        for i in range(nobj + extra):
+            acting = lmap.pg_to_up_acting(lmap.object_to_pg(A, oids[i]))[2]
+            lost_data += any(acting[s] == ob.CRUSH_ITEM_NONE
+                             for s in range(k))
+
+        def reads():
+            t0 = time.perf_counter()
+            for i in range(nobj + extra):
+                rep = io_.operate(oids[i], [OSDOp(OP_READ)],
+                                  timeout=WIRE_WAIT_S)
+                got = rep.ops[0].out_data if rep.result == 0 else b""
+                require(got == objs[i].tobytes(),
+                        f"vstart: {oids[i]} read back byte for byte "
+                        f"({rep.result}, {len(got)} bytes)")
+            return {"wall_a_s": time.perf_counter() - t0,
+                    "lost_data_objects": lost_data}
+
+        r = step("read", reads)
+        r["gbs"] = (nobj + extra) * obj_bytes / r["wall_a_s"] / 1e9
+        require(lost_data > 0 and r["dec_jobs"] >= lost_data,
+                f"vstart: the read decoded every object that lost a data "
+                f"shard ({r['dec_jobs']} dec jobs, {lost_data} objects)")
+
+        # 5. the killed mon back from its store directory
+        def mon_restart():
+            rank = dead[0].rank
+            before = live_leader()
+            epoch0, version0 = before.osdmap.epoch, before.last_committed
+            mon = Monitor(c.ctx, rank, c.monmap,
+                          kv=LSMStore(os.path.join(tmp.name, f"mon{rank}")),
+                          initial_map=None,
+                          bind_port=c.monmap.addrs[rank][1], device=dev)
+            mon.start()
+            loaded = mon.last_committed
+            c.mons[rank] = mon
+            dead[0] = None
+
+            def caught_up() -> bool:
+                # rank 0 takes the lead back by deference, so the
+                # restarted mon is held to every mon of the quorum
+                lead = live_leader()
+                return (lead is not None
+                        and len({mo.last_committed for mo in c.mons}) == 1
+                        and lead.last_committed >= version0
+                        and all(mo.osdmap is not None
+                                and mo.osdmap.epoch == lead.osdmap.epoch
+                                for mo in c.mons)
+                        and lead.osdmap.epoch >= epoch0)
+
+            try:
+                wait(caught_up, f"mon.{rank} rejoined")
+            except TimeoutError:
+                views = [(mo.rank, mo.state, mo.last_committed,
+                          mo.osdmap.epoch if mo.osdmap is not None else None)
+                         for mo in c.mons]
+                require(False, f"vstart: mon.{rank} rejoined at the "
+                               f"quorum's version and epoch (before: v"
+                               f"{version0}, e{epoch0}; rank, state, "
+                               f"version, epoch: {views})")
+            lead = live_leader()
+            return {"rank": rank, "loaded_version": loaded,
+                    "last_committed": mon.last_committed,
+                    "leader": lead.rank,
+                    "leader_committed": lead.last_committed,
+                    "committed": [mo.last_committed for mo in c.mons],
+                    "version_before": version0, "epoch_before": epoch0,
+                    "epoch": mon.osdmap.epoch, "state": mon.state}
+
+        mr = step("mon_restart", mon_restart)
+        require(mr["last_committed"] == mr["leader_committed"]
+                and mr["loaded_version"] > 0,
+                f"vstart: the restarted mon loaded its store and reached "
+                f"the leader's version {mr}")
+        res["edges"] = sum(len(v) for v in lockdep.edge_graph().values())
+    finally:
+        if c is not None:
+            # the mon the leader_loss step shut down is not shut twice
+            c.mons = [mo for mo in c.mons if mo is not dead[0]]
+            c.shutdown()
+        lockdep.enable(was)
+        res["store_bytes"] = {
+            d: sum(os.path.getsize(os.path.join(root, f))
+                   for root, _dirs, files in os.walk(os.path.join(tmp.name,
+                                                                  d))
+                   for f in files)
+            for d in sorted(os.listdir(tmp.name))}
+        tmp.cleanup()
+
+    # 6. nothing the cluster started is left
+    t0 = time.perf_counter()
+    no_threads_left(before_threads, "vstart")
+    res["steps"]["shutdown"] = {"threads_left": 0,
+                                "wall_s": time.perf_counter() - t0}
+    return res
+
+
+def phase_vstart(torch, dev, log) -> dict:
+    """The ``vstart`` phase: ``run_vstart`` at full width, three port
+    mons on LSMStores and twelve port OSD daemons on BlockStores, one EC
+    pool of ``WIRE_PROFILE`` made through the mons, ``VSTART_OBJS`` x 4
+    MiB written by the port's ``RadosClient``.  The boot launches nothing (a warmup
+    without a pool waits for its codec); the pool create must launch K1,
+    the CRC kernel and K6 (each daemon's resumed warmup and its new PGs);
+    the write K1, the CRC kernel and K6; the relay K6;
+    the degraded read K1."""
+    res = run_vstart(torch, dev)
+    st = res["steps"]
+    for name, need in (("pool", ("gf256_matmul", "crc32c_rows",
+                                 "crush_rule")),
+                       ("write", ("gf256_matmul", "crc32c_rows",
+                                  "crush_rule")),
+                       ("relay", ("gf256_matmul", "crush_rule")),
+                       ("leader_loss", ("gf256_matmul", "crc32c_rows")),
+                       ("read", ("gf256_matmul", "crush_rule"))):
+        require(all(st[name]["counts"][x] > 0 for x in need),
+                f"vstart: the {name} step ran {list(need)}: "
+                f"{st[name]['counts']}")
+    require(st["write"]["objecter_k6"] > 0,
+            "vstart: the client's objecter placed the writes")
+    require(st["relay"]["command_k6"] > 0,
+            "vstart: the leader walked the PG's primary on K6 for the relay")
+    lines = {name: {key: (round(v, 4) if isinstance(v, float) else v)
+                    for key, v in s.items() if key != "counts"}
+             for name, s in st.items()}
+    launches = {name: {x: v for x, v in s["counts"].items() if v}
+                for name, s in st.items() if "counts" in s}
+    w, r = st["write"], st["read"]
+    log(f"vstart: {VSTART_MONS} mons on LSMStores, {DAEMON_OSDS} OSDs on "
+        f"BlockStores (isa k=8 m=4 pool through the mons, size 12, "
+        f"{VSTART_PG_NUM} PGs), warmup on, under lockdep: started in "
+        f"{st['boot']['start_s']:.3f} s, quorum seen at "
+        f"{st['boot']['quorum_s']:.3f} s, boot {st['boot']['boot_s']:.3f} "
+        f"s, pool {st['pool']['wall_s']:.3f} s; {VSTART_OBJS} x 4 MiB "
+        f"WRITEFULL from {VSTART_THREADS} threads {w['gbs']:.4f} GB/s "
+        f"({w['wall_a_s']:.3f} s, {w['ec_shards_checked']} shards equal "
+        f"to the plain encode, hinfo the host CRC); mon.{res['killed_mon']} "
+        f"(the leader) lost: new leader mon.{st['leader_loss']['leader']} "
+        f"in {st['leader_loss']['elect_s']:.3f} s; osd."
+        f"{st['osd_loss']['victim']} lost: marked down in "
+        f"{st['osd_loss']['down_s']:.3f} s; degraded read {r['gbs']:.4f} "
+        f"GB/s ({r['dec_jobs']} dec jobs, {r['lost_data_objects']} objects "
+        f"lost a data shard); mon.{st['mon_restart']['rank']} restarted "
+        f"from its store at v{st['mon_restart']['loaded_version']}, "
+        f"rejoined at v{st['mon_restart']['last_committed']} (leader "
+        f"v{st['mon_restart']['leader_committed']}) in "
+        f"{st['mon_restart']['wall_s']:.3f} s; per step "
+        f"{json.dumps(lines)}; launches {json.dumps(launches)}; store "
+        f"bytes {json.dumps(res['store_bytes'])}; {res['edges']} "
+        f"lock-order edges; no thread left")
     return res
 
 
@@ -5566,6 +6040,7 @@ def main() -> int:
     dmn_res = phase_daemon(torch, dev, log)
     cls_res = phase_cluster(torch, dev, log)
     clay_res = phase_clay(torch, dev, log)
+    vs_res = phase_vstart(torch, dev, log)
     bm_res = phase_bitmatrix(torch, dev, log)
     sh_res = phase_shec(torch, dev, log)
     phase_lrc(torch, dev, log)
@@ -5587,6 +6062,9 @@ def main() -> int:
                                   for name, s in cls_res["steps"].items()}
         kr["clay_launches"] = {name: s["counts"][kr["name"]]
                                for name, s in clay_res["steps"].items()}
+        kr["vstart_launches"] = {name: s["counts"][kr["name"]]
+                                 for name, s in vs_res["steps"].items()
+                                 if "counts" in s}
         kr["mesh_launches"] = {
             "write": mesh_res["w_counts"][kr["name"]],
             "read": mesh_res["r_counts"][kr["name"]],
@@ -5613,6 +6091,13 @@ def main() -> int:
         "objecter": {name: s["objecter_k6"]
                      for name, s in cls_res["steps"].items()},
         "refresh": {r["step"]: r["k6"] for r in cls_res["refresh"]}}
+    kernels[-1]["vstart_launches"] = {
+        **{name: s["counts"]["crush_rule"]
+           for name, s in vs_res["steps"].items() if "counts" in s},
+        "objecter": {name: s["objecter_k6"]
+                     for name, s in vs_res["steps"].items()
+                     if "objecter_k6" in s},
+        "relay_command": vs_res["steps"]["relay"]["command_k6"]}
     for kr in kernels:
         log(f"{kr['name']}: {kr['ms']:.4f} ms, plain {kr['plain_ms']:.3f} "
             f"ms, bound {kr['bound_ms']:.4f} ms ({kr['bound_by']}), "

@@ -10,7 +10,8 @@ a map change, on ``EAGAIN``/``ESTALE`` and on the resend timer.  The map
 is the reference's (``test_osd_cluster.py:35-56``): a replicated pool
 of size 3, isa k=2 m=1, isa k=2 m=2 and clay k=4 m=2, 8 PGs each.  Each case makes the reference case's
 assertions on the port's objects; one more holds the two packages' maps
-to the same encoded bytes.
+to the same encoded bytes.  One more is the port's own (F12): the
+objecter's wait before a timer resend doubles with each send.
 """
 
 import threading
@@ -464,3 +465,45 @@ def test_homeless_op_sends_once_address_appears(cluster, client):
     rep = op.result(10.0)
     assert rep.result == 0
     assert client.get(pool, oid) == b"homeless"
+
+
+def test_timer_resends_back_off(cluster):
+    """F12 (ROADMAP queue 3): an op with no reply is sent again after
+    ``resend_interval``, then after twice that, four times, up to
+    ``RESEND_BACKOFF_MAX`` times; a constant 1 s resend sent every op
+    that outlived it again each second (4 MiB frames, degraded reads run
+    again), which slowed the ops behind it.  The gaps are checked from
+    below only: a loaded host can only stretch them."""
+    from ceph_tpu_torch.client.objecter import Objecter
+    from ceph_tpu_torch.core.context import Context
+
+    class Msgr:
+        entity, nonce = "client.4999", 7
+
+        def __init__(self) -> None:
+            self.sent: list = []
+
+        def add_dispatcher(self, d) -> None:
+            pass
+
+        def send_message(self, msg, addr) -> None:
+            self.sent.append(time.monotonic())
+
+    msgr = Msgr()
+    ob = Objecter(Context("client.4999", {}), msgr, resend_interval=0.1)
+    try:
+        ob.handle_osdmap(cluster.osdmap,
+                         {o: ("127.0.0.1", 1) for o in range(N_OSDS)})
+        ob.op_submit(REP_POOL, "quiet", [t_.OSDOp(t_.OP_READ)],
+                     timeout=60.0)
+        deadline = time.monotonic() + 30.0
+        while len(msgr.sent) < 7 and time.monotonic() < deadline:
+            time.sleep(0.05)
+        sent = list(msgr.sent)
+        assert len(sent) >= 7, sent
+        gaps = [b - a for a, b in zip(sent, sent[1:])]
+        for i, gap in enumerate(gaps[:6]):
+            assert gap >= 0.1 * min(1 << i, Objecter.RESEND_BACKOFF_MAX), \
+                (i, gaps)
+    finally:
+        ob.shutdown()

@@ -1197,6 +1197,34 @@ def test_cluster_phase_on_the_card(dev):
     assert st["failover"]["resent_ops"] >= 1
 
 
+def test_vstart_phase_on_the_card(dev):
+    """The vstart phase's code at a small size on the card: three port
+    mons on LSMStores and six port daemons on BlockStores, an isa k=4 m=2
+    pool made through the mons, 1 MiB objects written by the port's
+    RadosClient; each step's launches as the phase requires them (the
+    leader's relay walks K6), and every check of the phase."""
+    import chip_smoke
+
+    res = chip_smoke.run_vstart(
+        torch, dev, n_osds=6, profile="plugin=isa k=4 m=2 "
+        "technique=reed_sol_van", nobj=8, obj_bytes=1 << 20,
+        stripe_bytes=256 << 10, threads=4)
+    st = res["steps"]
+    for name, need in (("pool", ("gf256_matmul", "crc32c_rows",
+                                 "crush_rule")),
+                       ("write", ("gf256_matmul", "crc32c_rows",
+                                  "crush_rule")),
+                       ("relay", ("gf256_matmul", "crush_rule")),
+                       ("leader_loss", ("gf256_matmul", "crc32c_rows")),
+                       ("read", ("gf256_matmul", "crush_rule"))):
+        for x in need:
+            assert st[name]["counts"][x] > 0, (name, x, st[name]["counts"])
+    assert st["relay"]["command_k6"] > 0
+    assert st["read"]["dec_jobs"] >= st["read"]["lost_data_objects"] > 0
+    assert st["mon_restart"]["last_committed"] == \
+        st["mon_restart"]["leader_committed"]
+
+
 def test_objecter_cross_check_on_the_card_equals_the_cpu(dev, monkeypatch):
     """The objecter cross-check's sequence on port daemons and a client
     whose codecs, queue and map walk are on the card, held to the same

@@ -1,10 +1,9 @@
 """The port's ``MonClient`` and ``MonMap`` (``ceph_tpu_torch/mon/``)
-against the reference's monitors.
+against the reference's monitors and the port's.
 
-The port has no monitor yet (``Monitor``, Paxos and the OSDMonitor
-service are ROADMAP queue 1 item 6), so its client is held to the only
-monitor there is: a quorum of three ``ceph_tpu.mon.monitor.Monitor``s
-built as ``tests/test_mon_cluster.py:40-75`` builds it.  Five port
+The port's client is held first to the reference's monitor: a quorum
+of three ``ceph_tpu.mon.monitor.Monitor``s built as
+``tests/test_mon_cluster.py:40-75`` builds it.  Five port
 ``OSDService``s (``device="cpu"``) boot through it over the wire
 (``boot`` -> ``MonClient.subscribe_osdmap`` and ``send_boot``), as
 ``test_mon_cluster.py:151`` has the reference's do: every port OSD is
@@ -13,6 +12,10 @@ port's map codec and incrementals, the map a pool create commits, and
 create their PGs from it.  The commands go through the port's
 ``MonClient``.  ``MonMap``'s dict form and roster edits equal the
 reference's.
+
+The same two cases then run through a quorum of three port ``Monitor``s
+(``ceph_tpu_torch/mon/monitor.py``, ``device="cpu"``): the port's
+daemons boot through the port's mons, and adopt the maps those commit.
 """
 
 import socket
@@ -27,10 +30,13 @@ from ceph_tpu.mon import Monitor
 from ceph_tpu.osd.osdmap import OSDMap as RefOSDMap
 from ceph_tpu_torch.core.context import Context
 from ceph_tpu_torch.ec import codec_from_profile
+from ceph_tpu_torch.crush import map as port_cmap
 from ceph_tpu_torch.mon import MonClient, MonMap
+from ceph_tpu_torch.mon import Monitor as PortMonitor
 from ceph_tpu_torch.msg.message import EntityName
 from ceph_tpu_torch.msg.messenger import Messenger
 from ceph_tpu_torch.osd.daemon import OSDService
+from ceph_tpu_torch.osd.osdmap import OSDMap as PortOSDMap
 from ceph_tpu_torch.store.memstore import MemStore
 
 N_MONS = 3
@@ -55,6 +61,13 @@ def seed_map():
     return osdmap
 
 
+def port_seed_map():
+    cm, root = port_cmap.build_flat_cluster(N_OSDS, hosts=N_OSDS)
+    osdmap = PortOSDMap(cm, max_osd=N_OSDS, device="cpu")
+    osdmap.osd_state_up[:] = False
+    return osdmap
+
+
 def wait_for(pred, timeout=30.0, msg="condition"):
     deadline = time.monotonic() + timeout
     while time.monotonic() < deadline:
@@ -64,22 +77,19 @@ def wait_for(pred, timeout=30.0, msg="condition"):
     raise AssertionError(f"timeout waiting for {msg}")
 
 
-@pytest.fixture(scope="module")
-def cluster():
+def _cluster(make_mon):
     # the reference's tier-3 conf; the grace is the default 20 s, since
     # the port's CRUSH walk on the CPU is its plain version (about 20 ms
     # a PG, much more while five daemons walk at once)
     conf = {"osd_heartbeat_interval": 0.5, "mon_tick_interval": 0.5}
     ports = free_ports(N_MONS)
     addrs = [("127.0.0.1", p) for p in ports]
-    ref_ctx = RefContext("mon.cluster", conf)
     mons, osds = [], {}
     ctx = Context("osd.cluster", dict(conf))
     monc = None
     try:
         for rank in range(N_MONS):
-            mon = Monitor(ref_ctx, rank, RefMonMap(addrs),
-                          initial_map=seed_map(), bind_port=ports[rank])
+            mon = make_mon(conf, rank, addrs, ports[rank])
             mon.start()
             mons.append(mon)
         monmap = MonMap(addrs)
@@ -114,9 +124,47 @@ def cluster():
             mon.shutdown()
 
 
-def test_port_osds_boot_through_the_reference_mon(cluster):
-    mons, osds, monc = cluster
+def _ref_mon(conf, rank, addrs, port):
+    return Monitor(RefContext("mon.cluster", conf), rank, RefMonMap(addrs),
+                   initial_map=seed_map(), bind_port=port)
 
+
+def _port_mon(conf, rank, addrs, port):
+    return PortMonitor(Context("mon.cluster", dict(conf)), rank,
+                       MonMap(addrs), initial_map=port_seed_map(),
+                       bind_port=port, device="cpu")
+
+
+@pytest.fixture(scope="module")
+def cluster():
+    yield from _cluster(_ref_mon)
+
+
+@pytest.fixture(scope="module")
+def port_cluster():
+    yield from _cluster(_port_mon)
+
+
+def test_port_osds_boot_through_the_reference_mon(cluster):
+    _boot_checks(*cluster)
+
+
+def test_port_daemons_adopt_the_pool_create_map(cluster):
+    _pool_checks(*cluster)
+
+
+def test_port_osds_boot_through_the_port_mon(port_cluster):
+    mons, osds, monc = port_cluster
+    _boot_checks(mons, osds, monc)
+    assert all(m.device.type == "cpu" and m.osdmap.device.type == "cpu"
+               for m in mons)
+
+
+def test_port_daemons_adopt_the_port_mon_pool_create_map(port_cluster):
+    _pool_checks(*port_cluster)
+
+
+def _boot_checks(mons, osds, monc):
     def all_up():
         code, out = monc.command({"prefix": "osd dump"})
         return code == 0 and sum(1 for o in out["osds"]
@@ -132,8 +180,7 @@ def test_port_osds_boot_through_the_reference_mon(cluster):
         assert tuple(o.osdmap.osd_addrs[i]) == tuple(o.addr)
 
 
-def test_port_daemons_adopt_the_pool_create_map(cluster):
-    mons, osds, monc = cluster
+def _pool_checks(mons, osds, monc):
     code, _ = monc.command({
         "prefix": "osd erasure-code-profile set", "name": "k2m1",
         "profile": "plugin=isa k=2 m=1 technique=reed_sol_van"})

@@ -15,6 +15,13 @@
   is served by reconstruction and its repair thread rebuilds the shard
   and takes ``scrub_errors`` back to 0; an ``OP_CALL`` on a staged
   object pulls its ``DeviceBuf`` back to host bytes, counted.
+- F13 (ROADMAP queue 3): a replicated write whose ``MOSDRepOp`` a
+  replica of a newer interval dropped commits once the laggard push
+  brings that replica to the primary's head (the reference's waits);
+  one whose entry a newer authoritative log rewound is dropped, never
+  answered 0, however far the peers' heads have moved.
+- F12 (ROADMAP queue 3): a resend of a write still in flight waits for
+  its original and gets its result (the reference answers it EAGAIN).
 
 Drive a port PG on the CPU like this: a ``device="cpu"`` codec and a
 host (``torch_pg_harness.Net``, or the stub host of
@@ -22,6 +29,7 @@ host (``torch_pg_harness.Net``, or the stub host of
 """
 
 import binascii
+import dataclasses
 import os
 import threading
 import time
@@ -308,5 +316,119 @@ def test_op_call_pulls_a_staged_object_back_counted():
         pg._obc_invalidate()
         assert bytes(net.op("o", [t.OSDOp(t.OP_READ)]).ops[0].out_data) \
             == payload
+    finally:
+        net.stop()
+
+
+@pytest.mark.parametrize("pkg", ["ceph_tpu_torch", "ceph_tpu"])
+def test_a_rep_op_dropped_by_a_newer_interval_commits_after_the_push(pkg):
+    """F13: a replica that detected a new interval first drops the old
+    interval's ``MOSDRepOp`` unapplied and unanswered, so the primary's
+    write waits on its ack.  Once the new interval's laggard push
+    brings the replica to the primary's head, the port's primary counts
+    it as acked and the write commits (reply 0, its reqid answered from
+    then on); the reference's keeps waiting (the client times out)."""
+    net = H.Net(pkg, None, 3)
+    M = net.mods
+    try:
+        lag = net.hosts[2].pg
+        lag.interval_epoch = net.epoch + 1   # it saw the next interval
+        box = net.op("o", [M.t.OSDOp(M.t.OP_WRITEFULL, data=b"x" * 4096)],
+                     reqid="client.1:1", wait=False)
+        net.settle()
+        prim = net.primary.pg
+        assert box == [] and lag.info.last_update < prim.info.last_update
+        assert [sorted(op.waiting_on) for op in
+                prim.backend.in_flight.values()] == [[2]]
+        prim._push_laggards({1: net.hosts[1].pg.info, 2: lag.info})
+        net.settle()
+        assert lag.info.last_update == prim.info.last_update
+        if pkg == "ceph_tpu_torch":
+            assert [r.result for r in box] == [0]
+            assert not prim.backend.in_flight
+            again = net.op("o", [M.t.OSDOp(M.t.OP_WRITEFULL,
+                                          data=b"x" * 4096)],
+                           reqid="client.1:1")
+            assert again.result == 0
+            assert len(prim.log.entries) == 1  # answered from the log
+        else:
+            assert box == [] and len(prim.backend.in_flight) == 1
+    finally:
+        net.stop()
+
+
+@pytest.mark.parametrize("pkg", ["ceph_tpu_torch", "ceph_tpu"])
+def test_a_rep_op_whose_entry_was_rewound_is_never_answered_0(pkg):
+    """F13's repair acks a write for a peer only while the write's own
+    entry is in the primary's log.  Here the primary's entry at (e, v)
+    is rewound and a newer authoritative log's entry takes (e + 1, v);
+    both peers hold that one, so their heads pass (e, v), yet the
+    write is not in the log: its client is not answered 0.  The port
+    drops the op and its reqid mark (the resend runs again); the
+    reference keeps waiting."""
+    net = H.Net(pkg, None, 3)
+    M = net.mods
+    try:
+        lag = net.hosts[2].pg
+        lag.interval_epoch = net.epoch + 1   # it saw the next interval
+        box = net.op("o", [M.t.OSDOp(M.t.OP_WRITEFULL, data=b"x" * 4096)],
+                     reqid="client.1:1", wait=False)
+        net.settle()
+        prim = net.primary.pg
+        mine = prim.log.entries[-1]
+        assert box == [] and mine.reqid == "client.1:1"
+        prim._rollback_to(mine.prior_version)
+        theirs = M.t.LogEntry(op=M.t.LOG_MODIFY, oid="p",
+                              version=M.t.EVersion(net.epoch + 1,
+                                                   mine.version.version),
+                              prior_version=mine.prior_version)
+        prim.log.append(theirs)
+        prim.info.last_update = theirs.version
+        assert theirs.version > mine.version
+        infos = {o: dataclasses.replace(net.hosts[o].pg.info,
+                                        last_update=theirs.version)
+                 for o in (1, 2)}
+        prim._push_laggards(infos)
+        net.settle()
+        assert all(r.result != 0 for r in box)
+        if pkg == "ceph_tpu_torch":
+            assert box == [] and not prim.backend.in_flight
+            assert "client.1:1" not in prim._inflight_reqids
+        else:
+            assert box == [] and len(prim.backend.in_flight) == 1
+    finally:
+        net.stop()
+
+
+@pytest.mark.parametrize("pkg", ["ceph_tpu_torch", "ceph_tpu"])
+def test_a_resend_of_a_write_in_flight_gets_the_originals_result(pkg):
+    """F12: the objecter resends an op unanswered for 1 s.  A resend
+    of a write still in flight on its primary neither runs again nor
+    is answered EAGAIN (which made the client retry it at once, and
+    ran 4 MiB writes out of their sends): the port parks it on the
+    original and answers it with the original's result and version.
+    The reference answers it EAGAIN."""
+    net = H.Net(pkg, None, 3)
+    M = net.mods
+    ops = [M.t.OSDOp(M.t.OP_WRITEFULL, data=b"y" * 4096)]
+    try:
+        lag = net.hosts[2].pg
+        lag.interval_epoch = net.epoch + 1   # the original waits on it
+        box = net.op("o", ops, reqid="client.1:7", wait=False)
+        net.settle()
+        again = net.op("o", ops, reqid="client.1:7", wait=False)
+        net.settle()
+        prim = net.primary.pg
+        assert box == [] and len(prim.log.entries) == 1
+        if pkg == "ceph_tpu":
+            assert [r.result for r in again] == [M.pg.EAGAIN]
+            return
+        assert again == []
+        prim._push_laggards({1: net.hosts[1].pg.info, 2: lag.info})
+        net.settle()
+        assert [r.result for r in box] == [r.result for r in again] == [0]
+        assert box[0].version == again[0].version \
+            == prim.log.entries[-1].version
+        assert len(prim.log.entries) == 1 and not prim._reqid_waiters
     finally:
         net.stop()

@@ -316,6 +316,13 @@ def test_port_sources_import_neither_jax_nor_the_reference():
                     f"{path.relative_to(REPO)} imports {name}"
 
 
+def test_the_monitor_and_vstart_are_among_the_scanned_sources():
+    names = {str(p.relative_to(REPO)) for p in _port_files()}
+    assert {"ceph_tpu_torch/mon/monitor.py", "ceph_tpu_torch/mon/services.py",
+            "ceph_tpu_torch/mon/pgmap.py",
+            "ceph_tpu_torch/vstart.py"} <= names
+
+
 def test_importing_the_port_loads_neither_jax_nor_the_reference():
     mods = sorted({".".join(p.relative_to(REPO).with_suffix("").parts)
                    .removesuffix(".__init__")
@@ -349,6 +356,8 @@ def test_importing_the_port_loads_neither_jax_nor_the_reference():
             "assert 'ceph_tpu_torch.osd.mclock' in sys.modules\n"
             "assert 'ceph_tpu_torch.mon.client' in sys.modules\n"
             "assert 'ceph_tpu_torch.mon.monitor' in sys.modules\n"
+            "for m in ('mon.services', 'mon.pgmap', 'vstart'):\n"
+            "    assert 'ceph_tpu_torch.' + m in sys.modules, m\n"
             "assert 'ceph_tpu_torch.ec.clay' in sys.modules\n"
             "for m in ('compress', 'compress.plugins', 'store.kv', "
             "'store.lsm', 'store.filestore', 'store.blockstore'):\n"
