@@ -235,6 +235,12 @@ class Monitor(Dispatcher):
         self.kv.close()
 
     @property
+    def stopped(self) -> bool:
+        """True once ``shutdown`` began.  A mon shut down keeps its last
+        ``state``, so a leader lost keeps reading ``leader``."""
+        return self._stop.is_set()
+
+    @property
     def addr(self) -> Addr:
         return self.msgr.addr
 

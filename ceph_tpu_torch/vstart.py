@@ -8,9 +8,10 @@ card, and raises before any socket or thread exists when there is none;
 ``tpu_compile_cache_dir`` default (a persistent XLA cache under
 ``data_dir``) has no counterpart and is not set: the port compiles no
 XLA program, and its CUDA kernels are built once a checkout into
-``ceph_tpu_torch/_build/``.  The mgr (``start_mgr``) is ROADMAP queue 1
-item 6b of the port, the MDS and cephfs (``start_mds``, ``fs_status``,
-``mount``) item 6d: those raise ``NotImplementedError``.
+``ceph_tpu_torch/_build/``.  ``start_mgr`` starts the port's mgr
+(``ceph_tpu_torch/mgr/``); the MDS and cephfs (``start_mds``,
+``fs_status``, ``mount``) are ROADMAP queue 1 item 6d of the port and
+raise ``NotImplementedError``.
 
 Reference: src/vstart.sh + src/mstart.sh — bring up N mons + M osds on
 localhost with real sockets, wait for quorum and OSD boot, create
@@ -79,6 +80,8 @@ class VStartCluster:
         self._stop_evt = threading.Event()
         self.data_dir = data_dir
         self.store_kind = store_kind  # for data_dir: filestore|blockstore
+        self.mgr = None             # start_mgr's MgrDaemon
+        self._crash_archive = None  # its crash spool, with a data_dir
         merged = {
             "osd_heartbeat_interval": 0.5,
             "osd_heartbeat_grace": 3.0,
@@ -126,15 +129,73 @@ class VStartCluster:
         if wait:
             self.wait_for_up()
 
-    # -- mgr, MDS and cephfs: ROADMAP queue 1 items 6b and 6d ------------
-    def start_mgr(self, dashboard: bool = False, dashboard_port: int = 0):
-        """The reference's in-process mgr (``ceph_tpu/vstart.py``
-        ``start_mgr``); the port's mgr daemon is ROADMAP queue 1 item
-        6b."""
-        raise NotImplementedError(
-            "VStartCluster.start_mgr: the port's mgr daemon and CLIs are "
-            "ROADMAP queue 1 item 6b")
+    # -- mgr (reference vstart.sh always starts one) ----------------------
+    def start_mgr(self, dashboard: bool = False,
+                  dashboard_port: int = 0):
+        """Start the in-process mgr: every daemon's perf counters are
+        registered, and `dashboard=True` serves the HTTP status UI /
+        JSON API / prometheus endpoint (returns the MgrDaemon; its
+        dashboard port is in mgr.modules['dashboard'].port).  A second
+        call replaces the running mgr: its dashboard is stopped and its
+        crash spool's hooks uninstalled first."""
+        from ceph_tpu_torch.mgr.manager import MgrDaemon
 
+        if self.mgr is not None:
+            self.mgr.modules["dashboard"].stop()
+            self.mgr = None
+        if self._crash_archive is not None:
+            self._crash_archive.uninstall()
+            self._crash_archive = None
+        mgr = MgrDaemon(self.ctx)
+        # vstart daemons often share one Context (one perf collection):
+        # register each DISTINCT context once so counters aren't
+        # duplicated under every daemon label
+        pairs = [(f"mon.{r}", self.ctx) for r in range(len(self.mons))]
+        pairs += [(f"osd.{i}", svc.ctx) for i, svc in self.osds.items()]
+        seen: Dict[int, str] = {}
+        for name, dctx in pairs:
+            if id(dctx) in seen:
+                continue
+            label = "cluster" if dctx is self.ctx else name
+            seen[id(dctx)] = label
+            mgr.register_daemon(label, dctx)
+        # op trackers are per-SERVICE even when contexts are shared:
+        # every OSD joins the ops-module slow-op/in-flight merge
+        for i, svc in self.osds.items():
+            mgr.register_service(f"osd.{i}", svc)
+        # durable clusters get a crash spool the CrashModule serves
+        # (`ceph crash ls` / `crash info`): unhandled daemon-thread /
+        # main-thread / event-loop deaths archive here with the
+        # device section (queue depth, in-flight batch, the kernel
+        # build and launches)
+        if self.data_dir is not None:
+            from ceph_tpu_torch.core.crash import CrashArchive
+
+            arch = CrashArchive(os.path.join(self.data_dir, "crash"),
+                                entity="cluster", log=self.ctx.log)
+            arch.install()
+            mgr.modules["crash"].add_archive(arch)
+            self._crash_archive = arch
+        mgr.osdmap = self.leader().osdmap
+        # cluster telemetry feeds resolve the CURRENT leader per call:
+        # an election mid-session must not leave the mgr reading a
+        # deposed mon's frozen pgmap
+        mgr.health_fn = \
+            lambda: self.leader().services["health"].gather()
+        mgr.pgmap_digest_fn = lambda: self.leader().pgmap.digest()
+        # fresh_only: the progress module must see the same
+        # staleness-filtered view health uses, or a dead reporter's
+        # frozen degraded row keeps a recovery event (and its ETA)
+        # alive forever after health has already cleared
+        mgr.pg_rows_fn = \
+            lambda: self.leader().pgmap.pg_rows(fresh_only=True)
+        if dashboard:
+            mgr.modules["dashboard"].serve(
+                port=dashboard_port, mon_command=self.command)
+        self.mgr = mgr
+        return mgr
+
+    # -- MDS and cephfs: ROADMAP queue 1 item 6d ---------------------------
     def start_mds(self, pool_name: str = "cephfs_meta", ranks: int = 1,
                   size: int = 2):
         """The reference's MDS ranks; the port's cephfs is ROADMAP queue
@@ -187,8 +248,11 @@ class VStartCluster:
 
     # -- orchestration -----------------------------------------------------
     def leader(self) -> Monitor:
+        """The live mon that leads.  A mon shut down keeps its last
+        state, so it is skipped: the mgr's feeds and ``osd tree`` follow
+        the leader the others elect after it."""
         for mon in self.mons:
-            if mon.state == "leader":
+            if mon.state == "leader" and not mon.stopped:
                 return mon
         raise RuntimeError("no mon leader")
 
@@ -280,9 +344,19 @@ class VStartCluster:
         svc.boot(self.monmap, keyring=self.keyring)
         svc.start_heartbeats()
         self.osds[i] = svc
+        # the revived daemon owns a FRESH op tracker: repoint the mgr
+        # ops-module merge at it, or the cluster-wide slow-op/in-flight
+        # surface keeps serving the dead service's frozen rings
+        if self.mgr is not None:
+            self.mgr.register_service(f"osd.{i}", svc)
 
     def shutdown(self) -> None:
         self._stop_evt.set()
+        if self._crash_archive is not None:
+            # global hooks must not outlive the cluster
+            self._crash_archive.uninstall()
+        if self.mgr is not None:
+            self.mgr.modules["dashboard"].stop()
         for rc in self._clients:
             try:
                 rc.shutdown()

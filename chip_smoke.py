@@ -217,14 +217,27 @@ Phases, each of which fails the run (non-zero exit, no result line):
               K6 placement, ``encp``), every stored shard equal to the
               plain encode with its ``hinfo`` the host CRC; ``pg
               deep-scrub`` relayed by the leader (its ``pg_to_up_acting``:
-              K6) until the PG's stamp moves; the leader mon shut down,
+              K6) until the PG's stamp moves; the mgr
+              (``ceph_tpu_torch/mgr/``) started with its dashboard, read
+              over HTTP (``/api/status``, ``/api/pgs`` with every PG of
+              the pool, ``/api/perf``, ``/metrics``), the port's
+              ``ObjBencher`` on the pool (3 s of 1 MiB writes, 2 s of
+              reads, from 2 threads: K6, K1, the CRC kernel) and six
+              commands through the port's ``ceph`` dispatch; the leader
+              mon shut down,
               a new leader elected, a ``config set`` committed through it
               on every live mon and 2 more objects written; the daemon
               holding data shard 1 of object 0's PG shut down and marked
-              down from failure reports, every object read back byte for
-              byte (``dec``: K1); the killed mon restarted from its
-              LSMStore directory and every mon at the leader's version and
-              map epoch; the cluster shut down and no thread left;
+              down from failure reports, the dashboard's health naming
+              its ``OSD_DOWN`` (through the mons and through the mgr's
+              feed of the new leader), every object read back byte for
+              byte (``dec``: K1); the port's ``objectstore_tool`` exporting
+              object 0's PG offline from the lost daemon's BlockStore
+              (shard 1 equal to the plain encode's) and ``monstore_tool``
+              reading the killed mon's paxos range offline; the killed
+              mon restarted from its LSMStore directory at that version
+              and every mon at the leader's version and map epoch; the
+              cluster shut down and no thread left;
 7. bitmatrix  the same 1 GiB write through ``jerasure k=8 m=4
               technique=cauchy_good``, read back degraded through
               ``codec.decode_array`` with shards 6, 7, 10, 11 lost (the
@@ -289,8 +302,9 @@ them just after, the scrub phase around each of its steps, and the
 daemon phase around each of its steps: warmup, write, kill, read,
 write_down, recover, scrub, and the cluster phase around each of its
 steps: boot, write, failover, read, stripe, and the vstart phase around
-each of its steps: boot, pool, write, relay, leader_loss, osd_loss, read,
-mon_restart; a map refresh's K6 launches are read before and after it);
+each of its steps: boot, pool, write, relay, mgr, leader_loss, osd_loss,
+mgr_health, read, objectstore_tool, monstore_tool, mon_restart; a map
+refresh's K6 launches are read before and after it);
 each
 kernel of each
 half must have run (for ecbench, K2 and K1: its loops capture one launch
@@ -4228,6 +4242,11 @@ VSTART_OBJS = 8              # 4 MiB objects (RADOS's default object size),
 VSTART_PG_NUM = 8            # the EC pool's PGs (VStartCluster's default)
 VSTART_THREADS = 8           # concurrent writers, as the cluster phase's
 VSTART_WAIT_S = 60.0         # each wait of the phase (elections, boots)
+MGR_BENCH_S = 3.0            # the mgr step's rados bench: write seconds,
+MGR_SEQ_S = 2.0              # then seq seconds, from
+MGR_BENCH_THREADS = 2        # two threads at one stripe an object
+MGR_CEPH_LINES = ("status", "health", "osd tree", "osd df", "mgr status",
+                  "ops latency")  # run through the port's ceph dispatch
 
 
 class _VStartShards:
@@ -4236,6 +4255,27 @@ class _VStartShards:
 
     def __init__(self, c, osdmap) -> None:
         self.osdmap, self.osds, self.what = osdmap, c.osds, "vstart"
+
+
+def http_get(port: int, path: str) -> tuple:
+    """GET ``path`` of the dashboard on 127.0.0.1:``port``: (status,
+    content type, body text); an error status or no answer raises."""
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                timeout=VSTART_WAIT_S) as r:
+        return r.status, r.headers.get("Content-Type", ""), r.read().decode()
+
+
+def captured(fn, argv) -> tuple:
+    """``fn(argv)``'s return code and what it printed (a tool's ``main``)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = fn(argv)
+    return rc, buf.getvalue()
 
 
 def run_vstart(torch, dev, *, n_mons: int = VSTART_MONS,
@@ -4270,20 +4310,43 @@ def run_vstart(torch, dev, *, n_mons: int = VSTART_MONS,
        deep-scrub`` of object 0's PG through the mons, whose leader walks
        the PG's primary (``pg_to_up_acting``, K6) and relays an
        ``MPGCommand`` to it, until that PG's deep-scrub stamp moves;
+       ``mgr``: ``c.start_mgr(dashboard=True)``; the dashboard's
+       ``/api/status`` (every daemon up), ``/api/pgs`` (every PG of the
+       pool, once the leader's PGMap has them), ``/api/perf`` and
+       ``/metrics`` (a ``# TYPE`` line, a daemon's ``op_w`` counter
+       above 0, a final newline) over HTTP; the port's ``ObjBencher`` on
+       the pool, ``write`` for ``MGR_BENCH_S`` seconds from
+       ``MGR_BENCH_THREADS`` threads at one stripe (``stripe_bytes``) an
+       object, ``seq`` for ``MGR_SEQ_S``, ``cleanup``, no error (K6, K1 and
+       the CRC kernel); then ``MGR_CEPH_LINES`` through the port's
+       ``ceph`` dispatch, ``ops latency`` counting at least the bench's
+       ops more than before it;
     3. ``leader_loss``: the leader mon shut down; the two left elect a
        new leader, a ``config set`` commits through it and reaches every
        live mon, and ``nobj // 4`` more objects are written;
     4. ``osd_loss``: the daemon holding data shard 1 of object 0's PG
        (not its primary) shut down; the mons mark it down from the
-       others' failure reports, the client's map follows; ``read``: every
+       others' failure reports, the client's map follows;
+       ``mgr_health``: the dashboard's ``/api/health`` (through the
+       mons) and its ``/metrics`` health gauges (the mgr's feed, from the
+       leader of the moment) both name the victim's ``OSD_DOWN``;
+       ``read``: every
        object read back by ``IoCtx.operate`` ``READ``, one at a time
        (as the cluster phase reads), byte for byte,
        ``dec`` jobs (K1) for the objects that lost a data shard;
+       ``objectstore_tool``: the port's tool, offline on the lost
+       daemon's BlockStore (its ``shutdown`` unmounted it): ``list-pgs``
+       names object 0's PG, and in that PG's ``export`` object 0's shard
+       1 equals the plain encode's and every seeded object's ``hinfo``
+       is the host CRC of its exported bytes; ``monstore_tool``: the port's
+       ``show-paxos`` on the killed mon's store directory, offline;
     5. ``mon_restart``: the killed mon restarts from its ``LSMStore``
        directory on its old port and rejoins (rank 0 leads again); its
        ``last_committed`` and every other mon's reach the leader's, at
        least the version committed before the restart, and every mon's
        map the leader's epoch, at least the epoch before the restart;
+       the version it loaded is the ``last_committed`` that
+       ``monstore_tool`` read;
     6. the cluster shut down and no thread it started left (the
        process's queue worker and fan-out executor aside).
 
@@ -4294,6 +4357,7 @@ def run_vstart(torch, dev, *, n_mons: int = VSTART_MONS,
     from ceph_tpu_torch.core import lockdep
     from ceph_tpu_torch.ec import codec_from_profile
     from ceph_tpu_torch.gpu.queue import default_queue
+    from ceph_tpu_torch.core.crc import crc32c
     from ceph_tpu_torch.mon import Monitor
     from ceph_tpu_torch.osd import backend as ob
     from ceph_tpu_torch.osd.ecutil import StripeInfo
@@ -4317,6 +4381,7 @@ def run_vstart(torch, dev, *, n_mons: int = VSTART_MONS,
                          generator=g).cpu().numpy()
     oids = [f"rbd_data.{i:016x}" for i in range(nobj + extra)]
     tmp = tempfile.TemporaryDirectory(prefix="vstart-")
+    tools_dir = tempfile.TemporaryDirectory(prefix="vstart-tools-")
     before_threads = {t.ident for t in threading.enumerate()}
     was = lockdep.enabled()
     lockdep.reset()
@@ -4447,6 +4512,73 @@ def run_vstart(torch, dev, *, n_mons: int = VSTART_MONS,
 
         step("relay", relay)
 
+        # the mgr over the cluster: its dashboard over HTTP, a bench on
+        # the pool, the admin CLI's commands
+        from ceph_tpu_torch.tools import ceph as ceph_cli
+        from ceph_tpu_torch.tools import monstore_tool, objectstore_tool
+        from ceph_tpu_torch.tools.rados_bench import ObjBencher
+
+        def ceph(line: str) -> dict:
+            code, out, _text = ceph_cli.dispatch(c, line.split())
+            require(code == 0, f"vstart: ceph {line}: {code} {out}")
+            return out
+
+        def mgr():
+            t0 = time.perf_counter()
+            port = c.start_mgr(dashboard=True).modules["dashboard"].port
+            start_s = time.perf_counter() - t0
+            _code, ctype, body = http_get(port, "/api/status")
+            status = json.loads(body)
+            require(ctype.startswith("application/json")
+                    and status.get("num_up_osds") == n_osds,
+                    f"vstart: the dashboard's /api/status: {status}")
+            want = {f"{A}.{ps}" for ps in range(pg_num)}
+            pgs_s = wait(lambda: want <= {
+                r_["pgid"] for r_ in live_leader().pgmap.pg_rows()},
+                "every PG of the pool in the leader's PGMap")
+            pgs = json.loads(http_get(port, "/api/pgs")[2])
+            require(want <= {r_["pgid"] for r_ in pgs["pg_stats"]},
+                    f"vstart: the dashboard's /api/pgs has the pool's "
+                    f"{pg_num} PGs: {pgs['by_state']}")
+            perf = json.loads(http_get(port, "/api/perf")[2])
+            require(any(sub.endswith(".op") for subs in perf.values()
+                        for sub in subs),
+                    f"vstart: the dashboard's /api/perf: {sorted(perf)}")
+            lat0 = ceph("ops latency").get("lat_op_us", {}).get("count", 0)
+            bench = ObjBencher(io_)
+            t0 = time.perf_counter()
+            wr = bench.write(MGR_BENCH_S, MGR_BENCH_THREADS, stripe_bytes)
+            sq = bench.seq(MGR_SEQ_S, MGR_BENCH_THREADS)
+            bench.cleanup()
+            bench_wall = time.perf_counter() - t0
+            require(wr["errors"] == 0 and sq["errors"] == 0
+                    and wr["total_ops"] > 0 and sq["total_ops"] > 0,
+                    f"vstart: the mgr step's bench: {wr} {sq}")
+            answers = {line: ceph(line) for line in MGR_CEPH_LINES}
+            lat = answers["ops latency"]["lat_op_us"]
+            require(lat["count"] - lat0 >= wr["total_ops"] + sq["total_ops"],
+                    f"vstart: ops latency counted the bench's ops ({lat0} "
+                    f"-> {lat['count']}; {wr['total_ops']} writes, "
+                    f"{sq['total_ops']} reads)")
+            _code, _ctype, metrics = http_get(port, "/metrics")
+            require(metrics.endswith("\n") and "# TYPE " in metrics
+                    and re.search(r'^ceph_osd_\d+_op_w\{daemon="[^"]+"\} '
+                                  r'[1-9]', metrics, re.M),
+                    "vstart: /metrics has TYPE lines, a daemon's op_w "
+                    "counter and a final newline")
+            return {"start_s": start_s, "pgs_s": pgs_s,
+                    "bench_wall_s": bench_wall,
+                    "bench": {op["op"]: {key: op[key] for key in (
+                        "total_ops", "mb_per_sec", "avg_latency_s",
+                        "max_latency_s", "errors")} for op in (wr, sq)},
+                    "ops_counted": lat["count"] - lat0,
+                    "lat_op_us": lat, "health": answers["health"]["status"],
+                    "tree_nodes": len(answers["osd tree"]["nodes"]),
+                    "mgr_daemons": answers["mgr status"]["daemons"],
+                    "metrics_lines": metrics.count("\n")}
+
+        step("mgr", mgr)
+
         # 3. the leader lost: a new one elected, a config set through
         # it, and the writes go on
         def leader_loss():
@@ -4494,6 +4626,24 @@ def run_vstart(torch, dev, *, n_mons: int = VSTART_MONS,
                     "epoch": live_leader().osdmap.epoch}
 
         step("osd_loss", osd_loss)
+
+        def mgr_health():
+            # the mon's answer through the dashboard, then the mgr's own
+            # feed (its health_fn resolves the leader of the moment)
+            port = c.mgr.modules["dashboard"].port
+            health = json.loads(http_get(port, "/api/health")[2])
+            down = health.get("checks", {}).get("OSD_DOWN", {})
+            require(f"osd.{victim} is down" in down.get("detail", []),
+                    f"vstart: the dashboard's /api/health names osd."
+                    f"{victim}'s OSD_DOWN: {health}")
+            metrics = http_get(port, "/metrics")[2]
+            require('ceph_health_check{check="OSD_DOWN",' in metrics,
+                    f"vstart: the mgr's health feed followed the new leader "
+                    f"to osd.{victim}'s OSD_DOWN")
+            return {"status": health["status"], "osd_down": down["summary"],
+                    "feed_leader": c.leader().rank}
+
+        step("mgr_health", mgr_health)
         lost_data = 0
         lmap = live_leader().osdmap
         for i in range(nobj + extra):
@@ -4518,6 +4668,54 @@ def run_vstart(torch, dev, *, n_mons: int = VSTART_MONS,
         require(lost_data > 0 and r["dec_jobs"] >= lost_data,
                 f"vstart: the read decoded every object that lost a data "
                 f"shard ({r['dec_jobs']} dec jobs, {lost_data} objects)")
+
+        # the offline tools on what the lost daemon and the lost mon left
+        def objectstore():
+            path = os.path.join(tmp.name, f"osd{victim}")
+            argv = ["--data-path", path, "--type", "blockstore"]
+            rc_, listed = captured(objectstore_tool.main,
+                                   argv + ["--op", "list-pgs"])
+            require(rc_ == 0 and pgid_str(pg0) in listed.split(),
+                    f"vstart: objectstore_tool list-pgs on osd.{victim} "
+                    f"names pg {pgid_str(pg0)}: {rc_} {listed!r}")
+            exp = os.path.join(tools_dir.name, "pg.export")
+            rc_, _out = captured(objectstore_tool.main, argv + [
+                "--op", "export", "--pgid", pgid_str(pg0), "--file", exp])
+            require(rc_ == 0, f"vstart: objectstore_tool export: {rc_}")
+            _cname, exported = objectstore_tool.read_export(exp)
+            planes = si.interleave(np.asarray(objs[0]))[0]
+            got = [data for o, data, _x, _m in exported
+                   if o.name == oids[0] and o.shard == 1]
+            require(got == [planes[1].tobytes()],
+                    f"vstart: object 0's shard 1 in osd.{victim}'s export "
+                    f"equals the plain encode ({len(got)} found)")
+            # each exported shard's hinfo is what the card's CRC kernel
+            # wrote: it must be the host CRC of the exported bytes
+            hinfos = 0
+            for o, data, xattrs, _m in exported:
+                if o.name not in oids:
+                    continue
+                size, hcrc, valid = ob.hinfo_decode(xattrs["hinfo"])
+                require(size == obj_bytes and valid and hcrc == crc32c(data),
+                        f"vstart: {o.name} shard {o.shard} in osd.{victim}'s "
+                        "export: its hinfo CRC is the host CRC of the "
+                        "exported bytes")
+                hinfos += 1
+            return {"pgs": len(listed.split()), "objects": len(exported),
+                    "hinfo_checked": hinfos,
+                    "export_bytes": os.path.getsize(exp)}
+
+        step("objectstore_tool", objectstore)
+
+        def monstore():
+            rc_, shown = captured(monstore_tool.main, [
+                os.path.join(tmp.name, f"mon{dead[0].rank}"), "show-paxos"])
+            lc = re.search(r"^last_committed: (\d+)$", shown, re.M)
+            require(rc_ == 0 and lc is not None,
+                    f"vstart: monstore_tool show-paxos: {rc_} {shown!r}")
+            return {"rank": dead[0].rank, "last_committed": int(lc[1])}
+
+        ms = step("monstore_tool", monstore)
 
         # 5. the killed mon back from its store directory
         def mon_restart():
@@ -4569,6 +4767,10 @@ def run_vstart(torch, dev, *, n_mons: int = VSTART_MONS,
                 and mr["loaded_version"] > 0,
                 f"vstart: the restarted mon loaded its store and reached "
                 f"the leader's version {mr}")
+        require(mr["loaded_version"] == ms["last_committed"],
+                f"vstart: the restarted mon loaded the version "
+                f"monstore_tool read ({mr['loaded_version']} != "
+                f"{ms['last_committed']})")
         res["edges"] = sum(len(v) for v in lockdep.edge_graph().values())
     finally:
         if c is not None:
@@ -4583,6 +4785,7 @@ def run_vstart(torch, dev, *, n_mons: int = VSTART_MONS,
                    for f in files)
             for d in sorted(os.listdir(tmp.name))}
         tmp.cleanup()
+        tools_dir.cleanup()
 
     # 6. nothing the cluster started is left
     t0 = time.perf_counter()
@@ -4599,8 +4802,8 @@ def phase_vstart(torch, dev, log) -> dict:
     MiB written by the port's ``RadosClient``.  The boot launches nothing (a warmup
     without a pool waits for its codec); the pool create must launch K1,
     the CRC kernel and K6 (each daemon's resumed warmup and its new PGs);
-    the write K1, the CRC kernel and K6; the relay K6;
-    the degraded read K1."""
+    the write K1, the CRC kernel and K6; the relay K6; the mgr step's
+    bench K1, the CRC kernel and K6; the degraded read K1."""
     res = run_vstart(torch, dev)
     st = res["steps"]
     for name, need in (("pool", ("gf256_matmul", "crc32c_rows",
@@ -4608,6 +4811,8 @@ def phase_vstart(torch, dev, log) -> dict:
                        ("write", ("gf256_matmul", "crc32c_rows",
                                   "crush_rule")),
                        ("relay", ("gf256_matmul", "crush_rule")),
+                       ("mgr", ("gf256_matmul", "crc32c_rows",
+                                "crush_rule")),
                        ("leader_loss", ("gf256_matmul", "crc32c_rows")),
                        ("read", ("gf256_matmul", "crush_rule"))):
         require(all(st[name]["counts"][x] > 0 for x in need),
@@ -4622,7 +4827,9 @@ def phase_vstart(torch, dev, log) -> dict:
              for name, s in st.items()}
     launches = {name: {x: v for x, v in s["counts"].items() if v}
                 for name, s in st.items() if "counts" in s}
-    w, r = st["write"], st["read"]
+    w, r, mg = st["write"], st["read"], st["mgr"]
+    added = sum(st[name]["wall_s"] for name in (
+        "mgr", "mgr_health", "objectstore_tool", "monstore_tool"))
     log(f"vstart: {VSTART_MONS} mons on LSMStores, {DAEMON_OSDS} OSDs on "
         f"BlockStores (isa k=8 m=4 pool through the mons, size 12, "
         f"{VSTART_PG_NUM} PGs), warmup on, under lockdep: started in "
@@ -4641,7 +4848,15 @@ def phase_vstart(torch, dev, log) -> dict:
         f"from its store at v{st['mon_restart']['loaded_version']}, "
         f"rejoined at v{st['mon_restart']['last_committed']} (leader "
         f"v{st['mon_restart']['leader_committed']}) in "
-        f"{st['mon_restart']['wall_s']:.3f} s; per step "
+        f"{st['mon_restart']['wall_s']:.3f} s; mgr and dashboard: bench "
+        f"{mg['bench']['write']['total_ops']} writes and "
+        f"{mg['bench']['seq']['total_ops']} reads of 1 MiB from "
+        f"{MGR_BENCH_THREADS} threads, 0 errors, in "
+        f"{mg['bench_wall_s']:.3f} s, ops latency +{mg['ops_counted']}; "
+        f"the dashboard's health named osd.{st['osd_loss']['victim']}'s "
+        f"OSD_DOWN after the leader's loss; objectstore_tool and "
+        f"monstore_tool offline; the mgr and tool steps {added:.3f} s; "
+        f"per step "
         f"{json.dumps(lines)}; launches {json.dumps(launches)}; store "
         f"bytes {json.dumps(res['store_bytes'])}; {res['edges']} "
         f"lock-order edges; no thread left")

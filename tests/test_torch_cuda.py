@@ -1202,7 +1202,8 @@ def test_vstart_phase_on_the_card(dev):
     mons on LSMStores and six port daemons on BlockStores, an isa k=4 m=2
     pool made through the mons, 1 MiB objects written by the port's
     RadosClient; each step's launches as the phase requires them (the
-    leader's relay walks K6), and every check of the phase."""
+    leader's relay walks K6, the mgr step's bench K1, the CRC and K6),
+    and every check of the phase, the mgr's and the offline tools'."""
     import chip_smoke
 
     res = chip_smoke.run_vstart(
@@ -1215,14 +1216,41 @@ def test_vstart_phase_on_the_card(dev):
                        ("write", ("gf256_matmul", "crc32c_rows",
                                   "crush_rule")),
                        ("relay", ("gf256_matmul", "crush_rule")),
+                       ("mgr", ("gf256_matmul", "crc32c_rows",
+                                "crush_rule")),
                        ("leader_loss", ("gf256_matmul", "crc32c_rows")),
                        ("read", ("gf256_matmul", "crush_rule"))):
         for x in need:
             assert st[name]["counts"][x] > 0, (name, x, st[name]["counts"])
     assert st["relay"]["command_k6"] > 0
+    assert st["mgr"]["bench"]["write"]["errors"] == 0
+    assert st["monstore_tool"]["last_committed"] == \
+        st["mon_restart"]["loaded_version"]
     assert st["read"]["dec_jobs"] >= st["read"]["lost_data_objects"] > 0
     assert st["mon_restart"]["last_committed"] == \
         st["mon_restart"]["leader_committed"]
+
+
+def test_rados_cli_bench_on_the_card(dev):
+    """The port's rados tool with no --device runs its cluster on the
+    card: an isa k=2 m=1 pool and a one-second write bench, every op
+    answered, K1 and the CRC kernel launched."""
+    import contextlib
+    import io
+
+    from ceph_tpu_torch.tools import rados
+
+    k1, crc = gf256.launches.value, cd.launches.value
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = rados.main(["--vstart", "1x3", "--ec-profile",
+                         "plugin=isa k=2 m=1", "--script",
+                         "mkpool; bench 1 write"])
+    out = buf.getvalue()
+    assert rc == 0, out
+    line = next(x for x in out.splitlines() if x.startswith("write: "))
+    assert int(line.split()[1]) > 0 and line.endswith("errors 0"), line
+    assert gf256.launches.value > k1 and cd.launches.value > crc
 
 
 def test_objecter_cross_check_on_the_card_equals_the_cpu(dev, monkeypatch):

@@ -15,9 +15,9 @@ OpTracker trail of a client op; with them the OpTracker unit cases of
 that file (``:604-637``).  Left out: the two-tenant starvation
 regression (``:460``; on the port's CPU cluster its margin does not
 hold: the second run in one process saw the reserved trickle take 1.2 s
-and the flood drain first, ROADMAP 1k), its fifo arm (marked slow
-there) and the mgr's ``qos`` module (``:554``, the mgr is ROADMAP queue
-1 item 6).
+and the flood drain first, ROADMAP 1k) and its fifo arm (marked slow
+there).  The mgr's ``qos`` module (``:554``) is mirrored in
+``tests/test_torch_mgr.py``.
 """
 
 import time

@@ -5,9 +5,9 @@ bit-equal to the reference's on seeded histograms.
 
 The slow-op ring and the dump commands over the admin socket run on the
 port's cluster, ``torch_daemon_harness.DaemonCluster("ceph_tpu_torch")``
-(six port daemons, ``device="cpu"``), through the port's client.  Two
-reference cases wait: the mgr ops merge (queue 1 item 6) and cephtop
-(item 6).
+(six port daemons, ``device="cpu"``), through the port's client.  The
+mgr ops merge (``:279``) is mirrored in ``tests/test_torch_mgr.py`` and
+cephtop (``:310``) in ``tests/test_torch_cli_tools.py``.
 """
 
 import threading

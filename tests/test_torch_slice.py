@@ -321,6 +321,11 @@ def test_the_monitor_and_vstart_are_among_the_scanned_sources():
     assert {"ceph_tpu_torch/mon/monitor.py", "ceph_tpu_torch/mon/services.py",
             "ceph_tpu_torch/mon/pgmap.py",
             "ceph_tpu_torch/vstart.py"} <= names
+    # the mgr and the admin and offline tools
+    assert {"ceph_tpu_torch/mgr/manager.py", "ceph_tpu_torch/mgr/dashboard.py",
+            *(f"ceph_tpu_torch/tools/{t}.py" for t in (
+                "rados_bench", "rados", "ceph", "objectstore_tool",
+                "monstore_tool", "cephtop"))} <= names
 
 
 def test_importing_the_port_loads_neither_jax_nor_the_reference():
@@ -356,7 +361,10 @@ def test_importing_the_port_loads_neither_jax_nor_the_reference():
             "assert 'ceph_tpu_torch.osd.mclock' in sys.modules\n"
             "assert 'ceph_tpu_torch.mon.client' in sys.modules\n"
             "assert 'ceph_tpu_torch.mon.monitor' in sys.modules\n"
-            "for m in ('mon.services', 'mon.pgmap', 'vstart'):\n"
+            "for m in ('mon.services', 'mon.pgmap', 'vstart', 'mgr.manager',\n"
+            "          'mgr.dashboard', 'tools.rados_bench', 'tools.rados',\n"
+            "          'tools.ceph', 'tools.objectstore_tool',\n"
+            "          'tools.monstore_tool', 'tools.cephtop'):\n"
             "    assert 'ceph_tpu_torch.' + m in sys.modules, m\n"
             "assert 'ceph_tpu_torch.ec.clay' in sys.modules\n"
             "for m in ('compress', 'compress.plugins', 'store.kv', "

@@ -11,7 +11,14 @@ it on every live mon and the writes going on, a lost daemon marked down
 from failure reports, the degraded read byte for byte with a decode for
 every object that lost a data shard, the killed mon restarted from its
 store directory at the leader's committed version, and no thread left
-after the shutdown.  On the card the same code runs in
+after the shutdown.  The mgr steps run too: the mgr started with its
+dashboard over HTTP (every PG of the pool in ``/api/pgs``, ``/metrics``),
+the port's ``ObjBencher`` on the pool and the port's ``ceph`` dispatch
+(``ops latency`` counting the bench's ops), the dashboard's health naming
+the lost daemon's ``OSD_DOWN`` after the leader's loss, the port's
+``objectstore_tool`` exporting object 0's PG from the lost daemon's
+BlockStore and ``monstore_tool`` reading the killed mon's version before
+it restarts.  On the card the same code runs in
 ``tests/test_torch_cuda.py -k vstart`` and, at full width, in
 ``chip_smoke.py``.
 """
@@ -27,8 +34,10 @@ SMALL = dict(n_osds=6, profile="plugin=isa k=4 m=2 technique=reed_sol_van",
 def test_vstart_phase_on_the_cpu():
     res = chip_smoke.run_vstart(torch, "cpu", **SMALL)
     st = res["steps"]
-    assert list(st) == ["boot", "pool", "write", "relay", "leader_loss",
-                        "osd_loss", "read", "mon_restart", "shutdown"]
+    assert list(st) == ["boot", "pool", "write", "relay", "mgr",
+                        "leader_loss", "osd_loss", "mgr_health", "read",
+                        "objectstore_tool", "monstore_tool", "mon_restart",
+                        "shutdown"]
     # the plain versions count no launch: only the card's kernels do
     assert all(not any(s["counts"].values()) for s in st.values()
                if "counts" in s)
@@ -43,3 +52,17 @@ def test_vstart_phase_on_the_cpu():
     assert st["mon_restart"]["last_committed"] == \
         st["mon_restart"]["leader_committed"]
     assert res["store_bytes"]["mon0"] > 0 and res["store_bytes"]["osd0"] > 0
+    mg = st["mgr"]
+    assert mg["bench"]["write"]["total_ops"] > 0
+    assert mg["bench"]["seq"]["total_ops"] > 0
+    assert mg["bench"]["write"]["errors"] == mg["bench"]["seq"]["errors"] == 0
+    assert mg["ops_counted"] >= (mg["bench"]["write"]["total_ops"]
+                                 + mg["bench"]["seq"]["total_ops"])
+    assert mg["tree_nodes"] > 6 and mg["mgr_daemons"] == ["cluster"]
+    assert st["mgr_health"]["osd_down"] == "1 osds down"
+    assert st["mgr_health"]["feed_leader"] == st["leader_loss"]["leader"]
+    assert st["objectstore_tool"]["objects"] >= 1
+    assert st["objectstore_tool"]["hinfo_checked"] >= 1
+    assert st["monstore_tool"]["rank"] == st["leader_loss"]["killed"]
+    assert st["monstore_tool"]["last_committed"] == \
+        st["mon_restart"]["loaded_version"]
