@@ -233,28 +233,29 @@ def _opts() -> List[Option]:
         O("tpu_staging_slot_kib", int, 128,
           "pinned staging slot size; larger payloads bypass the pool",
           runtime=False),
-        # the options below steer only the reference's XLA compiles:
-        # the port parses them (a conf that parses on one package
-        # parses on the other) and reads none of them yet
+        # the options below steer the reference's XLA compiles; in the
+        # port they steer its device watch over first launches and the
+        # kernel build (gpu/devwatch.py), or nothing
         O("tpu_recompile_storm_window", float, 60.0,
           "sliding window (seconds) of the device watcher's "
-          "recompile-storm detection; the port compiles no XLA "
-          "program and has no storm detection yet (queue 1 item 4, "
-          "the device observability bindings)"),
+          "recompile-storm detection; the port's watch counts first "
+          "launches of a kernel at new signatures and kernel builds "
+          "(queue 1 item 4c)"),
         O("tpu_recompile_storm_min_sigs", int, 8,
           "distinct compile signatures of one kernel family inside "
-          "the storm window that raise the RECOMPILE_STORM WARN; the "
-          "port has no storm detection yet (queue 1 item 4)"),
+          "the storm window that raise the RECOMPILE_STORM WARN; in the "
+          "port, first launches at distinct signatures (queue 1 item 4c)"),
         O("tpu_recompile_storm_min_rogue_sigs", int, 3,
           "distinct rogue (undeclared by the shape-bucket ABI) compile "
           "signatures of one family inside the storm window that raise "
-          "the RECOMPILE_STORM WARN; the port has no storm detection "
-          "yet (queue 1 item 4)"),
+          "the RECOMPILE_STORM WARN; in the port, first launches at "
+          "undeclared signatures (queue 1 item 4c)"),
         O("tpu_compile_cache_dir", str, "",
           "persistent on-disk XLA compilation cache directory; the "
-          "port has none yet: its kernels are built once per checkout "
-          "into ceph_tpu_torch/_build/ (queue 1 item 4 brings the "
-          "device observability bindings)", runtime=False),
+          "port has none: its kernels are built once per checkout "
+          "into ceph_tpu_torch/_build/, which a later process loads "
+          "(the device watch's persist hit, queue 1 item 4c)",
+          runtime=False),
         O("tpu_warmup_budget_s", float, 30.0,
           "wall-clock budget for the boot-time DeviceWarmup pass that "
           "builds the port's kernels and launches each declared shape "

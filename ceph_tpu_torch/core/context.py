@@ -7,7 +7,8 @@ heartbeat map, and hands them to every subsystem.
 
 Port of ``ceph_tpu/core/context.py``.  The admin command ``device
 compile dump`` keeps its name and answers from the port's device watch
-(``gpu/devwatch.py``): the kernel build and launches, not XLA compiles.
+(``gpu/devwatch.py``): its compile table (the kernel build and each
+kernel's first launches), launches per kernel and the queue's batches.
 """
 
 from __future__ import annotations

@@ -6,7 +6,8 @@ agent and the mgr crash module, src/pybind/mgr/crash/module.py, archive
 and list them).  Here `CrashArchive.record()` captures a Python
 exception — backtrace, entity, version, the log ring tail, and a
 DEVICE section (queue depth, staging occupancy, the in-flight batch,
-the kernel build and launches — see gpu.devwatch.device_state) — as a JSON
+live and last compiles, storms, the kernel build and launches — see
+gpu.devwatch.device_state) — as a JSON
 crash report in a spool directory; `install()` hooks
 `threading.excepthook` AND `sys.excepthook` so an unhandled daemon
 thread OR main-thread death is archived automatically, and registers

@@ -48,11 +48,12 @@ report's device section.
 
 Each entry point takes ``trop=``, the client op riding the job.  The
 reference blames a live XLA compile on an op (queue.py:530-563); the
-port's one compile is the kernel build at first use
-(``ops/_build.py``), so a job whose [enqueue, compute-done] window
-overlapped that build gets the ``compile_wait`` annotation and the
-``lat_compile_wait_us`` sample of its tracker.  With no build in the
-window this costs one comparison per batch.
+port's compiles are the kernel build (``ops/_build.py``) and each
+kernel's first launch at a new signature (``gpu/devwatch.py``), so a
+job whose [enqueue, compute-done] window overlapped one gets the
+``compile_wait`` annotation and the ``lat_compile_wait_us`` sample of
+its tracker.  With none in the window this costs one comparison per
+batch.
 
 An array codec (clay: ``codec.is_array``, sub-chunks) takes the clay
 kinds: ``crep`` (``clay_repair_async``: a single lost shard from its
@@ -398,13 +399,14 @@ class StripeBatchQueue:
         dw.note_batch(kind, len(batch), [(j.rows, j.width) for j in batch],
                       t_compute - t_start)
         if dw.compile_activity_since(min(j.t_enq for j in batch)):
-            self._blame_build(dw, batch, t_compute)
+            self._blame_compile(dw, batch, t_compute)
 
     @staticmethod
-    def _blame_build(dw, batch: List[_Job], t_compute: float) -> None:
-        """Annotate each op whose job waited on the kernel build: the
-        event ``compile_wait`` (timeline only, annotation=True) and its
-        tracker's ``lat_compile_wait_us``."""
+    def _blame_compile(dw, batch: List[_Job], t_compute: float) -> None:
+        """Annotate each op whose job waited on a compile (the kernel
+        build or a first launch): the event ``compile_wait`` (timeline
+        only, annotation=True) and its tracker's
+        ``lat_compile_wait_us``."""
         for j in batch:
             if j.trop is None:
                 continue

@@ -14,22 +14,34 @@ and launched at any shape without a recompile.  What carries over:
   stripe-batch queue pads every batch's width with it, so the widths
   the card sees stay few;
 - the declarations (:class:`BucketSpec`, :func:`declare`,
-  :func:`sig_declared`) for the port's families: the queue's kinds
-  ``enc``, ``encp``, ``dec``, ``crep`` and ``cdec``, K1 inside clay
-  ``gf256_clay``, the row CRC ``crc32c_rows``, the CRUSH rule walk
-  ``crush_rule`` and the mesh's programs ``meshio``;
+  :func:`sig_declared`): the kernel families the device watch keys its
+  compile table by (``gf256_matmul``, ``gf256_interleaved``,
+  ``crc32c_rows``, ``crush_rule``, ``gf2_matmul``, ``gf2_xor``,
+  ``mesh_digest`` and the build, ``kernel_build``), each over the
+  signature its wrapper passes to ``devwatch.instrumented_launch``; and
+  the batch surface of the queue's kinds ``enc``, ``encp``, ``dec``,
+  ``crep`` and ``cdec``, of K1 inside clay ``gf256_clay`` and of the
+  mesh's programs ``meshio``;
 - :class:`DeviceWarmup`: on the card, "warm" means the one kernel build
-  plus a first launch of each declared bucket, so the first client op
-  pays neither.  Each plan item is one launch: K1 through the codec's
-  ``encode_planes`` (``enc``) and the recovery product (``dec``), or
-  for clay its ``repair_planes`` and ``decode_planes``, the
-  CRC kernel through ``crc32c_rows``, and K6 through ``OSDMap.map_pgs``
-  (one launch a pool).
+  plus a first launch of each kernel at each signature a pool's writes
+  and degraded reads launch at each warmed width, so the first client
+  op pays neither.  Each plan item is one launch: K1 through the codec's
+  ``encode_planes`` (what an ``enc`` or ``encp`` batch launches) and the
+  recovery product (``dec``), or for clay its ``repair_planes`` and
+  ``decode_planes``, the CRC kernel through ``crc32c_rows`` over the
+  [k+m, width] batch an ``encp`` batch reads, and K6 through
+  ``OSDMap.map_pgs`` (one launch a pool) and one ``pg_to_up_acting``
+  a pool (the one-id walk of the objecter and the daemons).
 
-The reference's persistent XLA compile cache has no counterpart:
-:func:`setup_compile_cache` records the directory it is given and
-returns False.  Its device-watch compile classification (warmup,
-bucketed-cold, rogue) and the storm detector are ROADMAP item 4.
+:meth:`DeviceWarmup.run` runs under the device watch's
+``warmup_scope``, so its first launches class as ``warmup``, and
+publishes its stats as the watch's ``warmup_stats``.  The reference's
+persistent XLA compile cache has no counterpart: :func:`setup_compile_cache`
+records the directory it is given and returns False.  Its role, the
+build a later process need not pay, is the kernel build's: a process
+that loads the library ``ops/_build.py`` left in
+``ceph_tpu_torch/_build/`` is the watch's ``note_persist(hit=True)``
+(the reference's ``_on_jax_event``).
 """
 
 from __future__ import annotations
@@ -144,9 +156,31 @@ def sig_declared(family: str, sig: Tuple) -> bool:
     return spec.sig_declared(sig) if spec is not None else False
 
 
-# The port's families.  The padding that makes these true lives at the
-# sites: StripeBatchQueue pads each batch's columns with covering(), and
-# OSDMap.map_pgs walks a pool's whole pg vector in one launch.
+# The kernel families of the device watch's compile table: each
+# wrapper's signature (gpu/devwatch.py instrumented_launch).  The
+# padding that makes them true lives at the sites: StripeBatchQueue pads
+# each batch's columns with covering(), and OSDMap.map_pgs walks a
+# pool's whole pg vector in one launch.
+declare("gf256_matmul",
+        note="K1: matrix u8[R, k] (code geometry) over planes u8[k, P], "
+             "P a queue batch's covering bucket or a codec's own width")
+declare("gf256_interleaved",
+        note="K2: matrix u8[R, k] over interleaved words i32[T, k, 128], "
+             "T pow2 ladders of the engine bench")
+declare("gf2_matmul",
+        note="K3's popcount kernel (shec): rows u8[kin, P] into "
+             "u8[rout, P], P the queue's covering bucket; w static")
+declare("gf2_xor",
+        note="K3's packet-XOR kernel (jerasure bit-matrix codes): rows "
+             "u8[kin, P] into u8[rout, P]; w static")
+declare("mesh_digest",
+        note="K8's scrub digest: one stripe row u8[rows, n] of the "
+             "mesh, n covering-padded to pow2 multiples of dp")
+declare("kernel_build",
+        note="the one build of csrc/*.cu (ops/_build.py): its "
+             "signature is the source list")
+# The queue kinds' batch surface (the batches the kinds above launch
+# over).
 declare("enc",
         note="queue kind enc: K1 over planes u8[k, P], P the covering "
              "bucket of the batch's columns; k/m are code geometry")
@@ -210,10 +244,17 @@ def compile_cache_dir() -> Optional[str]:
 # Boot-time warmup
 # ---------------------------------------------------------------------------
 
-# the column widths each codec family is warmed at: the covering buckets
-# of the chunk widths real pools produce (4 KiB .. 256 KiB objects over k
-# in 2..8), as the reference's
-WARM_COLS = (4096, 16384, 32768, 65536)
+# the column widths each codec family is warmed at: the reference's
+# covering buckets of the chunk widths small objects produce (4 KiB ..
+# 256 KiB objects over k in 2..8), then every covering bucket up to the
+# stripe-batch queue's max_batch_cols (1 Mi): a coalesced batch is never
+# wider, and RADOS's default 4 MiB objects over k = 4..8 fill 512 KiB ..
+# 1 MiB batches
+WARM_COLS = (4096, 16384, 32768, 65536, 131072, 262144, 524288, 1048576)
+# the bytes of its batch's first row the CRC item reads: the kernel's
+# signature is the [k+m, width] batch, a row's length is call data, and
+# the CPU's plain CRC is serial over a row's bytes
+WARM_CRC_BYTES = 64
 
 
 class _WarmItem:
@@ -229,11 +270,15 @@ class DeviceWarmup:
     """Build the kernels and launch each declared bucket once before
     anyone waits on them.
 
-    The plan is deterministic, smallest buckets first: per width of
-    ``cols``, one ``crc32c_rows`` launch over [k+m, width]; with a codec,
-    one ``encode_planes`` product (K1, family ``enc``) and, for a codec
-    with MDS recovery, one recovery product with the first m shards lost
-    (K1, family ``dec``); with ``crush``, one ``map_pgs`` a pool (K6).
+    The plan is deterministic: with ``crush``, its walks first (a
+    daemon's: one ``map_pgs`` and one ``pg_to_up_acting`` a pool, K6);
+    then, smallest buckets first, per width of ``cols`` one
+    ``crc32c_rows`` launch reading :data:`WARM_CRC_BYTES` of the
+    [k+m, width] batch; with a codec, one ``encode_planes`` product (K1,
+    family ``enc``) and, for a codec with MDS recovery, one recovery
+    product with the first m shards lost (K1, family ``dec``).  It runs
+    under the device watch's ``warmup_scope``, so each first launch is
+    classed ``warmup``.
     ``run()`` is bounded by its budget and resumable: what the budget cut
     off stays pending for the next ``run()`` (the ``device warmup`` admin
     command), and an item whose precondition is missing (no osdmap yet,
@@ -275,6 +320,11 @@ class DeviceWarmup:
     # -- plan --------------------------------------------------------------
     def _build_plan(self) -> List[_WarmItem]:
         items: List[_WarmItem] = []
+        # the rule walks first: a daemon walks its PGs as soon as its
+        # warmup returns, budget cut or not
+        if self._crush is not None:
+            items.append(_WarmItem(
+                "crush_rule", "crush rule programs", self._warm_crush))
         for c in self._cols:
             items.append(_WarmItem(
                 "crc32c_rows", f"crc cols={c}",
@@ -288,9 +338,6 @@ class DeviceWarmup:
                 items.append(_WarmItem(
                     "dec", f"decode cols~{c}",
                     lambda c=c: self._warm_decode(c)))
-        if self._crush is not None:
-            items.append(_WarmItem(
-                "crush_rule", "crush rule programs", self._warm_crush))
         return items
 
     # -- per-family warmers (False = precondition missing, retry) ----------
@@ -303,7 +350,7 @@ class DeviceWarmup:
         shards = (codec.k + codec.m) if codec is not None else 1
         full = torch.zeros((shards, cols), dtype=torch.uint8,
                            device=self._dev(codec))
-        crc32c_rows(full, [0], [cols])
+        crc32c_rows(full, [0], [min(cols, WARM_CRC_BYTES)])
         return True
 
     def _warm_encode(self, cols: int) -> bool:
@@ -358,37 +405,51 @@ class DeviceWarmup:
 
     # -- execution ---------------------------------------------------------
     def run(self, budget_s: float = 30.0) -> Dict[str, Any]:
-        """Run pending plan items until the budget is spent; returns
-        :meth:`stats`.  A negative budget runs everything."""
+        """Run pending plan items until the budget is spent, under the
+        device watch's ``warmup_scope``; returns :meth:`stats` and
+        publishes them as the watch's ``warmup_stats``.  A negative
+        budget runs everything."""
+        from ceph_tpu_torch.gpu import devwatch
+
+        w = devwatch.watch()
         t0 = time.monotonic()
         budget_s = float(budget_s)
         with self._lock:
             self._runs += 1
             self._skipped = []
             pending, self._pending = self._pending, []
-            for i, item in enumerate(pending):
-                if budget_s >= 0 and time.monotonic() - t0 > budget_s:
-                    self._pending.extend(pending[i:])
-                    self._skipped.extend(
-                        f"{it.family}: {it.desc} (budget)"
-                        for it in pending[i:])
-                    break
-                try:
-                    ok = item.thunk()
-                except Exception as e:
-                    self._skipped.append(
-                        f"{item.family}: {item.desc} (error: {e!r})")
-                    continue
-                if ok:
-                    self._warmed.append(f"{item.family}: {item.desc}")
-                else:
-                    self._pending.append(item)
-                    self._skipped.append(
-                        f"{item.family}: {item.desc} (not ready)")
-            if self._device.type == "cuda":
-                torch.cuda.synchronize(self._device)
+            with w.warmup_scope():
+                for i, item in enumerate(pending):
+                    if budget_s >= 0 and \
+                            time.monotonic() - t0 > budget_s:
+                        self._pending.extend(pending[i:])
+                        self._skipped.extend(
+                            f"{it.family}: {it.desc} (budget)"
+                            for it in pending[i:])
+                        break
+                    try:
+                        ok = item.thunk()
+                    except Exception as e:
+                        self._skipped.append(
+                            f"{item.family}: {item.desc} (error: {e!r})")
+                        continue
+                    if ok:
+                        self._warmed.append(f"{item.family}: {item.desc}")
+                    else:
+                        self._pending.append(item)
+                        self._skipped.append(
+                            f"{item.family}: {item.desc} (not ready)")
+                if self._device.type == "cuda":
+                    torch.cuda.synchronize(self._device)
             self._seconds += time.monotonic() - t0
-            return self._stats_locked()
+            st = self._stats_locked()
+        w.warmup_stats = st
+        return st
+
+    def pending(self) -> int:
+        """Plan items not yet warmed."""
+        with self._lock:
+            return len(self._pending)
 
     def _stats_locked(self) -> Dict[str, Any]:
         fams = sorted({i.split(":")[0] for i in self._warmed})

@@ -8,12 +8,12 @@ module exports it in text exposition format
 
 Port of ``ceph_tpu/mgr/manager.py``: the same modules, commands and
 exposition text, over the port's ``core`` (perf, lockdep), ``osd.qos``,
-``mgr.balancer`` and ``gpu.devwatch``.  Two modules answer from what the
-port's device watch has: ``device compile dump`` is its ``dump()`` (the
-kernel build, launches per kernel, the queue's batches; no compile
-table), and the Prometheus export carries no device-runtime family
-(``PrometheusModule._export_devwatch``) until the watch has a compile
-table to export (ROADMAP queue 1 item 4c).
+``mgr.balancer`` and ``gpu.devwatch``.  ``device compile dump`` is the
+port's device watch's ``dump()`` (the compile table of first launches
+and the kernel build, storms, then the build, launches per kernel and
+the queue's batches), and the Prometheus export carries its
+family-labeled ``ceph_xla_*`` lines
+(``PrometheusModule._export_devwatch``).
 
 In-process inversion: instead of MMgrReport messages, registered
 daemons hand the mgr their Context (whose PerfCountersCollection is
@@ -144,13 +144,15 @@ class PrometheusModule(MgrModule):
                 f'{thr.get("stalls", 0)}')
 
     def _export_devwatch(self, lines: List[str]) -> None:
-        """The reference exports the device watch's compile table here
-        (``ceph_xla_*``: compiles, seconds, shapes, cache hits and
-        execute-time histograms per kernel family).  The port's watch
-        keeps no compile table yet (ROADMAP queue 1 item 4c), so this
-        exports nothing and invents no family; the launches per kernel
-        reach the exposition through each daemon's ``osd.N.xla`` perf
-        view."""
+        """Family-labeled device-runtime metrics (``ceph_xla_*``): first
+        launches and builds, their seconds, distinct signatures, launches
+        at a seen signature and their dispatch-wall histograms with the
+        terminal ``le="+Inf"`` bucket.  Process-wide (one device runtime
+        a process), so the watch exports itself rather than riding a
+        daemon label."""
+        from ceph_tpu_torch.gpu.devwatch import watch
+
+        watch().export_prometheus(lines)
 
     def export(self) -> str:
         metrics = self.mgr.collect()
@@ -243,8 +245,9 @@ class CrashModule(MgrModule):
 
 
 class DeviceModule(MgrModule):
-    """`device compile dump`: the process-wide device watch's dump
-    (the kernel build, launches per kernel, the queue's batches) — the
+    """`device compile dump`: the process-wide device watch's dump (the
+    compile table per kernel family, recent storms, the event-ring tail,
+    the kernel build, launches per kernel, the queue's batches) — the
     mgr face of ``ceph_tpu_torch.gpu.devwatch``, mirroring the
     per-daemon admin-socket command of the same name."""
 

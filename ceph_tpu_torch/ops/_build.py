@@ -38,6 +38,12 @@ build_seconds = None  # wall time of this process's build, once done
 # whose wait overlapped them (the queue's ``compile_wait``)
 build_t0 = None
 build_t1 = None
+# whether this process's build loaded a library already in BUILD_DIR
+# without compiling it (its file's modification time unchanged across the
+# build), None before the build; the device watch's persist hit or miss
+build_hit = None
+# called as fn(t0, t1, hit) after the build, outside the build's lock
+BUILD_LISTENERS: list = []
 COUNTS: list = []     # every LaunchCount, in creation order
 
 
@@ -126,16 +132,27 @@ def _compile() -> str:
     return str(path)
 
 
+def _libraries() -> dict:
+    """Modification time of each built library now in BUILD_DIR."""
+    if not BUILD_DIR.is_dir():
+        return {}
+    return {str(p.resolve()): p.stat().st_mtime_ns
+            for p in BUILD_DIR.glob("*.so")}
+
+
 def lib() -> ctypes.CDLL:
     """The kernel library, built on first call (raises if the build
     fails; there is no fallback)."""
-    global _lib, build_seconds, build_t0, build_t1
+    global _lib, build_seconds, build_t0, build_t1, build_hit
+    built = None
     with _lock:
         if _lib is None:
+            before = _libraries()
             t0 = build_t0 = time.monotonic()
             build_t1 = None
             try:
-                dll = ctypes.CDLL(_compile())
+                path = _compile()
+                dll = ctypes.CDLL(path)
             finally:
                 build_t1 = time.monotonic()
             for name, argtypes in _SIGNATURES.items():
@@ -147,8 +164,16 @@ def lib() -> ctypes.CDLL:
             dll.kernels_error_string.argtypes = [ctypes.c_int]
             dll.kernels_error_string.restype = ctypes.c_char_p
             build_seconds = time.monotonic() - t0
+            key = str(Path(path).resolve())
+            build_hit = (key in before
+                         and before[key] == _libraries().get(key))
+            built = (t0, build_t1, build_hit)
             _lib = dll
-        return _lib
+        dll = _lib
+    if built is not None:
+        for fn in list(BUILD_LISTENERS):
+            fn(*built)
+    return dll
 
 
 def check(err: int, what: str) -> None:

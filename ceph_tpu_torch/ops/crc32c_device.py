@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from ceph_tpu_torch.device import resolve_device
+from ceph_tpu_torch.gpu.devwatch import instrumented_launch, signature
 from ceph_tpu_torch.ops import _build
 
 launches = _build.LaunchCount("crc32c_rows")
@@ -274,6 +275,15 @@ def crc32c_lanes(rows: torch.Tensor, lens, inits=None) -> np.ndarray:
         return np.empty(0, dtype=np.uint32)
     if lens.min() < 0 or lens.max() > C:
         raise ValueError(f"row lengths must lie in [0, {C}]")
+    return instrumented_launch(
+        "crc32c_rows", signature((rows,), {}),
+        lambda: _lanes(rows, lens, inits), rows.device)
+
+
+def _lanes(rows: torch.Tensor, lens: np.ndarray,
+           inits: np.ndarray) -> np.ndarray:
+    """:func:`crc32c_lanes` after its checks."""
+    R = int(rows.shape[0])
     if rows.device.type == "cpu":
         return crc32c_lanes_plain(rows, lens, inits).numpy().astype(
             np.uint32)
@@ -302,6 +312,18 @@ def crc32c_rows(full: torch.Tensor, offs, lens, inits=None) -> np.ndarray:
         return np.empty((0, S), dtype=np.uint32)
     if (offs < 0).any() or (lens < 0).any() or (offs + lens > P).any():
         raise ValueError(f"job extents must lie inside the {P} columns")
+    # the signature is the batch the rows are read from; the row count
+    # and lengths are call data
+    return instrumented_launch(
+        "crc32c_rows", signature((full,), {}),
+        lambda: _rows(full, offs, lens, inits), full.device)
+
+
+def _rows(full: torch.Tensor, offs: np.ndarray, lens: np.ndarray,
+          inits: np.ndarray) -> np.ndarray:
+    """:func:`crc32c_rows` after its checks."""
+    S = int(full.shape[0])
+    J = len(offs)
     if full.device.type == "cpu":
         width = int(lens.max())
         rows = torch.zeros((J * S, width), dtype=torch.uint8)

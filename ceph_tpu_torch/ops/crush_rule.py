@@ -76,6 +76,7 @@ from ceph_tpu_torch.crush.map import (
     OP_TAKE,
     FlatMap,
 )
+from ceph_tpu_torch.gpu.devwatch import instrumented_launch, signature
 from ceph_tpu_torch.ops import _build
 
 launches = _build.LaunchCount("crush_rule")
@@ -1207,20 +1208,33 @@ def launch(rm: RuleMap, rule: RuleSpec, dev_weights: torch.Tensor,
         raise ValueError("lanes and bad each come with their count")
     if budget < 0:
         raise ValueError("budget must be >= 0")
+    if dev.type == "cuda":
+        if rm.device != dev:
+            raise ValueError(f"the map lies on {rm.device}, the ids on "
+                             f"{dev}")
+        _check(dev_weights, torch.int32, "dev_weights", dev)
+        _check(stats, torch.int64, "stats", dev)
+        if dev_weights.numel() < 1:
+            raise ValueError("dev_weights must hold at least one weight")
+        if stats is not None and stats.numel() != N_STATS:
+            raise ValueError(f"stats must hold {N_STATS} counters")
+    elif dev.type != "cpu":
+        raise ValueError(f"crush_rule runs on cuda or cpu, not {dev}")
+    instrumented_launch(
+        "crush_rule", signature((xs, dev_weights), {}),
+        lambda: _walk(rm, rule, dev_weights, xs, out, budget, clean, lanes,
+                      lane_count, bad, bad_count, idx_base, stats), dev)
+
+
+def _walk(rm, rule, dev_weights, xs, out, budget, clean, lanes, lane_count,
+          bad, bad_count, idx_base, stats) -> None:
+    """:func:`launch` after its checks: the plain walk on the CPU, one
+    kernel launch on the card."""
+    dev = xs.device
     if dev.type == "cpu":
         _launch_plain(rm, rule, dev_weights, xs, out, budget, clean, lanes,
                       lane_count, bad, bad_count, idx_base)
         return
-    if dev.type != "cuda":
-        raise ValueError(f"crush_rule runs on cuda or cpu, not {dev}")
-    if rm.device != dev:
-        raise ValueError(f"the map lies on {rm.device}, the ids on {dev}")
-    _check(dev_weights, torch.int32, "dev_weights", dev)
-    _check(stats, torch.int64, "stats", dev)
-    if dev_weights.numel() < 1:
-        raise ValueError("dev_weights must hold at least one weight")
-    if stats is not None and stats.numel() != N_STATS:
-        raise ValueError(f"stats must hold {N_STATS} counters")
     rh_lh, ll = rm.tables()
     a = _RuleArgs()
     a.items, a.weights, a.magic = _ptr(rm.items), _ptr(rm.weights), \

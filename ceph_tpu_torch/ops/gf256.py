@@ -27,6 +27,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ceph_tpu_torch.gpu.devwatch import instrumented_launch, signature
 from ceph_tpu_torch.ops import _build
 
 launches = _build.LaunchCount("gf256_matmul")
@@ -239,15 +240,26 @@ def gf_matmul_bytes(matrix, x: torch.Tensor, donate: bool = False,
                             or tuple(out.shape) != (R, n)
                             or out.device != x.device):
         raise ValueError(f"out must be uint8 [{R}, {n}] on {x.device}")
+    if x.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"gf_matmul_bytes runs on cuda or cpu, not "
+                         f"{x.device}")
+    return instrumented_launch(
+        "gf256_matmul", signature((mat, x), {}),
+        lambda: _product(mat, x, seed, out, mul_shift), x.device)
+
+
+def _product(mat: np.ndarray, x: torch.Tensor, seed: int,
+             out: Optional[torch.Tensor], mul_shift: bool) -> torch.Tensor:
+    """:func:`gf_matmul_bytes` after its checks: the plain version on
+    the CPU, the kernel on the card."""
+    R, k = mat.shape
+    n = x.shape[1]
     if x.device.type == "cpu":
         res = gf_matmul_bytes_plain(mat, x, seed)
         if out is None:
             return res
         out.copy_(res)
         return out
-    if x.device.type != "cuda":
-        raise ValueError(f"gf_matmul_bytes runs on cuda or cpu, not "
-                         f"{x.device}")
     op = k1_operand(mat)
     if n % 4 == 0 and _row_pitch_ok(x) and (out is None
                                             or _row_pitch_ok(out)):

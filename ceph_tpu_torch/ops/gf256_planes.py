@@ -35,6 +35,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ceph_tpu_torch.gpu.devwatch import instrumented_launch, signature
 from ceph_tpu_torch.ops import _build, gf256
 
 LANES = 128
@@ -140,18 +141,31 @@ def encode_planes_interleaved(matrix, words3: torch.Tensor, seed: int = 0,
     T, k = _check(mat, w, 1, tile)
     R = mat.shape[0]
     out = _out(out, (T, R, LANES), w)
+    if w.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"encode_planes_interleaved runs on cuda or cpu, "
+                         f"not {w.device}")
+    # a non-contiguous input runs from a contiguous copy: no overlap
+    if w.device.type == "cuda" and w.is_contiguous():
+        xs, os_ = w.data_ptr(), out.data_ptr()
+        if xs < os_ + 4 * out.numel() and os_ < xs + 4 * w.numel():
+            raise ValueError("the interleaved product cannot write over "
+                             "its input")
+    return instrumented_launch(
+        "gf256_interleaved", signature((mat, w), {}),
+        lambda: _interleaved(mat, w, seed, mul_shift, out), w.device)
+
+
+def _interleaved(mat: np.ndarray, w: torch.Tensor, seed: int,
+                 mul_shift: bool, out: torch.Tensor) -> torch.Tensor:
+    """:func:`encode_planes_interleaved` after its checks."""
     if w.device.type == "cpu":
         out.copy_(encode_planes_interleaved_plain(mat, w, seed, mul_shift))
         return out
-    if w.device.type != "cuda":
-        raise ValueError(f"encode_planes_interleaved runs on cuda or cpu, "
-                         f"not {w.device}")
+    T, k = w.shape[0], w.shape[1]
+    R = mat.shape[0]
     op = gf256.k1_operand(mat)
     x = w.contiguous()
     xs, os_ = x.data_ptr(), out.data_ptr()
-    if xs < os_ + 4 * out.numel() and os_ < xs + 4 * x.numel():
-        raise ValueError("the interleaved product cannot write over its "
-                         "input")
     stream = torch.cuda.current_stream(x.device).cuda_stream
     for r0, rows, masks in op.blocks:
         err = _build.lib().gf256_interleaved_launch(

@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from ceph_tpu_torch.ec import gf
+from ceph_tpu_torch.gpu.devwatch import instrumented_launch, signature
 from ceph_tpu_torch.ops import _build
 
 launches = _build.LaunchCount("gf2_matmul")     # the popcount kernel
@@ -347,13 +348,23 @@ def gf2_matmul_packets(mbits, x: torch.Tensor, out: torch.Tensor,
     if (widths % w).any():
         raise ValueError(f"every job width must be a multiple of w={w}")
     packet = op.packet is not None  # the structure picks the kernel
+    if x.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"gf2_matmul runs on cuda or cpu, not {x.device}")
+    if x.device.type == "cuda" and out.stride(1) != 1:
+        raise ValueError("out must have unit column stride")
+    return instrumented_launch(
+        "gf2_xor" if packet else "gf2_matmul",
+        signature((x, out, w), {}, static_argnums=(2,)),
+        lambda: _packets(op, x, out, offs, widths, w, packet), x.device)
+
+
+def _packets(op: "BitOperand", x: torch.Tensor, out: torch.Tensor,
+             offs: np.ndarray, widths: np.ndarray, w: int,
+             packet: bool) -> torch.Tensor:
+    """:func:`gf2_matmul_packets` after its checks."""
     if x.device.type == "cpu":
         plain = gf2_xor_packets_plain if packet else gf2_matmul_packets_plain
         return plain(op, x, out, offs, widths, w)
-    if x.device.type != "cuda":
-        raise ValueError(f"gf2_matmul runs on cuda or cpu, not {x.device}")
-    if out.stride(1) != 1:
-        raise ValueError("out must have unit column stride")
     if x.stride(1) != 1:
         x = x.contiguous()
     launch = _launch_xor if packet else _launch

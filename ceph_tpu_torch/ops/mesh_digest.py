@@ -20,6 +20,7 @@ from typing import Optional
 
 import torch
 
+from ceph_tpu_torch.gpu.devwatch import instrumented_launch, signature
 from ceph_tpu_torch.ops import _build
 
 launches = _build.LaunchCount("mesh_digest")
@@ -57,17 +58,25 @@ def mesh_digest(x: torch.Tensor,
                             or tuple(out.shape) != (2,)
                             or out.device != x.device):
         raise ValueError(f"out must be int64 [2] on {x.device}")
+    if x.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"mesh_digest runs on cuda or cpu, not {x.device}")
+    rows, n = x.shape
+    if (x.device.type == "cuda" and n > 1 and rows
+            and x.stride(1) != 1):
+        raise ValueError("mesh_digest takes planes of unit column stride")
+    return instrumented_launch("mesh_digest", signature((x,), {}),
+                               lambda: _digest(x, out), x.device)
+
+
+def _digest(x: torch.Tensor, out: Optional[torch.Tensor]) -> torch.Tensor:
+    """:func:`mesh_digest` after its checks."""
     if x.device.type == "cpu":
         res = mesh_digest_plain(x)
         if out is None:
             return res
         out[0] = res
         return out[0]
-    if x.device.type != "cuda":
-        raise ValueError(f"mesh_digest runs on cuda or cpu, not {x.device}")
     rows, n = x.shape
-    if n > 1 and rows and x.stride(1) != 1:
-        raise ValueError("mesh_digest takes planes of unit column stride")
     if out is None:
         out = torch.empty(2, dtype=torch.int64, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream

@@ -18,14 +18,18 @@ What the port does its own way:
   (``codec_factory(profile, device=...)``), its stripe-batch queue is
   ``default_queue(device)``, and its boot warmup launches there.
 - **Device watch.**  ``osd.N.xla`` is the port's device watch
-  (``gpu/devwatch.py``: the kernel build, launches per kernel, the
-  queue's batches), which gathers a line a batch into the context's log.
-  The reference's recompile-storm observer has no counterpart yet
-  (ROADMAP item 4), and the queue keeps no batch spans, so no tracer is
-  bound to it.
+  (``gpu/devwatch.py``: the compile table of first launches and the
+  kernel build, the storm detector fed from the
+  ``tpu_recompile_storm_*`` conf, launches per kernel, the queue's
+  batches), which gathers its events into the context's log and raises
+  ``RECOMPILE_STORM`` on its cluster channel.  The queue keeps no batch
+  spans, so no tracer is bound to it.
 - **Boot warmup.**  ``DeviceWarmup`` (``gpu/shapebucket.py``) builds the
   kernels and launches each declared bucket once; the XLA compile cache
-  conf is recorded and has nothing to point at.
+  conf is recorded and has nothing to point at.  A warmup still waiting
+  for a pool finishes on the first map that brings a new pool, before
+  the daemon walks that map's PGs, so their first launches are the
+  warmup's (the reference resumes it only from ``VStartCluster``).
 - **Placement.**  ``handle_osdmap`` and ``pg_stats`` call
   ``OSDMap.pg_to_up_acting`` once a PG, as the reference does: one K6
   launch each on the card.
@@ -335,18 +339,35 @@ class OSDService(Dispatcher):
         _dq.pool.configure(
             int(ctx.conf.get("tpu_staging_slot_kib")) << 10,
             int(ctx.conf.get("tpu_staging_slots")))
-        # device-runtime watcher: the kernel build, launches per
+        # device-runtime watcher: the compile table, launches per
         # kernel and the queue's batches — process-wide like the queue,
         # registered per daemon as osd.N.xla exactly like osd.N.tpuq;
-        # batch lines ride this context's gather ring (subsys tpu).
-        # The reference also observes the tpu_recompile_storm_* conf
-        # for its storm detector: ROADMAP item 4 of the port
+        # its events ride this context's gather ring (subsys tpu) and
+        # storm WARNs its cluster-log channel
         from ceph_tpu_torch.gpu.devwatch import watch as _dw_watch
 
         _dw = _dw_watch()
         self._devwatch = _dw
         ctx.perf.register(f"osd.{whoami}.xla", _dw.perf)
         _dw.attach_log(ctx.log)
+        _dw.configure(
+            window_s=float(ctx.conf.get("tpu_recompile_storm_window")),
+            min_sigs=int(ctx.conf.get("tpu_recompile_storm_min_sigs")),
+            min_rogue_sigs=int(
+                ctx.conf.get("tpu_recompile_storm_min_rogue_sigs")))
+
+        def _dw_conf(name, val, _dw=_dw) -> None:
+            if name == "tpu_recompile_storm_window":
+                _dw.configure(window_s=float(val))
+            elif name == "tpu_recompile_storm_min_sigs":
+                _dw.configure(min_sigs=int(val))
+            elif name == "tpu_recompile_storm_min_rogue_sigs":
+                _dw.configure(min_rogue_sigs=int(val))
+
+        self._devwatch_observer = ctx.conf.add_observer(
+            ("tpu_recompile_storm_window",
+             "tpu_recompile_storm_min_sigs",
+             "tpu_recompile_storm_min_rogue_sigs"), _dw_conf)
         # the XLA compile cache conf: recorded, nothing to point at (the
         # kernels are built once per checkout into _build/)
         from ceph_tpu_torch.gpu import shapebucket as _sb
@@ -445,13 +466,15 @@ class OSDService(Dispatcher):
         return None
 
     def _warmup_crush(self) -> bool:
-        """Compile every pool's rule program by sweeping its real pg
-        vector — exactly the shapes peering and the balancer hit."""
+        """Launch every pool's rule walk over its real pg vector (the
+        balancer's and a map refresh's shape) and over one PG (the
+        one-id walk of peering and the objecter)."""
         om = self.osdmap
         if om is None or not getattr(om, "pools", None):
             return False
         for pool_id in list(om.pools):
             om.map_pgs(pool_id)
+            om.pg_to_up_acting((pool_id, 0))
         return True
 
     def device_warmup(self, budget_s: Optional[float] = None) -> dict:
@@ -804,6 +827,7 @@ class OSDService(Dispatcher):
         self.ctx.conf.remove_observer(self._complaint_obs)
         self.ctx.conf.remove_observer(self._qos_observer)
         self.ctx.conf.remove_observer(self._gate_observer)
+        self.ctx.conf.remove_observer(self._devwatch_observer)
 
     @property
     def addr(self) -> Addr:
@@ -855,6 +879,12 @@ class OSDService(Dispatcher):
         self.osdmap = osdmap
         if addr_book:
             self.addr_book.update(addr_book)
+        if (self._warmup is not None and self._warmup.pending()
+                and set(osdmap.pools) - set(old.pools if old else ())):
+            # the boot warmup waited for a pool: finish it on this map
+            # before its PGs walk placement, so their first launches
+            # are the warmup's
+            self.device_warmup()
         if (self.up and 0 <= self.whoami < osdmap.max_osd
                 and not osdmap.is_up(self.whoami)
                 and old is not None and old.is_up(self.whoami)):

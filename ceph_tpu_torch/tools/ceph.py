@@ -7,7 +7,9 @@ dump/tree/out/in/down/reweight, osd pool create, osd
 erasure-code-profile set/ls, config set/get/rm/dump, auth
 get-or-create/get/ls/rm, log/log last, mon dump/add/rm; the mgr-module
 commands (``MGR_PREFIXES``) go to the cluster's mgr, started on demand,
-and ``daemon osd.N device warmup [budget=S]`` to the daemon itself.
+and ``daemon osd.N device warmup [budget=S]`` and ``daemon osd.N device
+compile dump`` (its device watch's table; the reference routes only the
+warmup) to the daemon itself.
 
 Like the port's ``rados`` tool, `--vstart MxN` runs the command sequence
 against an ephemeral in-process cluster (`--script "a; b; c"`), or over
@@ -210,6 +212,16 @@ def dispatch(cluster, tokens: List[str]) -> Tuple[int, Any, str]:
         if svc is None:
             raise NoSuchDaemon(f"no such daemon osd.{osd_id}")
         out = svc.device_warmup(budget)
+        return 0, out, json.dumps({"rc": 0, **out}, indent=1, default=str)
+    # `ceph daemon osd.N device compile dump` — the daemon's admin
+    # command of that name: its device watch's table (process-wide)
+    if (tokens[:1] == ["daemon"] and tokens[1:2]
+            and tokens[1].startswith("osd.")
+            and tokens[2:5] == ["device", "compile", "dump"]):
+        svc = cluster.osds.get(int(tokens[1][4:]))
+        if svc is None:
+            raise NoSuchDaemon(f"no such daemon {tokens[1]}")
+        out = svc._devwatch.dump()
         return 0, out, json.dumps({"rc": 0, **out}, indent=1, default=str)
     cmd = _parse(tokens)
     if cmd["prefix"] in MGR_PREFIXES:

@@ -1,10 +1,10 @@
 """cephtop — cluster-wide per-stage op-latency breakdown.
 
 Port of ``tools/cephtop.py``: the same panes and output over the port's
-``core.admin_socket`` and ``core.perf``, but for ``--device``, which
-renders the port's device watch as its ``device compile dump`` stands
-(the kernel build, launches per kernel, the queue's batches): the port
-keeps no compile table (ROADMAP queue 1 item 4c).
+``core.admin_socket`` and ``core.perf``.  ``--device`` renders the
+port's ``device compile dump``: the kernel build, the reference's
+compile table (on the card: first launches and the build), launches per
+kernel and the queue's batches.
 
 Polls daemon admin sockets for `perf dump` (the osd.N.op per-stage
 histograms + the osd.N.tpuq queue-stage set) and the per-daemon
@@ -124,17 +124,66 @@ def _device_dump(socket_paths: List[str]) -> dict:
     return {}
 
 
+def _compile_table(d: dict) -> List[str]:
+    """The compile table as the reference's ``render_device`` draws it
+    (``tools/cephtop.py:127-165``): a row a family (first launches and
+    builds on the card), the totals, the warmup, storms, live ones."""
+    fams = d.get("families", {})
+    if not fams:
+        return ["no device compile events yet"]
+    head = (f"{'family':<16} {'compiles':>9} {'compile_s':>10} "
+            f"{'shapes':>7} {'hits':>9} {'traces':>7} "
+            f"{'warm':>5} {'rogue':>6} {'persist':>8}")
+    lines = [head, "-" * len(head)]
+    for name, f in sorted(fams.items()):
+        lines.append(
+            f"{name:<16} {f['compiles']:>9} {f['compile_s']:>10.3f} "
+            f"{f['distinct_signatures']:>7} {f['cache_hits']:>9} "
+            f"{f['traces']:>7} {f.get('warmup', 0):>5} "
+            f"{f.get('rogue', 0):>6} {f.get('persist_hits', 0):>8}")
+    tot = d.get("totals", {})
+    lines.append(
+        f"total: {tot.get('compiles', 0)} compiles, "
+        f"{tot.get('compile_seconds', 0.0)}s compiling, "
+        f"{tot.get('distinct_shapes', 0)} distinct shapes, "
+        f"{tot.get('cache_hits', 0)} cache hits, "
+        f"{tot.get('rogue_compiles', 0)} rogue, "
+        f"{tot.get('cache_persist_hits', 0)} persist hits")
+    if d.get("compile_cache_dir"):
+        lines.append(f"compile cache: {d['compile_cache_dir']}")
+    w = d.get("warmup")
+    if w:
+        lines.append(
+            f"warmup: {'done' if w.get('done') else 'pending'}, "
+            f"{w.get('buckets_warmed', 0)} buckets in "
+            f"{w.get('seconds', 0.0)}s "
+            f"({w.get('pending', 0)} pending, "
+            f"{w.get('runs', 0)} runs)")
+    for s in d.get("storms", []):
+        lines.append(
+            f"STORM: {s['family']} x{s['distinct_signatures']} sigs "
+            f"in {s['window_s']}s, churning {s['churning']}")
+    for lc in d.get("live_compiles", []):
+        lines.append(f"LIVE: {lc['family']} compiling for "
+                     f"{lc['age_s']}s")
+    return lines
+
+
 def render_device(d: dict) -> str:
-    """The port's ``device compile dump``: the kernel build, launches
-    per kernel and the queue's batches."""
+    """The port's ``device compile dump``: the kernel build, the compile
+    table, launches per kernel and the queue's batches."""
     if not d:
         return "no device compile dump answered"
     b = d.get("build", {})
     state = ("building" if b.get("live")
              else f"built in {b.get('seconds')}s" if b.get("built")
              else "not built")
+    if b.get("built"):
+        state += (", loaded from a previous build" if b.get("persist_hit")
+                  else ", compiled here")
     lines = [f"kernels: {state} ({len(b.get('sources', []))} sources, "
              f"{b.get('dir', '?')})"]
+    lines += _compile_table(d)
     launches = d.get("launches", {})
     if launches:
         head = f"{'kernel':<20} {'launches':>10}"

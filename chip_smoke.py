@@ -4247,6 +4247,9 @@ MGR_SEQ_S = 2.0              # then seq seconds, from
 MGR_BENCH_THREADS = 2        # two threads at one stripe an object
 MGR_CEPH_LINES = ("status", "health", "osd tree", "osd df", "mgr status",
                   "ops latency")  # run through the port's ceph dispatch
+# the kernels of the phase's write and read, whose first launches in the
+# phase must all be its daemons' warmups (gpu/devwatch.py)
+WATCHED = ("gf256_matmul", "crc32c_rows", "crush_rule")
 
 
 class _VStartShards:
@@ -4300,8 +4303,12 @@ def run_vstart(torch, dev, *, n_mons: int = VSTART_MONS,
        ``stripe_bytes`` stripe) and ``osd pool create`` through the
        mons, each daemon's maps caught up and its warmup resumed with the
        pool's codec (K1, the CRC kernel, K6), then every daemon's PGs
-       settled (``settle_s``);
-    2. ``write``: ``nobj`` seeded objects of ``obj_bytes`` written by
+       settled (``settle_s``); every first launch of ``WATCHED`` in the
+       phase so far (the device watch's compile table,
+       ``gpu/devwatch.py``) is classed ``warmup``, and none is rogue;
+    2. ``write`` and ``read`` (below) run inside the watch's
+       ``steady_state()``, which must record no first launch;
+       ``write``: ``nobj`` seeded objects of ``obj_bytes`` written by
        ``IoCtx.operate`` ``WRITEFULL`` of the port's ``RadosClient``
        (``c.client()``) from ``threads`` threads, every reply 0: the objecter's
        ``_calc_target`` (K6) and the primary's ``encp`` batch (K1 and
@@ -4320,7 +4327,11 @@ def run_vstart(torch, dev, *, n_mons: int = VSTART_MONS,
        object, ``seq`` for ``MGR_SEQ_S``, ``cleanup``, no error (K6, K1 and
        the CRC kernel); then ``MGR_CEPH_LINES`` through the port's
        ``ceph`` dispatch, ``ops latency`` counting at least the bench's
-       ops more than before it;
+       ops more than before it; ``/metrics`` carries
+       ``ceph_xla_compile_total`` of each of ``WATCHED`` (at least 1) and
+       ``ceph_xla_exec_us`` histograms whose ``le="+Inf"`` bucket is their
+       ``_count``, and ``ceph daemon osd.0 device compile dump`` answers
+       the mgr's table;
     3. ``leader_loss``: the leader mon shut down; the two left elect a
        new leader, a ``config set`` commits through it and reaches every
        live mon, and ``nobj // 4`` more objects are written;
@@ -4348,7 +4359,9 @@ def run_vstart(torch, dev, *, n_mons: int = VSTART_MONS,
        the version it loaded is the ``last_committed`` that
        ``monstore_tool`` read;
     6. the cluster shut down and no thread it started left (the
-       process's queue worker and fan-out executor aside).
+       process's queue worker and fan-out executor aside); the watch
+       raised no recompile storm in the phase, and the cluster log
+       carries no ``RECOMPILE_STORM``.
 
     Returns the walls, counts and checks; raises on any failed check."""
     import os
@@ -4389,6 +4402,21 @@ def run_vstart(torch, dev, *, n_mons: int = VSTART_MONS,
     res: dict = {"steps": {}}
     dq = default_queue(dev)
     watch = ObjecterWatch()
+    from ceph_tpu_torch.gpu import devwatch
+
+    dw = devwatch.watch()
+    # the compile table before the phase: what the phase adds is its own
+    seen0 = {(r["family"], r["sig"]) for r in dw.first_launches()}
+    rogue0 = dw.compile_totals()["rogue"]
+    storms0 = dw.perf.value("recompile_storms")
+
+    def steady(fn):
+        """``fn()`` inside the watch's steady-state section: its result
+        and the first launches the guard recorded there."""
+        g0 = len(devwatch.GUARD_VIOLATIONS)
+        with dw.steady_state():
+            out = fn()
+        return out, devwatch.GUARD_VIOLATIONS[g0:]
     c = None            # the cluster
     dead = [None]       # the mon shut down in the leader_loss step
 
@@ -4455,6 +4483,16 @@ def run_vstart(torch, dev, *, n_mons: int = VSTART_MONS,
 
         step("pool", make_pool)
         A = pool_box["id"]
+        new = [r for r in dw.first_launches()
+               if (r["family"], r["sig"]) not in seen0]
+        cold = [r for r in new
+                if r["family"] in WATCHED and r["class"] != "warmup"]
+        require(not cold, f"vstart: every first launch of {WATCHED} up to "
+                          f"the pool is its daemons' warmup: {cold}")
+        require(dw.compile_totals()["rogue"] == rogue0,
+                f"vstart: no rogue first launch up to the pool: {new}")
+        res["watch"] = {"pool_first_launches": new, "build": dw.build(),
+                        "warmup": dw.warmup_stats}
         rc = c.client()
         watch.attach(rc.objecter)
         io_ = rc.ioctx(A)
@@ -4477,11 +4515,15 @@ def run_vstart(torch, dev, *, n_mons: int = VSTART_MONS,
                     f"after {op.attempts} sends (holders' state, "
                     f"last_update, primary: {pg_view(oids[i])})")
 
-        # 2. write, then the leader's relay of a deep scrub
+        # 2. write (steady), then the leader's relay of a deep scrub
         def writes():
-            return {"wall_a_s": run_threads(put, nobj, threads)}
+            wall, guard = steady(lambda: run_threads(put, nobj, threads))
+            return {"wall_a_s": wall, "guard": guard}
 
         w = step("write", writes)
+        require(not w["guard"], f"vstart: the write launched at no new "
+                                f"signature (steady-state guard): "
+                                f"{w['guard']}")
         w["gbs"] = nobj * obj_bytes / w["wall_a_s"] / 1e9
         osdmap = live_leader().osdmap
         shards = _VStartShards(c, osdmap)
@@ -4566,6 +4608,28 @@ def run_vstart(torch, dev, *, n_mons: int = VSTART_MONS,
                                   r'[1-9]', metrics, re.M),
                     "vstart: /metrics has TYPE lines, a daemon's op_w "
                     "counter and a final newline")
+            xla = {f: int(v) for f, v in re.findall(
+                r'^ceph_xla_compile_total\{family="([^"]+)"\} (\d+)$',
+                metrics, re.M)}
+            require(all(xla.get(f, 0) >= 1 for f in WATCHED),
+                    f"vstart: /metrics has ceph_xla_compile_total of "
+                    f"{WATCHED}: {xla}")
+            inf = dict(re.findall(r'^ceph_xla_exec_us_bucket\{family="'
+                                  r'([^"]+)",le="\+Inf"\} (\S+)$',
+                                  metrics, re.M))
+            cnt = dict(re.findall(r'^ceph_xla_exec_us_count\{family="'
+                                  r'([^"]+)"\} (\S+)$', metrics, re.M))
+            require(inf and inf == cnt,
+                    f"vstart: each ceph_xla_exec_us histogram's +Inf "
+                    f"bucket is its count: {inf} {cnt}")
+            code, table, _text = ceph_cli.dispatch(
+                c, ["daemon", "osd.0", "device", "compile", "dump"])
+            mgr_table = ceph("device compile dump")
+            require(code == 0 and {
+                f: x["compiles"] for f, x in table["families"].items()} == {
+                f: x["compiles"] for f, x in mgr_table["families"].items()},
+                "vstart: ceph daemon osd.0 device compile dump answers the "
+                "mgr's compile table")
             return {"start_s": start_s, "pgs_s": pgs_s,
                     "bench_wall_s": bench_wall,
                     "bench": {op["op"]: {key: op[key] for key in (
@@ -4575,7 +4639,8 @@ def run_vstart(torch, dev, *, n_mons: int = VSTART_MONS,
                     "lat_op_us": lat, "health": answers["health"]["status"],
                     "tree_nodes": len(answers["osd tree"]["nodes"]),
                     "mgr_daemons": answers["mgr status"]["daemons"],
-                    "metrics_lines": metrics.count("\n")}
+                    "metrics_lines": metrics.count("\n"),
+                    "xla_compiles": {f: xla[f] for f in WATCHED}}
 
         step("mgr", mgr)
 
@@ -4660,10 +4725,17 @@ def run_vstart(torch, dev, *, n_mons: int = VSTART_MONS,
                 require(got == objs[i].tobytes(),
                         f"vstart: {oids[i]} read back byte for byte "
                         f"({rep.result}, {len(got)} bytes)")
-            return {"wall_a_s": time.perf_counter() - t0,
-                    "lost_data_objects": lost_data}
+            return time.perf_counter() - t0
 
-        r = step("read", reads)
+        def steady_reads():
+            wall, guard = steady(reads)
+            return {"wall_a_s": wall, "lost_data_objects": lost_data,
+                    "guard": guard}
+
+        r = step("read", steady_reads)
+        require(not r["guard"], f"vstart: the degraded read launched at no "
+                                f"new signature (steady-state guard): "
+                                f"{r['guard']}")
         r["gbs"] = (nobj + extra) * obj_bytes / r["wall_a_s"] / 1e9
         require(lost_data > 0 and r["dec_jobs"] >= lost_data,
                 f"vstart: the read decoded every object that lost a data "
@@ -4772,6 +4844,15 @@ def run_vstart(torch, dev, *, n_mons: int = VSTART_MONS,
                 f"monstore_tool read ({mr['loaded_version']} != "
                 f"{ms['last_committed']})")
         res["edges"] = sum(len(v) for v in lockdep.edge_graph().values())
+        res["watch"]["storms"] = dw.perf.value("recompile_storms") - storms0
+        res["watch"]["phase_first_launches"] = [
+            r for r in dw.first_launches()
+            if (r["family"], r["sig"]) not in seen0]
+        storm_lines = [ln for ln in c.ctx.log.dump_recent(10000)
+                       if "RECOMPILE_STORM" in ln]
+        require(res["watch"]["storms"] == 0 and not storm_lines,
+                f"vstart: no recompile storm in the phase "
+                f"({res['watch']['storms']}; {storm_lines[:2]})")
     finally:
         if c is not None:
             # the mon the leader_loss step shut down is not shut twice
@@ -4803,9 +4884,28 @@ def phase_vstart(torch, dev, log) -> dict:
     without a pool waits for its codec); the pool create must launch K1,
     the CRC kernel and K6 (each daemon's resumed warmup and its new PGs);
     the write K1, the CRC kernel and K6; the relay K6; the mgr step's
-    bench K1, the CRC kernel and K6; the degraded read K1."""
+    bench K1, the CRC kernel and K6; the degraded read K1.  Its
+    ``vstart watch:`` line is the device watch's compile table: the
+    kernel build (wall, persist hit or miss), the phase's first launches
+    and, for the process, every first launch of ``WATCHED`` and the build
+    with its wall and class."""
+    from ceph_tpu_torch.gpu import devwatch
+
     res = run_vstart(torch, dev)
     st = res["steps"]
+    wt = res["watch"]
+    table = [r for r in devwatch.watch().first_launches()
+             if r["family"] in WATCHED + (devwatch.BUILD_FAMILY,)]
+    warm = {k: wt["warmup"][k]
+            for k in ("runs", "seconds", "buckets_warmed", "done")}
+    log(f"vstart watch: build {json.dumps(wt['build'])}; warmup "
+        f"{json.dumps(warm)}; "
+        f"first launches up to the pool {len(wt['pool_first_launches'])}, "
+        f"in the phase {json.dumps(wt['phase_first_launches'])}; guard: "
+        f"write {len(st['write']['guard'])}, read {len(st['read']['guard'])} "
+        f"first launches; storms {wt['storms']}; /metrics "
+        f"ceph_xla_compile_total {json.dumps(st['mgr']['xla_compiles'])}; "
+        f"the process's first launches {json.dumps(table)}")
     for name, need in (("pool", ("gf256_matmul", "crc32c_rows",
                                  "crush_rule")),
                        ("write", ("gf256_matmul", "crc32c_rows",

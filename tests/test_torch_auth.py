@@ -1,12 +1,13 @@
 """The port's cephx-role authentication (``ceph_tpu_torch/auth/``), case
 for case against ``tests/test_auth.py``: the protocol units, the keyring
 file, messenger session gating, and authorizer replay and target
-binding (8 of its 9 cases).
+binding, and an authenticated cluster (all 9 of its cases).
 
-Left out: ``test_authenticated_cluster_io``, which needs a monitor,
-OSD daemons and a RADOS client; it waits for the MiniCluster (ROADMAP
-queue 1 slice 1j).  Every socket binds to 127.0.0.1; the gating case
-waits on the verifier's verdicts with a deadline, not on a sleep.
+``test_authenticated_cluster_io`` (``:190``) runs a port ``Monitor`` that
+issues the tickets, three port ``OSDService``s that require authorizers
+and a port ``RadosClient``, all with ``device="cpu"``.  Every socket
+binds to 127.0.0.1; the gating case waits on the verifier's verdicts
+with a deadline, not on a sleep, and the cluster case polls its boot.
 """
 
 import hashlib
@@ -198,6 +199,80 @@ def test_messenger_rejects_unauthenticated_sessions():
         good.shutdown()
         bad.shutdown()
         acceptor.shutdown()
+
+
+# -- authenticated cluster ----------------------------------------------------
+
+def test_authenticated_cluster_io():
+    """The mon issues tickets; the daemons require authorizers; an
+    authenticated client does IO while a wrong-key client cannot even
+    authenticate."""
+    import socket
+
+    from ceph_tpu_torch.client import RadosClient
+    from ceph_tpu_torch.crush import map as cmap
+    from ceph_tpu_torch.ec import codec_from_profile
+    from ceph_tpu_torch.mon import MonMap, Monitor
+    from ceph_tpu_torch.osd.daemon import OSDService
+    from ceph_tpu_torch.osd.osdmap import OSDMap, PGPool, POOL_REPLICATED
+    from ceph_tpu_torch.store.memstore import MemStore
+
+    kr = Keyring()
+    kr.add("service")
+    for i in range(3):
+        kr.add(f"osd.{i}")
+    admin_secret = kr.add("client.admin")
+
+    cm, root = cmap.build_flat_cluster(3, hosts=3)
+    cm.add_simple_rule("r", root, 1, mode="firstn")
+    seed = OSDMap(cm, max_osd=3, device="cpu")
+    seed.osd_state_up[:] = False
+    seed.add_pool(PGPool(1, POOL_REPLICATED, size=2, min_size=1,
+                         pg_num=4, pgp_num=4, crush_rule=0))
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    ctx = Context("authcluster", {"mon_tick_interval": 0.3})
+    monmap = MonMap([("127.0.0.1", port)])
+    mon = Monitor(ctx, 0, monmap, initial_map=seed, bind_port=port,
+                  keyring=kr, device="cpu")
+    mon.start()
+    osds = []
+    cl = None
+    try:
+        for i in range(3):
+            svc = OSDService(ctx, i, MemStore(), None,
+                             codec_from_profile, device="cpu")
+            svc.store.mkfs()
+            svc.init()
+            svc.boot(monmap, keyring=kr)
+            osds.append(svc)
+        deadline = time.time() + 20
+        while time.time() < deadline:
+            if mon.osdmap is not None and all(
+                    mon.osdmap.is_up(i) for i in range(3)):
+                break
+            time.sleep(0.2)
+        assert all(mon.osdmap.is_up(i) for i in range(3)), "osds not up"
+
+        cl = RadosClient(ctx, device="cpu").connect(
+            monmap, auth=("client.admin", admin_secret))
+        io = cl.ioctx(1)
+        io.write_full("authobj", b"authenticated!" * 50)
+        assert io.read("authobj") == b"authenticated!" * 50
+
+        # wrong key: the mon refuses the handshake outright
+        with pytest.raises(AuthError):
+            RadosClient(ctx, device="cpu").connect(
+                monmap, auth=("client.admin", b"bad" * 8))
+    finally:
+        if cl is not None:
+            cl.shutdown()
+        for o in osds:
+            o.shutdown()
+        mon.shutdown()
 
 
 def test_authorizer_replay_and_target_binding():

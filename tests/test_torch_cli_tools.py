@@ -394,18 +394,27 @@ def test_cephtop_renders_breakdown(tmp_path):
 
 def test_cephtop_device_pane_reads_the_port_dump(tmp_path):
     """--device renders the port's ``device compile dump``: the kernel
-    build, a row a kernel with its launches, the queue's batches."""
+    build, the compile table (a row a family with its first launches),
+    a row a kernel with its launches, the queue's batches."""
     from ceph_tpu_torch.core.context import Context
     from ceph_tpu_torch.gpu import devwatch
 
     sock = str(tmp_path / "d.sock")
     ctx = Context("osd.0", {"admin_socket": sock})
+    # one first launch of the CRC's plain version: a family in the table
+    from ceph_tpu_torch.ops.crc32c_device import crc32c_dev
+
+    crc32c_dev(b"cephtop", device="cpu")
     try:
         rc, out = _capture(cephtop.main, ["--socket", sock, "--device"])
         assert rc == 0
         assert out.startswith("kernels: ")
+        table = out.index("family ")
+        assert "compiles" in out[table:].splitlines()[0]
+        assert "\ncrc32c_rows " in out[table:out.index("\nkernel ")], out
+        assert "\ntotal: " in out
         for name in devwatch.watch().launches():
-            assert f"\n{name} " in out, (name, out)
+            assert f"\n{name} " in out[out.index("\nkernel "):], (name, out)
         assert "batches: " in out
         rc, out = _capture(cephtop.main, ["--socket", sock, "--device",
                                           "--json"])

@@ -5,15 +5,18 @@
   so a map swapped in by another thread never pairs a PG from one epoch
   with a primary from the next;
 - a PG's boot-time loads (``:161``) hold the PG lock: a real port ``PG``
-  over the stub host of ``tests/test_torch_recovery.py``.
-
-The monitor's lease case (``:107``) waits for the port's monitor
-(ROADMAP queue 1 item 6).
+  over the stub host of ``tests/test_torch_recovery.py``;
+- the leader's lease (``:107``): a port ``Monitor`` stub whose tick
+  loop sends leases while another thread commits, every lease's value
+  the one of the version in its header.
 """
 
 import threading
+import time
+from types import SimpleNamespace
 
 from ceph_tpu_torch.client.objecter import Objecter
+from ceph_tpu_torch.mon.monitor import STATE_LEADER, Monitor
 from test_torch_recovery import _stub_pg
 
 
@@ -90,3 +93,84 @@ def test_pg_boot_loads_hold_the_pg_lock():
     unlocked = [name for name, owned in calls if not owned]
     assert not unlocked, (
         f"store accessed WITHOUT pg.lock during boot load: {unlocked}")
+
+
+# -- Monitor lease: pn/version/value snapshot --------------------------------
+
+class _Conf:
+    def __init__(self, vals):
+        self._v = vals
+
+    def get(self, key):
+        return self._v[key]
+
+
+class _KV:
+    """paxos_values table keyed by stringified version."""
+
+    def __init__(self):
+        self.vals = {"0": b"v0"}
+
+    def get(self, table, key):
+        assert table == "paxos_values"
+        return self.vals.get(key)
+
+
+def _lease_mon(captured):
+    mon = object.__new__(Monitor)
+    mon.ctx = SimpleNamespace(conf=_Conf({
+        "mon_tick_interval": 0.0005,
+        "mon_lease": 1.0,
+        "mon_osd_down_out_interval": 600.0,
+    }))
+    mon._stop = threading.Event()
+    mon.lock = threading.RLock()
+    mon.state = STATE_LEADER
+    mon._catchup_want = 0
+    mon.rank = 0
+    mon.accepted_pn = 1
+    mon.last_committed = 0
+    mon.kv = _KV()
+    mon.osdmap = None  # _osd_tick returns early (under the lock)
+    mon.services = {"health": SimpleNamespace(tick=lambda: None)}
+    mon._peers = lambda: [1]
+    mon._send_mon = lambda rank, msg: captured.append(
+        (msg.version, bytes(msg.value)))
+    mon._log = lambda *a, **kw: None
+    return mon
+
+
+def test_leader_lease_is_coherent_under_concurrent_commits():
+    """A lease's (version, value) pair comes from one lock hold: a
+    commit landing between two reads would send a lease whose value
+    belongs to another version than its header claims."""
+    captured = []
+    mon = _lease_mon(captured)
+    ticker = threading.Thread(target=mon._tick_loop, daemon=True)
+    ticker.start()
+
+    stop = threading.Event()
+
+    def commit_loop():
+        while not stop.is_set():
+            with mon.lock:
+                ver = mon.last_committed + 1
+                mon.kv.vals[str(ver)] = f"v{ver}".encode()
+                mon.last_committed = ver
+
+    bumper = threading.Thread(target=commit_loop, daemon=True)
+    bumper.start()
+    try:
+        deadline = time.monotonic() + 10.0
+        while len(captured) < 50 and time.monotonic() < deadline:
+            time.sleep(0.005)
+    finally:
+        stop.set()
+        mon._stop.set()
+        bumper.join()
+        ticker.join(timeout=5)
+    assert len(captured) >= 50, "leader never ticked enough leases"
+    for ver, value in captured:
+        assert value == f"v{ver}".encode(), (
+            f"torn lease: header says version {ver} but payload is "
+            f"{value!r}")

@@ -1136,6 +1136,100 @@ def test_device_warmup_launches_every_declared_bucket_on_the_card(dev):
     assert crush_rule.launches.value - k6 == len(om.pools)
 
 
+def test_warmed_write_path_is_steady_on_the_card(dev):
+    """``tests/test_shapebucket.py:178`` on the card: after a
+    DeviceWarmup pass, encode, fused CRC and decode batches at a warmed
+    width run under the steady-state guard with no first launch, and the
+    warmup's first launches of K1 and the CRC are classed warmup."""
+    from ceph_tpu_torch.gpu import devwatch
+    from ceph_tpu_torch.gpu import shapebucket as sb
+
+    dw = devwatch.watch()
+    seen0 = {(r["family"], r["sig"]) for r in dw.first_launches()}
+    codec = codec_from_profile("plugin=isa k=2 m=1 technique=reed_sol_van",
+                               device=dev)
+    st = sb.DeviceWarmup(codec, cols=(4096,), device=dev).run(120.0)
+    assert st["done"], st
+    new = [r for r in dw.first_launches()
+           if (r["family"], r["sig"]) not in seen0]
+    assert all(r["class"] == "warmup" for r in new
+               if r["family"] in ("gf256_matmul", "crc32c_rows")), new
+    q = StripeBatchQueue(device=dev)
+    g0 = len(devwatch.GUARD_VIOLATIONS)
+    try:
+        rng = np.random.default_rng(7)
+        planes = rng.integers(0, 256, (2, 4096), np.uint8)
+        with dw.steady_state():
+            q.encode(codec, planes)
+            q.encode_crc_async(codec, planes, size=8192).result(30.0)
+            coding = q.encode(codec, planes)
+            data = q.decode_data(codec, {1: planes[1], 2: coding[0]})
+        assert devwatch.GUARD_VIOLATIONS[g0:] == []
+        assert np.array_equal(data, planes)
+    finally:
+        del devwatch.GUARD_VIOLATIONS[g0:]
+        q.stop()
+
+
+def test_undeclared_first_launches_are_rogue_and_storm_on_the_card(dev):
+    """K1 launched on the card at three undeclared widths: each first
+    launch is classed rogue, timed with its stream's synchronize, and the
+    third trips the rogue storm (``tpu_recompile_storm_min_rogue_sigs``,
+    3) with its RECOMPILE_STORM WRN naming the churning axis; the
+    products equal the plain version's."""
+    import collections
+
+    from ceph_tpu_torch.gpu import devwatch
+
+    class _Log:
+        def __init__(self):
+            self.cluster_msgs = []
+
+        def log(self, subsys, level, msg):
+            pass
+
+        def cluster(self, level, msg):
+            self.cluster_msgs.append((level, msg))
+
+    dw = devwatch.watch()
+    saved = (dw._log, dw._recent, dw._storm_last, dw.storm_min_rogue_sigs,
+             dw.storm_window_s)
+    log = _Log()
+    dw.attach_log(log)
+    dw._recent = collections.deque(maxlen=512)
+    dw._storm_last = {}
+    dw.configure(window_s=60.0, min_rogue_sigs=3)
+    try:
+        # a 3 x 5 matrix no path of the port launches, at ragged widths
+        # whose odd part is past the grammar's 63
+        mat = np.arange(1, 16, dtype=np.uint8).reshape(3, 5)
+        rng = np.random.default_rng(2028)
+        base = dw.family_stats("gf256_matmul")["rogue"]
+        storms = dw.perf.value("recompile_storms")
+        for n in (12289, 12291, 12293):
+            x = torch.from_numpy(rng.integers(0, 256, (5, n),
+                                              dtype=np.uint8)).to(dev)
+            got = gf256.gf_matmul_bytes(mat, x)
+            assert torch.equal(got.cpu(),
+                               gf256.gf_matmul_bytes_plain(mat, x.cpu()))
+        assert dw.family_stats("gf256_matmul")["rogue"] - base == 3
+        assert dw.perf.value("recompile_storms") == storms + 1
+        storm = dw.dump()["storms"][-1]
+        assert storm["family"] == "gf256_matmul"
+        assert storm["kind"] == "rogue" and storm["rogue_signatures"] == 3
+        assert storm["churning"] == "arg1.shape[1]"
+        warns = [m for _l, m in log.cluster_msgs if "RECOMPILE_STORM" in m]
+        assert len(warns) == 1 and "undeclared (rogue)" in warns[0]
+        walls = [r for r in dw.first_launches()
+                 if r["family"] == "gf256_matmul"
+                 and r["sig"].endswith(("12289]", "12291]", "12293]"))]
+        assert len(walls) == 3 and all(r["class"] == "rogue"
+                                       and r["wall_s"] > 0 for r in walls)
+    finally:
+        (dw._log, dw._recent, dw._storm_last, dw.storm_min_rogue_sigs,
+         dw.storm_window_s) = saved
+
+
 def test_daemon_phase_on_the_card(dev):
     """The daemon phase's code at a small size on the card, on
     BlockStores as the phase runs: six daemons (isa k=4 m=2 over all six,

@@ -26,6 +26,7 @@ import torch_daemon_harness as H
 from ceph_tpu_torch.core.admin_socket import admin_command
 from ceph_tpu_torch.core.context import Context
 from ceph_tpu_torch.ec import codec_from_profile
+from ceph_tpu_torch.gpu import shapebucket as sb
 from ceph_tpu_torch.osd import messages as m
 from ceph_tpu_torch.osd import types as t_
 from ceph_tpu_torch.osd.daemon import OSDService
@@ -61,7 +62,8 @@ def test_osd_bench_admin_command(tmp_path):
         # count and the codec come from the map's EC pool)
         wu = admin_command(sock, "osd.7 device warmup", budget=5)
         assert wu["families_warmed"] == [] and wu["buckets_warmed"] == 0
-        assert wu["pending"] == 13 and not wu["done"]
+        assert wu["pending"] == 3 * len(sb.WARM_COLS) + 1
+        assert not wu["done"]
         perf = admin_command(sock, "perf dump")
         assert "launches_gf256_matmul" in perf["osd.7.xla"]
         assert perf["osd.7.tpu"]["h2d_bytes"] >= 0

@@ -23,6 +23,7 @@ import sys
 import torch
 
 import chip_smoke
+from ceph_tpu_torch.gpu import shapebucket as sb
 from ceph_tpu_torch.osd.pg import PG
 
 SMALL = dict(n_osds=6, profile="plugin=isa k=4 m=2 technique=reed_sol_van",
@@ -35,7 +36,8 @@ def _check_phase(res) -> dict:
     assert list(st) == ["warmup", "write", "rmw", "kill", "read",
                         "write_down", "recover", "rot_read", "scrub",
                         "repair"]
-    assert res["warmup"]["done"] and res["warmup"]["buckets_warmed"] == 13
+    assert res["warmup"]["done"] and \
+        res["warmup"]["buckets_warmed"] == 3 * len(sb.WARM_COLS) + 1
     assert [r["step"] for r in res["refresh"]] == ["boot", "kill",
                                                   "revive_addr", "revive"]
     assert [r["daemons"] for r in res["refresh"]] == [6, 5, 6, 6]

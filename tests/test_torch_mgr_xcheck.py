@@ -2,10 +2,10 @@
 
 - ``prometheus export``: the same counters, registered and bumped alike
   in each package's ``Context``, with the same health, PGMap digest and
-  QoS feeds, give byte-equal exposition text.  The reference's
-  process-wide XLA compile table is emptied for the comparison (other
-  tests of the process may have filled it; the port keeps none, ROADMAP
-  queue 1 item 4c).
+  QoS feeds, give byte-equal exposition text.  Each package's
+  process-wide device watch is swapped for a fresh one fed one compile
+  sequence under one clock (other tests of the process may have filled
+  the process's), so the ``ceph_xla_*`` lines are compared populated.
 - ``telemetry show``: the same report over the same contexts and maps.
 - ``balancer optimize``: the same moves on maps both packages build from
   one seed.
@@ -40,6 +40,7 @@ from ceph_tpu.store import objectstore as ref_os
 from ceph_tpu.tpu import devwatch as ref_devwatch
 from ceph_tpu_torch.core import context as port_context
 from ceph_tpu_torch.crush import map as port_cmap
+from ceph_tpu_torch.gpu import devwatch as port_devwatch
 from ceph_tpu_torch.mgr import manager as port_manager
 from ceph_tpu_torch.osd import osdmap as port_osdmap
 from ceph_tpu_torch import store as port_store
@@ -148,8 +149,26 @@ def _build_map(pkg, n_osds=16, hosts=4, pg_num=64, **dev):
     return m
 
 
+def _same_compile_table(monkeypatch):
+    """A fresh device watch in each package, fed one sequence under one
+    clock: a first launch of a family both declare, a hit, and a rogue
+    first launch."""
+    clock = [500.0]
+    monkeypatch.setattr("time.monotonic", lambda: clock[0])
+    sig = (("arr", "uint8", (8, 4096)), ("arr", "uint8", (4, 4096)))
+    rogue = (("arr", "uint8", (8, 4097)), ("arr", "uint8", (4, 4097)))
+    for mod in (ref_devwatch, port_devwatch):
+        w = mod.DeviceWatch()
+        monkeypatch.setattr(mod, "_WATCH", w)
+        for s, wall in ((sig, 0.25), (rogue, 0.5)):
+            tok = w.compile_begin("gf2_matmul")
+            clock[0] += wall
+            w.compile_end(tok, s)
+        w.note_hit("gf2_matmul", 37e-6)
+
+
 def test_prometheus_export_is_byte_equal(monkeypatch):
-    monkeypatch.setattr(ref_devwatch.watch(), "_fams", {})
+    _same_compile_table(monkeypatch)
     bodies = []
     for pkg in (REF, PORT):
         code, out = _mgr(pkg).handle_command({"prefix": "prometheus export"})
@@ -159,7 +178,10 @@ def test_prometheus_export_is_byte_equal(monkeypatch):
     assert "ceph_osd_0_op_lat_op_us_bucket" in bodies[1]
     assert 'ceph_qos_queue_depth{daemon="osd.0",class="client"} 2' in \
         bodies[1]
-    assert "ceph_xla" not in bodies[1]
+    assert 'ceph_xla_compile_total{family="gf2_matmul"} 2' in bodies[1]
+    assert 'ceph_xla_rogue_compiles{family="gf2_matmul"} 1' in bodies[1]
+    assert 'ceph_xla_exec_us_bucket{family="gf2_matmul",le="+Inf"} 1' in \
+        bodies[1]
 
 
 def test_telemetry_show_matches(monkeypatch):

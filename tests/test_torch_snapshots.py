@@ -9,8 +9,9 @@ mapper, and a shared clone outliving a newer snap's trim.
 The cluster is ``torch_daemon_harness.DaemonCluster("ceph_tpu_torch")``
 (six port daemons, the reference's map,
 ``device="cpu"``), the client ``torch_daemon_harness.LibClient``.  The
-snap rows through a PG split (``:179``) wait: they build a
-``VStartCluster`` (ROADMAP queue 1 item 6).
+snap rows through a PG split (``:179``) run on the port's
+``VStartCluster`` (``ceph_tpu_torch/vstart.py``, ``device="cpu"``), its
+waits polled with a deadline.
 """
 
 import pytest
@@ -191,3 +192,34 @@ def test_shared_clone_survives_newer_snap_trim(client):
     got = io.selfmanaged_snap_trim(s1)
     assert got["trimmed"] == 1
     assert io.snap_read("shared", s1) == b"v2"  # clone gone -> head
+
+
+def test_snap_rows_follow_objects_through_pg_split():
+    """SnapMapper rows migrate with their objects on pg_num growth, so
+    clones in child PGs stay trimmable."""
+    from ceph_tpu_torch.vstart import VStartCluster
+
+    with VStartCluster(n_mons=1, n_osds=3, device="cpu") as c:
+        pool = c.create_pool("snapsplit", size=2, pg_num=4)
+        io = c.client().ioctx(pool)
+        names = [f"ss{i}" for i in range(20)]
+        for n in names:
+            io.write_full(n, b"v1")
+        snap = io.selfmanaged_snap_create()
+        for n in names:
+            io.write_full(n, b"v2")  # one clone per object
+        code, _ = c.command({"prefix": "osd pool set",
+                             "pool": "snapsplit", "var": "pg_num",
+                             "val": 8})
+        assert code == 0
+        # the client's map must show the split too: the trim fans out
+        # one op a PG of the client's pg_num
+        c.wait_for(lambda: (c.leader().osdmap.pools[pool].pg_num == 8
+                            and io.client.objecter.osdmap
+                            .pools[pool].pg_num == 8),
+                   what="split visible to client")
+        got = io.selfmanaged_snap_trim(snap)
+        assert got["trimmed"] == len(names), got
+        assert got["failed"] == 0
+        for n in names:
+            assert io.snap_read(n, snap) == b"v2"  # clones gone

@@ -18,7 +18,11 @@ the port's ``ObjBencher`` on the pool and the port's ``ceph`` dispatch
 the lost daemon's ``OSD_DOWN`` after the leader's loss, the port's
 ``objectstore_tool`` exporting object 0's PG from the lost daemon's
 BlockStore and ``monstore_tool`` reading the killed mon's version before
-it restarts.  On the card the same code runs in
+it restarts.  The device watch's checks run too: every first launch of
+K1, the CRC and K6 up to the pool is its daemons' warmup, none rogue,
+the write and the degraded read run under the steady-state guard with
+no first launch, ``/metrics`` carries ``ceph_xla_compile_total`` of the
+three, and no recompile storm is raised.  On the card the same code runs in
 ``tests/test_torch_cuda.py -k vstart`` and, at full width, in
 ``chip_smoke.py``.
 """
@@ -66,3 +70,10 @@ def test_vstart_phase_on_the_cpu():
     assert st["monstore_tool"]["rank"] == st["leader_loss"]["killed"]
     assert st["monstore_tool"]["last_committed"] == \
         st["mon_restart"]["loaded_version"]
+    wt = res["watch"]
+    assert all(r["class"] == "warmup" for r in wt["pool_first_launches"]
+               if r["family"] in chip_smoke.WATCHED)
+    assert st["write"]["guard"] == [] and st["read"]["guard"] == []
+    assert wt["storms"] == 0
+    assert all(n >= 1 for n in st["mgr"]["xla_compiles"].values())
+    assert wt["warmup"]["done"]
